@@ -1,0 +1,6 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+| Kernel | Module | Source | Replaces |
+| --- | --- | --- | --- |
+| K5 bilinear gather | ``bilinear`` | ``csrc/bilinear_gather.cu`` | ``kmunet_tpu/kernels/bilinear_pallas.py::gather_bilinear_{zeros,border}`` |
+"""

@@ -1,0 +1,41 @@
+"""Seeded initialisers with the JAX package's distributions (``kmunet_tpu/nn/init.py``).
+
+Weights are in PyTorch layout: a conv weight is (out, in/groups, kh, kw), a
+linear weight (out, in). Fans are counted as the JAX package counts them for
+the same tensor in its layout. Every initialiser takes an explicit
+``torch.Generator`` and writes in place.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def fans(shape) -> tuple[int, int]:
+    """(fan_in, fan_out) of a weight whose dim 0 is the output and dim 1 the input."""
+    receptive = math.prod(shape[2:]) if len(shape) > 2 else 1
+    return shape[1] * receptive, shape[0] * receptive
+
+
+@torch.no_grad()
+def kaiming_uniform_(t: torch.Tensor, generator: torch.Generator, fan_in: int | None = None,
+                     scale: float = 1.0) -> torch.Tensor:
+    """PyTorch's default layer init: U(-b, b), b = scale / sqrt(fan_in)."""
+    fan_in = fans(t.shape)[0] if fan_in is None else fan_in
+    bound = scale / math.sqrt(max(fan_in, 1))
+    return t.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def kaiming_normal_fanout_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """kaiming_normal_(mode='fan_out'): N(0, 2 / fan_out)."""
+    std = math.sqrt(2.0 / max(fans(t.shape)[1], 1))
+    return t.normal_(0.0, std, generator=generator)
+
+
+@torch.no_grad()
+def normal_(t: torch.Tensor, generator: torch.Generator, std: float = 1.0,
+            mean: float = 0.0) -> torch.Tensor:
+    return t.normal_(mean, std, generator=generator)

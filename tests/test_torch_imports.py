@@ -1,0 +1,46 @@
+"""The port stands alone: no module of ``kmunet_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, flax or the JAX package (the machine with the
+card has none of them)."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kmunet_tpu")
+SOURCES = sorted((REPO / "kmunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            yield from (a.value for a in node.args if isinstance(a, ast.Constant))
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_nothing_of_jax(path):
+    roots = {name.split(".")[0] for name in _imported_roots(path)}
+    assert not roots & set(FORBIDDEN), f"{path.name} imports {sorted(roots & set(FORBIDDEN))}"
+
+
+def test_package_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None  # any import of it raises ImportError\n"
+        "import kmunet_tpu_torch.serve, kmunet_tpu_torch.convert, kmunet_tpu_torch.kernels.bilinear\n"
+        "import pkgutil, importlib, kmunet_tpu_torch\n"
+        "for m in pkgutil.walk_packages(kmunet_tpu_torch.__path__, 'kmunet_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
