@@ -1,0 +1,11 @@
+"""Experiment configs of the port (its own copy of ``kmunet_tpu/configs``)."""
+
+from kmunet_tpu_torch.configs.base import (
+    DataConfig,
+    ExperimentConfig,
+    ModelConfig,
+    TrainConfig,
+    shanghai_km_unet,
+)
+
+__all__ = ["DataConfig", "ExperimentConfig", "ModelConfig", "TrainConfig", "shanghai_km_unet"]

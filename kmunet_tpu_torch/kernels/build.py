@@ -5,8 +5,9 @@ is compiled by one ``nvcc`` call into ``kmunet_tpu_torch/_build/`` at first
 use; the caller loads it with ``ctypes``. The library's file name carries a
 hash of the source and the flags, so a changed source is rebuilt. The compiler
 writes to a temporary name that is renamed into place, under an ``fcntl``
-lock with a deadline, so parallel processes cannot race on one build, and
-``nvcc`` itself runs under a timeout.
+lock of that source with a deadline, so parallel processes cannot race on one
+build while two sources can build at once, and ``nvcc`` itself runs under a
+timeout.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def build(source_name: str) -> Built:
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     target = BUILD_DIR / f"{source.stem}_{digest[:16]}.so"
     BUILD_DIR.mkdir(exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    lock_path = BUILD_DIR / f".{source.stem}.lock"
+    with open(lock_path, "w") as lock:
         deadline = time.monotonic() + LOCK_TIMEOUT_S
         while True:
             try:
@@ -63,7 +65,7 @@ def build(source_name: str) -> Built:
                 break
             except BlockingIOError:
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"waited {LOCK_TIMEOUT_S} s for {BUILD_DIR / '.lock'}")
+                    raise TimeoutError(f"waited {LOCK_TIMEOUT_S} s for {lock_path}")
                 time.sleep(0.2)
         try:
             if target.exists():

@@ -5,9 +5,15 @@ NCHW inside. Ladder at 128^2: 128 -> 64 -> 32 -> 16 (IWP x3), the DAGEM
 bridge, then 16 -> 32 -> 64 -> 128 (DySample x3). Kept quirks of the
 reference: the EfficientViM blocks hardcode state_dim=64; the skip fusion
 takes [e1, e2, e2]; the head is GroupNorm(1) then sigmoid.
+
+``model.train()`` switches every BatchNorm to flax's training semantics and
+the EnhancedViM blocks' stochastic depth on; the forward then takes the
+``torch.Generator`` that DropPath draws from.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,9 +75,10 @@ class DirectionViM(nn.Module):
 
 class EnhancedViMBlock(nn.Module):
     """Three directional ViM branches blended by a softmax gate, then a
-    TripleNorm + 1x1 MLP residual (the 'separate' layout)."""
+    TripleNorm + 1x1 MLP residual (the 'separate' layout); both residual
+    branches go through stochastic depth of rate ``drop_path``."""
 
-    def __init__(self, channels: int, expansion: int = 4):
+    def __init__(self, channels: int, expansion: int = 4, drop_path: float = 0.1):
         super().__init__()
         C = channels
         self.height_block = DirectionViM(C, "height")
@@ -79,27 +86,28 @@ class EnhancedViMBlock(nn.Module):
         self.channel_block = DirectionViM(C, "channel")
         self.Dense_0 = nn.Linear(3 * C, C // 4)
         self.Dense_1 = nn.Linear(C // 4, 3)
-        self.drop_path = DropPath(0.1)
+        self.drop_path = DropPath(drop_path)
         self.norm = TripleNorm(C)
         self.Conv_0 = nn.Conv2d(C, C * expansion, 1)
         self.Conv_1 = nn.Conv2d(C * expansion, C, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.height_block(x)
         w = self.width_block(x)
         c = self.channel_block(x)
         gate_in = torch.cat([h, w, c], dim=1).mean(dim=(2, 3))
         g = torch.softmax(self.Dense_1(F.gelu(self.Dense_0(gate_in))), dim=-1)
         g = g[:, :, None, None, None]  # (B, 3, 1, 1, 1)
-        x = x + self.drop_path(g[:, 0] * h + g[:, 1] * w + g[:, 2] * c)
+        x = x + self.drop_path(g[:, 0] * h + g[:, 1] * w + g[:, 2] * c, generator)
         y = self.Conv_1(F.gelu(self.Conv_0(self.norm(x))))
-        return x + self.drop_path(y)
+        return x + self.drop_path(y, generator)
 
 
 class KM_UNetV3(nn.Module):
-    """The flagship, SH variant: DAGEM bridge and DySample upsampling."""
+    """The flagship, SH variant: DAGEM bridge and DySample upsampling.
+    ``drop_path`` is the EnhancedViM blocks' stochastic-depth rate."""
 
-    def __init__(self, num_classes: int = 20, embed_dims=(16, 32, 64)):
+    def __init__(self, num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1):
         super().__init__()
         d0, d1, d2 = embed_dims
         self.conv_f = nn.Conv2d(5, 16, 3, padding=1)  # 5 input frames
@@ -107,7 +115,7 @@ class KM_UNetV3(nn.Module):
         for i in (1, 2, 3):
             c_in, c = widths[i - 1], widths[i]
             setattr(self, f"enc{i}_kan", StableHybridKANConv(c_in, c))
-            setattr(self, f"enc{i}_vim", EnhancedViMBlock(c))
+            setattr(self, f"enc{i}_vim", EnhancedViMBlock(c, drop_path=drop_path))
             setattr(self, f"enc{i}_iwp", IntelligentWaveletPooling(c))
             setattr(self, f"lca{i}", LocalContrastAttention(c))
         self.bridge = DAGEM(d2)
@@ -116,11 +124,11 @@ class KM_UNetV3(nn.Module):
         self.attention1 = MultiScaleFusion((d0, d1, d1))
         self.dec2_up = DySample(2 * d1)
         self.dec2_conv = nn.Conv2d(2 * d1, d1, 3, padding=1)
-        self.dec2_vim = EnhancedViMBlock(d1)
+        self.dec2_vim = EnhancedViMBlock(d1, drop_path=drop_path)
         self.attention2 = MultiScaleFusion((d0, d1, d1))
         self.dec3_up = DySample(2 * d1)
         self.dec3_conv = nn.Conv2d(2 * d1, d0, 3, padding=1)
-        self.dec3_vim = EnhancedViMBlock(d0)
+        self.dec3_vim = EnhancedViMBlock(d0, drop_path=drop_path)
         self.head = nn.Conv2d(d0, num_classes, 3, padding=1)
         self.output_norm = nn.GroupNorm(1, num_classes, eps=1e-5)
 
@@ -129,28 +137,31 @@ class KM_UNetV3(nn.Module):
         feats = [resize_bilinear(e, size, align_corners=True) for e in (e1, e2, e2)]
         return torch.cat([d, fusion(feats)], dim=1)
 
-    def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames (B, H, W, 5) -> (B, H, W, num_classes)."""
+    def forward(self, frames: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """frames (B, H, W, 5) -> (B, H, W, num_classes). ``generator`` (on
+        the frames' device) feeds stochastic depth in training."""
         x = self.conv_f(frames.permute(0, 3, 1, 2))
         skips = []
         for i in (1, 2, 3):
             x = getattr(self, f"enc{i}_kan")(x)
-            x = getattr(self, f"enc{i}_vim")(x)
+            x = getattr(self, f"enc{i}_vim")(x, generator)
             x = getattr(self, f"enc{i}_iwp")(x)
             x = getattr(self, f"lca{i}")(x)
             skips.append(x)
         e1, e2, e3 = skips
         d = self.dec1_kan(self.dec1_up(self.bridge(e3)))
         d = self._skip(d, e1, e2, self.attention1)
-        d = self.dec2_vim(self.dec2_conv(self.dec2_up(d)))
+        d = self.dec2_vim(self.dec2_conv(self.dec2_up(d)), generator)
         d = self._skip(d, e1, e2, self.attention2)
-        d = self.dec3_vim(self.dec3_conv(self.dec3_up(d)))
+        d = self.dec3_vim(self.dec3_conv(self.dec3_up(d)), generator)
         return torch.sigmoid(self.output_norm(self.head(d))).permute(0, 2, 3, 1)
 
 
-def KM_UNetV3_SH(num_classes: int = 20, embed_dims=(16, 32, 64)) -> KM_UNetV3:
+def KM_UNetV3_SH(num_classes: int = 20, embed_dims=(16, 32, 64),
+                 drop_path: float = 0.1) -> KM_UNetV3:
     """Shanghai variant (20 forecast frames from 5 input frames)."""
-    return KM_UNetV3(num_classes=num_classes, embed_dims=tuple(embed_dims))
+    return KM_UNetV3(num_classes=num_classes, embed_dims=tuple(embed_dims), drop_path=drop_path)
 
 
 @torch.no_grad()

@@ -18,12 +18,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kmunet_tpu_torch.nn.layers import ConvBNAct
+from kmunet_tpu_torch.nn.layers import ConvBNAct, batch_norm_train
 from kmunet_tpu_torch.nn.resample import DeformConv2d
 
 
 class _RowMLP(nn.Module):
-    """Linear + eval-mode BatchNorm over the last axis + ReLU."""
+    """Linear + BatchNorm over the last axis (flax's in training) + ReLU."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
@@ -32,6 +32,8 @@ class _RowMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.Dense_0(x)
+        if self.training:
+            return F.relu(batch_norm_train(y, self.BatchNorm_0, channel_dim=-1))
         return F.relu(self.BatchNorm_0(y.reshape(-1, y.shape[-1])).reshape(y.shape))
 
 

@@ -33,8 +33,38 @@ def same_padding(kernel_size) -> tuple[int, int]:
     return kh // 2, kw // 2
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+                     channel_dim: int = 1) -> torch.Tensor:
+    """BatchNorm in training as flax's ``nn.BatchNorm(momentum=0.9)`` computes
+    it, with ``bn``'s affine parameters, eps and running buffers.
+
+    The statistics are taken over every axis but ``channel_dim``, in fp32 for
+    16-bit inputs, with the biased variance ``E[x^2] - E[x]^2`` (clamped at
+    0); the input is normalised with it in fp32 and the result cast back to
+    ``x``'s dtype. The running buffers move to ``(1 - m) * running + m *
+    batch`` (``m = bn.momentum``, 0.1 = flax's 1 - 0.9) with the same biased
+    variance, in place and in fp32. ``F.batch_norm`` with ``training=True``
+    would update them with the unbiased variance.
+    """
+    channel_dim %= x.dim()
+    dims = [d for d in range(x.dim()) if d != channel_dim]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dims)
+    var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach().to(bn.running_mean.dtype), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach().to(bn.running_var.dtype), alpha=m)
+    shape = [1] * x.dim()
+    shape[channel_dim] = -1
+    y = (xf - mean.view(shape)) * (torch.rsqrt(var + bn.eps) * bn.weight).view(shape)
+    return (y + bn.bias.view(shape)).to(x.dtype)
+
+
 class ConvBNAct(nn.Module):
-    """Bias-free conv, eval-mode BatchNorm (eps 1e-5), optional activation.
+    """Bias-free conv, BatchNorm (eps 1e-5), optional activation. The
+    BatchNorm runs on its running statistics in eval mode and as flax's in
+    training (``batch_norm_train``).
 
     ``bn_weight_init`` is the initial BN scale (0 makes a residual branch
     start as the identity).
@@ -50,7 +80,8 @@ class ConvBNAct(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.BatchNorm_0(self.Conv_0(x))
+        x = self.Conv_0(x)
+        x = batch_norm_train(x, self.BatchNorm_0) if self.training else self.BatchNorm_0(x)
         return self.act(x) if self.act is not None else x
 
 
@@ -67,14 +98,25 @@ class FFN(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth over the batch axis; the identity in eval mode, the
-    only mode the port serves."""
+    """Stochastic depth over the batch axis; the identity in eval mode.
+
+    In training each sample is kept with probability ``1 - rate`` (one draw
+    per sample from ``generator``, which lies on ``x``'s device) and a kept
+    sample is scaled by ``1 / (1 - rate)``, as ``kmunet_tpu/nn/layers.py``'s
+    ``DropPath`` does. There is no global random state: training with
+    ``rate > 0`` needs the caller's generator.
+    """
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("the port serves eval mode only")
-        return x
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in training draws from a torch.Generator: pass one")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)

@@ -53,7 +53,12 @@ class DeformConv2d(nn.Module):
 
     Tap k = (kh, kw) samples ``x`` at p + (kh - p, kw - p) + offset_k, with
     ``offset`` (B, H, W, 2*k*k) laid out (k, [dy, dx]); the taps are then
-    contracted with ``weight`` (F, C, k, k). Coordinates are fp32.
+    contracted with ``weight`` (F, C, k, k). The sampling coordinates are
+    built in ``x``'s dtype (promoted with ``offset``'s), in the JAX package's
+    order of additions, and cast to fp32 only for the gather: a bf16 or fp16
+    value is exact in fp32, so the gather sees the JAX package's
+    coordinates, and their gradient flows back through the cast in their
+    own dtype.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -75,16 +80,16 @@ class DeformConv2d(nn.Module):
         if offset.shape[-1] != 2 * k * k:
             raise ValueError(f"offset needs {2 * k * k} channels, got {offset.shape[-1]}")
         x = x.contiguous()
-        offset = offset.float()
-        ii = torch.arange(H, dtype=torch.float32, device=x.device).view(1, H, 1)
-        jj = torch.arange(W, dtype=torch.float32, device=x.device).view(1, 1, W)
+        ii = torch.arange(H, dtype=x.dtype, device=x.device).view(1, H, 1)
+        jj = torch.arange(W, dtype=x.dtype, device=x.device).view(1, 1, W)
         taps = []
         for kh in range(k):
             for kw in range(k):
                 t = kh * k + kw
-                sy = (ii + (kh - p) + offset[..., 2 * t]).contiguous()
-                sx = (jj + (kw - p) + offset[..., 2 * t + 1]).contiguous()
-                taps.append(bilinear_gather(x, sx, sy, padding_mode="zeros"))
+                sy = (ii + (kh - p)) + offset[..., 2 * t]
+                sx = (jj + (kw - p)) + offset[..., 2 * t + 1]
+                taps.append(bilinear_gather(x, sx.float().contiguous(), sy.float().contiguous(),
+                                            padding_mode="zeros"))
         gathered = torch.cat(taps, dim=-1)  # (B, H, W, k*k*C), tap-major
         w = self.weight.permute(2, 3, 1, 0).reshape(k * k * C, -1)
         return gathered @ w + self.bias

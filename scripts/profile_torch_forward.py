@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's KM_UNetV3-SH forward spends its time on the card.
+"""Where the PyTorch port's KM_UNetV3-SH forward, or its train step, spends
+its time on the card.
 
     python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16]
+    python3 scripts/profile_torch_forward.py --train [--batch 16]
 
-Prints JSON lines: the card (``nvidia-smi`` name and power limit); the time
-of each top-level module of the model, from CUDA events recorded by forward
-hooks (device time between the module's first and last kernel, so host gaps
-while the device waits fall into it); and from ``torch.profiler`` the device
-busy time of one forward against its wall time (the idle share) and the
-kernels that take the most device time. Needs an NVIDIA GPU.
+Prints JSON lines: the card (``nvidia-smi`` name and power limit); for the
+forward, the time of each top-level module of the model, from CUDA events
+recorded by forward hooks (device time between the module's first and last
+kernel, so host gaps while the device waits fall into it); and from
+``torch.profiler`` the device busy time of one forward (or one SH train
+step: hybrid loss, AdamW, bf16 compute unless ``--dtype float32``, 128^2,
+seq_len 25, on synthetic data) against its wall time (the idle share) and
+the kernels that take the most device time. Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -57,31 +62,65 @@ def module_times(model, frames, iters: int) -> dict:
     return {name: sum(a.elapsed_time(b) for a, b in evs) / iters for name, evs in events.items()}
 
 
+def train_step(batch: int, dtype: str):
+    """One SH train step at ``batch`` as a closure, after two warm-up steps."""
+    from kmunet_tpu_torch.configs import shanghai_km_unet
+    from kmunet_tpu_torch.data import SyntheticNowcastDataset
+    from kmunet_tpu_torch.train import engine
+
+    cfg = shanghai_km_unet()
+    cfg.data.img_size, cfg.data.batch_size, cfg.train.compute_dtype = 128, batch, dtype
+    model = engine.build_model(cfg)
+    tx = engine.build_optimizer(cfg, steps_per_epoch=100)
+    state = engine.init_state(cfg, model, tx, seed=0)
+    step = engine.make_train_step(model, engine.build_loss(cfg), tx, cfg)
+    data = SyntheticNowcastDataset(length=batch, img_size=128, seed=0)
+    frames = torch.from_numpy(np.stack([data[i] for i in range(batch)])).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run():
+        step(state, frames, gen)
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    return run
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--train", action="store_true", help="profile one train step")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_forward: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30, check=True).stdout.strip()
-    dtype = getattr(torch, args.dtype)
-    model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0)
-    frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
-    for _ in range(2):
-        serve.predict(model, frames)
-    torch.cuda.synchronize()
-    emit({"card": card, "batch": args.batch, "dtype": args.dtype,
-          "module_ms": module_times(model, frames, args.iters)})
+    if args.train:
+        run = train_step(args.batch, args.dtype)
+        emit({"card": card, "batch": args.batch, "dtype": args.dtype, "train": True})
+    else:
+        dtype = getattr(torch, args.dtype)
+        model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0)
+        frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
+
+        def run():
+            serve.predict(model, frames)
+
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        emit({"card": card, "batch": args.batch, "dtype": args.dtype,
+              "module_ms": module_times(model, frames, args.iters)})
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve.predict(model, frames)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
