@@ -6,10 +6,11 @@
 Phases, each printing one JSON line with its seconds:
 
 1. device  -- the card's name; ``nvidia-smi``'s name and power limit line.
-2. build   -- K5 (``kmunet_tpu_torch/csrc/bilinear_gather.cu``) and K6
-              (``csrc/bilinear_gather_backward.cu``) built with nvcc for
-              sm_90a, one nvcc each, both started together; the
-              ``-Xptxas -v`` reports are printed once.
+2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K5 and K4, the
+              gather and its grouped form) and ``csrc/bilinear_gather_backward.cu``
+              (K6, the backward of both) built with nvcc for sm_90a, one nvcc
+              each, both started together; the ``-Xptxas -v`` reports are
+              printed once.
 3. kernel  -- K5 and K6 against their plain PyTorch versions on the card,
               zeros and border modes, fp32/bf16/fp16, at the DAGEM bridge
               shape, a ragged one and one whose C takes no 16-byte vectors,
@@ -24,37 +25,52 @@ Phases, each printing one JSON line with its seconds:
               the warp sums of d_x and d_y); bf16 and fp16 against the
               kernel's own fp32 result on the same rounded image and
               gradient: d_img within one ulp plus that slack, d_x and d_y
-              (fp32) within the slack.
+              (fp32) within the slack. Then K4 and K6's grouped entry the
+              same way, with the same bounds, at DySample's three shapes
+              (dec1/dec2/dec3 at B=2, C=64, G=4), a ragged shape of Cg=6,
+              one of Cg=3, and G=1 and G=8, each group on its own draw of
+              the coordinate cases.
 4. slice   -- the serving path: KM_UNetV3-SH at full width (embed_dims
               16/32/64, 128^2, 5 -> 20 frames), seeded weights, eval mode,
               built and served through ``kmunet_tpu_torch.serve`` on the card
               for a few requests of B=2 in fp32 with TF32 off. Every kernel's
               launch count is set to 0 just before and read just after; K5
-              must launch 9 times per forward. Each answer must have the
-              shape (2, 128, 128, 20), be finite and match the same weights
-              on the CPU (plain gather) within 1e-4 abs.
+              must launch 9 times per forward and K4 never. Each answer must
+              have the shape (2, 128, 128, 20), be finite and match the same
+              weights on the CPU (plain gathers) within 1e-4 abs. Then
+              ``serve_exact``: the same with ``dysample_window=False``, each
+              DySample's offset conv scaled so that its largest offset on
+              the first request is 2 px (the seeded init gives about 1e-3
+              px); K4 must launch 3 times per forward and K5 9 times.
 5. train   -- the training path, through ``kmunet_tpu_torch.train.engine``:
               the SH recipe (hybrid loss, AdamW, per-epoch cosine) at full
               width, 128^2, seq_len 25, B=16, bf16 compute, takes 3 steps on
               ``SyntheticNowcastDataset`` items from a seed, with the launch
               counts set to 0 just before and read just after: K5 and K6 must
-              launch 9 times per step, every loss must be finite and the
-              parameters must move. Then one fp32 step at B=2 with TF32 off
-              on the card against the same step on the CPU: loss within 1e-5
-              relative, grad norm within 5e-5 relative, and every parameter's
-              gradient (the ones the optimizer applied) within 1e-3 of that
-              parameter's largest |gradient| plus 1e-6 abs (the floor of the
-              leaves whose exact gradient is 0, where both sides hold
-              rounding noise).
+              launch 9 times per step and K4 never, every loss must be
+              finite and the parameters must move. Then one fp32 step at B=2
+              with TF32 off on the card against the same step on the CPU:
+              loss within 1e-5 relative, grad norm within 5e-5 relative, and
+              every parameter's gradient (the ones the optimizer applied)
+              within 1e-3 of that parameter's largest |gradient| plus 1e-6
+              abs (the floor of the leaves whose exact gradient is 0, where
+              both sides hold rounding noise). ``train_exact`` repeats both
+              with ``dysample_window=False``: K4 and K6's grouped entry must
+              launch 3 times per step, K5 and K6 9 times.
 6. timing  -- CUDA events after warm-up, PyTorch's default TF32 settings:
-              the forward at B=128 bf16 and B=8 fp32 (ms, frames/s =
-              B*20/s); the train step at B=16 and B=32 bf16 (ms); K5 and K6
-              at the bridge shape in bf16 beside their bounds, their plain
-              versions and the PyTorch call that computes the same function
-              (``F.grid_sample``, ``aten.grid_sampler_2d_backward``) on the
-              same data, each per call by CUDA events (``ms``: what a caller
-              waits, host issue included) and by the profiler's device time
-              (``device_ms``).
+              the forward at B=128 bf16 on the window and the exact path and
+              at B=8 fp32 (ms, frames/s = B*20/s); the train step at B=16 and
+              B=32 bf16 on both paths (ms); K5 and K6 at the bridge shape in
+              bf16, K4 and K6's grouped entry at DySample's dec3 shape (B=128,
+              64^2 -> 128^2, C=64, G=4, bf16, border), beside their bounds,
+              their plain versions and the PyTorch call that computes the
+              same function (``F.grid_sample``, ``aten.grid_sampler_2d_backward``;
+              for the grouped ones on the groups folded into the batch, a
+              layout copy made before timing) on the same data, each per call
+              by CUDA events over back-to-back calls (``ms``: what a caller
+              waits, host issue included), by CUDA events over calls queued
+              behind a spinning kernel (``queued_ms``: device time, no host
+              gap) and by the profiler's device time (``device_ms``).
 Then the kernels line, and last ``{"ok": true, "device": {...}}``. Any failed
 phase raises: the run exits non-zero and prints no result, also when no CUDA
 device is present. A hard deadline ends a run that hangs.
@@ -84,6 +100,25 @@ K5_SOURCE = "kmunet_tpu_torch/csrc/bilinear_gather.cu"
 K5_REPLACES = "kmunet_tpu/kernels/bilinear_pallas.py:646"
 K6_SOURCE = "kmunet_tpu_torch/csrc/bilinear_gather_backward.cu"
 K6_REPLACES = "kmunet_tpu/kernels/bilinear_pallas.py:414"
+K4_SOURCE = K5_SOURCE  # one kernel with a group count
+K4_REPLACES = "kmunet_tpu/kernels/bilinear_pallas.py:747"
+K6G_SOURCE = K6_SOURCE
+K6G_REPLACES = K6_REPLACES  # _backward_impl, shared=False, G > 1
+# K4's shapes (B, H, W, C, G, Ho, Wo): DySample's three 2x upsamplings of the
+# SH decoder at a small batch, a ragged one of Cg=6 and one of Cg=3 (no
+# 16-byte vector in fp32), and G=1 and G=8.
+GROUPED_SHAPES = {
+    "dec1": (2, 16, 16, 64, 4, 32, 32),
+    "dec2": (2, 32, 32, 64, 4, 64, 64),
+    "dec3": (2, 64, 64, 64, 4, 128, 128),
+    "ragged_cg6": (3, 7, 9, 24, 4, 8, 7),
+    "cg3": (2, 5, 6, 6, 2, 4, 8),
+    "g1": (2, 7, 9, 24, 1, 8, 7),
+    "g8": (2, 9, 7, 64, 8, 10, 12),
+}
+DEC3 = (128, 64, 64, 64, 4, 128, 128)  # K4's timing shape: dec3 at B=128
+DYSAMPLES = 3  # one K4 launch per DySample forward, one grouped K6 per backward
+OFFSET_REACH_PX = 2.0  # serve_exact's largest learned offset per DySample
 TRAIN_STEPS = 3
 TRAIN_BATCH = 16  # the bench's SH train step: 128^2, seq_len 25, bf16 compute
 CHECK_BATCH = 2  # the fp32 card-vs-CPU step
@@ -177,6 +212,29 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(torch, fn, iters: int, spin_cycles: int = 50_000_000):
+    """(mean device time of ``fn()`` per call, the host's time to issue the
+    ``iters`` calls, the spin's time), by CUDA events around ``iters`` calls
+    queued behind a spinning kernel: the host issues them all while the card
+    spins, so no host gap falls between the two events as long as the issue
+    takes less than the spin."""
+    fn()
+    torch.cuda.synchronize()
+    spin0, spin1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin0.record()
+    torch.cuda._sleep(spin_cycles)
+    spin1.record()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, issue_ms, spin0.elapsed_time(spin1)
+
+
 def device_ms(torch, fn, iters: int) -> float | None:
     """Mean device time of ``fn()`` per call, summed over the kernels it
     launches, from ``torch.profiler``: unlike ``cuda_ms`` it leaves out the
@@ -247,22 +305,23 @@ def sh_config(B, dtype, drop_path=0.1, img_size=128, seq_len=25, out_frames=20):
     return cfg
 
 
-def train_setup(cfg, device, seed=0):
-    """(model, state, step, tx) of ``cfg`` with weights from ``seed``."""
+def train_setup(cfg, device, seed=0, dysample_window=True):
+    """(model, state, step, tx) of ``cfg`` with weights from ``seed``, on
+    DySample's window path or (``dysample_window=False``) its exact path."""
     from kmunet_tpu_torch.train import engine
 
-    model = engine.build_model(cfg)
+    model = engine.build_model(cfg, dysample_window=dysample_window)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=seed, device=device)
     return model, state, engine.make_train_step(model, engine.build_loss(cfg), tx, cfg), tx
 
 
-def step_gradients(cfg, device, batch, seed=0):
+def step_gradients(cfg, device, batch, seed=0, dysample_window=True):
     """One train step of ``cfg`` on ``device`` from weights made from
     ``seed``: (loss, grad norm, {name: gradient}), the gradients read on the
     CPU where the optimizer takes them, so they are the ones the step
     applied."""
-    _, state, step, tx = train_setup(cfg, device, seed)
+    _, state, step, tx = train_setup(cfg, device, seed, dysample_window)
     seen = []
     update = tx.update
     tx.update = lambda grads, st, params: seen.append([g.cpu() for g in grads]) or update(
@@ -292,6 +351,57 @@ def compare_steps(card, cpu):
     return readings
 
 
+def grouped_case_inputs(np, rng, shape):
+    """img (B, H, W, C), an upstream gradient (B, Ho, Wo, C) and the named
+    coordinate cases, each (x, y) of (B, G, Ho, Wo) with every group on its
+    own draw, numpy fp32."""
+    B, H, W, C, G, Ho, Wo = shape
+    img = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    g = rng.normal(size=(B, Ho, Wo, C)).astype(np.float32)
+    cases = {name: (x.reshape(B, G, Ho, Wo), y.reshape(B, G, Ho, Wo)) for name, (x, y)
+             in coordinate_cases(rng, B * G, H, W, Ho, Wo).items()}
+    return img, g, cases
+
+
+def expect_launches(path, launches, want):
+    """Raises unless every kernel launched as often as ``want`` says on
+    ``path``."""
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, want {want}")
+
+
+def largest_offsets(torch, model, frames):
+    """The largest |offset| (px) of each DySample of ``model`` on ``frames``."""
+    from kmunet_tpu_torch.nn.resample import DySample
+
+    seen = []
+    hooks = [m.offset.register_forward_hook(
+        lambda mod, inp, out: seen.append(float(out.abs().max()) * 0.25))
+        for m in model.modules() if isinstance(m, DySample)]
+    with torch.inference_mode():
+        model(frames)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def reach_offsets(torch, model, frames, reach):
+    """Scales each DySample's offset conv (weight and bias), in the order of
+    the forward, so that its largest |offset| on ``frames`` is ``reach`` px
+    (the offset is linear in the conv's parameters, and each DySample sees
+    the ones before it already scaled); returns the largest offsets before
+    and after."""
+    from kmunet_tpu_torch.nn.resample import DySample
+
+    before = largest_offsets(torch, model, frames)
+    for i, m in enumerate(m for m in model.modules() if isinstance(m, DySample)):
+        factor = reach / largest_offsets(torch, model, frames)[i]
+        with torch.no_grad():
+            m.offset.weight.mul_(factor)
+            m.offset.bias.mul_(factor)
+    return before, largest_offsets(torch, model, frames)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import numpy as np
@@ -310,7 +420,13 @@ def main() -> int:
     from kmunet_tpu_torch.kernels import bilinear, build
 
     kernels = {"bilinear_gather": bilinear.bilinear_gather,
-               "bilinear_gather_backward": bilinear.bilinear_gather_backward}
+               "bilinear_gather_backward": bilinear.bilinear_gather_backward,
+               "bilinear_gather_grouped": bilinear.bilinear_gather_grouped,
+               "bilinear_gather_grouped_backward": bilinear.bilinear_gather_grouped_backward}
+
+    def launches_per(k5=0, k6=0, k4=0, k6g=0):
+        return {"bilinear_gather": k5, "bilinear_gather_backward": k6,
+                "bilinear_gather_grouped": k4, "bilinear_gather_grouped_backward": k6g}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -335,8 +451,9 @@ def main() -> int:
         sources = (bilinear.SOURCE, bilinear.BACKWARD_SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, started together
             builds = list(pool.map(build.build, sources))
-        bilinear.forward_kernel()
-        bilinear.backward_kernel()
+        for entry in (bilinear.forward_kernel, bilinear.backward_kernel,
+                      bilinear.grouped_kernel, bilinear.grouped_backward_kernel):
+            entry()
         f.update(sources=[K5_SOURCE, K6_SOURCE],
                  libraries=[os.path.relpath(b.path, REPO) for b in builds],
                  nvcc_seconds=[round(b.seconds, 3) for b in builds])
@@ -345,11 +462,50 @@ def main() -> int:
             print(f"{source} {line}", flush=True)
 
     dev = torch.device("cuda")
-    errors = {}
-    k6_errors = {}
+
+    def check_kernels(names, ops, img32, x, y, g32, key, errors_f, errors_b):
+        """Holds a gather kernel and its backward, ``ops`` = (forward,
+        backward, forward_plain, backward_plain), to the plain versions at
+        fp32/bf16/fp16 in ``mode``; records the worst errors under ``key``."""
+        forward, backward, forward_plain, backward_plain = ops
+        mode = key.split("/")[-1]
+        # fp32: the kernel against the plain version. bf16/fp16: against the
+        # kernel's own fp32 result on the same (rounded) inputs, so that only
+        # the output rounding differs.
+        ref = forward_plain(img32, x, y, mode)
+        ref_b = backward_plain(img32, x, y, g32, mode)
+        # Sum of |terms| of each d_img element (the tap weights are >= 0):
+        # many outputs may land on one pixel.
+        term_sums = backward_plain(img32, x, y, g32.abs(), mode)[0]
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            img, g = img32.to(dtype), g32.to(dtype)
+            k = f"{key}/{str(dtype)[6:]}"
+            got = forward(img, x, y, mode).float()
+            if dtype == torch.float32:
+                want, tol = ref, torch.full_like(ref, 1e-5)
+            else:
+                want = forward(img.float(), x, y, mode)
+                tol = ulp_tolerance(torch, want, dtype)
+            errors_f[k] = check_close(f"{names[0]} {k}", got, want, tol)
+            # The backward: atomics and warp sums add in another order.
+            got_b = backward(img, x, y, g, mode)
+            want_b = ref_b if dtype == torch.float32 else backward(img.float(), x, y,
+                                                                    g.float(), mode)
+            errs = []
+            for name, a, b in zip(("d_img", "d_x", "d_y"), got_b, want_b):
+                tol = 1e-5 + 1e-5 * b.abs()
+                if name == "d_img":
+                    tol = tol + 1e-6 * term_sums
+                    if dtype != torch.float32:
+                        tol = tol + ulp_tolerance(torch, b, dtype)
+                errs.append(check_close(f"{names[1]} {k} {name}", a, b, tol))
+            errors_b[k] = max(errs)
+
+    errors, k6_errors, k4_errors, k6g_errors = {}, {}, {}, {}
     with Phase("kernel") as f:
         rng = np.random.default_rng(0)
-        cases = []
+        plain_ops = (bilinear.bilinear_gather_forward, bilinear.bilinear_gather_backward,
+                     bilinear.bilinear_gather_plain, bilinear.bilinear_gather_backward_plain)
         for shape_name, (B, H, W, C), (Ho, Wo) in (("bridge", BRIDGE, BRIDGE[1:3]),
                                                    ("ragged", RAGGED, (RAGGED[1] + 1, RAGGED[2] - 2)),
                                                    ("odd", ODD, (ODD[1] - 1, ODD[2] + 2))):
@@ -358,59 +514,48 @@ def main() -> int:
             for case, (x, y) in coordinate_cases(rng, B, H, W, Ho, Wo).items():
                 x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
                 for mode in ("zeros", "border"):
-                    # fp32: the kernel against the plain version. bf16/fp16:
-                    # against the kernel's own fp32 result on the same
-                    # (rounded) image, so that only the output rounding differs.
-                    ref = bilinear.bilinear_gather_plain(img32, x, y, mode)
-                    ref6 = bilinear.bilinear_gather_backward_plain(img32, x, y, g32, mode)
-                    # Sum of |terms| of each d_img element (the tap weights are
-                    # >= 0): many outputs may land on one pixel.
-                    term_sums = bilinear.bilinear_gather_backward_plain(img32, x, y, g32.abs(), mode)
-                    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-                        img, g = img32.to(dtype), g32.to(dtype)
-                        key = f"{shape_name}/{case}/{mode}/{str(dtype)[6:]}"
-                        got = bilinear.bilinear_gather_forward(img, x, y, mode).float()
-                        if dtype == torch.float32:
-                            want, tol = ref, torch.full_like(ref, 1e-5)
-                        else:
-                            want = bilinear.bilinear_gather_forward(img.float(), x, y, mode)
-                            tol = ulp_tolerance(torch, want, dtype)
-                        errors[key] = check_close(f"K5 {key}", got, want, tol)
-                        # K6: atomics and warp sums add in another order.
-                        got6 = bilinear.bilinear_gather_backward(img, x, y, g, mode)
-                        if dtype == torch.float32:
-                            want6 = ref6
-                        else:
-                            want6 = bilinear.bilinear_gather_backward(img.float(), x, y,
-                                                                      g.float(), mode)
-                        errs = []
-                        for name, a, b in zip(("d_img", "d_x", "d_y"), got6, want6):
-                            tol = 1e-5 + 1e-5 * b.abs()
-                            if name == "d_img":
-                                tol = tol + 1e-6 * term_sums[0]
-                                if dtype != torch.float32:
-                                    tol = tol + ulp_tolerance(torch, b, dtype)
-                            errs.append(check_close(f"K6 {key} {name}", a, b, tol))
-                        k6_errors[key] = max(errs)
-                        cases.append(key)
+                    check_kernels(("K5", "K6"), plain_ops, img32, x, y, g32,
+                                  f"{shape_name}/{case}/{mode}", errors, k6_errors)
+        grouped_ops = (bilinear.bilinear_gather_grouped_forward,
+                       bilinear.bilinear_gather_grouped_backward,
+                       bilinear.bilinear_gather_grouped_plain,
+                       bilinear.bilinear_gather_grouped_backward_plain)
+        for shape_name, shape in GROUPED_SHAPES.items():
+            img, g, coords = grouped_case_inputs(np, rng, shape)
+            img32, g32 = torch.from_numpy(img).to(dev), torch.from_numpy(g).to(dev)
+            for case, (x, y) in coords.items():
+                x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+                for mode in ("zeros", "border"):
+                    check_kernels(("K4", "K6 grouped"), grouped_ops, img32, x, y, g32,
+                                  f"{shape_name}/{case}/{mode}", k4_errors, k6g_errors)
         torch.cuda.synchronize()
-        f.update(cases=len(cases), k5_max_abs_err=errors, k6_max_abs_err=k6_errors)
+        f.update(cases=len(errors) + len(k4_errors), k5_max_abs_err=errors,
+                 k6_max_abs_err=k6_errors, k4_max_abs_err=k4_errors,
+                 k6_grouped_max_abs_err=k6g_errors)
 
-    path_launches = {}
-    with Phase("slice") as f:
+    def serve_path(path, window, f):
+        """Serves REQUESTS fp32 requests of B=2 on the card with
+        ``dysample_window=window``, counting launches, and holds the answers
+        to the same weights on the CPU."""
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-        model = serve.build_km_unet_v3_sh(device="cuda", dtype=torch.float32, seed=0)
+        model = serve.build_km_unet_v3_sh(device="cuda", dtype=torch.float32, seed=0,
+                                          dysample_window=window)
         requests = [rng.uniform(size=(REQUEST_BATCH, 128, 128, 5)).astype(np.float32)
                     for _ in range(REQUESTS)]
+        if not window:  # seeded offsets are ~1e-3 px: make them reach OFFSET_REACH_PX
+            offsets = reach_offsets(torch, model, torch.from_numpy(requests[0]).to(dev),
+                                    OFFSET_REACH_PX)
+            f.update(largest_offset_px_seeded=offsets[0], largest_offset_px=offsets[1])
         reset_counts()
         answers = [serve.predict(model, frames) for frames in requests]
-        launches = path_launches["serve"] = read_counts()
-        if launches["bilinear_gather"] != TAPS * REQUESTS:
-            raise AssertionError(f"K5 launched {launches['bilinear_gather']} times in "
-                                 f"{REQUESTS} forwards, want {TAPS} per forward")
-        model_cpu = serve.build_km_unet_v3_sh(device="cpu", dtype=torch.float32, seed=0)
+        launches = path_launches[path] = read_counts()
+        expect_launches(path, launches, launches_per(k5=TAPS * REQUESTS,
+                                                     k4=0 if window else DYSAMPLES * REQUESTS))
+        model_cpu = serve.build_km_unet_v3_sh(device="cpu", dtype=torch.float32, seed=0,
+                                              dysample_window=window)
+        model_cpu.load_state_dict(model.state_dict())
         slice_err = 0.0
         for frames, answer in zip(requests, answers):
             if tuple(answer.shape) != (REQUEST_BATCH, 128, 128, 20):
@@ -420,24 +565,26 @@ def main() -> int:
             want = serve.predict(model_cpu, frames)
             slice_err = max(slice_err, float((answer.cpu() - want).abs().max()))
         if slice_err > 1e-4:
-            raise AssertionError(f"card vs CPU forward: max abs err {slice_err} > 1e-4")
+            raise AssertionError(f"{path}: card vs CPU forward: max abs err {slice_err} > 1e-4")
         f.update(requests=REQUESTS, batch=REQUEST_BATCH, launches=launches,
                  max_abs_err_vs_cpu=slice_err, tf32=False)
-        del model, model_cpu, answers
 
-    with Phase("train") as f:
+    def train_path(path, window, f):
+        """TRAIN_STEPS bf16 steps of B=16 on the card with
+        ``dysample_window=window``, counting launches, then one fp32 B=2 step
+        against the CPU's."""
         # The bench's step: full width, 128^2, B=16, bf16 compute, 3 steps.
         batch = torch.from_numpy(synthetic_batch(np, TRAIN_BATCH, seed=0)).to(dev)
-        model, state, step, _ = train_setup(sh_config(TRAIN_BATCH, "bfloat16"), "cuda")
+        model, state, step, _ = train_setup(sh_config(TRAIN_BATCH, "bfloat16"), "cuda",
+                                            dysample_window=window)
         before = [p.detach().clone() for p in state.params.values()]
         gen = torch.Generator(device=dev).manual_seed(0)
         reset_counts()
         metrics = [step(state, batch, gen)[1] for _ in range(TRAIN_STEPS)]
-        launches = path_launches["train"] = read_counts()
-        for name, n in launches.items():
-            if n != TAPS * TRAIN_STEPS:
-                raise AssertionError(f"{name} launched {n} times in {TRAIN_STEPS} train steps, "
-                                     f"want {TAPS} per step")
+        launches = path_launches[path] = read_counts()
+        grouped = 0 if window else DYSAMPLES * TRAIN_STEPS
+        expect_launches(path, launches, launches_per(
+            k5=TAPS * TRAIN_STEPS, k6=TAPS * TRAIN_STEPS, k4=grouped, k6g=grouped))
         losses = [float(m["loss"]) for m in metrics]
         grad_norms = [float(m["grad_norm"]) for m in metrics]
         if not np.isfinite(losses + grad_norms).all():
@@ -453,127 +600,168 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         batch = synthetic_batch(np, CHECK_BATCH, seed=1)
         cfg = sh_config(CHECK_BATCH, "float32", drop_path=0.0)
-        runs = {device: step_gradients(cfg, device, batch) for device in ("cuda", "cpu")}
+        runs = {device: step_gradients(cfg, device, batch, dysample_window=window)
+                for device in ("cuda", "cpu")}
         check = compare_steps(runs["cuda"], runs["cpu"])
         f.update(batch=TRAIN_BATCH, compute="bfloat16", steps=TRAIN_STEPS, losses=losses,
                  grad_norms=grad_norms, launches=launches, max_param_change=moved,
                  check_batch=CHECK_BATCH, check=check, tf32=False)
-        del runs
+
+    path_launches = {}
+    with Phase("slice") as f:
+        serve_path("serve", True, f)
+    with Phase("slice_exact") as f:
+        serve_path("serve_exact", False, f)
+    with Phase("train") as f:
+        train_path("train", True, f)
+    with Phase("train_exact") as f:
+        train_path("train_exact", False, f)
+
+    def time_kernel(kernel, plain, library, img, x, n_out, backward, iters, plain_iters):
+        """A kernel's numbers beside its bound, its plain version and the
+        library call on the same inputs: ms by CUDA events over back-to-back
+        calls, queued ms by CUDA events over calls queued behind a spin,
+        device ms by the profiler."""
+        bound, bound_by, moved, ops = gather_bound(torch, img, x, n_out, backward)
+        queued = queued_ms(torch, kernel, min(iters, 50))
+        library_queued = queued_ms(torch, library, min(iters, 50))
+        return {"ms": cuda_ms(torch, kernel, iters, 10),
+                "queued_ms": queued[0], "library_queued_ms": library_queued[0],
+                "queued_issue_ms": [queued[1], library_queued[1]],
+                "queued_spin_ms": [queued[2], library_queued[2]],
+                "plain_ms": cuda_ms(torch, plain, plain_iters),
+                "library_ms": cuda_ms(torch, library, iters, 10),
+                "device_ms": device_ms(torch, kernel, min(iters, 50)),
+                "plain_device_ms": device_ms(torch, plain, plain_iters),
+                "library_device_ms": device_ms(torch, library, min(iters, 50)),
+                "bound_ms": bound, "bound_by": bound_by, "bytes": moved, "ops": ops}
 
     with Phase("timing") as f:
         torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults
         torch.backends.cuda.matmul.allow_tf32 = False
         forward = {}
-        for B, dtype, iters in ((128, torch.bfloat16, 5), (8, torch.float32, 10)):
-            model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0)
+        for B, dtype, iters, window in ((128, torch.bfloat16, 5, True),
+                                        (128, torch.bfloat16, 5, False),
+                                        (8, torch.float32, 10, True)):
+            model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0,
+                                              dysample_window=window)
             frames = torch.rand(B, 128, 128, 5, device=dev).to(dtype)
             out = serve.predict(model, frames)
             if not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"B={B} {dtype} forward has non-finite values")
             ms = cuda_ms(torch, lambda: serve.predict(model, frames), iters)
-            forward[f"B{B}_{str(dtype)[6:]}"] = {"ms": ms, "frames_per_s": B * 20 / (ms / 1e3)}
+            key = f"B{B}_{str(dtype)[6:]}" + ("" if window else "_exact")
+            forward[key] = {"ms": ms, "frames_per_s": B * 20 / (ms / 1e3)}
             del model, frames, out
 
         train = {}
-        for B in (16, 32):
-            model, state, step, _ = train_setup(sh_config(B, "bfloat16"), "cuda")
+        for B, window in ((16, True), (16, False), (32, True), (32, False)):
+            model, state, step, _ = train_setup(sh_config(B, "bfloat16"), "cuda",
+                                                dysample_window=window)
             batch = torch.rand(B, 25, 128, 128, device=dev)
             gen = torch.Generator(device=dev).manual_seed(1)
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(torch, lambda: step(state, batch, gen), 5)
-            train[f"B{B}_bfloat16"] = {"ms": ms,
-                                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            train[f"B{B}_bfloat16" + ("" if window else "_exact")] = {
+                "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
             del model, state, step, batch
 
+        # K5 and K6 at the bridge shape, zeros mode, a deformable tap's
+        # coordinates (grid + N(0, 1)).
         B, H, W, C = BRIDGE
         img = torch.randn(B, H, W, C, device=dev).to(torch.bfloat16)
         ii = torch.arange(H, device=dev, dtype=torch.float32).view(1, H, 1)
         jj = torch.arange(W, device=dev, dtype=torch.float32).view(1, 1, W)
-        y = (ii + torch.randn(B, H, W, device=dev)).contiguous()  # a deformable tap
+        y = (ii + torch.randn(B, H, W, device=dev)).contiguous()
         x = (jj + torch.randn(B, H, W, device=dev)).contiguous()
         g = torch.randn(B, H, W, C, device=dev).to(torch.bfloat16)
-        k5 = lambda: bilinear.bilinear_gather_forward(img, x, y, "zeros")  # noqa: E731
-        k5_plain = lambda: bilinear.bilinear_gather_plain(img, x, y, "zeros")  # noqa: E731
-        k6 = lambda: bilinear.bilinear_gather_backward(img, x, y, g, "zeros")  # noqa: E731
-        k6_plain = lambda: bilinear.bilinear_gather_backward_plain(img, x, y, g, "zeros")  # noqa: E731
         grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], dim=-1).to(img.dtype)
         img_nchw = img.permute(0, 3, 1, 2)  # the same NHWC memory, as an NCHW view
         g_nchw = g.permute(0, 3, 1, 2)
+        k5 = lambda: bilinear.bilinear_gather_forward(img, x, y, "zeros")  # noqa: E731
+        timed = {"bilinear_gather": time_kernel(
+            k5, lambda: bilinear.bilinear_gather_plain(img, x, y, "zeros"),
+            lambda: F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                  align_corners=True),
+            img, x, B * H * W * C, False, 200, 20)}
+        timed["bilinear_gather"]["library_max_abs_diff"] = float((F.grid_sample(
+            img_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True).permute(
+                0, 2, 3, 1).float() - k5().float()).abs().max())
+        timed["bilinear_gather_backward"] = time_kernel(
+            lambda: bilinear.bilinear_gather_backward(img, x, y, g, "zeros"),
+            lambda: bilinear.bilinear_gather_backward_plain(img, x, y, g, "zeros"),
+            # bilinear (0), zeros padding (0), align_corners
+            lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 0, True,
+                                                            [True, True]),
+            img, x, B * H * W * C, True, 200, 20)
+        del img, x, y, g, grid, img_nchw, g_nchw
 
-        def library():
-            return F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="zeros",
-                                 align_corners=True)
+        # K4 and K6's grouped entry at DySample's dec3 shape, border mode, at
+        # DySample-like coordinates (the 2x subpixel grid + N(0, 0.5) px).
+        B, H, W, C, G, Ho, Wo = DEC3
+        Cg = C // G
+        img = torch.randn(B, H, W, C, device=dev).to(torch.bfloat16)
+        sub_y = ((torch.arange(Ho, device=dev) + 0.5) / 2 - 0.5).view(1, 1, Ho, 1)
+        sub_x = ((torch.arange(Wo, device=dev) + 0.5) / 2 - 0.5).view(1, 1, 1, Wo)
+        y = (sub_y + 0.5 * torch.randn(B, G, Ho, Wo, device=dev)).contiguous()
+        x = (sub_x + 0.5 * torch.randn(B, G, Ho, Wo, device=dev)).contiguous()
+        g = torch.randn(B, Ho, Wo, C, device=dev).to(torch.bfloat16)
+        # The library takes the groups folded into the batch, NCHW: these
+        # layout copies are made here, outside the timed calls.
+        img_lib = img.view(B, H, W, G, Cg).permute(0, 3, 4, 1, 2).reshape(B * G, Cg, H, W)
+        g_lib = g.view(B, Ho, Wo, G, Cg).permute(0, 3, 4, 1, 2).reshape(B * G, Cg, Ho, Wo)
+        grid = torch.stack([(x + 0.5) * 2 / W - 1, (y + 0.5) * 2 / H - 1], dim=-1).reshape(
+            B * G, Ho, Wo, 2).to(img.dtype)
+        k4 = lambda: bilinear.bilinear_gather_grouped_forward(img, x, y, "border")  # noqa: E731
 
-        def library_backward():  # bilinear (0), zeros padding (0)
-            return torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 0, True,
-                                                           [True, True])
+        def library_grouped():
+            return F.grid_sample(img_lib, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=False)
 
-        k5_ms = cuda_ms(torch, k5, 200, 10)
-        plain_ms = cuda_ms(torch, k5_plain, 20)
-        library_ms = cuda_ms(torch, library, 200, 10)
-        k5_device = device_ms(torch, k5, 50)
-        plain_device = device_ms(torch, k5_plain, 10)
-        library_device = device_ms(torch, library, 50)
-        library_diff = float((library().permute(0, 2, 3, 1).float() - k5().float()).abs().max())
-        bound_ms, bound_by, moved, ops = gather_bound(torch, img, x, B * H * W * C, False)
-
-        k6_ms = cuda_ms(torch, k6, 200, 10)
-        k6_plain_ms = cuda_ms(torch, k6_plain, 20)
-        k6_library_ms = cuda_ms(torch, library_backward, 200, 10)
-        k6_device = device_ms(torch, k6, 50)
-        k6_plain_device = device_ms(torch, k6_plain, 10)
-        k6_library_device = device_ms(torch, library_backward, 50)
-        k6_bound_ms, k6_bound_by, k6_moved, k6_ops = gather_bound(torch, img, x, B * H * W * C,
-                                                                  True)
-        f.update(forward=forward, train_step=train, tf32_conv=True, k5_shape=list(BRIDGE),
-                 k5_dtype="bfloat16", k5_ms=k5_ms, k5_plain_ms=plain_ms,
-                 k5_library_ms=library_ms, k5_library_max_abs_diff=library_diff,
-                 k5_bound_ms=bound_ms, k5_device_ms=k5_device,
-                 k5_plain_device_ms=plain_device, k5_library_device_ms=library_device,
-                 k5_bytes=moved, k5_ops=ops,
-                 k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_library_ms=k6_library_ms,
-                 k6_bound_ms=k6_bound_ms, k6_bound_by=k6_bound_by, k6_device_ms=k6_device,
-                 k6_plain_device_ms=k6_plain_device, k6_library_device_ms=k6_library_device,
-                 k6_bytes=k6_moved, k6_ops=k6_ops)
+        timed["bilinear_gather_grouped"] = time_kernel(
+            k4, lambda: bilinear.bilinear_gather_grouped_plain(img, x, y, "border"),
+            library_grouped, img, x, B * Ho * Wo * C, False, 100, 5)
+        timed["bilinear_gather_grouped"]["library_max_abs_diff"] = float((
+            library_grouped().view(B, G, Cg, Ho, Wo).permute(0, 3, 4, 1, 2).reshape(
+                B, Ho, Wo, C).float() - k4().float()).abs().max())
+        timed["bilinear_gather_grouped_backward"] = time_kernel(
+            lambda: bilinear.bilinear_gather_grouped_backward(img, x, y, g, "border"),
+            lambda: bilinear.bilinear_gather_grouped_backward_plain(img, x, y, g, "border"),
+            # bilinear (0), border padding (1), align_corners=False
+            lambda: torch.ops.aten.grid_sampler_2d_backward(g_lib, img_lib, grid, 0, 1, False,
+                                                            [True, True]),
+            img, x, B * Ho * Wo * C, True, 20, 3)
+        del img, x, y, g, grid, img_lib, g_lib
+        f.update(forward=forward, train_step=train, tf32_conv=True,
+                 shapes={"bilinear_gather": list(BRIDGE), "bilinear_gather_backward": list(BRIDGE),
+                         "bilinear_gather_grouped": list(DEC3),
+                         "bilinear_gather_grouped_backward": list(DEC3)},
+                 dtype="bfloat16", kernels=timed)
 
     def by_path(name):
         return {path: counts[name] for path, counts in path_launches.items()}
 
-    emit({"kernels": [{
-        "name": "bilinear_gather",
-        "route": "cuda",
-        "source": K5_SOURCE,
-        "replaces": K5_REPLACES,
-        "launches": sum(by_path("bilinear_gather").values()),
-        "launches_by_path": by_path("bilinear_gather"),
-        "max_abs_err": max(v for k, v in errors.items() if k.endswith("float32")),
-        "max_abs_err_bfloat16": max(v for k, v in errors.items() if k.endswith("bfloat16")),
-        "ms": k5_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-        "device_ms": k5_device,
-        "plain_device_ms": plain_device,
-        "library_device_ms": library_device,
-    }, {
-        "name": "bilinear_gather_backward",
-        "route": "cuda",
-        "source": K6_SOURCE,
-        "replaces": K6_REPLACES,
-        "launches": sum(by_path("bilinear_gather_backward").values()),
-        "launches_by_path": by_path("bilinear_gather_backward"),
-        "max_abs_err": max(v for k, v in k6_errors.items() if k.endswith("float32")),
-        "max_abs_err_bfloat16": max(v for k, v in k6_errors.items() if k.endswith("bfloat16")),
-        "ms": k6_ms,
-        "plain_ms": k6_plain_ms,
-        "bound_ms": k6_bound_ms,
-        "bound_by": k6_bound_by,
-        "library_ms": k6_library_ms,
-        "device_ms": k6_device,
-        "plain_device_ms": k6_plain_device,
-        "library_device_ms": k6_library_device,
-    }]})
+    def worst(errs, dtype):
+        return max(v for k, v in errs.items() if k.endswith(dtype))
+
+    line = []
+    for name, source, replaces, errs in (
+            ("bilinear_gather", K5_SOURCE, K5_REPLACES, errors),
+            ("bilinear_gather_backward", K6_SOURCE, K6_REPLACES, k6_errors),
+            ("bilinear_gather_grouped", K4_SOURCE, K4_REPLACES, k4_errors),
+            ("bilinear_gather_grouped_backward", K6G_SOURCE, K6G_REPLACES, k6g_errors)):
+        t = timed[name]
+        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": sum(by_path(name).values()),
+                     "launches_by_path": by_path(name),
+                     "max_abs_err": worst(errs, "float32"),
+                     "max_abs_err_bfloat16": worst(errs, "bfloat16"),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"],
+                     "library_device_ms": t["library_device_ms"], "queued_ms": t["queued_ms"],
+                     "library_queued_ms": t["library_queued_ms"]})
+    emit({"kernels": line})
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

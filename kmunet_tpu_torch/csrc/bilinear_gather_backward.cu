@@ -1,16 +1,20 @@
-// Backward of the bilinear gather (K5) at pixel coordinates, NHWC, border or
-// zeros padding: d_img, d_x and d_y from the upstream gradient g.
+// Backward of the bilinear gather at pixel coordinates, NHWC, border or
+// zeros padding: d_img, d_x and d_y from the upstream gradient g, for one
+// coordinate set per image (the backward of K5) or one per channel group
+// (the backward of K4).
 //
-// Replaces the TPU kernel K6 of the JAX package for one coordinate set per
-// image (G = 1), the backward of K5:
+// Replaces the TPU kernel K6 of the JAX package with shared=False:
 // kmunet_tpu/kernels/bilinear_pallas.py::_backward_impl (pl.pallas_call of
-// _kernel_bwd), reached from the custom VJP of _make_gather_op. It computes
-// the VJP of kmunet_tpu/ops/sample.py::bilinear_gather_xla with that custom
-// VJP's conventions:
+// _kernel_bwd), reached from the custom VJP of _make_gather_op for
+// gather_bilinear_{zeros,border} (G = 1) and gather_bilinear_grouped
+// (G > 1). It computes the VJP of kmunet_tpu/ops/sample.py::
+// bilinear_gather_xla (G = 1) and bilinear_gather_grouped_xla (G > 1) with
+// that custom VJP's conventions. With Cg = C / G and g(c) = c / Cg:
 //   d_img[b, tap, c] += g[b, o, c] * w_tap   (4 taps, zeros mode masks them)
-//   d_x[b, o] = sum_c g * [(v01 - v00)(1 - wy) + (v11 - v10) wy]
-//   d_y[b, o] = sum_c g * [(v10 - v00)(1 - wx) + (v11 - v01) wx]
-// with the taps and weights of the forward (coordinates clamped as K5 does).
+//   d_x[b, k, o] = sum_{c: g(c) = k} g * [(v01 - v00)(1 - wy) + (v11 - v10) wy]
+//   d_y[b, k, o] = sum_{c: g(c) = k} g * [(v10 - v00)(1 - wx) + (v11 - v01) wx]
+// with the taps and weights of the forward at group k's coordinates
+// (clamped as the forward does).
 // Border mode: the coordinate gradients are 0 where x0 (y0) sits on the last
 // pixel, because the far tap duplicates the edge pixel there as in the XLA
 // reference (the Pallas kernel has to mask them), then chained through the
@@ -21,27 +25,37 @@
 //
 // Design. The TPU kernel transposes its matmul formulation (0/1 tap rows) so
 // that it needs no scatter. Hopper has fast atomics in L2, so this is a
-// direct scatter: one thread per (output pixel, vector of VEC channels),
-// the same layout as K5, reading 16 bytes along C per tap and of g.
+// direct scatter. A unit of work is one (output pixel, channel group); its
+// Cg / VEC channel vectors are read 16 bytes at a time along C (VEC = 4 fp32
+// or 8 bf16/fp16, else 1 where Cg is no multiple of it, so that a vector
+// never straddles two groups), by a group of LANES threads.
 //   d_img: atomicAdd of g * w_tap into an fp32 scratch that the caller
 //          zeroes; a second small pass rounds it to the image dtype (the TPU
 //          kernel also accumulates d_src in fp32 and casts at the end). For
 //          an fp32 image the scratch is d_img and the pass is skipped.
 //   d_x, d_y: each thread sums its channels' terms in fp32; the threads of a
-//          pixel are an aligned group of LANES (a power of 2 <= 32) lanes of
-//          one warp, reduced with __shfl_xor_sync. A pixel with more than 32
-//          channel vectors loops over them.
+//          unit are an aligned group of LANES lanes of one warp, LANES the
+//          power of 2 at or above Cg / VEC (at most 32), so that a group
+//          never straddles a warp; lanes past Cg / VEC hold 0 (Cg = 6 in
+//          fp32: 6 channel vectors on 8 lanes). The group is reduced with
+//          __shfl_xor_sync. A unit of more than 32 channel vectors loops over
+//          them. Consecutive units are consecutive groups of one pixel, then
+//          the next pixel, so a warp reads contiguous memory of g.
 // The order of the atomic additions varies from run to run, so d_img is
 // reproducible only up to fp32 rounding.
 //
 // Bound. Bytes: img, g and the coordinates read once, d_img, d_x and d_y
-// written once. At the DAGEM bridge shape (B=128, 16x16, C=64, bf16) that is
-// 4.19 + 4.19 + 0.26 MB read and 4.19 + 0.26 MB written, about 13.1 MB, or
-// about 3.9 us at 3.35 TB/s; the operations (about 20 fp32 per element) are
-// far below the card's rate. What this simple kernel adds to that: 4 fp32
-// atomics per (pixel, channel) and the fp32 scratch's zeroing, write and
-// read. Making it fast -- a tap-owner pass with no atomics, shared-memory
-// staging, all 9 taps of the deformable conv in one launch -- is later work.
+// written once. At the DAGEM bridge shape (B=128, 16x16, C=64, G=1, bf16)
+// that is 4.19 + 4.19 + 0.26 MB read and 4.19 + 0.26 MB written, about
+// 13.1 MB, or about 3.9 us at 3.35 TB/s; at DySample's dec3 shape (B=128,
+// 64x64 -> 128x128, C=64, G=4, bf16) 67 + 268 + 67 MB read and 67 + 67 MB
+// written, about 540 MB or 160 us. The operations (about 20 fp32 per
+// element) are far below the card's rate. What this simple kernel adds to
+// that: 4 fp32 atomics per (pixel, channel), about 16 landing on each
+// source element at dec3 (4 subpixels x 4 taps), and the fp32 scratch's
+// zeroing, write and read. Making it fast -- a tap-owner pass with no
+// atomics, shared-memory staging, all 9 taps of the deformable conv in one
+// launch -- is later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,28 +115,33 @@ __global__ void __launch_bounds__(256)
 bilinear_gather_backward_kernel(const T* __restrict__ img, const float* __restrict__ xs,
                                 const float* __restrict__ ys, const T* __restrict__ g,
                                 float* __restrict__ d_img, float* __restrict__ d_x,
-                                float* __restrict__ d_y, int B, int H, int W, int C,
+                                float* __restrict__ d_y, int B, int H, int W, int C, int G,
                                 int HoWo, int lanes_log2) {
   // 32-bit indices: the entry point takes fewer than 2^30 elements per tensor.
-  const int lanes = 1 << lanes_log2;  // threads per output pixel
-  const int cv = C / VEC;             // channel vectors per pixel
-  const int npix = B * HoWo;
+  const int lanes = 1 << lanes_log2;  // threads per unit (output pixel, group)
+  const int Cg = C / G;               // channels per group
+  const int cvg = Cg / VEC;           // channel vectors per unit
+  const int nunits = B * HoWo * G;
   const int lane = threadIdx.x & 31;
-  const int sub = lane & (lanes - 1);  // this thread's place in its pixel's group
-  const int pix_per_warp = 32 >> lanes_log2;
+  const int sub = lane & (lanes - 1);  // this thread's place in its unit's lanes
+  const int units_per_warp = 32 >> lanes_log2;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int nwarps = (gridDim.x * blockDim.x) >> 5;
   // The loop bound depends on the warp alone, so every lane of a warp takes
   // the same trips and reaches the shuffles below together.
-  for (int base = warp * pix_per_warp; base < npix; base += nwarps * pix_per_warp) {
-    const int p = base + (lane >> lanes_log2);  // b * HoWo + output pixel
-    const bool active = p < npix;
+  for (int base = warp * units_per_warp; base < nunits; base += nwarps * units_per_warp) {
+    const int u = base + (lane >> lanes_log2);  // (b * HoWo + output pixel) * G + group
+    const bool active = u < nunits;
     float gx = 0.f, gy = 0.f;
     float xr = 0.f, yr = 0.f;
+    int q = 0;  // index of the unit's coordinates, [b, group, pixel]
     if (active) {
+      const int p = u / G;  // b * HoWo + output pixel
+      const int grp = u - p * G;
       const int b = p / HoWo;
-      xr = xs[p];
-      yr = ys[p];
+      q = (b * G + grp) * HoWo + (p - b * HoWo);
+      xr = xs[q];
+      yr = ys[q];
       float x, y;
       if (ZEROS) {
         x = fminf(fmaxf(xr, -2.f), (float)W + 1.f);
@@ -155,8 +174,8 @@ bilinear_gather_backward_kernel(const T* __restrict__ img, const float* __restri
       const int pix11 = v11 ? (b * H + y1) * W + x1 : 0;
       const float w00 = (1.f - wx) * (1.f - wy), w01 = wx * (1.f - wy);
       const float w10 = (1.f - wx) * wy, w11 = wx * wy;
-      for (int j = sub; j < cv; j += lanes) {
-        const int c0 = j * VEC;
+      for (int j = sub; j < cvg; j += lanes) {
+        const int c0 = grp * Cg + j * VEC;
         float a00[VEC], a01[VEC], a10[VEC], a11[VEC], gv[VEC];
         load_vec<T, VEC>(g + (size_t)p * C + c0, true, gv);
         load_vec<T, VEC>(img + pix00 * C + c0, v00, a00);
@@ -183,8 +202,8 @@ bilinear_gather_backward_kernel(const T* __restrict__ img, const float* __restri
         gx *= clip_vjp(xr, 0.f, (float)(W - 1));
         gy *= clip_vjp(yr, 0.f, (float)(H - 1));
       }
-      d_x[p] = gx;
-      d_y[p] = gy;
+      d_x[q] = gx;
+      d_y[q] = gy;
     }
   }
 }
@@ -201,15 +220,15 @@ constexpr int kMaxBlocks = 132 * 32;  // then grid-stride
 
 template <typename T, int VEC>
 int launch(const void* img, const void* x, const void* y, const void* g, float* d_img32,
-           void* d_img, float* d_x, float* d_y, int B, int H, int W, int C, int Ho, int Wo,
-           int zeros, cudaStream_t stream) {
+           void* d_img, float* d_x, float* d_y, int B, int H, int W, int C, int G, int Ho,
+           int Wo, int zeros, cudaStream_t stream) {
   const int HoWo = Ho * Wo;
-  const int npix = B * HoWo;
-  const int cv = C / VEC;
+  const int nunits = B * HoWo * G;
+  const int cvg = C / G / VEC;
   int lanes_log2 = 0;
-  while ((1 << lanes_log2) < cv && lanes_log2 < 5) ++lanes_log2;
-  if (npix > 0) {
-    const long long wanted = (((long long)npix << lanes_log2) + kThreads - 1) / kThreads;
+  while ((1 << lanes_log2) < cvg && lanes_log2 < 5) ++lanes_log2;
+  if (nunits > 0) {
+    const long long wanted = (((long long)nunits << lanes_log2) + kThreads - 1) / kThreads;
     const int blocks = wanted < kMaxBlocks ? (int)wanted : kMaxBlocks;
     const T* src = static_cast<const T*>(img);
     const float* xs = static_cast<const float*>(x);
@@ -217,10 +236,10 @@ int launch(const void* img, const void* x, const void* y, const void* g, float* 
     const T* gs = static_cast<const T*>(g);
     if (zeros) {
       bilinear_gather_backward_kernel<T, VEC, true><<<blocks, kThreads, 0, stream>>>(
-          src, xs, ys, gs, d_img32, d_x, d_y, B, H, W, C, HoWo, lanes_log2);
+          src, xs, ys, gs, d_img32, d_x, d_y, B, H, W, C, G, HoWo, lanes_log2);
     } else {
       bilinear_gather_backward_kernel<T, VEC, false><<<blocks, kThreads, 0, stream>>>(
-          src, xs, ys, gs, d_img32, d_x, d_y, B, H, W, C, HoWo, lanes_log2);
+          src, xs, ys, gs, d_img32, d_x, d_y, B, H, W, C, G, HoWo, lanes_log2);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -238,31 +257,22 @@ int launch(const void* img, const void* x, const void* y, const void* g, float* 
 template <typename T>
 int dispatch_vec(int vec, const void* img, const void* x, const void* y, const void* g,
                  float* d_img32, void* d_img, float* d_x, float* d_y, int B, int H, int W,
-                 int C, int Ho, int Wo, int zeros, cudaStream_t stream) {
+                 int C, int G, int Ho, int Wo, int zeros, cudaStream_t stream) {
   constexpr int kWide = 16 / sizeof(T);
   if (vec == kWide)
-    return launch<T, kWide>(img, x, y, g, d_img32, d_img, d_x, d_y, B, H, W, C, Ho, Wo, zeros,
-                            stream);
+    return launch<T, kWide>(img, x, y, g, d_img32, d_img, d_x, d_y, B, H, W, C, G, Ho, Wo,
+                            zeros, stream);
   if (vec == 1)
-    return launch<T, 1>(img, x, y, g, d_img32, d_img, d_x, d_y, B, H, W, C, Ho, Wo, zeros,
+    return launch<T, 1>(img, x, y, g, d_img32, d_img, d_x, d_y, B, H, W, C, G, Ho, Wo, zeros,
                         stream);
   return -1;
 }
 
-}  // namespace
-
-// dtype: 0 = fp32, 1 = bf16, 2 = fp16, of img, g and d_img; x, y, d_x, d_y
-// and d_img32 are fp32. d_img32 is a zeroed fp32 scratch of img's shape; for
-// an fp32 image pass d_img == d_img32. vec: channels per thread, either
-// 16 / sizeof(dtype) (C divisible by it, img and g 16-byte aligned) or 1.
-// Returns cudaGetLastError() after the launches, or -1 for an argument the
-// kernel does not take.
-extern "C" int kmunet_bilinear_gather_backward(const void* img, const void* x, const void* y,
-                                               const void* g, void* d_img32, void* d_img,
-                                               void* d_x, void* d_y, int B, int H, int W,
-                                               int C, int Ho, int Wo, int dtype, int zeros,
-                                               int vec, void* stream) {
-  if (vec < 1 || B < 0 || H < 1 || W < 1 || C < 1 || Ho < 0 || Wo < 0 || C % vec != 0)
+int backward(const void* img, const void* x, const void* y, const void* g, void* d_img32,
+             void* d_img, void* d_x, void* d_y, int B, int H, int W, int C, int G, int Ho,
+             int Wo, int dtype, int zeros, int vec, void* stream) {
+  if (vec < 1 || G < 1 || B < 0 || H < 1 || W < 1 || C < 1 || Ho < 0 || Wo < 0 ||
+      C % G != 0 || (C / G) % vec != 0)
     return -1;
   const long long limit = 1LL << 30;  // keeps every index and the grid stride in int
   if ((long long)B * H * W * C >= limit || (long long)B * Ho * Wo * C >= limit) return -1;
@@ -273,15 +283,43 @@ extern "C" int kmunet_bilinear_gather_backward(const void* img, const void* x, c
   float* dy = static_cast<float*>(d_y);
   switch (dtype) {
     case 0:
-      return dispatch_vec<float>(vec, img, x, y, g, acc, d_img, dx, dy, B, H, W, C, Ho, Wo,
+      return dispatch_vec<float>(vec, img, x, y, g, acc, d_img, dx, dy, B, H, W, C, G, Ho, Wo,
                                  zeros, s);
     case 1:
-      return dispatch_vec<__nv_bfloat16>(vec, img, x, y, g, acc, d_img, dx, dy, B, H, W, C, Ho,
-                                         Wo, zeros, s);
+      return dispatch_vec<__nv_bfloat16>(vec, img, x, y, g, acc, d_img, dx, dy, B, H, W, C, G,
+                                         Ho, Wo, zeros, s);
     case 2:
-      return dispatch_vec<__half>(vec, img, x, y, g, acc, d_img, dx, dy, B, H, W, C, Ho, Wo,
+      return dispatch_vec<__half>(vec, img, x, y, g, acc, d_img, dx, dy, B, H, W, C, G, Ho, Wo,
                                   zeros, s);
     default:
       return -1;
   }
+}
+
+}  // namespace
+
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16, of img, g and d_img; x, y, d_x, d_y
+// and d_img32 are fp32. d_img32 is a zeroed fp32 scratch of img's shape; for
+// an fp32 image pass d_img == d_img32. vec: channels per thread, either
+// 16 / sizeof(dtype) (C / G divisible by it, img and g 16-byte aligned) or 1.
+// Returns cudaGetLastError() after the launches, or -1 for an argument the
+// kernel does not take.
+
+// The backward of K5: x, y, d_x, d_y (B, Ho, Wo).
+extern "C" int kmunet_bilinear_gather_backward(const void* img, const void* x, const void* y,
+                                               const void* g, void* d_img32, void* d_img,
+                                               void* d_x, void* d_y, int B, int H, int W,
+                                               int C, int Ho, int Wo, int dtype, int zeros,
+                                               int vec, void* stream) {
+  return backward(img, x, y, g, d_img32, d_img, d_x, d_y, B, H, W, C, 1, Ho, Wo, dtype, zeros,
+                  vec, stream);
+}
+
+// The backward of K4: x, y, d_x, d_y (B, G, Ho, Wo).
+extern "C" int kmunet_bilinear_gather_grouped_backward(
+    const void* img, const void* x, const void* y, const void* g, void* d_img32, void* d_img,
+    void* d_x, void* d_y, int B, int H, int W, int C, int G, int Ho, int Wo, int dtype,
+    int zeros, int vec, void* stream) {
+  return backward(img, x, y, g, d_img32, d_img, d_x, d_y, B, H, W, C, G, Ho, Wo, dtype, zeros,
+                  vec, stream);
 }

@@ -1,19 +1,24 @@
 """K5, the bilinear gather at pixel coordinates (border or zeros padding),
-and K6, its backward.
+K4, its grouped form (one coordinate set per channel group), and K6, the
+backward of both.
 
 The port's counterparts of ``kmunet_tpu/kernels/bilinear_pallas.py``'s
 ``gather_bilinear_border`` / ``gather_bilinear_zeros`` (the ``pl.pallas_call``
-in ``_forward``) and of their custom VJP's backward ``_backward_impl`` (the
-``pl.pallas_call`` of ``_kernel_bwd``). The CUDA kernels are
-``csrc/bilinear_gather.cu`` and ``csrc/bilinear_gather_backward.cu``; their
-source notes say what bounds them and how they are laid out.
+in ``_forward``), ``gather_bilinear_grouped`` (the ``pl.pallas_call`` in
+``_forward_grouped``) and of their custom VJP's backward ``_backward_impl``
+with ``shared=False`` (the ``pl.pallas_call`` of ``_kernel_bwd``). The CUDA
+kernels are ``csrc/bilinear_gather.cu`` (K5 and K4, one kernel with a group
+count) and ``csrc/bilinear_gather_backward.cu`` (K6 for both); their source
+notes say what bounds them and how they are laid out.
 
-``bilinear_gather`` is what callers use: a ``torch.autograd.Function``
-(``BilinearGather``) whose forward is K5 and whose backward is K6 on a CUDA
-tensor, and the plain versions of both on a CPU tensor. It dispatches on the
-device of its input alone; on a CUDA tensor it launches the kernels or
-raises. ``bilinear_gather.launches`` and ``bilinear_gather_backward.launches``
-count the kernels' launches.
+``bilinear_gather`` and ``bilinear_gather_grouped`` are what callers use:
+autograd functions (``BilinearGather``, ``BilinearGatherGrouped``) whose
+forward is K5 (K4) and whose backward is K6 on a CUDA tensor, and the
+plain versions of both on a CPU tensor. They dispatch on the device of their
+input alone; on a CUDA tensor they launch the kernels or raise. Each launcher
+counts its kernel's launches: ``bilinear_gather.launches``,
+``bilinear_gather_backward.launches``, ``bilinear_gather_grouped.launches``
+and ``bilinear_gather_grouped_backward.launches``.
 """
 
 from __future__ import annotations
@@ -151,33 +156,103 @@ def bilinear_gather_backward_plain(
     return d_flat.reshape(B, H, W, C).to(img.dtype), d_x.to(x.dtype), d_y.to(y.dtype)
 
 
+def _fold_groups(t: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*G, H, W, C/G): channel block g of image b is image
+    b*G + g."""
+    B, H, W, C = t.shape
+    return t.reshape(B, H, W, G, C // G).permute(0, 3, 1, 2, 4).reshape(B * G, H, W, C // G)
+
+
+def _unfold_groups(t: torch.Tensor, B: int) -> torch.Tensor:
+    """The inverse of ``_fold_groups``: (B*G, H, W, Cg) -> (B, H, W, G*Cg)."""
+    BG, H, W, Cg = t.shape
+    G = BG // B
+    return t.reshape(B, G, H, W, Cg).permute(0, 2, 3, 1, 4).reshape(B, H, W, G * Cg)
+
+
+def _check_groups(img, x, y) -> None:
+    if img.dim() != 4 or x.dim() != 4 or x.shape != y.shape or x.shape[0] != img.shape[0]:
+        raise ValueError(f"want img (B,H,W,C), x/y (B,G,Ho,Wo); got {tuple(img.shape)}, "
+                         f"{tuple(x.shape)}, {tuple(y.shape)}")
+    if img.shape[-1] % x.shape[1]:
+        raise ValueError(f"C={img.shape[-1]} is not a multiple of G={x.shape[1]}")
+
+
+def bilinear_gather_grouped_plain(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_mode: str = "border"
+) -> torch.Tensor:
+    """Plain PyTorch version of K4: channel block g of ``img`` (B, H, W, C),
+    C/G channels, sampled at its own pixel coords ``x[:, g]``, ``y[:, g]``
+    ((B, G, Ho, Wo)) -> (B, Ho, Wo, C).
+
+    What ``kmunet_tpu/ops/sample.py::bilinear_gather_grouped_xla`` computes,
+    the same way: the groups folded into the batch, then
+    ``bilinear_gather_plain`` (tap weights cast to ``img``'s dtype).
+    """
+    _check_groups(img, x, y)
+    B, G, Ho, Wo = x.shape
+    out = bilinear_gather_plain(_fold_groups(img, G), x.reshape(B * G, Ho, Wo),
+                                y.reshape(B * G, Ho, Wo), padding_mode)
+    return _unfold_groups(out, B)
+
+
+def bilinear_gather_grouped_backward_plain(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+    padding_mode: str = "border",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6 for K4: the VJP of
+    ``bilinear_gather_grouped_plain`` for the upstream gradient ``g``
+    (B, Ho, Wo, C); returns (d_img (B, H, W, C), d_x, d_y (B, G, Ho, Wo)) in
+    the dtypes of ``img``, ``x`` and ``y``, with the conventions of
+    ``bilinear_gather_backward_plain`` (d_img accumulated in fp32; d_x of
+    group g sums over group g's channels only)."""
+    _check_groups(img, x, y)
+    B, G, Ho, Wo = x.shape
+    d_img, d_x, d_y = bilinear_gather_backward_plain(
+        _fold_groups(img, G), x.reshape(B * G, Ho, Wo), y.reshape(B * G, Ho, Wo),
+        _fold_groups(g, G), padding_mode)
+    return _unfold_groups(d_img, B), d_x.reshape(B, G, Ho, Wo), d_y.reshape(B, G, Ho, Wo)
+
+
 @functools.cache
-def _kernel(source: str, name: str, n_pointers: int) -> ctypes._CFuncPtr:
+def _kernel(source: str, name: str, n_pointers: int, n_ints: int) -> ctypes._CFuncPtr:
     """The C entry ``name`` of the library built from ``csrc/<source>``:
-    ``n_pointers`` tensor pointers, nine ints, then the stream."""
+    ``n_pointers`` tensor pointers, ``n_ints`` ints, then the stream."""
     fn = getattr(ctypes.CDLL(str(build.build(source).path)), name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def forward_kernel() -> ctypes._CFuncPtr:
     """K5's entry point, built on first use."""
-    return _kernel(SOURCE, "kmunet_bilinear_gather", 4)
+    return _kernel(SOURCE, "kmunet_bilinear_gather", 4, 9)
 
 
 def backward_kernel() -> ctypes._CFuncPtr:
     """K6's entry point, built on first use."""
-    return _kernel(BACKWARD_SOURCE, "kmunet_bilinear_gather_backward", 8)
+    return _kernel(BACKWARD_SOURCE, "kmunet_bilinear_gather_backward", 8, 9)
 
 
-def _check(img, x, y, padding_mode):
+def grouped_kernel() -> ctypes._CFuncPtr:
+    """K4's entry point, built on first use (from K5's source)."""
+    return _kernel(SOURCE, "kmunet_bilinear_gather_grouped", 4, 10)
+
+
+def grouped_backward_kernel() -> ctypes._CFuncPtr:
+    """K6's grouped entry point, built on first use (from K6's source)."""
+    return _kernel(BACKWARD_SOURCE, "kmunet_bilinear_gather_grouped_backward", 8, 10)
+
+
+def _check(img, x, y, padding_mode, grouped: bool = False):
     _check_mode(padding_mode)
     if not img.is_cuda:
         raise ValueError(f"the CUDA gather needs a CUDA tensor, got {img.device}")
     if img.dtype not in _DTYPE_CODES:
         raise TypeError(f"img dtype {img.dtype} not in {list(_DTYPE_CODES)}")
-    if img.dim() != 4 or x.dim() != 3 or x.shape != y.shape or x.shape[0] != img.shape[0]:
+    if grouped:
+        _check_groups(img, x, y)
+    elif img.dim() != 4 or x.dim() != 3 or x.shape != y.shape or x.shape[0] != img.shape[0]:
         raise ValueError(f"want img (B,H,W,C), x/y (B,Ho,Wo); got {img.shape}, {x.shape}, {y.shape}")
     for name, t in (("x", x), ("y", y)):
         if t.dtype != torch.float32:
@@ -187,15 +262,29 @@ def _check(img, x, y, padding_mode):
     for name, t in (("img", img), ("x", x), ("y", y)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if max(img.numel(), x.shape.numel() * img.shape[-1]) >= 2**30:
+    # The kernels index in int32. DySample's dec3 output at B=128 (128^2, C=64)
+    # is 134 M elements, inside the limit.
+    if max(img.numel(), x.shape[0] * x.shape[-2] * x.shape[-1] * img.shape[-1]) >= 2**30:
         raise ValueError("the kernel takes images and outputs of fewer than 2**30 elements")
 
 
-def _vec(img, *tensors) -> int:
-    """Channels per thread: 16 bytes' worth where C and every pointer allow it."""
+def _check_grad(img, x, g):
+    B, C = img.shape[0], img.shape[-1]
+    Ho, Wo = x.shape[-2:]
+    if g.dtype != img.dtype or g.device != img.device or g.shape != (B, Ho, Wo, C):
+        raise ValueError(f"g must be {img.dtype} ({B}, {Ho}, {Wo}, {C}) on {img.device}; "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+
+
+def _vec(img, *tensors, channels=None) -> int:
+    """Channels per thread: 16 bytes' worth where the channels of a group
+    (``channels``, default all of C) and every pointer allow it, else 1."""
     wide = 16 // img.element_size()
+    channels = img.shape[-1] if channels is None else channels
     aligned = all(t.data_ptr() % 16 == 0 for t in (img, *tensors))
-    return wide if img.shape[-1] % wide == 0 and aligned else 1
+    return wide if channels % wide == 0 and aligned else 1
 
 
 def _launch(fn, img, *args) -> None:
@@ -237,13 +326,9 @@ def bilinear_gather_backward(
     if img.device.type == "cpu":
         return bilinear_gather_backward_plain(img, x, y, g, padding_mode)
     _check(img, x, y, padding_mode)
+    _check_grad(img, x, g)
     B, H, W, C = img.shape
     Ho, Wo = x.shape[1:3]
-    if g.dtype != img.dtype or g.device != img.device or g.shape != (B, Ho, Wo, C):
-        raise ValueError(f"g must be {img.dtype} ({B}, {Ho}, {Wo}, {C}) on {img.device}; "
-                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
-    if not g.is_contiguous():
-        raise ValueError("g must be contiguous")
     d_img32 = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
     d_img = d_img32 if img.dtype == torch.float32 else torch.empty_like(img)
     d_x = torch.empty_like(x)
@@ -291,5 +376,92 @@ def bilinear_gather(
     return BilinearGather.apply(img, x, y, padding_mode)
 
 
+def bilinear_gather_grouped_forward(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_mode: str = "border"
+) -> torch.Tensor:
+    """The grouped gather without its gradient: (B, Ho, Wo, C) in ``img``'s
+    dtype. A CPU ``img`` takes the plain version; a CUDA ``img`` launches
+    K4, which takes fp32, bf16 and fp16 images with fp32 coordinates
+    (B, G, Ho, Wo). Its launches count on ``bilinear_gather_grouped.launches``."""
+    if img.device.type == "cpu":
+        return bilinear_gather_grouped_plain(img, x, y, padding_mode)
+    _check(img, x, y, padding_mode, grouped=True)
+    B, H, W, C = img.shape
+    G, Ho, Wo = x.shape[1:]
+    out = torch.empty((B, Ho, Wo, C), dtype=img.dtype, device=img.device)
+    _launch(grouped_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
+            _vec(img, channels=C // G))
+    bilinear_gather_grouped.launches += 1
+    return out
+
+
+def bilinear_gather_grouped_backward(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+    padding_mode: str = "border",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d_img, d_x, d_y) of the grouped gather for the upstream gradient
+    ``g`` (B, Ho, Wo, C) in ``img``'s dtype. A CPU ``img`` takes the plain
+    version; a CUDA ``img`` launches K6's grouped entry, which takes fp32,
+    bf16 and fp16 images with fp32 coordinates, and returns d_x, d_y
+    (B, G, Ho, Wo) in fp32. Its launches count on
+    ``bilinear_gather_grouped_backward.launches``."""
+    if img.device.type == "cpu":
+        return bilinear_gather_grouped_backward_plain(img, x, y, g, padding_mode)
+    _check(img, x, y, padding_mode, grouped=True)
+    _check_grad(img, x, g)
+    B, H, W, C = img.shape
+    G, Ho, Wo = x.shape[1:]
+    d_img32 = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    d_img = d_img32 if img.dtype == torch.float32 else torch.empty_like(img)
+    d_x = torch.empty_like(x)
+    d_y = torch.empty_like(y)
+    _launch(grouped_backward_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(),
+            g.data_ptr(), d_img32.data_ptr(), d_img.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
+            B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
+            _vec(img, g, channels=C // G))
+    bilinear_gather_grouped_backward.launches += 1
+    return d_img, d_x, d_y
+
+
+class BilinearGatherGrouped(torch.autograd.Function):
+    """The grouped gather with its gradient: K4 forward and K6's grouped
+    backward on a CUDA tensor, the plain versions of both on a CPU tensor.
+    Never runs a plain version on a CUDA tensor."""
+
+    @staticmethod
+    def forward(ctx, img, x, y, padding_mode):
+        ctx.padding_mode = padding_mode
+        ctx.save_for_backward(img, x, y)
+        return bilinear_gather_grouped_forward(img, x, y, padding_mode)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        img, x, y = ctx.saved_tensors
+        d_img, d_x, d_y = bilinear_gather_grouped_backward(img, x, y, g.contiguous(),
+                                                           ctx.padding_mode)
+        need = ctx.needs_input_grad
+        return (d_img if need[0] else None, d_x if need[1] else None,
+                d_y if need[2] else None, None)
+
+
+def bilinear_gather_grouped(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_mode: str = "border"
+) -> torch.Tensor:
+    """Per-group bilinear sample: channel block g of ``img`` (B, H, W, C) at
+    its own pixel coordinates ``x[:, g]``, ``y[:, g]`` ((B, G, Ho, Wo));
+    returns (B, Ho, Wo, C) in ``img``'s dtype, with its gradient to all three
+    inputs.
+
+    A CPU ``img`` takes the plain versions; a CUDA ``img`` launches K4 (and
+    K6's grouped entry in the backward), which take fp32, bf16 and fp16
+    images and fp32 coordinates.
+    """
+    return BilinearGatherGrouped.apply(img, x, y, padding_mode)
+
+
 bilinear_gather.launches = 0
 bilinear_gather_backward.launches = 0
+bilinear_gather_grouped.launches = 0
+bilinear_gather_grouped_backward.launches = 0

@@ -2,7 +2,7 @@
 
 Only ``hybrid_loss``, the SH training loss, is ported so far; the other four
 (``rainfall_loss``, ``en_rainfall_loss``, ``rain_loss``,
-``weighted_mse_mae``) wait for ROADMAP Queue 1 item 11.
+``weighted_mse_mae``) wait for ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations

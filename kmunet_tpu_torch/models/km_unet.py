@@ -105,9 +105,13 @@ class EnhancedViMBlock(nn.Module):
 
 class KM_UNetV3(nn.Module):
     """The flagship, SH variant: DAGEM bridge and DySample upsampling.
-    ``drop_path`` is the EnhancedViM blocks' stochastic-depth rate."""
+    ``drop_path`` is the EnhancedViM blocks' stochastic-depth rate;
+    ``dysample_window`` picks the three DySamples' path (the JAX package's
+    ``DYSAMPLE_WINDOW``): True the dense window formulation, False the exact
+    grouped gather (K4 on the card)."""
 
-    def __init__(self, num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1):
+    def __init__(self, num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1,
+                 dysample_window: bool = True):
         super().__init__()
         d0, d1, d2 = embed_dims
         self.conv_f = nn.Conv2d(5, 16, 3, padding=1)  # 5 input frames
@@ -119,14 +123,14 @@ class KM_UNetV3(nn.Module):
             setattr(self, f"enc{i}_iwp", IntelligentWaveletPooling(c))
             setattr(self, f"lca{i}", LocalContrastAttention(c))
         self.bridge = DAGEM(d2)
-        self.dec1_up = DySample(d2)
+        self.dec1_up = DySample(d2, window=dysample_window)
         self.dec1_kan = StableHybridKANConv(d2, d1)
         self.attention1 = MultiScaleFusion((d0, d1, d1))
-        self.dec2_up = DySample(2 * d1)
+        self.dec2_up = DySample(2 * d1, window=dysample_window)
         self.dec2_conv = nn.Conv2d(2 * d1, d1, 3, padding=1)
         self.dec2_vim = EnhancedViMBlock(d1, drop_path=drop_path)
         self.attention2 = MultiScaleFusion((d0, d1, d1))
-        self.dec3_up = DySample(2 * d1)
+        self.dec3_up = DySample(2 * d1, window=dysample_window)
         self.dec3_conv = nn.Conv2d(2 * d1, d0, 3, padding=1)
         self.dec3_vim = EnhancedViMBlock(d0, drop_path=drop_path)
         self.head = nn.Conv2d(d0, num_classes, 3, padding=1)
@@ -158,10 +162,11 @@ class KM_UNetV3(nn.Module):
         return torch.sigmoid(self.output_norm(self.head(d))).permute(0, 2, 3, 1)
 
 
-def KM_UNetV3_SH(num_classes: int = 20, embed_dims=(16, 32, 64),
-                 drop_path: float = 0.1) -> KM_UNetV3:
+def KM_UNetV3_SH(num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1,
+                 dysample_window: bool = True) -> KM_UNetV3:
     """Shanghai variant (20 forecast frames from 5 input frames)."""
-    return KM_UNetV3(num_classes=num_classes, embed_dims=tuple(embed_dims), drop_path=drop_path)
+    return KM_UNetV3(num_classes=num_classes, embed_dims=tuple(embed_dims), drop_path=drop_path,
+                     dysample_window=dysample_window)
 
 
 @torch.no_grad()

@@ -1,8 +1,11 @@
 """Bilinear resampling (port of ``kmunet_tpu/ops/sample.py``).
 
 ``bilinear_gather`` is the NHWC gather at pixel coordinates that the
-deformable conv runs through: on a CUDA tensor it is the K5 kernel
+deformable conv runs through, and ``grid_sample_bilinear`` its
+``F.grid_sample``-style front: on a CUDA tensor the K5 kernel
 (``kernels/bilinear.py``), on a CPU tensor its plain version.
+``bilinear_gather_grouped`` samples each channel group at its own
+coordinates, DySample's exact path: K4 on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -10,12 +13,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from kmunet_tpu_torch.kernels.bilinear import bilinear_gather, bilinear_gather_plain
+from kmunet_tpu_torch.kernels.bilinear import (
+    bilinear_gather,
+    bilinear_gather_grouped,
+    bilinear_gather_grouped_plain,
+    bilinear_gather_plain,
+)
 
 __all__ = [
     "bilinear_gather",
+    "bilinear_gather_grouped",
+    "bilinear_gather_grouped_plain",
     "bilinear_gather_plain",
     "dysample_window_upsample",
+    "grid_sample_bilinear",
     "resize_bilinear",
 ]
 
@@ -79,3 +90,26 @@ def dysample_window_upsample(x: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor
             subs.append(acc)
     out = torch.stack(subs).view(s, s, B, C, h, w)
     return out.permute(2, 3, 4, 0, 5, 1).reshape(B, C, s * h, s * w)
+
+
+def grid_sample_bilinear(img: torch.Tensor, grid: torch.Tensor, align_corners: bool = False,
+                         padding_mode: str = "border") -> torch.Tensor:
+    """``F.grid_sample``-compatible bilinear sampling of NHWC ``img``
+    (B, H, W, C) at ``grid`` (B, Ho, Wo, 2), normalised [-1, 1] coordinates
+    with ``grid[..., 0]`` along W; returns (B, Ho, Wo, C) through
+    ``bilinear_gather``. With ``align_corners`` -1 and 1 are the outer pixel
+    centres, else the outer pixel edges. Border mode clamps the pixel
+    coordinates to the image first, as torch does."""
+    B, H, W, _ = img.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        x = (gx + 1.0) * 0.5 * (W - 1)
+        y = (gy + 1.0) * 0.5 * (H - 1)
+    else:
+        x = ((gx + 1.0) * W - 1.0) * 0.5
+        y = ((gy + 1.0) * H - 1.0) * 0.5
+    if padding_mode == "border":
+        x = x.clamp(0.0, W - 1)
+        y = y.clamp(0.0, H - 1)
+    return bilinear_gather(img, x.float().contiguous(), y.float().contiguous(),
+                           padding_mode=padding_mode)

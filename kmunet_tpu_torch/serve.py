@@ -3,8 +3,9 @@
     model = build_km_unet_v3_sh()               # on "cuda"; raises without a card
     forecast = predict(model, frames)           # (B, H, W, 5) -> (B, H, W, 20)
 
-Pass ``device="cpu"`` to run on the CPU (the gather then takes its plain
-version); nothing falls back to the CPU on its own.
+Pass ``device="cpu"`` to run on the CPU (the gathers then take their plain
+versions); nothing falls back to the CPU on its own. Pass
+``dysample_window=False`` for DySample's exact path (the K4 grouped gather).
 """
 
 from __future__ import annotations
@@ -22,13 +23,13 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def build_km_unet_v3_sh(device=None, dtype: torch.dtype = torch.float32,
-                        seed: int = 0) -> torch.nn.Module:
+def build_km_unet_v3_sh(device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                        dysample_window: bool = True) -> torch.nn.Module:
     """KM_UNetV3-SH (20 output frames, embed_dims 16/32/64) in eval mode,
     initialised from ``seed`` with the JAX package's distributions, on
-    ``device`` in ``dtype``."""
+    ``device`` in ``dtype``; ``dysample_window`` as in ``KM_UNetV3``."""
     device = resolve_device(device)
-    model = KM_UNetV3_SH()
+    model = KM_UNetV3_SH(dysample_window=dysample_window)
     init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, dtype=dtype).eval()
 

@@ -14,10 +14,14 @@ takes its plain versions); nothing falls back to the CPU on its own. The
 ``generator`` (on the model's device) feeds DropPath; it may be None when
 ``model.extra["drop_path"]`` is 0.
 
+``build_model(cfg, dysample_window=False)`` takes DySample's exact path
+(the K4 grouped gather and its K6 backward on the card).
+
 What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item: other models and variants, losses, optimizers and schedules
-(Queue 1 items 10, 11, 17), ``kan_reg_weight`` (item 2), and ``remat``,
-``grad_clip`` and ``wd_mask_norms`` (item 15).
+ROADMAP item: the LAPS variant and ``head_norm`` (Queue 1 item 3), the other
+models (item 10), losses, optimizers and schedules (item 5),
+``kan_reg_weight`` (item 4), and ``remat``, ``grad_clip`` and
+``wd_mask_norms`` (item 8).
 """
 
 from __future__ import annotations
@@ -52,37 +56,40 @@ class TrainState:
     opt_state: AdamWState
 
 
-def build_model(cfg: ExperimentConfig) -> KM_UNetV3:
+def build_model(cfg: ExperimentConfig, dysample_window: bool = True) -> KM_UNetV3:
+    """KM_UNetV3-SH of ``cfg.model``; ``dysample_window=False`` takes
+    DySample's exact path (the JAX package's ``DYSAMPLE_WINDOW``, which its
+    config does not carry either)."""
     m = cfg.model
     if m.name != "km_unet_v3" or m.variant != "sh":
         raise NotImplementedError(
-            f"model {m.name!r} variant {m.variant!r}: the port has KM_UNetV3-SH only "
-            "(ROADMAP Queue 1 items 10 and 17)")
+            f"model {m.name!r} variant {m.variant!r}: not in the port yet; the LAPS variant "
+            "is ROADMAP Queue 1 item 3, the other models item 10")
     extra = dict(m.extra)
     drop_path = float(extra.pop("drop_path", 0.1))
     if extra:
-        raise NotImplementedError(f"model.extra {sorted(extra)}: not in the port yet "
-                                  "(ROADMAP Queue 1 item 10)")
+        raise NotImplementedError(f"model.extra {sorted(extra)}: not in the port yet; "
+                                  "head_norm is ROADMAP Queue 1 item 3")
     return KM_UNetV3(num_classes=m.num_classes, embed_dims=tuple(m.embed_dims),
-                     drop_path=drop_path)
+                     drop_path=drop_path, dysample_window=dysample_window)
 
 
 def build_loss(cfg: ExperimentConfig) -> Callable:
     if cfg.train.loss != "hybrid":
         raise NotImplementedError(f"loss {cfg.train.loss!r}: the port has hybrid only "
-                                  "(ROADMAP Queue 1 item 11)")
+                                  "(ROADMAP Queue 1 item 5)")
     return functools.partial(hybrid_loss, alpha=cfg.train.loss_alpha)
 
 
 def build_optimizer(cfg: ExperimentConfig, steps_per_epoch: int) -> AdamW:
     t = cfg.train
     if t.grad_clip:
-        raise NotImplementedError("grad_clip: not in the port yet (ROADMAP Queue 1 item 15)")
+        raise NotImplementedError("grad_clip: not in the port yet (ROADMAP Queue 1 item 8)")
     if t.wd_mask_norms:
-        raise NotImplementedError("wd_mask_norms: not in the port yet (ROADMAP Queue 1 item 15)")
+        raise NotImplementedError("wd_mask_norms: not in the port yet (ROADMAP Queue 1 item 8)")
     if t.schedule != "cosine_epoch":
         raise NotImplementedError(f"schedule {t.schedule!r}: the port has cosine_epoch only "
-                                  "(ROADMAP Queue 1 item 11)")
+                                  "(ROADMAP Queue 1 item 5)")
     sched = cosine_annealing_per_epoch(t.lr, t.eta_min, t.cosine_t_max, steps_per_epoch)
     return make_optimizer(t.optimizer, sched, weight_decay=t.weight_decay)
 
@@ -116,10 +123,10 @@ def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
     some ops in fp32 and compute another function.) The BatchNorm running
     buffers are updated in place on ``model``."""
     if cfg.train.remat:
-        raise NotImplementedError("remat: not in the port yet (ROADMAP Queue 1 item 15)")
+        raise NotImplementedError("remat: not in the port yet (ROADMAP Queue 1 item 8)")
     if cfg.train.kan_reg_weight:
         raise NotImplementedError("kan_reg_weight: needs kan_regularization_loss "
-                                  "(ROADMAP Queue 1 item 2)")
+                                  "(ROADMAP Queue 1 item 4)")
     if cfg.train.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {list(_COMPUTE_DTYPES)}")
     cdtype = _COMPUTE_DTYPES[cfg.train.compute_dtype]

@@ -1,7 +1,7 @@
 """Optimizers of the port (port of ``kmunet_tpu/train/optimizers.py``).
 
 Only AdamW, the SH recipe's optimizer, is ported so far: the other eight of
-the reference's factory wait for ROADMAP Queue 1 item 11.
+the reference's factory wait for ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -82,5 +82,5 @@ def make_optimizer(name: str, learning_rate: Schedule, *, weight_decay: float = 
     """The optimizer factory; the port has ``adamw`` only."""
     if name.lower() != "adamw":
         raise NotImplementedError(
-            f"optimizer {name!r}: the port has adamw only (ROADMAP Queue 1 item 11)")
+            f"optimizer {name!r}: the port has adamw only (ROADMAP Queue 1 item 5)")
     return AdamW(learning_rate, weight_decay=weight_decay)

@@ -2,8 +2,8 @@
 """Where the PyTorch port's KM_UNetV3-SH forward, or its train step, spends
 its time on the card.
 
-    python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16]
-    python3 scripts/profile_torch_forward.py --train [--batch 16]
+    python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16] [--exact]
+    python3 scripts/profile_torch_forward.py --train [--batch 16] [--exact]
 
 Prints JSON lines: the card (``nvidia-smi`` name and power limit); for the
 forward, the time of each top-level module of the model, from CUDA events
@@ -12,7 +12,9 @@ kernel, so host gaps while the device waits fall into it); and from
 ``torch.profiler`` the device busy time of one forward (or one SH train
 step: hybrid loss, AdamW, bf16 compute unless ``--dtype float32``, 128^2,
 seq_len 25, on synthetic data) against its wall time (the idle share) and
-the kernels that take the most device time. Needs an NVIDIA GPU.
+the kernels that take the most device time. ``--exact`` runs DySample's
+exact path (``dysample_window=False``: the K4 grouped gather) in place of
+its window path. Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def module_times(model, frames, iters: int) -> dict:
     return {name: sum(a.elapsed_time(b) for a, b in evs) / iters for name, evs in events.items()}
 
 
-def train_step(batch: int, dtype: str):
+def train_step(batch: int, dtype: str, window: bool):
     """One SH train step at ``batch`` as a closure, after two warm-up steps."""
     from kmunet_tpu_torch.configs import shanghai_km_unet
     from kmunet_tpu_torch.data import SyntheticNowcastDataset
@@ -70,7 +72,7 @@ def train_step(batch: int, dtype: str):
 
     cfg = shanghai_km_unet()
     cfg.data.img_size, cfg.data.batch_size, cfg.train.compute_dtype = 128, batch, dtype
-    model = engine.build_model(cfg)
+    model = engine.build_model(cfg, dysample_window=window)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=0)
     step = engine.make_train_step(model, engine.build_loss(cfg), tx, cfg)
@@ -93,6 +95,7 @@ def main() -> int:
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--train", action="store_true", help="profile one train step")
+    p.add_argument("--exact", action="store_true", help="DySample's exact path")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_forward: needs an NVIDIA GPU", file=sys.stderr)
@@ -100,11 +103,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30, check=True).stdout.strip()
     if args.train:
-        run = train_step(args.batch, args.dtype)
-        emit({"card": card, "batch": args.batch, "dtype": args.dtype, "train": True})
+        run = train_step(args.batch, args.dtype, not args.exact)
+        emit({"card": card, "batch": args.batch, "dtype": args.dtype, "train": True,
+              "exact": args.exact})
     else:
         dtype = getattr(torch, args.dtype)
-        model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0)
+        model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0,
+                                          dysample_window=not args.exact)
         frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
 
         def run():
@@ -113,7 +118,7 @@ def main() -> int:
         for _ in range(2):
             run()
         torch.cuda.synchronize()
-        emit({"card": card, "batch": args.batch, "dtype": args.dtype,
+        emit({"card": card, "batch": args.batch, "dtype": args.dtype, "exact": args.exact,
               "module_ms": module_times(model, frames, args.iters)})
 
     from torch.profiler import ProfilerActivity, profile

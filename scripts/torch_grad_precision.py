@@ -5,12 +5,16 @@ JAX package's fp32 and float64 gradients lie from the same one.
 
     python3 scripts/torch_grad_precision.py [--device cuda] [--size 32]
     python3 scripts/torch_grad_precision.py --device cpu --jax   # needs JAX
+    python3 scripts/torch_grad_precision.py --device cpu --jax --seed 0 --jax-steps 1
 
 The step is ``chip_smoke.py``'s fp32 card-vs-CPU check: the SH recipe at
 B=2 with no stochastic depth, at 32^2 (seq_len 9, 5 -> 4; the config of
 tests/test_torch_gpu.py) or at 128^2 (seq_len 25, 5 -> 20). Weights come
 from ``--seed``: the port's own initialisation, or with ``--jax`` the JAX
-package's ``init_state`` from ``PRNGKey(seed)``, converted. The batch is
+package's ``init_state`` from ``PRNGKey(seed)``, converted, and moved on by
+``--jax-steps`` steps of the JAX engine on the same batch (the state from
+which tests/test_torch_train.py takes the port's second step, with
+``--seed 0 --jax-steps 1``). The batch is
 ``np.random.default_rng(--batch-seed).random``. TF32 is off. The float64
 reference is the port's model and loss in float64 on the CPU (the gather
 still takes fp32 coordinates, as the kernels do).
@@ -67,10 +71,10 @@ def port_gradients(cfg, params, batch, device, dtype, seed):
     return float(loss), {k: g.detach().cpu().double() for k, g in zip(named, grads)}
 
 
-def jax_gradients(cfg_args, seed, batch):
-    """The JAX package's weights from ``PRNGKey(seed)`` and its gradients in
-    fp32 (XLA's default optimisation level) and float64, mapped to the port's
-    names."""
+def jax_gradients(cfg_args, seed, batch, steps=0):
+    """The JAX package's weights from ``PRNGKey(seed)``, after ``steps``
+    steps of its engine on ``batch``, and its gradients there in fp32 (XLA's
+    default optimisation level) and float64, mapped to the port's names."""
     import jax
     import jax.numpy as jnp
 
@@ -88,8 +92,13 @@ def jax_gradients(cfg_args, seed, batch):
     cfg.model.extra["drop_path"] = 0.0
     cfg.train.compute_dtype = "float32"
     model = engine_jax.build_model(cfg)
-    state = engine_jax.init_state(cfg, model, engine_jax.build_optimizer(cfg, 100),
-                                  jax.random.PRNGKey(seed))
+    tx = engine_jax.build_optimizer(cfg, 10)
+    state = engine_jax.init_state(cfg, model, tx, jax.random.PRNGKey(seed))
+    if steps:
+        step = jax.jit(engine_jax._make_train_body(model, engine_jax.build_loss(cfg), tx, cfg),
+                       compiler_options={"xla_backend_optimization_level": 3})
+        for i in range(steps):
+            state, _ = step(state, jnp.asarray(batch), jax.random.fold_in(jax.random.PRNGKey(3), i))
     loss_of = engine_jax.make_loss_of(model, engine_jax.build_loss(cfg), cfg)
     variables = jax.device_get({"params": state.params, "batch_stats": state.batch_stats})
 
@@ -145,6 +154,28 @@ def norm_movers(a, b):
                         if float(b[k].norm()) > 0 else 0.0} for k, v in top]}
 
 
+def port_vs_jax(port, jax32, jax64, ref, zero_leaves, rtol=2e-3):
+    """Leaves, but the zero-gradient ones, whose fp32 gradients, the port's
+    and JAX's, lie more than ``rtol`` of the leaf's largest |JAX gradient|
+    apart (tests/test_torch_train.py's GRAD_RTOL), with each side's distance
+    from the port's float64 gradient and JAX's float64 from it, all relative
+    to the leaf's largest."""
+    largest = max(float(g.abs().max()) for g in jax32.values())
+    rows = []
+    for k, want in jax32.items():
+        scale = float(want.abs().max())
+        gap = float((port[k] - want).abs().max())
+        if k not in zero_leaves and scale > 0.0 and gap > rtol * scale:
+            r = max(float(ref[k].abs().max()), 1e-300)
+            rows.append({"leaf": k, "gap": gap / scale, "gap_share_of_largest": gap / largest,
+                         "leaf_share_of_largest": scale / largest,
+                         "port_fp32_vs_fp64": float((port[k] - ref[k]).abs().max()) / r,
+                         "jax_fp32_vs_fp64": float((want - ref[k]).abs().max()) / r,
+                         "jax_fp64_vs_port_fp64": float((jax64[k] - ref[k]).abs().max()) / r})
+    rows.sort(key=lambda r: -r["gap"])
+    return {"leaves": len(jax32), "largest": largest, "over_rtol": rows}
+
+
 def first_update_gap(a, b, ref, lr=1e-3, eps=1e-8, atol=1e-4):
     """Elements whose AdamW first updates, lr * g / (|g| + eps), from the
     gradients ``a`` and ``b`` differ by more than ``atol``, and the worst."""
@@ -168,6 +199,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--batch-seed", type=int, default=7)
     ap.add_argument("--jax", action="store_true")
+    ap.add_argument("--jax-steps", type=int, default=0)
     args = ap.parse_args()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -181,7 +213,8 @@ def main() -> int:
                                                          dtype=np.float32)
     params, runs = None, {}
     if args.jax:
-        params, jax_runs = jax_gradients((args.size, 2, seq, out), args.seed, batch)
+        params, jax_runs = jax_gradients((args.size, 2, seq, out), args.seed, batch,
+                                         args.jax_steps)
         for name, (loss, g) in jax_runs.items():
             runs[name] = (loss, to_port_names(cfg, g, params["batch_stats"]))
     ref_loss, ref = port_gradients(cfg, params, batch, "cpu", torch.float64, args.seed)
@@ -204,6 +237,8 @@ def main() -> int:
                                                        runs["port_fp32_cpu"][1])})
         emit({"adamw_first_update_gap": first_update_gap(runs["jax_fp32"][1],
                                                          runs["port_fp32_cpu"][1], ref)})
+        emit({"port_vs_jax_fp32": port_vs_jax(runs["port_fp32_cpu"][1], runs["jax_fp32"][1],
+                                              runs["jax_fp64"][1], ref, zero_leaves)})
     return 0
 
 

@@ -1,7 +1,8 @@
-"""The port on the card: the CUDA K5 gather and its K6 backward against their
-plain versions, the gather's gradient against the CPU's, and the forward and
-a train step through them against the CPU's. Marked ``gpu``; they skip where
-there is no card. This file imports no JAX, so it runs on a machine without
+"""The port on the card: the CUDA K5 gather, its grouped form K4 and their K6
+backward against their plain versions, the gathers' gradients against the
+CPU's, and the forward and a train step through them, on DySample's window
+and exact paths, against the CPU's. Marked ``gpu``; they skip where there is
+no card. This file imports no JAX, so it runs on a machine without
 it: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 """
 
@@ -14,7 +15,14 @@ from kmunet_tpu_torch import serve
 from kmunet_tpu_torch.kernels import bilinear
 # By its own name (pytest puts tests/ on sys.path): tests/ has no __init__.py,
 # so an installed regular package named ``tests`` would shadow ``tests.*``.
-from torch_cases import GATHER_CASES, GATHER_SHAPES, cuda_device, gather_inputs  # noqa: F401
+from torch_cases import (  # noqa: F401
+    GATHER_CASES,
+    GATHER_SHAPES,
+    GROUPED_SHAPES,
+    cuda_device,
+    gather_inputs,
+    grouped_inputs,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -155,4 +163,127 @@ def test_cuda_train_step_matches_cpu(cuda_device, monkeypatch):
         launched = (bilinear.bilinear_gather.launches - before[0],
                     bilinear.bilinear_gather_backward.launches - before[1])
         assert launched == ((9, 9) if device.type == "cuda" else (0, 0))
+    chip_smoke.compare_steps(runs["cuda"], runs["cpu"])
+
+
+def _grouped(shape, case, device, dtype):
+    img, x, y, g = grouped_inputs(GROUPED_SHAPES[shape], case)
+    img_t, g_t = (torch.from_numpy(a).to(device, dtype) for a in (img, g))
+    x_t, y_t = (torch.from_numpy(a).to(device) for a in (x, y))
+    return img_t, x_t, y_t, g_t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("shape", list(GROUPED_SHAPES))
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_cuda_grouped_kernels_match_plain(cuda_device, mode, shape, case, dtype):
+    """K4 and K6's grouped entry with the bounds of K5 and K6 above: fp32
+    against the plain versions, bf16 against the kernels' own fp32 results
+    on the same rounded inputs; Cg of 3 and 6 take one channel per thread."""
+    img, x, y, g = _grouped(shape, case, cuda_device, dtype)
+    before = (bilinear.bilinear_gather_grouped.launches,
+              bilinear.bilinear_gather_grouped_backward.launches)
+    got = bilinear.bilinear_gather_grouped_forward(img, x, y, mode).float()
+    got_b = bilinear.bilinear_gather_grouped_backward(img, x, y, g, mode)
+    torch.cuda.synchronize()
+    assert (bilinear.bilinear_gather_grouped.launches,
+            bilinear.bilinear_gather_grouped_backward.launches) == (before[0] + 1, before[1] + 1)
+    if dtype == torch.float32:
+        want = bilinear.bilinear_gather_grouped_plain(img, x, y, mode)
+        tol = torch.full_like(want, 1e-5)
+        want_b = bilinear.bilinear_gather_grouped_backward_plain(img, x, y, g, mode)
+    else:
+        want = bilinear.bilinear_gather_grouped_forward(img.float(), x, y, mode)
+        tol = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+        want_b = bilinear.bilinear_gather_grouped_backward(img.float(), x, y, g.float(), mode)
+    assert bool(((got - want).abs() <= tol).all())
+    term_sums = bilinear.bilinear_gather_grouped_backward_plain(
+        img.float(), x, y, g.float().abs(), mode)[0]
+    for name, a, b in zip(("d_img", "d_x", "d_y"), got_b, want_b):
+        assert a.dtype == (dtype if name == "d_img" else torch.float32)
+        tol = 1e-5 + 1e-5 * b.abs()
+        if name == "d_img":
+            tol = tol + 1e-6 * term_sums
+            if dtype != torch.float32:
+                tol = tol + torch.ldexp(torch.ones_like(b), torch.frexp(b).exponent - 8)
+        assert bool(((a.float() - b).abs() <= tol).all()), name
+
+
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_cuda_grouped_gather_gradient_matches_cpu(cuda_device, mode):
+    """Through ``BilinearGatherGrouped``: K4 forward and K6's grouped
+    backward on the card against the plain versions on the CPU, fp32."""
+    outs, grads = {}, {}
+    for device in (cuda_device, torch.device("cpu")):
+        img, x, y, g = _grouped("dysample", "spread", device, torch.float32)
+        img, x, y = (t.requires_grad_() for t in (img, x, y))
+        before = (bilinear.bilinear_gather_grouped.launches,
+                  bilinear.bilinear_gather_grouped_backward.launches)
+        out = bilinear.bilinear_gather_grouped(img, x, y, mode)
+        out.backward(g)
+        launched = (bilinear.bilinear_gather_grouped.launches - before[0],
+                    bilinear.bilinear_gather_grouped_backward.launches - before[1])
+        assert launched == ((1, 1) if device.type == "cuda" else (0, 0))
+        outs[device.type] = out.detach().cpu()
+        grads[device.type] = [t.grad.cpu() for t in (img, x, y)]
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0, atol=1e-5)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_grouped_kernels_reject_what_they_do_not_take(cuda_device):
+    img = torch.zeros(1, 4, 4, 8, device=cuda_device)
+    x = torch.zeros(1, 4, 2, 2, device=cuda_device)
+    g = torch.zeros(1, 2, 2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of G"):
+        bilinear.bilinear_gather_grouped(img[..., :6], x, x)
+    with pytest.raises(TypeError):
+        bilinear.bilinear_gather_grouped(img, x.half(), x.half())
+    with pytest.raises(ValueError):
+        bilinear.bilinear_gather_grouped(img, x[:, 0], x[:, 0])
+    with pytest.raises(ValueError):
+        bilinear.bilinear_gather_grouped_backward(img, x, x, g.half())
+    with pytest.raises(ValueError):
+        bilinear.bilinear_gather_grouped_backward(img, x, x, g.transpose(1, 2))
+
+
+def test_cuda_exact_path_forward_matches_cpu(cuda_device, monkeypatch):
+    """``dysample_window=False`` on the card against the CPU, TF32 off, with
+    each DySample's offsets scaled to reach 2 px (chip_smoke.reach_offsets):
+    9 K5 and 3 K4 launches per forward, within 1e-4 abs."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    frames = np.random.default_rng(2).uniform(size=(2, 32, 32, 5)).astype(np.float32)
+    model_gpu = serve.build_km_unet_v3_sh(device=cuda_device, seed=2, dysample_window=False)
+    _, reach = chip_smoke.reach_offsets(torch, model_gpu, torch.from_numpy(frames).to(cuda_device),
+                                        2.0)
+    assert max(reach) > 1.0
+    model_cpu = serve.build_km_unet_v3_sh(device="cpu", seed=2, dysample_window=False)
+    model_cpu.load_state_dict(model_gpu.state_dict())
+    before = (bilinear.bilinear_gather.launches, bilinear.bilinear_gather_grouped.launches)
+    got = serve.predict(model_gpu, frames).cpu().numpy()
+    assert (bilinear.bilinear_gather.launches - before[0],
+            bilinear.bilinear_gather_grouped.launches - before[1]) == (9, 3)
+    want = serve.predict(model_cpu, frames).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_cuda_exact_path_train_step_matches_cpu(cuda_device, monkeypatch):
+    """``test_cuda_train_step_matches_cpu`` on DySample's exact path: 9 K5,
+    9 K6, 3 K4 and 3 grouped K6 launches, within ``chip_smoke.compare_steps``."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = chip_smoke.sh_config(2, "float32", drop_path=0.0, img_size=32, seq_len=9,
+                               out_frames=4)
+    batch = np.random.default_rng(7).random((2, 9, 32, 32), dtype=np.float32)
+    counters = (bilinear.bilinear_gather, bilinear.bilinear_gather_backward,
+                bilinear.bilinear_gather_grouped, bilinear.bilinear_gather_grouped_backward)
+    runs = {}
+    for device in (cuda_device, torch.device("cpu")):
+        before = [c.launches for c in counters]
+        runs[device.type] = chip_smoke.step_gradients(cfg, device, batch, seed=1,
+                                                      dysample_window=False)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([9, 9, 3, 3] if device.type == "cuda" else [0, 0, 0, 0])
     chip_smoke.compare_steps(runs["cuda"], runs["cpu"])

@@ -45,3 +45,25 @@ def gather_inputs(shape, case, seed=0):
     img = rng.normal(size=shape).astype(np.float32)
     x, y = coordinate_cases(rng, B, H, W, H + 1, W - 2)[case]
     return img, x, y
+
+
+# (B, H, W, C, G, Ho, Wo): one coordinate set per channel group of C/G
+# channels. Cg = 6 and 3 take no 16-byte vector in fp32 (one channel per
+# thread on the card); "dysample" is DySample's 2x layout (Cg = 16).
+GROUPED_SHAPES = {
+    "g1_cg6": (2, 7, 9, 6, 1, 8, 7),
+    "g2_cg3": (2, 7, 9, 6, 2, 8, 7),
+    "g4_cg6": (2, 7, 9, 24, 4, 8, 7),
+    "dysample": (1, 8, 8, 64, 4, 16, 16),
+}
+
+
+def grouped_inputs(shape, case, seed=0):
+    """img (B, H, W, C), the coordinate case drawn for every group, x and y
+    (B, G, Ho, Wo), and an upstream gradient (B, Ho, Wo, C), numpy fp32."""
+    B, H, W, C, G, Ho, Wo = shape
+    rng = np.random.default_rng(seed)
+    img = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    x, y = coordinate_cases(rng, B * G, H, W, Ho, Wo)[case]
+    g = rng.normal(size=(B, Ho, Wo, C)).astype(np.float32)
+    return img, x.reshape(B, G, Ho, Wo), y.reshape(B, G, Ho, Wo), g
