@@ -6,11 +6,11 @@
 Phases, each printing one JSON line with its seconds:
 
 1. device  -- the card's name; ``nvidia-smi``'s name and power limit line.
-2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K5 and K4, the
-              gather and its grouped form) and ``csrc/bilinear_gather_backward.cu``
-              (K6, the backward of both) built with nvcc for sm_90a, one nvcc
-              each, both started together; the ``-Xptxas -v`` reports are
-              printed once.
+2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K5, K4 and K7,
+              the gather and its grouped and multiview forms) and
+              ``csrc/bilinear_gather_backward.cu`` (K6, the backward of all
+              three) built with nvcc for sm_90a, one nvcc each, both started
+              together; the ``-Xptxas -v`` reports are printed once.
 3. kernel  -- K5 and K6 against their plain PyTorch versions on the card,
               zeros and border modes, fp32/bf16/fp16, at the DAGEM bridge
               shape, a ragged one and one whose C takes no 16-byte vectors,
@@ -29,7 +29,14 @@ Phases, each printing one JSON line with its seconds:
               same way, with the same bounds, at DySample's three shapes
               (dec1/dec2/dec3 at B=2, C=64, G=4), a ragged shape of Cg=6,
               one of Cg=3, and G=1 and G=8, each group on its own draw of
-              the coordinate cases.
+              the coordinate cases. Then K7 and K6's shared-source entry the
+              same way, with the same bounds, at TrajGRU's three RNN shapes
+              (32^2 C=64 G=13, 8^2 C=192 G=13, 4^2 C=192 G=9, at B=2), C=6
+              and C=3 (one channel per thread in fp32 and bf16), and G=1 and
+              G=16, each view on its own draw of the coordinate cases; and a
+              layout case: at integer coordinates x = j - dx_l, y = i - dy_l,
+              K7's channel block l must equal the source shifted by
+              (dy_l, dx_l), zeros outside, exactly.
 4. slice   -- the serving path: KM_UNetV3-SH at full width (embed_dims
               16/32/64, 128^2, 5 -> 20 frames), seeded weights, eval mode,
               built and served through ``kmunet_tpu_torch.serve`` on the card
@@ -56,7 +63,30 @@ Phases, each printing one JSON line with its seconds:
               abs (the floor of the leaves whose exact gradient is 0, where
               both sides hold rounding noise). ``train_exact`` repeats both
               with ``dysample_window=False``: K4 and K6's grouped entry must
-              launch 3 times per step, K5 and K6 9 times.
+              launch 3 times per step, K5 and K6 9 times. No SH path may
+              launch K7 or its backward.
+   serve_trajgru -- TrajGRU_EF at full width (encoder RNNs 64/192/192
+              channels with 13/13/9 flow fields, forecaster 192/192/64 with
+              13/13/9), 128^2, 5 -> 20 frames, seeded weights, built and
+              served through ``serve.build_zoo_model("trajgru")`` for a few
+              requests of B=2 in fp32 with TF32 off, each cell's flow conv
+              scaled so that its largest flow on the first request is 2 px
+              (the seeded init gives about 0.1 px); K7 must launch 75 times
+              per forward (15 encoder and 60 forecaster cell steps) and no
+              other kernel; each answer (2, 20, 128, 128), finite, within 1e-4
+              abs and 1e-5 of its largest |value| (about 1e-2) of the same
+              weights on the CPU.
+   train_trajgru -- one fp32 step of the ("trajgru", "pic") recipe (Adam
+              lr 1e-4, weighted_mse_mae over the thresholds 20/30/35/40,
+              MultiStepLR) at full width, 128^2, seq_len 25, B=2, the flow
+              convs scaled by FLOW_SCALE, on the card against the same
+              gradient in float64 on the CPU (``float64_gradients``) through
+              ``compare_steps``: K7 and K6's shared-source entry must launch
+              75 times each and no other kernel. The CPU's fp32 step is no
+              reference here: its bias gradient of the last 1x1 conv, a sum
+              over 655 k outputs, lies 7e-5 of the leaf from float64, which
+              moves its grad norm 6.1e-5 (the card's: 7e-8), by
+              scripts/torch_grad_precision.py --model trajgru --size 128.
 6. timing  -- CUDA events after warm-up, PyTorch's default TF32 settings:
               the forward at B=128 bf16 on the window and the exact path and
               at B=8 fp32 (ms, frames/s = B*20/s); the train step at B=16 and
@@ -70,7 +100,15 @@ Phases, each printing one JSON line with its seconds:
               by CUDA events over back-to-back calls (``ms``: what a caller
               waits, host issue included), by CUDA events over calls queued
               behind a spinning kernel (``queued_ms``: device time, no host
-              gap) and by the profiler's device time (``device_ms``).
+              gap) and by the profiler's device time (``device_ms``). For
+              TrajGRU: the forward at B=16 bf16 (ms, frames/s) and the
+              recipe's train step at B=16 bf16 (ms), and K7 and K6's
+              shared-source entry at enc_rnn1's shape (B=16, 32^2, C=64,
+              G=13, bf16, zeros, coordinates grid + N(0, 1) px) against
+              ``F.grid_sample`` (align_corners, zeros) and
+              ``aten.grid_sampler_2d_backward`` plus the sum over the views,
+              on the source broadcast into the batch (a copy made before
+              timing).
 Then the kernels line, and last ``{"ok": true, "device": {...}}``. Any failed
 phase raises: the run exits non-zero and prints no result, also when no CUDA
 device is present. A hard deadline ends a run that hangs.
@@ -133,6 +171,29 @@ STEP_GRAD_NORM_RTOL = 5e-5
 STEP_LEAF_RTOL = 1e-3
 STEP_LEAF_ATOL = 1e-6  # the leaves whose exact gradient is 0 hold rounding noise
 TAPS = 9  # DeformConv2d 3x3: one K5 launch per tap, one K6 launch per tap's backward
+K7_SOURCE = K5_SOURCE  # the same kernel with a shared-source flag
+K7_REPLACES = K4_REPLACES  # _forward_grouped's pallas_call, shared=True
+K6S_SOURCE = K6_SOURCE
+K6S_REPLACES = K6_REPLACES  # _backward_impl, shared=True
+# K7's shapes (B, H, W, C, G, Ho, Wo): TrajGRU's three RNN levels at 128^2
+# input and B=2, C of 6 and 3 (no 16-byte vector in fp32), and G=1 and G=16.
+MULTIVIEW_SHAPES = {
+    "rnn1": (2, 32, 32, 64, 13, 32, 32),
+    "rnn2": (2, 8, 8, 192, 13, 8, 8),
+    "rnn3": (2, 4, 4, 192, 9, 4, 4),
+    "c6": (2, 7, 9, 6, 3, 8, 7),
+    "c3": (2, 5, 6, 3, 9, 4, 8),
+    "g1": (2, 7, 9, 24, 1, 8, 7),
+    "g16": (2, 9, 7, 16, 16, 10, 12),
+}
+RNN1 = (16, 32, 32, 64, 13, 32, 32)  # K7's timing shape: enc_rnn1 at B=16
+# TrajGRU cell steps per forward: 5 input frames through 3 encoder RNNs, 20
+# output frames through 3 forecaster RNNs; one K7 launch each, one K6
+# shared-source launch each in the backward.
+TRAJGRU_WARPS = 3 * 5 + 3 * 20
+FLOW_REACH_PX = 2.0  # serve_trajgru's largest flow per cell
+FLOW_SCALE = 30.0  # train_trajgru's flow convs: flows reach about 3 px at enc_rnn1
+TRAJGRU_BATCH = 16  # bench.py's zoo batch for trajgru, timed in bf16
 
 
 def emit(obj) -> None:
@@ -305,29 +366,116 @@ def sh_config(B, dtype, drop_path=0.1, img_size=128, seq_len=25, out_frames=20):
     return cfg
 
 
-def train_setup(cfg, device, seed=0, dysample_window=True):
+def trajgru_config(B, dtype, img_size=128, seq_len=25, out_frames=20):
+    """The ("trajgru", "pic") recipe (Adam lr 1e-4, weighted_mse_mae over
+    the thresholds 20/30/35/40, MultiStepLR) on the SH data config (128^2,
+    seq_len 25, 5 -> 20) at batch B in compute ``dtype``."""
+    from kmunet_tpu_torch.configs import shanghai_km_unet
+    from kmunet_tpu_torch.train.recipes import apply_recipe
+
+    cfg = apply_recipe(shanghai_km_unet(), "trajgru", "pic")
+    cfg.data.img_size, cfg.data.batch_size = img_size, B
+    cfg.data.seq_len, cfg.data.out_frames = seq_len, out_frames
+    cfg.model.num_classes = out_frames
+    cfg.train.compute_dtype = dtype
+    return cfg
+
+
+def flow_convs(model):
+    """The flow conv of each TrajGRU cell of ``model``, in the order of the
+    forward."""
+    from kmunet_tpu_torch.models.ef import TrajGRUCell
+
+    return [m.flows_conv for m in model.modules() if isinstance(m, TrajGRUCell)]
+
+
+def scale_flows(model, factor):
+    """Multiplies each TrajGRU cell's flows (its flow conv's weight and
+    bias) by ``factor``: the seeded init's flows are about 0.1 px."""
+    import torch
+
+    with torch.no_grad():
+        for m in flow_convs(model):
+            m.weight.mul_(factor)
+            m.bias.mul_(factor)
+
+
+def largest_flows(torch, model, frames):
+    """The largest |flow| (px) of each TrajGRU cell of ``model`` on ``frames``."""
+    seen = {}
+    convs = flow_convs(model)
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, i=i: seen.__setitem__(i, max(seen.get(i, 0.0),
+                                                            float(out.abs().max()))))
+        for i, m in enumerate(convs)]
+    with torch.inference_mode():
+        model(frames)
+    for h in hooks:
+        h.remove()
+    return [seen[i] for i in range(len(convs))]
+
+
+def reach_flows(torch, model, frames, reach):
+    """Scales each TrajGRU cell's flow conv, in the order of the forward, so
+    that its largest |flow| on ``frames`` is ``reach`` px (as
+    ``reach_offsets`` does for DySample); returns the largest flows before
+    and after."""
+    before = largest_flows(torch, model, frames)
+    for i, m in enumerate(flow_convs(model)):
+        factor = reach / largest_flows(torch, model, frames)[i]
+        with torch.no_grad():
+            m.weight.mul_(factor)
+            m.bias.mul_(factor)
+    return before, largest_flows(torch, model, frames)
+
+
+def train_setup(cfg, device, seed=0, dysample_window=True, flow_scale=1.0):
     """(model, state, step, tx) of ``cfg`` with weights from ``seed``, on
-    DySample's window path or (``dysample_window=False``) its exact path."""
+    DySample's window path or (``dysample_window=False``) its exact path; a
+    TrajGRU's flows multiplied by ``flow_scale``."""
     from kmunet_tpu_torch.train import engine
 
     model = engine.build_model(cfg, dysample_window=dysample_window)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=seed, device=device)
+    if flow_scale != 1.0:
+        scale_flows(model, flow_scale)
     return model, state, engine.make_train_step(model, engine.build_loss(cfg), tx, cfg), tx
 
 
-def step_gradients(cfg, device, batch, seed=0, dysample_window=True):
+def step_gradients(cfg, device, batch, seed=0, dysample_window=True, flow_scale=1.0):
     """One train step of ``cfg`` on ``device`` from weights made from
     ``seed``: (loss, grad norm, {name: gradient}), the gradients read on the
     CPU where the optimizer takes them, so they are the ones the step
     applied."""
-    _, state, step, tx = train_setup(cfg, device, seed, dysample_window)
+    _, state, step, tx = train_setup(cfg, device, seed, dysample_window, flow_scale)
     seen = []
     update = tx.update
     tx.update = lambda grads, st, params: seen.append([g.cpu() for g in grads]) or update(
         grads, st, params)
     _, m = step(state, batch)
     return float(m["loss"]), float(m["grad_norm"]), dict(zip(state.params, seen[0]))
+
+
+def float64_gradients(cfg, batch, seed=0, flow_scale=1.0):
+    """The exact reference of ``step_gradients(cfg, "cuda", batch, seed,
+    flow_scale=flow_scale)``: (loss, grad norm, {name: gradient}) of the same
+    loss from the same weights, computed in float64 on the CPU."""
+    import torch
+
+    from kmunet_tpu_torch.train import engine
+
+    model, _, _, _ = train_setup(cfg, "cpu", seed, flow_scale=flow_scale)
+    model.double()
+    layout = engine._model_layout(cfg)
+    inp, tgt = engine._split_batch(torch.as_tensor(batch, dtype=torch.float64),
+                                   cfg.data.in_frames, cfg.data.out_frames, layout)
+    loss = engine.build_loss(cfg)(engine._to_btHW(model(inp), layout), tgt)
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True,
+                                materialize_grads=True)
+    norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads]))
+    return float(loss.detach()), float(norm), dict(zip(named, grads))
 
 
 def compare_steps(card, cpu):
@@ -361,6 +509,26 @@ def grouped_case_inputs(np, rng, shape):
     cases = {name: (x.reshape(B, G, Ho, Wo), y.reshape(B, G, Ho, Wo)) for name, (x, y)
              in coordinate_cases(rng, B * G, H, W, Ho, Wo).items()}
     return img, g, cases
+
+
+def shifted_views(torch, img, shifts):
+    """What K7 returns at integer coordinates x = j - dx_l, y = i - dy_l for
+    the (dy_l, dx_l) in ``shifts``: view l is ``img`` (B, H, W, C) shifted by
+    (dy_l, dx_l), zeros where it leaves the image -> (B, H, W, L*C); and
+    those coordinates, (B, L, H, W) fp32 each."""
+    B, H, W, C = img.shape
+    views, xs, ys = [], [], []
+    jj = torch.arange(W, device=img.device, dtype=torch.float32).view(1, W)
+    ii = torch.arange(H, device=img.device, dtype=torch.float32).view(H, 1)
+    for dy, dx in shifts:
+        out = torch.zeros_like(img)
+        out[:, max(dy, 0):H + min(dy, 0), max(dx, 0):W + min(dx, 0)] = img[
+            :, max(-dy, 0):H - max(dy, 0), max(-dx, 0):W - max(dx, 0)]
+        views.append(out)
+        xs.append((jj - dx).expand(H, W))
+        ys.append((ii - dy).expand(H, W))
+    stack = lambda t: torch.stack(t).expand(B, -1, -1, -1).contiguous()  # noqa: E731
+    return torch.cat(views, -1), stack(xs), stack(ys)
 
 
 def expect_launches(path, launches, want):
@@ -422,11 +590,14 @@ def main() -> int:
     kernels = {"bilinear_gather": bilinear.bilinear_gather,
                "bilinear_gather_backward": bilinear.bilinear_gather_backward,
                "bilinear_gather_grouped": bilinear.bilinear_gather_grouped,
-               "bilinear_gather_grouped_backward": bilinear.bilinear_gather_grouped_backward}
+               "bilinear_gather_grouped_backward": bilinear.bilinear_gather_grouped_backward,
+               "bilinear_gather_multiview": bilinear.bilinear_gather_multiview,
+               "bilinear_gather_multiview_backward": bilinear.bilinear_gather_multiview_backward}
 
-    def launches_per(k5=0, k6=0, k4=0, k6g=0):
+    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0):
         return {"bilinear_gather": k5, "bilinear_gather_backward": k6,
-                "bilinear_gather_grouped": k4, "bilinear_gather_grouped_backward": k6g}
+                "bilinear_gather_grouped": k4, "bilinear_gather_grouped_backward": k6g,
+                "bilinear_gather_multiview": k7, "bilinear_gather_multiview_backward": k6s}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -452,7 +623,8 @@ def main() -> int:
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, started together
             builds = list(pool.map(build.build, sources))
         for entry in (bilinear.forward_kernel, bilinear.backward_kernel,
-                      bilinear.grouped_kernel, bilinear.grouped_backward_kernel):
+                      bilinear.grouped_kernel, bilinear.grouped_backward_kernel,
+                      bilinear.multiview_kernel, bilinear.multiview_backward_kernel):
             entry()
         f.update(sources=[K5_SOURCE, K6_SOURCE],
                  libraries=[os.path.relpath(b.path, REPO) for b in builds],
@@ -501,7 +673,7 @@ def main() -> int:
                 errs.append(check_close(f"{names[1]} {k} {name}", a, b, tol))
             errors_b[k] = max(errs)
 
-    errors, k6_errors, k4_errors, k6g_errors = {}, {}, {}, {}
+    errors, k6_errors, k4_errors, k6g_errors, k7_errors, k6s_errors = {}, {}, {}, {}, {}, {}
     with Phase("kernel") as f:
         rng = np.random.default_rng(0)
         plain_ops = (bilinear.bilinear_gather_forward, bilinear.bilinear_gather_backward,
@@ -528,10 +700,33 @@ def main() -> int:
                 for mode in ("zeros", "border"):
                     check_kernels(("K4", "K6 grouped"), grouped_ops, img32, x, y, g32,
                                   f"{shape_name}/{case}/{mode}", k4_errors, k6g_errors)
+        multiview_ops = (bilinear.bilinear_gather_multiview_forward,
+                         bilinear.bilinear_gather_multiview_backward,
+                         bilinear.bilinear_gather_multiview_plain,
+                         bilinear.bilinear_gather_multiview_backward_plain)
+        for shape_name, (B, H, W, C, G, Ho, Wo) in MULTIVIEW_SHAPES.items():
+            # grouped_case_inputs draws a (B, Ho, Wo, C) gradient: K7's has G*C channels.
+            img, _, coords = grouped_case_inputs(np, rng, (B, H, W, C, G, Ho, Wo))
+            g = rng.normal(size=(B, Ho, Wo, G * C)).astype(np.float32)
+            img32, g32 = torch.from_numpy(img).to(dev), torch.from_numpy(g).to(dev)
+            for case, (x, y) in coords.items():
+                x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+                for mode in ("zeros", "border"):
+                    check_kernels(("K7", "K6 shared"), multiview_ops, img32, x, y, g32,
+                                  f"{shape_name}/{case}/{mode}", k7_errors, k6s_errors)
+        # The view-block layout: view l at integer coordinates is the source
+        # shifted, exactly (the taps' weights are 0 and 1).
+        img32 = torch.from_numpy(rng.normal(size=(2, 6, 7, 16)).astype(np.float32)).to(dev)
+        want, x, y = shifted_views(torch, img32, [(0, 0), (1, 0), (0, -2), (-1, 3), (2, 2)])
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            got = bilinear.bilinear_gather_multiview_forward(img32.to(dtype), x, y, "zeros")
+            if not torch.equal(got, want.to(dtype)):
+                raise AssertionError(f"K7 layout {dtype}: view l is not the source shifted")
         torch.cuda.synchronize()
-        f.update(cases=len(errors) + len(k4_errors), k5_max_abs_err=errors,
+        f.update(cases=len(errors) + len(k4_errors) + len(k7_errors), k5_max_abs_err=errors,
                  k6_max_abs_err=k6_errors, k4_max_abs_err=k4_errors,
-                 k6_grouped_max_abs_err=k6g_errors)
+                 k6_grouped_max_abs_err=k6g_errors, k7_max_abs_err=k7_errors,
+                 k6_shared_max_abs_err=k6s_errors, k7_layout="exact")
 
     def serve_path(path, window, f):
         """Serves REQUESTS fp32 requests of B=2 on the card with
@@ -616,6 +811,55 @@ def main() -> int:
         train_path("train", True, f)
     with Phase("train_exact") as f:
         train_path("train_exact", False, f)
+
+    with Phase("serve_trajgru") as f:
+        # REQUESTS fp32 requests of B=2 on the card, TF32 off, held to the
+        # same weights on the CPU.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = serve.build_zoo_model("trajgru", device="cuda", dtype=torch.float32, seed=0)
+        requests = [rng.uniform(size=(REQUEST_BATCH, 5, 128, 128)).astype(np.float32)
+                    for _ in range(REQUESTS)]
+        flows = reach_flows(torch, model, torch.from_numpy(requests[0]).to(dev), FLOW_REACH_PX)
+        reset_counts()
+        answers = [serve.predict(model, frames) for frames in requests]
+        launches = path_launches["serve_trajgru"] = read_counts()
+        expect_launches("serve_trajgru", launches, launches_per(k7=TRAJGRU_WARPS * REQUESTS))
+        model_cpu = serve.build_zoo_model("trajgru", device="cpu", dtype=torch.float32, seed=0)
+        model_cpu.load_state_dict(model.state_dict())
+        err, scale = 0.0, 0.0
+        for frames, answer in zip(requests, answers):
+            if tuple(answer.shape) != (REQUEST_BATCH, 20, 128, 128):
+                raise AssertionError(f"trajgru answer shape {tuple(answer.shape)}")
+            if not bool(torch.isfinite(answer).all()):
+                raise AssertionError("trajgru answer has non-finite values")
+            err = max(err, float((answer.cpu() - serve.predict(model_cpu, frames)).abs().max()))
+            scale = max(scale, float(answer.abs().max()))
+        # The seeded model's answers are about 1e-2: besides 1e-4 abs, hold
+        # the error to 1e-5 of the largest answer.
+        if err > min(1e-4, 1e-5 * scale):
+            raise AssertionError(f"serve_trajgru: card vs CPU forward: max abs err {err} > "
+                                 f"min(1e-4, 1e-5 * {scale})")
+        f.update(requests=REQUESTS, batch=REQUEST_BATCH, largest_flow_px_seeded=flows[0],
+                 largest_flow_px=flows[1], launches=launches, max_abs_err_vs_cpu=err,
+                 answer_max_abs=scale, tf32=False)
+        del model, model_cpu, answers
+
+    with Phase("train_trajgru") as f:
+        # One fp32 step of the recipe on the card, TF32 off, against the
+        # same gradient in float64 on the CPU.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        batch = synthetic_batch(np, CHECK_BATCH, seed=2)
+        cfg = trajgru_config(CHECK_BATCH, "float32")
+        reset_counts()
+        card = step_gradients(cfg, "cuda", batch, flow_scale=FLOW_SCALE)
+        launches = path_launches["train_trajgru"] = read_counts()
+        expect_launches("train_trajgru", launches,
+                        launches_per(k7=TRAJGRU_WARPS, k6s=TRAJGRU_WARPS))
+        check = compare_steps(card, float64_gradients(cfg, batch, flow_scale=FLOW_SCALE))
+        f.update(batch=CHECK_BATCH, compute="float32", reference="float64 on the CPU",
+                 flow_scale=FLOW_SCALE, launches=launches, check=check, tf32=False)
 
     def time_kernel(kernel, plain, library, img, x, n_out, backward, iters, plain_iters):
         """A kernel's numbers beside its bound, its plain version and the
@@ -732,10 +976,71 @@ def main() -> int:
                                                             [True, True]),
             img, x, B * Ho * Wo * C, True, 20, 3)
         del img, x, y, g, grid, img_lib, g_lib
+
+        # TrajGRU: the forward and the recipe's step at B=16 bf16.
+        model = serve.build_zoo_model("trajgru", device="cuda", dtype=torch.bfloat16, seed=0)
+        frames = torch.rand(TRAJGRU_BATCH, 5, 128, 128, device=dev).to(torch.bfloat16)
+        out = serve.predict(model, frames)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("TrajGRU B=16 bf16 forward has non-finite values")
+        ms = cuda_ms(torch, lambda: serve.predict(model, frames), 5)
+        forward[f"trajgru_B{TRAJGRU_BATCH}_bfloat16"] = {
+            "ms": ms, "frames_per_s": TRAJGRU_BATCH * 20 / (ms / 1e3)}
+        del model, frames, out
+        model, state, step, _ = train_setup(trajgru_config(TRAJGRU_BATCH, "bfloat16"), "cuda")
+        batch = torch.from_numpy(synthetic_batch(np, TRAJGRU_BATCH, seed=3)).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        ms = cuda_ms(torch, lambda: losses.append(step(state, batch)[1]["loss"]), 5)
+        if not all(bool(torch.isfinite(v)) for v in losses):
+            raise AssertionError("TrajGRU B=16 bf16 step has a non-finite loss")
+        train[f"trajgru_B{TRAJGRU_BATCH}_bfloat16"] = {
+            "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del model, state, step, batch
+
+        # K7 and K6's shared-source entry at enc_rnn1's shape, zeros mode, at
+        # TrajGRU-like coordinates (the grid - N(0, 1) px flows).
+        B, H, W, C, G, Ho, Wo = RNN1
+        img = torch.randn(B, H, W, C, device=dev).to(torch.bfloat16)
+        ii = torch.arange(Ho, device=dev, dtype=torch.float32).view(1, 1, Ho, 1)
+        jj = torch.arange(Wo, device=dev, dtype=torch.float32).view(1, 1, 1, Wo)
+        y = (ii - torch.randn(B, G, Ho, Wo, device=dev)).contiguous()
+        x = (jj - torch.randn(B, G, Ho, Wo, device=dev)).contiguous()
+        g = torch.randn(B, Ho, Wo, G * C, device=dev).to(torch.bfloat16)
+        # The library takes the source broadcast into the batch, NCHW, and
+        # returns the views batch-major: these copies are made here.
+        img_lib = img.permute(0, 3, 1, 2)[:, None].expand(B, G, C, H, W).reshape(B * G, C, H, W)
+        g_lib = g.view(B, Ho, Wo, G, C).permute(0, 3, 4, 1, 2).reshape(B * G, C, Ho, Wo)
+        grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], dim=-1).reshape(
+            B * G, Ho, Wo, 2).to(img.dtype)
+        k7 = lambda: bilinear.bilinear_gather_multiview_forward(img, x, y, "zeros")  # noqa: E731
+
+        def library_multiview():
+            return F.grid_sample(img_lib, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        def library_multiview_backward():
+            d_img, d_grid = torch.ops.aten.grid_sampler_2d_backward(
+                g_lib, img_lib, grid, 0, 0, True, [True, True])  # bilinear, zeros, align_corners
+            return d_img.view(B, G, C, H, W).sum(1), d_grid
+
+        timed["bilinear_gather_multiview"] = time_kernel(
+            k7, lambda: bilinear.bilinear_gather_multiview_plain(img, x, y, "zeros"),
+            library_multiview, img, x, B * Ho * Wo * G * C, False, 100, 5)
+        timed["bilinear_gather_multiview"]["library_max_abs_diff"] = float((
+            library_multiview().view(B, G, C, Ho, Wo).permute(0, 3, 4, 1, 2).reshape(
+                B, Ho, Wo, G * C).float() - k7().float()).abs().max())
+        timed["bilinear_gather_multiview_backward"] = time_kernel(
+            lambda: bilinear.bilinear_gather_multiview_backward(img, x, y, g, "zeros"),
+            lambda: bilinear.bilinear_gather_multiview_backward_plain(img, x, y, g, "zeros"),
+            library_multiview_backward, img, x, B * Ho * Wo * G * C, True, 20, 3)
+        del img, x, y, g, grid, img_lib, g_lib
         f.update(forward=forward, train_step=train, tf32_conv=True,
                  shapes={"bilinear_gather": list(BRIDGE), "bilinear_gather_backward": list(BRIDGE),
                          "bilinear_gather_grouped": list(DEC3),
-                         "bilinear_gather_grouped_backward": list(DEC3)},
+                         "bilinear_gather_grouped_backward": list(DEC3),
+                         "bilinear_gather_multiview": list(RNN1),
+                         "bilinear_gather_multiview_backward": list(RNN1)},
                  dtype="bfloat16", kernels=timed)
 
     def by_path(name):
@@ -749,7 +1054,9 @@ def main() -> int:
             ("bilinear_gather", K5_SOURCE, K5_REPLACES, errors),
             ("bilinear_gather_backward", K6_SOURCE, K6_REPLACES, k6_errors),
             ("bilinear_gather_grouped", K4_SOURCE, K4_REPLACES, k4_errors),
-            ("bilinear_gather_grouped_backward", K6G_SOURCE, K6G_REPLACES, k6g_errors)):
+            ("bilinear_gather_grouped_backward", K6G_SOURCE, K6G_REPLACES, k6g_errors),
+            ("bilinear_gather_multiview", K7_SOURCE, K7_REPLACES, k7_errors),
+            ("bilinear_gather_multiview_backward", K6S_SOURCE, K6S_REPLACES, k6s_errors)):
         t = timed[name]
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path(name).values()),

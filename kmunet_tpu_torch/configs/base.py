@@ -1,6 +1,6 @@
-"""The fields of ``kmunet_tpu/configs/base.py`` that the SH training step
-reads, with the same names and defaults, written out again (the port imports
-nothing of the JAX package).
+"""The fields of ``kmunet_tpu/configs/base.py`` that the port's training
+steps read, with the same names and defaults, written out again (the port
+imports nothing of the JAX package).
 
 ``shanghai_km_unet()`` is the reference recipe (train_shanghai.py): AdamW lr
 1e-3, weight decay 0.05 on every parameter, cosine T_max 200 and eta_min
@@ -22,6 +22,7 @@ class DataConfig:
     in_frames: int = 5
     out_frames: int = 20
     batch_size: int = 2
+    thresholds: Sequence[float] = (20, 30, 35, 40)  # weighted_mse_mae's bands
 
 
 @dataclasses.dataclass
@@ -41,6 +42,8 @@ class TrainConfig:
     schedule: str = "cosine_epoch"    # CosineAnnealingLR stepped per epoch
     cosine_t_max: int = 200
     eta_min: float = 5e-4
+    milestones: Sequence[int] = (15000, 30000)  # MultiStepLR, epoch units
+    gamma: float = 0.1                # MultiStepLR decay factor
     loss: str = "hybrid"
     loss_alpha: float = 0.7
     kan_reg_weight: float = 0.0       # 0 = off

@@ -4,14 +4,18 @@ The port's submodules carry the flax module names, so a flax path maps to a
 state_dict key by joining it with dots and renaming its leaf; the layout
 changes are:
 
-- a conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
+- a conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw); the
+  same permutation takes a ``ConvTranspose(transpose_kernel=True)`` kernel
+  (kh, kw, out, in) to ``ConvTranspose2d``'s ``weight`` (in, out, kh, kw),
+  with no spatial flip;
 - a dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - ``scale`` -> ``weight``; BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``;
 - KANConv2d's ``base_kernel`` (k, k, C, F) -> ``base_weight`` (F, C, k, k),
   ``spline_kernel`` (k, k, C, n, F) -> ``spline_weight`` (F, C, n, k, k) and
   ``spline_scaler`` (k, k, C, F) -> (F, C, k, k);
 - HSMSSD's ``BCdt_proj_kernel`` (C, 3N) -> ``BCdt_proj`` (3N, C) and
-  ``dw_kernel`` (3, 3, 1, 3N) -> ``dw_weight`` (3N, 1, 3, 3).
+  ``dw_kernel`` (3, 3, 1, 3N) -> ``dw_weight`` (3N, 1, 3, 3);
+- ConvLSTM's per-channel peepholes ``Wci``, ``Wcf``, ``Wco`` keep their names.
 
 ``to_state_dict`` raises if a flax leaf is left unused or a torch key unfilled.
 """
@@ -39,6 +43,9 @@ _RENAMES = {
     "alpha": ("alpha", None),
     "A": ("A", None),
     "D": ("D", None),
+    "Wci": ("Wci", None),
+    "Wcf": ("Wcf", None),
+    "Wco": ("Wco", None),
 }
 # Torch bookkeeping with no flax counterpart; set to 0, never read in eval.
 _TORCH_ONLY = "num_batches_tracked"

@@ -1,5 +1,6 @@
 // Bilinear gather at pixel coordinates, NHWC, border or zeros padding: one
-// coordinate set per image (K5) or one per channel group (K4).
+// coordinate set per image (K5), one per channel group (K4), or one source
+// sampled at G coordinate sets (K7).
 //
 // Replaces two TPU kernels of the JAX package,
 // kmunet_tpu/kernels/bilinear_pallas.py:
@@ -11,7 +12,15 @@
 //       (C / G channels) is sampled at its own coordinates,
 //         out[b, o, c] = bilinear sample of img[b, :, :, c] at
 //                        (x[b, c / Cg, o], y[b, c / Cg, o]),  Cg = C / G.
-//       K5 is K4 with G = 1, and both entry points below run one kernel.
+//       K5 is K4 with G = 1, and both entry points below run one kernel;
+//   K7  gather_bilinear_multiview (pl.pallas_call in _forward_grouped with
+//       shared=True), what ops/sample.py::bilinear_gather_multiview_xla
+//       computes: the whole source (C channels) is sampled at each of G
+//       coordinate sets, view g written to output channel block g,
+//         out[b, o, g * C + c] = bilinear sample of img[b, :, :, c] at
+//                                (x[b, g, o], y[b, g, o]).
+//       The same kernel with a flag: a view reads source channel c mod C,
+//       with no group offset, and the output has G * C channels.
 // x runs along W and y along H, integer coordinates on pixel centres.
 //   border: x, y clamped to [0, W-1] x [0, H-1] first; a tap one past the
 //           last pixel reads the last pixel (its weight is 0 there anyway).
@@ -26,8 +35,9 @@
 // reading 16 bytes along C per tap (VEC = 4 fp32 or 8 bf16/fp16), with
 // neighbouring threads on neighbouring channel vectors of one pixel, then
 // neighbouring pixels. A vector never straddles two channel groups: the
-// caller takes 16-byte vectors only where Cg is a multiple of VEC, else one
-// channel per thread. Each thread reads its group's coordinate plane.
+// caller takes 16-byte vectors only where Cg (C for K7) is a multiple of
+// VEC, else one channel per thread. Each thread reads its group's (view's)
+// coordinate plane.
 // Coordinate and weight arithmetic and the blend are fp32; the output is
 // rounded once to the input's dtype.
 //
@@ -37,7 +47,10 @@
 // shape (B=128, 16x16, C=64, bf16): 4.19 MB + 0.26 MB + 4.19 MB, about
 // 8.6 MB, or about 2.6 us at 3.35 TB/s. K4 at DySample's dec3 shape (B=128,
 // 64x64 -> 128x128, C=64, G=4, bf16): 67 MB + 67 MB of fp32 coordinates +
-// 268 MB, about 120 us. The ops (about 8 per output element) are far below
+// 268 MB, about 120 us. K7 at TrajGRU's enc_rnn1 shape (B=16, 32x32, C=64,
+// G=13, bf16): 2.1 MB of source + 1.7 MB of fp32 coordinates + 27.3 MB of
+// output, about 31 MB or 9.3 us; the views' taps all read one source, which
+// stays in L2. The ops (about 8 per output element) are far below
 // the card's rate. At B <= 8 the launch overhead (a few us) dominates, and
 // one call at a time from Python the wrapper's host time exceeds the
 // kernel's device time at the small shapes (chip_smoke.py reports both).
@@ -83,18 +96,21 @@ __device__ __forceinline__ void load_tap(const T* __restrict__ img, int pix, int
   for (int k = 0; k < VEC; ++k) v[k] = to_f32(t.v[k]);
 }
 
-template <typename T, int VEC, bool ZEROS>
+// C is img's channel count; the output has C (K5, K4) or, with SHARED, G * C
+// (K7) channels.
+template <typename T, int VEC, bool ZEROS, bool SHARED>
 __global__ void __launch_bounds__(256)
 bilinear_gather_kernel(const T* __restrict__ img, const float* __restrict__ xs,
                        const float* __restrict__ ys, T* __restrict__ out,
                        int B, int H, int W, int C, int G, int HoWo) {
   // 32-bit indices: the entry point takes fewer than 2^30 elements per tensor.
-  const int cv = C / VEC;   // channel vectors per pixel
-  const int cvg = cv / G;   // channel vectors per group
+  const int Cout = SHARED ? G * C : C;  // output channels
+  const int cv = Cout / VEC;            // channel vectors per output pixel
+  const int cvg = cv / G;               // channel vectors per group (view)
   const int total = B * HoWo * cv;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
     const int j = i % cv;
-    const int c0 = j * VEC;
+    const int c0 = SHARED ? (j % cvg) * VEC : j * VEC;  // source channel
     const int p = i / cv;  // b * HoWo + output pixel
     const int b = p / HoWo;
     const int q = (b * G + j / cvg) * HoWo + (p - b * HoWo);  // [b, group, pixel]
@@ -138,15 +154,15 @@ bilinear_gather_kernel(const T* __restrict__ img, const float* __restrict__ xs,
       const float bot = v10[k] * (1.f - wx) + v11[k] * wx;
       r.v[k] = from_f32<T>(top * (1.f - wy) + bot * wy);
     }
-    *reinterpret_cast<Vec<T, VEC>*>(out + p * C + c0) = r;
+    *reinterpret_cast<Vec<T, VEC>*>(out + p * Cout + j * VEC) = r;
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool SHARED>
 int launch(const void* img, const void* x, const void* y, void* out, int B, int H,
            int W, int C, int G, int Ho, int Wo, int zeros, cudaStream_t stream) {
   const int HoWo = Ho * Wo;
-  const int total = B * HoWo * (C / VEC);
+  const int total = B * HoWo * (C / VEC) * (SHARED ? G : 1);
   if (total == 0) return 0;
   const int threads = 256;
   const int blocks = min((total + threads - 1) / threads, 132 * 64);  // then grid-stride
@@ -155,39 +171,46 @@ int launch(const void* img, const void* x, const void* y, void* out, int B, int 
   const float* ys = static_cast<const float*>(y);
   T* dst = static_cast<T*>(out);
   if (zeros) {
-    bilinear_gather_kernel<T, VEC, true><<<blocks, threads, 0, stream>>>(
+    bilinear_gather_kernel<T, VEC, true, SHARED><<<blocks, threads, 0, stream>>>(
         src, xs, ys, dst, B, H, W, C, G, HoWo);
   } else {
-    bilinear_gather_kernel<T, VEC, false><<<blocks, threads, 0, stream>>>(
+    bilinear_gather_kernel<T, VEC, false, SHARED><<<blocks, threads, 0, stream>>>(
         src, xs, ys, dst, B, H, W, C, G, HoWo);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SHARED>
 int dispatch_vec(int vec, const void* img, const void* x, const void* y, void* out,
                  int B, int H, int W, int C, int G, int Ho, int Wo, int zeros,
                  cudaStream_t stream) {
   constexpr int kWide = 16 / sizeof(T);
   if (vec == kWide)
-    return launch<T, kWide>(img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, stream);
-  if (vec == 1) return launch<T, 1>(img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, stream);
+    return launch<T, kWide, SHARED>(img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, stream);
+  if (vec == 1)
+    return launch<T, 1, SHARED>(img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, stream);
   return -1;
 }
 
+template <bool SHARED>
 int gather(const void* img, const void* x, const void* y, void* out, int B, int H, int W,
            int C, int G, int Ho, int Wo, int dtype, int zeros, int vec, void* stream) {
+  const int cg = SHARED ? C : C / G;  // source channels per group (view)
   if (vec < 1 || G < 1 || B < 0 || H < 1 || W < 1 || C < 1 || Ho < 0 || Wo < 0 ||
-      C % G != 0 || (C / G) % vec != 0)
+      (!SHARED && C % G != 0) || cg % vec != 0)
     return -1;
   const long long limit = 1LL << 30;  // keeps every index and the grid stride in int
-  if ((long long)B * H * W * C >= limit || (long long)B * Ho * Wo * C >= limit) return -1;
+  const long long cout = SHARED ? (long long)G * C : C;
+  if ((long long)B * H * W * C >= limit || (long long)B * Ho * Wo * cout >= limit) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_vec<float>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, s);
+    case 0:
+      return dispatch_vec<float, SHARED>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, s);
     case 1:
-      return dispatch_vec<__nv_bfloat16>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, s);
-    case 2: return dispatch_vec<__half>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, s);
+      return dispatch_vec<__nv_bfloat16, SHARED>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo,
+                                                 zeros, s);
+    case 2:
+      return dispatch_vec<__half, SHARED>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, s);
     default: return -1;
   }
 }
@@ -195,7 +218,8 @@ int gather(const void* img, const void* x, const void* y, void* out, int B, int 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16, 2 = fp16. vec: channels per thread, either
-// 16 / sizeof(dtype) (C / G divisible by it, img 16-byte aligned) or 1.
+// 16 / sizeof(dtype) (C / G, for K7 C, divisible by it, img 16-byte aligned)
+// or 1.
 // Returns cudaGetLastError() after the launch, or -1 for an argument the
 // kernel does not take.
 
@@ -204,7 +228,7 @@ extern "C" int kmunet_bilinear_gather(const void* img, const void* x, const void
                                       void* out, int B, int H, int W, int C, int Ho,
                                       int Wo, int dtype, int zeros, int vec,
                                       void* stream) {
-  return gather(img, x, y, out, B, H, W, C, 1, Ho, Wo, dtype, zeros, vec, stream);
+  return gather<false>(img, x, y, out, B, H, W, C, 1, Ho, Wo, dtype, zeros, vec, stream);
 }
 
 // K4: x, y (B, G, Ho, Wo) fp32; channel block g of img and out takes x[:, g], y[:, g].
@@ -212,5 +236,14 @@ extern "C" int kmunet_bilinear_gather_grouped(const void* img, const void* x, co
                                               void* out, int B, int H, int W, int C, int G,
                                               int Ho, int Wo, int dtype, int zeros, int vec,
                                               void* stream) {
-  return gather(img, x, y, out, B, H, W, C, G, Ho, Wo, dtype, zeros, vec, stream);
+  return gather<false>(img, x, y, out, B, H, W, C, G, Ho, Wo, dtype, zeros, vec, stream);
+}
+
+// K7: x, y (B, G, Ho, Wo) fp32; out (B, Ho, Wo, G * C), channel block g sampled at
+// x[:, g], y[:, g] from all C channels of img.
+extern "C" int kmunet_bilinear_gather_multiview(const void* img, const void* x, const void* y,
+                                                void* out, int B, int H, int W, int C, int G,
+                                                int Ho, int Wo, int dtype, int zeros, int vec,
+                                                void* stream) {
+  return gather<true>(img, x, y, out, B, H, W, C, G, Ho, Wo, dtype, zeros, vec, stream);
 }

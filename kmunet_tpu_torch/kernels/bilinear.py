@@ -1,24 +1,30 @@
 """K5, the bilinear gather at pixel coordinates (border or zeros padding),
-K4, its grouped form (one coordinate set per channel group), and K6, the
-backward of both.
+K4, its grouped form (one coordinate set per channel group), K7, its
+multiview form (one source sampled at G coordinate sets), and K6, the
+backward of all three.
 
 The port's counterparts of ``kmunet_tpu/kernels/bilinear_pallas.py``'s
 ``gather_bilinear_border`` / ``gather_bilinear_zeros`` (the ``pl.pallas_call``
-in ``_forward``), ``gather_bilinear_grouped`` (the ``pl.pallas_call`` in
-``_forward_grouped``) and of their custom VJP's backward ``_backward_impl``
-with ``shared=False`` (the ``pl.pallas_call`` of ``_kernel_bwd``). The CUDA
-kernels are ``csrc/bilinear_gather.cu`` (K5 and K4, one kernel with a group
-count) and ``csrc/bilinear_gather_backward.cu`` (K6 for both); their source
-notes say what bounds them and how they are laid out.
+in ``_forward``), ``gather_bilinear_grouped`` and ``gather_bilinear_multiview``
+(the ``pl.pallas_call`` in ``_forward_grouped``, ``shared=False`` and
+``shared=True``) and of their custom VJP's backward ``_backward_impl`` (the
+``pl.pallas_call`` of ``_kernel_bwd``, ``shared=False`` and ``shared=True``).
+The CUDA kernels are ``csrc/bilinear_gather.cu`` (K5, K4 and K7, one kernel
+with a group count and a shared-source flag) and
+``csrc/bilinear_gather_backward.cu`` (K6 for all three); their source notes
+say what bounds them and how they are laid out.
 
-``bilinear_gather`` and ``bilinear_gather_grouped`` are what callers use:
-autograd functions (``BilinearGather``, ``BilinearGatherGrouped``) whose
-forward is K5 (K4) and whose backward is K6 on a CUDA tensor, and the
-plain versions of both on a CPU tensor. They dispatch on the device of their
-input alone; on a CUDA tensor they launch the kernels or raise. Each launcher
-counts its kernel's launches: ``bilinear_gather.launches``,
-``bilinear_gather_backward.launches``, ``bilinear_gather_grouped.launches``
-and ``bilinear_gather_grouped_backward.launches``.
+``bilinear_gather``, ``bilinear_gather_grouped`` and
+``bilinear_gather_multiview`` are what callers use: autograd functions
+(``BilinearGather``, ``BilinearGatherGrouped``, ``BilinearGatherMultiview``)
+whose forward is K5 (K4, K7) and whose backward is K6 on a CUDA tensor, and
+the plain versions of both on a CPU tensor. They dispatch on the device of
+their input alone; on a CUDA tensor they launch the kernels or raise. Each
+launcher counts its kernel's launches: ``bilinear_gather.launches``,
+``bilinear_gather_backward.launches``, ``bilinear_gather_grouped.launches``,
+``bilinear_gather_grouped_backward.launches``,
+``bilinear_gather_multiview.launches`` and
+``bilinear_gather_multiview_backward.launches``.
 """
 
 from __future__ import annotations
@@ -170,10 +176,14 @@ def _unfold_groups(t: torch.Tensor, B: int) -> torch.Tensor:
     return t.reshape(B, G, H, W, Cg).permute(0, 2, 3, 1, 4).reshape(B, H, W, G * Cg)
 
 
-def _check_groups(img, x, y) -> None:
+def _check_views(img, x, y) -> None:
     if img.dim() != 4 or x.dim() != 4 or x.shape != y.shape or x.shape[0] != img.shape[0]:
         raise ValueError(f"want img (B,H,W,C), x/y (B,G,Ho,Wo); got {tuple(img.shape)}, "
                          f"{tuple(x.shape)}, {tuple(y.shape)}")
+
+
+def _check_groups(img, x, y) -> None:
+    _check_views(img, x, y)
     if img.shape[-1] % x.shape[1]:
         raise ValueError(f"C={img.shape[-1]} is not a multiple of G={x.shape[1]}")
 
@@ -214,6 +224,52 @@ def bilinear_gather_grouped_backward_plain(
     return _unfold_groups(d_img, B), d_x.reshape(B, G, Ho, Wo), d_y.reshape(B, G, Ho, Wo)
 
 
+def _fold_views(img: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*G, H, W, C): the source broadcast into the batch,
+    image b*G + g being image b."""
+    B, H, W, C = img.shape
+    return img[:, None].expand(B, G, H, W, C).reshape(B * G, H, W, C)
+
+
+def bilinear_gather_multiview_plain(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_mode: str = "border"
+) -> torch.Tensor:
+    """Plain PyTorch version of K7: all of ``img`` (B, H, W, C) sampled at
+    each of G coordinate sets ``x[:, g]``, ``y[:, g]`` ((B, G, Ho, Wo)) ->
+    (B, Ho, Wo, G*C), view g in channel block g.
+
+    What ``kmunet_tpu/ops/sample.py::bilinear_gather_multiview_xla`` computes,
+    the same way: the source broadcast into the batch, then
+    ``bilinear_gather_plain``.
+    """
+    _check_views(img, x, y)
+    B, G, Ho, Wo = x.shape
+    out = bilinear_gather_plain(_fold_views(img, G), x.reshape(B * G, Ho, Wo),
+                                y.reshape(B * G, Ho, Wo), padding_mode)
+    return _unfold_groups(out, B)
+
+
+def bilinear_gather_multiview_backward_plain(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+    padding_mode: str = "border",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6 for K7 (``shared=True``): the VJP of
+    ``bilinear_gather_multiview_plain`` for the upstream gradient ``g``
+    (B, Ho, Wo, G*C); returns (d_img (B, H, W, C), d_x, d_y (B, G, Ho, Wo))
+    in the dtypes of ``img``, ``x`` and ``y``, with the conventions of
+    ``bilinear_gather_backward_plain``: ``bilinear_gather_backward_plain`` on
+    the folded views, d_img summed over the views in (at least) fp32 and cast
+    at the end; d_x of view g sums over all C channels of its block."""
+    _check_views(img, x, y)
+    B, G, Ho, Wo = x.shape
+    acc = torch.promote_types(img.dtype, torch.float32)
+    d_img, d_x, d_y = bilinear_gather_backward_plain(
+        _fold_views(img.to(acc), G), x.reshape(B * G, Ho, Wo), y.reshape(B * G, Ho, Wo),
+        _fold_groups(g.to(acc), G), padding_mode)
+    d_img = d_img.reshape(B, G, *img.shape[1:]).sum(1)
+    return d_img.to(img.dtype), d_x.reshape(B, G, Ho, Wo), d_y.reshape(B, G, Ho, Wo)
+
+
 @functools.cache
 def _kernel(source: str, name: str, n_pointers: int, n_ints: int) -> ctypes._CFuncPtr:
     """The C entry ``name`` of the library built from ``csrc/<source>``:
@@ -244,7 +300,17 @@ def grouped_backward_kernel() -> ctypes._CFuncPtr:
     return _kernel(BACKWARD_SOURCE, "kmunet_bilinear_gather_grouped_backward", 8, 10)
 
 
-def _check(img, x, y, padding_mode, grouped: bool = False):
+def multiview_kernel() -> ctypes._CFuncPtr:
+    """K7's entry point, built on first use (from K5's source)."""
+    return _kernel(SOURCE, "kmunet_bilinear_gather_multiview", 4, 10)
+
+
+def multiview_backward_kernel() -> ctypes._CFuncPtr:
+    """K6's shared-source entry point, built on first use (from K6's source)."""
+    return _kernel(BACKWARD_SOURCE, "kmunet_bilinear_gather_multiview_backward", 8, 10)
+
+
+def _check(img, x, y, padding_mode, grouped: bool = False, views: bool = False):
     _check_mode(padding_mode)
     if not img.is_cuda:
         raise ValueError(f"the CUDA gather needs a CUDA tensor, got {img.device}")
@@ -252,6 +318,8 @@ def _check(img, x, y, padding_mode, grouped: bool = False):
         raise TypeError(f"img dtype {img.dtype} not in {list(_DTYPE_CODES)}")
     if grouped:
         _check_groups(img, x, y)
+    elif views:
+        _check_views(img, x, y)
     elif img.dim() != 4 or x.dim() != 3 or x.shape != y.shape or x.shape[0] != img.shape[0]:
         raise ValueError(f"want img (B,H,W,C), x/y (B,Ho,Wo); got {img.shape}, {x.shape}, {y.shape}")
     for name, t in (("x", x), ("y", y)):
@@ -264,12 +332,13 @@ def _check(img, x, y, padding_mode, grouped: bool = False):
             raise ValueError(f"{name} must be contiguous")
     # The kernels index in int32. DySample's dec3 output at B=128 (128^2, C=64)
     # is 134 M elements, inside the limit.
-    if max(img.numel(), x.shape[0] * x.shape[-2] * x.shape[-1] * img.shape[-1]) >= 2**30:
+    out_channels = img.shape[-1] * (x.shape[1] if views else 1)
+    if max(img.numel(), x.shape[0] * x.shape[-2] * x.shape[-1] * out_channels) >= 2**30:
         raise ValueError("the kernel takes images and outputs of fewer than 2**30 elements")
 
 
-def _check_grad(img, x, g):
-    B, C = img.shape[0], img.shape[-1]
+def _check_grad(img, x, g, views: bool = False):
+    B, C = img.shape[0], img.shape[-1] * (x.shape[1] if views else 1)
     Ho, Wo = x.shape[-2:]
     if g.dtype != img.dtype or g.device != img.device or g.shape != (B, Ho, Wo, C):
         raise ValueError(f"g must be {img.dtype} ({B}, {Ho}, {Wo}, {C}) on {img.device}; "
@@ -461,7 +530,94 @@ def bilinear_gather_grouped(
     return BilinearGatherGrouped.apply(img, x, y, padding_mode)
 
 
+def bilinear_gather_multiview_forward(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_mode: str = "border"
+) -> torch.Tensor:
+    """The multiview gather without its gradient: (B, Ho, Wo, G*C) in
+    ``img``'s dtype. A CPU ``img`` takes the plain version; a CUDA ``img``
+    launches K7, which takes fp32, bf16 and fp16 images with fp32 coordinates
+    (B, G, Ho, Wo). Its launches count on ``bilinear_gather_multiview.launches``."""
+    if img.device.type == "cpu":
+        return bilinear_gather_multiview_plain(img, x, y, padding_mode)
+    _check(img, x, y, padding_mode, views=True)
+    B, H, W, C = img.shape
+    G, Ho, Wo = x.shape[1:]
+    out = torch.empty((B, Ho, Wo, G * C), dtype=img.dtype, device=img.device)
+    _launch(multiview_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
+            _vec(img))
+    bilinear_gather_multiview.launches += 1
+    return out
+
+
+def bilinear_gather_multiview_backward(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+    padding_mode: str = "border",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d_img, d_x, d_y) of the multiview gather for the upstream gradient
+    ``g`` (B, Ho, Wo, G*C) in ``img``'s dtype. A CPU ``img`` takes the plain
+    version; a CUDA ``img`` launches K6's shared-source entry, which takes
+    fp32, bf16 and fp16 images with fp32 coordinates, sums d_img over the
+    views in fp32, and returns d_x, d_y (B, G, Ho, Wo) in fp32. Its launches
+    count on ``bilinear_gather_multiview_backward.launches``."""
+    if img.device.type == "cpu":
+        return bilinear_gather_multiview_backward_plain(img, x, y, g, padding_mode)
+    _check(img, x, y, padding_mode, views=True)
+    _check_grad(img, x, g, views=True)
+    B, H, W, C = img.shape
+    G, Ho, Wo = x.shape[1:]
+    d_img32 = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    d_img = d_img32 if img.dtype == torch.float32 else torch.empty_like(img)
+    d_x = torch.empty_like(x)
+    d_y = torch.empty_like(y)
+    _launch(multiview_backward_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(),
+            g.data_ptr(), d_img32.data_ptr(), d_img.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
+            B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
+            _vec(img, g))
+    bilinear_gather_multiview_backward.launches += 1
+    return d_img, d_x, d_y
+
+
+class BilinearGatherMultiview(torch.autograd.Function):
+    """The multiview gather with its gradient: K7 forward and K6's
+    shared-source backward on a CUDA tensor, the plain versions of both on a
+    CPU tensor. Never runs a plain version on a CUDA tensor."""
+
+    @staticmethod
+    def forward(ctx, img, x, y, padding_mode):
+        ctx.padding_mode = padding_mode
+        ctx.save_for_backward(img, x, y)
+        return bilinear_gather_multiview_forward(img, x, y, padding_mode)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        img, x, y = ctx.saved_tensors
+        d_img, d_x, d_y = bilinear_gather_multiview_backward(img, x, y, g.contiguous(),
+                                                             ctx.padding_mode)
+        need = ctx.needs_input_grad
+        return (d_img if need[0] else None, d_x if need[1] else None,
+                d_y if need[2] else None, None)
+
+
+def bilinear_gather_multiview(
+    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_mode: str = "border"
+) -> torch.Tensor:
+    """One source sampled at G coordinate sets: all of ``img`` (B, H, W, C)
+    at ``x[:, g]``, ``y[:, g]`` ((B, G, Ho, Wo), pixel coordinates); returns
+    (B, Ho, Wo, G*C) in ``img``'s dtype, view g in channel block g, with its
+    gradient to all three inputs.
+
+    A CPU ``img`` takes the plain versions; a CUDA ``img`` launches K7 (and
+    K6's shared-source entry in the backward), which take fp32, bf16 and
+    fp16 images and fp32 coordinates.
+    """
+    return BilinearGatherMultiview.apply(img, x, y, padding_mode)
+
+
 bilinear_gather.launches = 0
 bilinear_gather_backward.launches = 0
 bilinear_gather_grouped.launches = 0
 bilinear_gather_grouped_backward.launches = 0
+bilinear_gather_multiview.launches = 0
+bilinear_gather_multiview_backward.launches = 0

@@ -6,6 +6,8 @@ deformable conv runs through, and ``grid_sample_bilinear`` its
 (``kernels/bilinear.py``), on a CPU tensor its plain version.
 ``bilinear_gather_grouped`` samples each channel group at its own
 coordinates, DySample's exact path: K4 on a CUDA tensor.
+``bilinear_gather_multiview`` samples one source at G coordinate sets,
+TrajGRU's warp: K7 on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from kmunet_tpu_torch.kernels.bilinear import (
     bilinear_gather,
     bilinear_gather_grouped,
     bilinear_gather_grouped_plain,
+    bilinear_gather_multiview,
+    bilinear_gather_multiview_plain,
     bilinear_gather_plain,
 )
 
@@ -24,6 +28,8 @@ __all__ = [
     "bilinear_gather",
     "bilinear_gather_grouped",
     "bilinear_gather_grouped_plain",
+    "bilinear_gather_multiview",
+    "bilinear_gather_multiview_plain",
     "bilinear_gather_plain",
     "dysample_window_upsample",
     "grid_sample_bilinear",

@@ -1,17 +1,23 @@
-"""Entry point: build the KM_UNetV3-SH forecaster and predict.
+"""Entry point: build a forecaster and predict.
 
     model = build_km_unet_v3_sh()               # on "cuda"; raises without a card
     forecast = predict(model, frames)           # (B, H, W, 5) -> (B, H, W, 20)
 
+    model = build_zoo_model("trajgru")          # or "convlstm", "km_unet_v3"
+    forecast = predict(model, frames)           # (B, 5, H, W) -> (B, 20, H, W)
+
 Pass ``device="cpu"`` to run on the CPU (the gathers then take their plain
 versions); nothing falls back to the CPU on its own. Pass
 ``dysample_window=False`` for DySample's exact path (the K4 grouped gather).
+TrajGRU's warp is the K7 multiview gather.
 """
 
 from __future__ import annotations
 
 import torch
 
+from kmunet_tpu_torch.configs import ModelConfig
+from kmunet_tpu_torch.models import zoo
 from kmunet_tpu_torch.models.km_unet import KM_UNetV3_SH, init_weights_
 
 
@@ -34,10 +40,24 @@ def build_km_unet_v3_sh(device=None, dtype: torch.dtype = torch.float32, seed: i
     return model.to(device=device, dtype=dtype).eval()
 
 
+def build_zoo_model(name: str, device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                    out_frames: int = 20) -> torch.nn.Module:
+    """The zoo's model ``name`` (``km_unet_v3`` for the SH variant,
+    ``convlstm``, ``trajgru``) forecasting ``out_frames`` frames, in eval
+    mode, initialised from ``seed`` with the JAX package's distributions, on
+    ``device`` in ``dtype``."""
+    device = resolve_device(device)
+    model = zoo.build(ModelConfig(name=name, num_classes=out_frames))
+    zoo.init_weights_(model, torch.Generator().manual_seed(seed))
+    return model.to(device=device, dtype=dtype).eval()
+
+
 @torch.inference_mode()
 def predict(model: torch.nn.Module, frames) -> torch.Tensor:
-    """Forecast maps (B, H, W, num_classes) in [0, 1] from input frames
-    (B, H, W, 5), a tensor or array, moved to the model's device and dtype."""
+    """Forecast from input frames, a tensor or array, moved to the model's
+    device and dtype: KM_UNetV3 maps (B, H, W, 5) to maps (B, H, W, T) in
+    [0, 1], a sequence model (``zoo.SEQUENCE_MODELS``) (B, 5, H, W) to
+    (B, T, H, W)."""
     p = next(model.parameters())
     frames = torch.as_tensor(frames).to(device=p.device, dtype=p.dtype)
     return model(frames)

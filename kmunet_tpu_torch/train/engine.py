@@ -1,7 +1,7 @@
 """The training step of the port (port of ``kmunet_tpu/train/engine.py``),
 under the JAX engine's names::
 
-    cfg = shanghai_km_unet()
+    cfg = shanghai_km_unet()          # or apply_recipe(shanghai_km_unet(), "trajgru", "pic")
     model = build_model(cfg)
     loss_fn = build_loss(cfg)
     tx = build_optimizer(cfg, steps_per_epoch=100)
@@ -15,7 +15,11 @@ takes its plain versions); nothing falls back to the CPU on its own. The
 ``model.extra["drop_path"]`` is 0.
 
 ``build_model(cfg, dysample_window=False)`` takes DySample's exact path
-(the K4 grouped gather and its K6 backward on the card).
+(the K4 grouped gather and its K6 backward on the card). The models come
+from the zoo (``models/zoo.py``): KM_UNetV3-SH, and the sequence models
+ConvLSTM and TrajGRU (``cfg.model.name``; ``train/recipes.py::apply_recipe``
+sets their reference recipes: Adam, ``weighted_mse_mae``, MultiStepLR).
+TrajGRU's warp runs K7 and its backward K6's shared-source entry.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP item: the LAPS variant and ``head_norm`` (Queue 1 item 3), the other
@@ -34,11 +38,11 @@ import torch
 from torch import nn
 
 from kmunet_tpu_torch.configs import ExperimentConfig
-from kmunet_tpu_torch.losses import hybrid_loss
-from kmunet_tpu_torch.models.km_unet import KM_UNetV3, init_weights_
+from kmunet_tpu_torch.losses import hybrid_loss, weighted_mse_mae
+from kmunet_tpu_torch.models import zoo
 from kmunet_tpu_torch.serve import resolve_device
 from kmunet_tpu_torch.train.optimizers import AdamW, AdamWState, make_optimizer
-from kmunet_tpu_torch.train.schedule import cosine_annealing_per_epoch
+from kmunet_tpu_torch.train.schedule import cosine_annealing_per_epoch, make_schedule
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -56,29 +60,26 @@ class TrainState:
     opt_state: AdamWState
 
 
-def build_model(cfg: ExperimentConfig, dysample_window: bool = True) -> KM_UNetV3:
-    """KM_UNetV3-SH of ``cfg.model``; ``dysample_window=False`` takes
-    DySample's exact path (the JAX package's ``DYSAMPLE_WINDOW``, which its
-    config does not carry either)."""
-    m = cfg.model
-    if m.name != "km_unet_v3" or m.variant != "sh":
-        raise NotImplementedError(
-            f"model {m.name!r} variant {m.variant!r}: not in the port yet; the LAPS variant "
-            "is ROADMAP Queue 1 item 3, the other models item 10")
-    extra = dict(m.extra)
-    drop_path = float(extra.pop("drop_path", 0.1))
-    if extra:
-        raise NotImplementedError(f"model.extra {sorted(extra)}: not in the port yet; "
-                                  "head_norm is ROADMAP Queue 1 item 3")
-    return KM_UNetV3(num_classes=m.num_classes, embed_dims=tuple(m.embed_dims),
-                     drop_path=drop_path, dysample_window=dysample_window)
+def build_model(cfg: ExperimentConfig, dysample_window: bool = True) -> nn.Module:
+    """The zoo's model of ``cfg.model``; ``dysample_window=False`` takes
+    KM_UNetV3's DySample exact path (the JAX package's ``DYSAMPLE_WINDOW``,
+    which its config does not carry either)."""
+    return zoo.build(cfg.model, dysample_window=dysample_window)
 
 
 def build_loss(cfg: ExperimentConfig) -> Callable:
-    if cfg.train.loss != "hybrid":
-        raise NotImplementedError(f"loss {cfg.train.loss!r}: the port has hybrid only "
-                                  "(ROADMAP Queue 1 item 5)")
-    return functools.partial(hybrid_loss, alpha=cfg.train.loss_alpha)
+    """``loss(pred, target)`` on (B, T, H, W) maps."""
+    name = cfg.train.loss
+    if name == "hybrid":
+        return functools.partial(hybrid_loss, alpha=cfg.train.loss_alpha)
+    if name == "weighted_mse_mae":
+        thresholds = tuple(cfg.data.thresholds)
+        # The loss keeps the reference's (B, S, C, H, W) contract: the
+        # (B, T, H, W) maps get the singleton channel axis.
+        return lambda p, t: weighted_mse_mae(p[:, :, None], t[:, :, None], lam=None,
+                                             thresholds=thresholds)
+    raise NotImplementedError(f"loss {name!r}: the port has hybrid and weighted_mse_mae "
+                              "only (ROADMAP Queue 1 item 5)")
 
 
 def build_optimizer(cfg: ExperimentConfig, steps_per_epoch: int) -> AdamW:
@@ -87,10 +88,11 @@ def build_optimizer(cfg: ExperimentConfig, steps_per_epoch: int) -> AdamW:
         raise NotImplementedError("grad_clip: not in the port yet (ROADMAP Queue 1 item 8)")
     if t.wd_mask_norms:
         raise NotImplementedError("wd_mask_norms: not in the port yet (ROADMAP Queue 1 item 8)")
-    if t.schedule != "cosine_epoch":
-        raise NotImplementedError(f"schedule {t.schedule!r}: the port has cosine_epoch only "
-                                  "(ROADMAP Queue 1 item 5)")
-    sched = cosine_annealing_per_epoch(t.lr, t.eta_min, t.cosine_t_max, steps_per_epoch)
+    if t.schedule == "cosine_epoch":
+        sched = cosine_annealing_per_epoch(t.lr, t.eta_min, t.cosine_t_max, steps_per_epoch)
+    else:
+        sched = make_schedule(t.schedule, t.lr, steps_per_epoch,
+                              milestones=tuple(t.milestones), gamma=t.gamma)
     return make_optimizer(t.optimizer, sched, weight_decay=t.weight_decay)
 
 
@@ -100,18 +102,32 @@ def init_state(cfg: ExperimentConfig, model: nn.Module, tx: AdamW, seed: int = 0
     distributions, moves it to ``device`` (None: the card, which must exist)
     in training mode, and returns the state that aliases its tensors."""
     device = resolve_device(device)
-    init_weights_(model, torch.Generator().manual_seed(seed))
+    zoo.init_weights_(model, torch.Generator().manual_seed(seed))
     model.to(device=device, dtype=torch.float32).train()
     params = dict(model.named_parameters())
     batch_stats = {k: b for k, b in model.named_buffers() if not k.endswith("num_batches_tracked")}
     return TrainState(0, params, batch_stats, tx.init(list(params.values())))
 
 
-def _split_batch(batch: torch.Tensor, in_frames: int, out_frames: int):
-    """(B, seq, H, W) -> NHWC model input (B, H, W, in_frames) and the
-    (B, out_frames, H, W) target."""
+def _model_layout(cfg: ExperimentConfig) -> str:
+    """'seq' for the sequence models (``zoo.SEQUENCE_MODELS``), else 'stack'."""
+    return "seq" if cfg.model.name in zoo.SEQUENCE_MODELS else "stack"
+
+
+def _split_batch(batch: torch.Tensor, in_frames: int, out_frames: int, layout: str = "stack"):
+    """(B, seq, H, W) -> the model input and the (B, out_frames, H, W)
+    target. Layout 'stack': the input frames as NHWC channels (B, H, W,
+    in_frames); 'seq': the (B, in_frames, H, W) sequence."""
     tgt = batch[:, in_frames:in_frames + out_frames]
+    if layout == "seq":
+        return batch[:, :in_frames], tgt
     return batch[:, :in_frames].permute(0, 2, 3, 1), tgt
+
+
+def _to_btHW(out: torch.Tensor, layout: str) -> torch.Tensor:
+    """Model output -> (B, T, H, W): 'stack' models return NHWC with T as
+    channels, 'seq' models (B, T, H, W) already."""
+    return out.permute(0, 3, 1, 2) if layout == "stack" else out
 
 
 def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
@@ -131,25 +147,27 @@ def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
         raise ValueError(f"compute_dtype must be one of {list(_COMPUTE_DTYPES)}")
     cdtype = _COMPUTE_DTYPES[cfg.train.compute_dtype]
     in_f, out_f = cfg.data.in_frames, cfg.data.out_frames
+    layout = _model_layout(cfg)
 
     def loss_of(params: dict, batch: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        inp, tgt = _split_batch(batch, in_f, out_f)
+        inp, tgt = _split_batch(batch, in_f, out_f, layout)
         params_c = {k: p.to(cdtype) if p.is_floating_point() else p for k, p in params.items()}
-        out = torch.func.functional_call(model, params_c, (inp.to(cdtype),),
-                                         {"generator": generator})
-        pred = out.float().permute(0, 3, 1, 2)  # (B, T, H, W)
-        return loss_fn(pred, tgt)
+        # KM_UNetV3's stochastic depth takes the generator; the sequence
+        # models have none.
+        kwargs = {"generator": generator} if layout == "stack" else {}
+        out = torch.func.functional_call(model, params_c, (inp.to(cdtype),), kwargs)
+        return loss_fn(_to_btHW(out.float(), layout), tgt)
 
     return loss_of
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable, tx: AdamW, cfg: ExperimentConfig):
     """``step(state, batch, generator) -> (state, {"loss", "grad_norm"})``:
-    one AdamW step on ``batch`` (B, seq_len, H, W), a tensor or array moved
-    to the model's device as fp32. The metrics are 0-d tensors on that
-    device (reading them waits for it); ``grad_norm`` is the global L2 norm
-    of the fp32 gradients."""
+    one optimizer step (AdamW or Adam) on ``batch`` (B, seq_len, H, W), a
+    tensor or array moved to the model's device as fp32. The metrics are 0-d
+    tensors on that device (reading them waits for it); ``grad_norm`` is the
+    global L2 norm of the fp32 gradients."""
     loss_of = make_loss_of(model, loss_fn, cfg)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):

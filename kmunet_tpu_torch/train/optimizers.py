@@ -1,7 +1,8 @@
 """Optimizers of the port (port of ``kmunet_tpu/train/optimizers.py``).
 
-Only AdamW, the SH recipe's optimizer, is ported so far: the other eight of
-the reference's factory wait for ROADMAP Queue 1 item 5.
+AdamW (the SH recipe's) and Adam (the ConvLSTM and TrajGRU recipes') are
+ported; the other seven of the reference's factory wait for ROADMAP Queue 1
+item 5.
 """
 
 from __future__ import annotations
@@ -78,9 +79,29 @@ class AdamW:
         return AdamWState(t, mu, nu)
 
 
+class Adam(AdamW):
+    """``optax.adam``: the AdamW update with no decoupled decay. A nonzero
+    ``weight_decay`` is torch Adam's coupled L2 decay, as the JAX factory
+    chains it (``optax.add_decayed_weights`` before ``optax.adam``): ``wd * p``
+    is added to the gradient before the moments see it."""
+
+    def __init__(self, learning_rate: Schedule, weight_decay: float = 0.0):
+        super().__init__(learning_rate, weight_decay=0.0)
+        self.l2 = weight_decay
+
+    def update(self, grads: list[torch.Tensor], state: AdamWState,
+               params: list[torch.Tensor]) -> AdamWState:
+        if self.l2:
+            grads = torch._foreach_add(grads, params, alpha=self.l2)
+        return super().update(grads, state, params)
+
+
 def make_optimizer(name: str, learning_rate: Schedule, *, weight_decay: float = 0.0) -> AdamW:
-    """The optimizer factory; the port has ``adamw`` only."""
-    if name.lower() != "adamw":
-        raise NotImplementedError(
-            f"optimizer {name!r}: the port has adamw only (ROADMAP Queue 1 item 5)")
-    return AdamW(learning_rate, weight_decay=weight_decay)
+    """The optimizer factory; the port has ``adamw`` and ``adam``."""
+    name = name.lower()
+    if name == "adamw":
+        return AdamW(learning_rate, weight_decay=weight_decay)
+    if name == "adam":
+        return Adam(learning_rate, weight_decay=weight_decay)
+    raise NotImplementedError(
+        f"optimizer {name!r}: the port has adamw and adam only (ROADMAP Queue 1 item 5)")

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's KM_UNetV3-SH forward, or its train step, spends
-its time on the card.
+"""Where the PyTorch port's KM_UNetV3-SH or TrajGRU forward, or its train
+step, spends its time on the card.
 
     python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16] [--exact]
     python3 scripts/profile_torch_forward.py --train [--batch 16] [--exact]
+    python3 scripts/profile_torch_forward.py --model trajgru [--train] [--batch 16]
 
 Prints JSON lines: the card (``nvidia-smi`` name and power limit); for the
 forward, the time of each top-level module of the model, from CUDA events
@@ -12,9 +13,14 @@ kernel, so host gaps while the device waits fall into it); and from
 ``torch.profiler`` the device busy time of one forward (or one SH train
 step: hybrid loss, AdamW, bf16 compute unless ``--dtype float32``, 128^2,
 seq_len 25, on synthetic data) against its wall time (the idle share) and
-the kernels that take the most device time. ``--exact`` runs DySample's
+the kernels that take the most device time, and the launches and device
+time of the layout changes (PyTorch's copy kernels and cuDNN's NCHW <-> NHWC
+transforms). ``--exact`` runs DySample's
 exact path (``dysample_window=False``: the K4 grouped gather) in place of
-its window path. Needs an NVIDIA GPU.
+its window path. ``--model trajgru`` profiles TrajGRU_EF (5 -> 20 frames at
+128^2, B=16 by default) and its ("trajgru", "pic") recipe step (Adam,
+weighted_mse_mae); a cell's module time sums all its calls of a forward.
+Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -64,13 +70,17 @@ def module_times(model, frames, iters: int) -> dict:
     return {name: sum(a.elapsed_time(b) for a, b in evs) / iters for name, evs in events.items()}
 
 
-def train_step(batch: int, dtype: str, window: bool):
-    """One SH train step at ``batch`` as a closure, after two warm-up steps."""
+def train_step(batch: int, dtype: str, window: bool, model_name: str):
+    """One train step at ``batch`` as a closure, after two warm-up steps: the
+    SH recipe for km_unet_v3, the ("trajgru", "pic") recipe for trajgru."""
     from kmunet_tpu_torch.configs import shanghai_km_unet
     from kmunet_tpu_torch.data import SyntheticNowcastDataset
     from kmunet_tpu_torch.train import engine
+    from kmunet_tpu_torch.train.recipes import apply_recipe
 
     cfg = shanghai_km_unet()
+    if model_name == "trajgru":
+        cfg = apply_recipe(cfg, "trajgru", "pic")
     cfg.data.img_size, cfg.data.batch_size, cfg.train.compute_dtype = 128, batch, dtype
     model = engine.build_model(cfg, dysample_window=window)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
@@ -91,7 +101,9 @@ def train_step(batch: int, dtype: str, window: bool):
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--model", default="km_unet_v3", choices=["km_unet_v3", "trajgru"])
+    p.add_argument("--batch", type=int, default=None,
+                   help="default 16 for --train and for trajgru, else 128")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--train", action="store_true", help="profile one train step")
@@ -102,15 +114,21 @@ def main() -> int:
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30, check=True).stdout.strip()
+    if args.batch is None:
+        args.batch = 16 if args.train or args.model == "trajgru" else 128
     if args.train:
-        run = train_step(args.batch, args.dtype, not args.exact)
-        emit({"card": card, "batch": args.batch, "dtype": args.dtype, "train": True,
-              "exact": args.exact})
+        run = train_step(args.batch, args.dtype, not args.exact, args.model)
+        emit({"card": card, "model": args.model, "batch": args.batch, "dtype": args.dtype,
+              "train": True, "exact": args.exact})
     else:
         dtype = getattr(torch, args.dtype)
-        model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0,
-                                          dysample_window=not args.exact)
-        frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
+        if args.model == "trajgru":
+            model = serve.build_zoo_model("trajgru", device="cuda", dtype=dtype, seed=0)
+            frames = torch.rand(args.batch, 5, 128, 128, device="cuda").to(dtype)
+        else:
+            model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0,
+                                              dysample_window=not args.exact)
+            frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
 
         def run():
             serve.predict(model, frames)
@@ -118,8 +136,8 @@ def main() -> int:
         for _ in range(2):
             run()
         torch.cuda.synchronize()
-        emit({"card": card, "batch": args.batch, "dtype": args.dtype, "exact": args.exact,
-              "module_ms": module_times(model, frames, args.iters)})
+        emit({"card": card, "model": args.model, "batch": args.batch, "dtype": args.dtype,
+              "exact": args.exact, "module_ms": module_times(model, frames, args.iters)})
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,9 +149,14 @@ def main() -> int:
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    # Layout changes: PyTorch's copies and cuDNN's NCHW <-> NHWC transforms.
+    copies = [e for e in kernels if any(w in e.key.lower() for w in (
+        "copy", "nchwtonhwc", "nhwctonchw", "tensortransform"))]
     emit({"wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
           "kernel_launches": sum(e.count for e in kernels),
+          "copy_launches": sum(e.count for e in copies),
+          "copy_ms": sum(e.self_device_time_total for e in copies) / 1e3,
           "top_kernels": [{"name": e.key[:90], "count": e.count,
                            "ms": e.self_device_time_total / 1e3} for e in top]})
     return 0

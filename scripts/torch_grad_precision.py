@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""How far the fp32 gradients of the port's SH train step lie from its
-float64 gradient, on the card and on the CPU, and (``--jax``) how far the
-JAX package's fp32 and float64 gradients lie from the same one.
+"""How far the fp32 gradients of the port's SH train step (or, with
+``--model trajgru``, its TrajGRU recipe step) lie from its float64
+gradient, on the card and on the CPU, and (``--jax``) how far the JAX
+package's fp32 and float64 gradients lie from the same one.
 
     python3 scripts/torch_grad_precision.py [--device cuda] [--size 32]
     python3 scripts/torch_grad_precision.py --device cpu --jax   # needs JAX
     python3 scripts/torch_grad_precision.py --device cpu --jax --seed 0 --jax-steps 1
+    python3 scripts/torch_grad_precision.py --model trajgru --size 128
 
 The step is ``chip_smoke.py``'s fp32 card-vs-CPU check: the SH recipe at
 B=2 with no stochastic depth, at 32^2 (seq_len 9, 5 -> 4; the config of
@@ -25,6 +27,12 @@ worst leaves; the grad norms; and the leaves that move the global grad norm
 most between the card and the CPU. The leaves whose exact gradient is 0 (a
 bias right before a normalisation, HSMSSD's ``A``) are listed apart, by
 their largest |gradient| relative to the largest of all.
+
+``--model trajgru`` takes ``chip_smoke.py``'s train_trajgru check instead:
+the ("trajgru", "pic") recipe (Adam, weighted_mse_mae) at B=2, the flow
+convs scaled by its FLOW_SCALE, on ``SyntheticNowcastDataset`` items at
+128^2 (the phase's batch, ``--batch-seed`` as its seed) or on the random
+batch at 32^2; ``--jax`` is for the SH step only.
 """
 
 from __future__ import annotations
@@ -41,7 +49,13 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import sh_config  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    FLOW_SCALE,
+    scale_flows,
+    sh_config,
+    synthetic_batch,
+    trajgru_config,
+)
 from kmunet_tpu_torch import convert  # noqa: E402
 from kmunet_tpu_torch.train import engine  # noqa: E402
 
@@ -52,23 +66,27 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def port_gradients(cfg, params, batch, device, dtype, seed):
+def port_gradients(cfg, params, batch, device, dtype, seed, flow_scale=1.0):
     """(loss, {name: gradient as float64 on the CPU}) of the port's loss in
     ``dtype`` on ``device``, from ``params`` (flax layout) or, if None, the
-    port's initialisation from ``seed``."""
+    port's initialisation from ``seed`` (a TrajGRU's flows scaled by
+    ``flow_scale``)."""
     model = engine.build_model(cfg)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     engine.init_state(cfg, model, tx, seed=seed, device="cpu")
     if params is not None:
         convert.load_flax(model, params["params"], params["batch_stats"])
+    if flow_scale != 1.0:
+        scale_flows(model, flow_scale)
     model.to(device=device, dtype=dtype).train()
+    layout = engine._model_layout(cfg)
     inp, tgt = engine._split_batch(torch.as_tensor(batch, device=device, dtype=dtype),
-                                   cfg.data.in_frames, cfg.data.out_frames)
-    loss = engine.build_loss(cfg)(model(inp).permute(0, 3, 1, 2), tgt)
+                                   cfg.data.in_frames, cfg.data.out_frames, layout)
+    loss = engine.build_loss(cfg)(engine._to_btHW(model(inp), layout), tgt)
     named = dict(model.named_parameters())
     grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True,
                                 materialize_grads=True)
-    return float(loss), {k: g.detach().cpu().double() for k, g in zip(named, grads)}
+    return float(loss.detach()), {k: g.detach().cpu().double() for k, g in zip(named, grads)}
 
 
 def jax_gradients(cfg_args, seed, batch, steps=0):
@@ -200,7 +218,10 @@ def main() -> int:
     ap.add_argument("--batch-seed", type=int, default=7)
     ap.add_argument("--jax", action="store_true")
     ap.add_argument("--jax-steps", type=int, default=0)
+    ap.add_argument("--model", choices=("km_unet_v3", "trajgru"), default="km_unet_v3")
     args = ap.parse_args()
+    if args.jax and args.model != "km_unet_v3":
+        ap.error("--jax compares the SH step only")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.device != "cpu":
@@ -208,22 +229,32 @@ def main() -> int:
                              capture_output=True, text=True, timeout=30)
         emit({"card": smi.stdout.strip(), "torch": torch.__version__})
     seq, out = (9, 4) if args.size == 32 else (25, 20)
-    cfg = sh_config(2, "float32", drop_path=0.0, img_size=args.size, seq_len=seq, out_frames=out)
-    batch = np.random.default_rng(args.batch_seed).random((2, seq, args.size, args.size),
-                                                         dtype=np.float32)
+    flow_scale = 1.0
+    if args.model == "trajgru":
+        cfg = trajgru_config(2, "float32", img_size=args.size, seq_len=seq, out_frames=out)
+        flow_scale = FLOW_SCALE
+    else:
+        cfg = sh_config(2, "float32", drop_path=0.0, img_size=args.size, seq_len=seq,
+                        out_frames=out)
+    if args.model == "trajgru" and args.size == 128:
+        batch = synthetic_batch(np, 2, seed=args.batch_seed)
+    else:
+        batch = np.random.default_rng(args.batch_seed).random((2, seq, args.size, args.size),
+                                                             dtype=np.float32)
     params, runs = None, {}
     if args.jax:
         params, jax_runs = jax_gradients((args.size, 2, seq, out), args.seed, batch,
                                          args.jax_steps)
         for name, (loss, g) in jax_runs.items():
             runs[name] = (loss, to_port_names(cfg, g, params["batch_stats"]))
-    ref_loss, ref = port_gradients(cfg, params, batch, "cpu", torch.float64, args.seed)
+    ref_loss, ref = port_gradients(cfg, params, batch, "cpu", torch.float64, args.seed,
+                                   flow_scale)
     zero_leaves = {k for k in ref if k.endswith(".mixer.A") or k == "bridge.deform_conv.bias"
                    or (k.startswith("bridge.") and k.endswith(".Dense_0.bias"))}
     devices = ["cpu"] if args.device == "cpu" else [args.device, "cpu"]
     for device in devices:
         runs[f"port_fp32_{device}"] = port_gradients(cfg, params, batch, device, torch.float32,
-                                                     args.seed)
+                                                     args.seed, flow_scale)
     ref_norm = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in ref.values()])))
     emit({"reference": "port_fp64_cpu", "size": args.size, "loss": ref_loss,
           "grad_norm": ref_norm, "zero_gradient_leaves": len(zero_leaves)})

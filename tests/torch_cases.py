@@ -67,3 +67,48 @@ def grouped_inputs(shape, case, seed=0):
     x, y = coordinate_cases(rng, B * G, H, W, Ho, Wo)[case]
     g = rng.normal(size=(B, Ho, Wo, C)).astype(np.float32)
     return img, x.reshape(B, G, Ho, Wo), y.reshape(B, G, Ho, Wo), g
+
+
+# (B, H, W, C, G, Ho, Wo): one source of C channels sampled at G coordinate
+# sets (TrajGRU's warp, K7). C = 3 and 6 take no 16-byte vector in fp32 (one
+# channel per thread on the card).
+MULTIVIEW_SHAPES = {
+    "g1_c6": (2, 7, 9, 6, 1, 8, 7),
+    "g3_c3": (2, 7, 9, 3, 3, 8, 7),
+    "g3_c6": (2, 7, 9, 6, 3, 8, 7),
+    "g3_c16": (1, 6, 5, 16, 3, 4, 4),
+    "g13_c6": (2, 5, 6, 6, 13, 5, 6),
+    "g13_c16": (1, 8, 8, 16, 13, 8, 8),
+}
+
+
+def multiview_inputs(shape, case, seed=0):
+    """img (B, H, W, C), the coordinate case drawn for every view, x and y
+    (B, G, Ho, Wo), and an upstream gradient (B, Ho, Wo, G*C), numpy fp32."""
+    B, H, W, C, G, Ho, Wo = shape
+    rng = np.random.default_rng(seed)
+    img = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    x, y = coordinate_cases(rng, B * G, H, W, Ho, Wo)[case]
+    g = rng.normal(size=(B, Ho, Wo, G * C)).astype(np.float32)
+    return img, x.reshape(B, G, Ho, Wo), y.reshape(B, G, Ho, Wo), g
+
+
+def shifted_views(img, shifts):
+    """What the multiview gather returns at integer coordinates
+    x = j - dx_l, y = i - dy_l for the (dy_l, dx_l) in ``shifts``: view l is
+    ``img`` (B, H, W, C) shifted by (dy_l, dx_l), zeros where it leaves the
+    image -> (B, H, W, L*C), view l in channel block l; and those
+    coordinates, (B, L, H, W) each."""
+    B, H, W, C = img.shape
+    out = np.zeros((B, H, W, len(shifts) * C), img.dtype)
+    xs = np.zeros((B, len(shifts), H, W), np.float32)
+    ys = np.zeros_like(xs)
+    for v, (dy, dx) in enumerate(shifts):
+        ys[:, v] = np.arange(H)[:, None] - dy
+        xs[:, v] = np.arange(W)[None, :] - dx
+        for i in range(H):
+            for j in range(W):
+                si, sj = i - dy, j - dx
+                if 0 <= si < H and 0 <= sj < W:
+                    out[:, i, j, v * C:(v + 1) * C] = img[:, si, sj]
+    return out, xs, ys
