@@ -7,10 +7,12 @@ Phases, each printing one JSON line with its seconds:
 
 1. device  -- the card's name; ``nvidia-smi``'s name and power limit line.
 2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K5, K4 and K7,
-              the gather and its grouped and multiview forms) and
+              the gather and its grouped and multiview forms),
               ``csrc/bilinear_gather_backward.cu`` (K6, the backward of all
-              three) built with nvcc for sm_90a, one nvcc each, both started
-              together; the ``-Xptxas -v`` reports are printed once.
+              three) and ``csrc/selective_scan.cu`` (K8, the selective scan,
+              and its backward) built with nvcc for sm_90a, one nvcc each,
+              all started together; the ``-Xptxas -v`` reports are printed
+              once.
 3. kernel  -- K5 and K6 against their plain PyTorch versions on the card,
               zeros and border modes, fp32/bf16/fp16, at the DAGEM bridge
               shape, a ragged one and one whose C takes no 16-byte vectors,
@@ -36,7 +38,18 @@ Phases, each printing one JSON line with its seconds:
               G=16, each view on its own draw of the coordinate cases; and a
               layout case: at integer coordinates x = j - dx_l, y = i - dy_l,
               K7's channel block l must equal the source shifted by
-              (dy_l, dx_l), zeros outside, exactly.
+              (dy_l, dx_l), zeros outside, exactly. Then K8 and its backward
+              (y and the six gradients) at Mamba-UNet's scan shapes at B=2
+              (the refine layers at L=16384 with D=16/32/48, encoder4 at
+              L=256, the L=64 and L=16 levels with D=64-128), a ragged L of
+              1000, ragged D of 6 and 24, N of 4 and 8, and L=1, with A as
+              MambaBlock's init makes it and dt as the seeded block makes it,
+              small (decay near 1) and large (decay near 0)
+              (``SCAN_SHAPES``): fp32 within 4 times the plain version's own
+              largest distance from float64 on the same inputs plus 1e-6 of
+              the largest |value| (``scan_reference``), bf16 and fp16
+              against the plain versions on the same rounded inputs within
+              that plus one ulp of the dtype (``check_scan``).
 4. slice   -- the serving path: KM_UNetV3-SH at full width (embed_dims
               16/32/64, 128^2, 5 -> 20 frames), seeded weights, eval mode,
               built and served through ``kmunet_tpu_torch.serve`` on the card
@@ -64,7 +77,7 @@ Phases, each printing one JSON line with its seconds:
               both sides hold rounding noise). ``train_exact`` repeats both
               with ``dysample_window=False``: K4 and K6's grouped entry must
               launch 3 times per step, K5 and K6 9 times. No SH path may
-              launch K7 or its backward.
+              launch K7, K8 or their backwards.
    serve_trajgru -- TrajGRU_EF at full width (encoder RNNs 64/192/192
               channels with 13/13/9 flow fields, forecaster 192/192/64 with
               13/13/9), 128^2, 5 -> 20 frames, seeded weights, built and
@@ -73,7 +86,7 @@ Phases, each printing one JSON line with its seconds:
               scaled so that its largest flow on the first request is 2 px
               (the seeded init gives about 0.1 px); K7 must launch 75 times
               per forward (15 encoder and 60 forecaster cell steps) and no
-              other kernel; each answer (2, 20, 128, 128), finite, within 1e-4
+              other kernel (no K8 either); each answer (2, 20, 128, 128), finite, within 1e-4
               abs and 1e-5 of its largest |value| (about 1e-2) of the same
               weights on the CPU.
    train_trajgru -- one fp32 step of the ("trajgru", "pic") recipe (Adam
@@ -87,6 +100,20 @@ Phases, each printing one JSON line with its seconds:
               over 655 k outputs, lies 7e-5 of the leaf from float64, which
               moves its grad norm 6.1e-5 (the card's: 7e-8), by
               scripts/torch_grad_precision.py --model trajgru --size 128.
+   serve_mamba -- Mamba_UNet at full width (c_list 8/16/24/32/48/64, the
+              bridge, 10 DMFM layers), 128^2, 5 -> 20 frames, seeded
+              weights, built and served through
+              ``serve.build_zoo_model("mamba_unet")`` for a few requests of
+              B=2 in fp32 with TF32 off: K8 must launch 20 times per forward
+              (one MambaBlock on two token views in each DMFM) and no other
+              kernel; each answer (2, 128, 128, 20), finite, within 1e-4 abs
+              of the same weights on the CPU.
+   train_mamba -- one fp32 step of the ("mamba_unet", "pic") recipe (SGD lr
+              1e-3, momentum 0.9, coupled decay 1e-4, rainfall loss,
+              CosineAnnealingLR) at full width, 128^2, seq_len 25, B=2, on
+              the card against the same gradient in float64 on the CPU
+              through ``compare_steps``: K8 and its backward must launch 20
+              times each and no other kernel.
 6. timing  -- CUDA events after warm-up, PyTorch's default TF32 settings:
               the forward at B=128 bf16 on the window and the exact path and
               at B=8 fp32 (ms, frames/s = B*20/s); the train step at B=16 and
@@ -108,7 +135,14 @@ Phases, each printing one JSON line with its seconds:
               ``F.grid_sample`` (align_corners, zeros) and
               ``aten.grid_sampler_2d_backward`` plus the sum over the views,
               on the source broadcast into the batch (a copy made before
-              timing).
+              timing). For Mamba-UNet: the forward at B=16 bf16 (ms,
+              frames/s) and the recipe's train step at B=16 bf16 (ms), and K8
+              and its backward at refine3's shape (B=16, L=16384, D=48,
+              N=16, bf16, the "mamba" dt), beside their bounds (the larger of
+              the bytes over the HBM rate and the recurrence's fp32
+              operations, 8*B*L*D*N + 2*B*L*D as scan_pallas.py counts them,
+              over the fp32 rate) and their plain versions; no one PyTorch
+              call computes the scan, so their library time is null.
 Then the kernels line, and last ``{"ok": true, "device": {...}}``. Any failed
 phase raises: the run exits non-zero and prints no result, also when no CUDA
 device is present. A hard deadline ends a run that hangs.
@@ -194,6 +228,36 @@ TRAJGRU_WARPS = 3 * 5 + 3 * 20
 FLOW_REACH_PX = 2.0  # serve_trajgru's largest flow per cell
 FLOW_SCALE = 30.0  # train_trajgru's flow convs: flows reach about 3 px at enc_rnn1
 TRAJGRU_BATCH = 16  # bench.py's zoo batch for trajgru, timed in bf16
+
+K8_SOURCE = "kmunet_tpu_torch/csrc/selective_scan.cu"
+K8_REPLACES = "kmunet_tpu/kernels/scan_pallas.py:145"
+K8B_SOURCE = K8_SOURCE  # the backward is a second entry of the same source
+K8B_REPLACES = "kmunet_tpu/kernels/scan_pallas.py:299"
+# K8's shapes (B, L, D, N): Mamba-UNet's scans at 128^2 and B=2 (the refine
+# layers at 128^2, encoder4 at 16^2, encoder5 and decoder3 at 8^2, encoder6,
+# decoder1 and decoder2 at 4^2), a ragged L, ragged D of 6 and 24, N of 4
+# and 8, and L=1; each with the dt cases listed (SCAN_DT_CASES).
+SCAN_SHAPES = {
+    "refine1": ((2, 16384, 16, 16), ("mamba",)),
+    "refine2": ((2, 16384, 32, 16), ("mamba",)),
+    "refine3": ((2, 16384, 48, 16), ("mamba", "small")),
+    "encoder4": ((2, 256, 48, 16), ("mamba", "small", "large")),
+    "encoder5": ((2, 64, 64, 16), ("mamba", "small", "large")),
+    "encoder6": ((2, 16, 96, 16), ("mamba",)),
+    "decoder1": ((2, 16, 128, 16), ("mamba", "small", "large")),
+    "ragged_l1000": ((2, 1000, 24, 16), ("mamba", "small", "large")),
+    "d6_n4": ((2, 100, 6, 4), ("mamba", "small", "large")),
+    "d24_n8": ((2, 77, 24, 8), ("mamba", "small", "large")),
+    "l1": ((2, 1, 16, 16), ("mamba",)),
+}
+# dt of each case: "mamba" as the seeded MambaBlock makes it, softplus of a
+# N(0, 0.5) projection plus its bias (dt_proj_bias: softplus^-1 of
+# LogUniform(1e-3, 0.1)); "small" U(1e-4, 1e-3), a decay exp(dt*A) near 1
+# (memory over the whole sequence); "large" U(4, 16), a decay near 0.
+SCAN_DT_CASES = ("mamba", "small", "large")
+REFINE3 = (16, 16384, 48, 16)  # K8's timing shape: refine3 at B=16 (B, L, D, N)
+MAMBA_SCANS = 20  # 10 DMFM layers, one MambaBlock each on two token views
+MAMBA_BATCH = 16  # bench.py's zoo batch, timed in bf16
 
 
 def emit(obj) -> None:
@@ -344,6 +408,23 @@ def gather_bound(torch, img, x, n_out, backward: bool):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved, ops
 
 
+def scan_bound(shape, esz, backward: bool):
+    """(bound_ms, bound_by, bytes, ops) of K8 or its backward at (B, L, D, N)
+    with x, dt, B, C (and g) of ``esz`` bytes and A, D fp32: each input read
+    once and each output written once over the HBM rate (K8 reads x, dt, B,
+    C, A, D and writes y; its backward also reads g and writes dx, ddt, dA,
+    dB, dC, dD), against the recurrence's fp32 operations as
+    scan_pallas.py counts them (8 per (b, l, d, n) and 2 per (b, l, d)) over
+    the fp32 rate."""
+    B, L, D, N = shape
+    bld, bln, params = B * L * D * esz, B * L * N * esz, (D * N + D) * 4
+    moved = 5 * bld + 4 * bln + 2 * params if backward else 3 * bld + 2 * bln + params
+    ops = 8 * B * L * D * N + 2 * B * L * D
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved, ops
+
+
 def synthetic_batch(np, B, seed):
     """B items of the synthetic SH corpus (128^2, seq_len 25) from ``seed``."""
     from kmunet_tpu_torch.data import SyntheticNowcastDataset
@@ -366,14 +447,16 @@ def sh_config(B, dtype, drop_path=0.1, img_size=128, seq_len=25, out_frames=20):
     return cfg
 
 
-def trajgru_config(B, dtype, img_size=128, seq_len=25, out_frames=20):
-    """The ("trajgru", "pic") recipe (Adam lr 1e-4, weighted_mse_mae over
-    the thresholds 20/30/35/40, MultiStepLR) on the SH data config (128^2,
-    seq_len 25, 5 -> 20) at batch B in compute ``dtype``."""
+def zoo_config(model, B, dtype, img_size=128, seq_len=25, out_frames=20):
+    """The zoo ``model``'s "pic" recipe (trajgru: Adam lr 1e-4,
+    weighted_mse_mae over the thresholds 20/30/35/40, MultiStepLR;
+    mamba_unet: SGD lr 1e-3, momentum 0.9, coupled decay 1e-4, rainfall
+    loss, CosineAnnealingLR T_max 50) on the SH data config (128^2, seq_len
+    25, 5 -> 20) at batch B in compute ``dtype``."""
     from kmunet_tpu_torch.configs import shanghai_km_unet
     from kmunet_tpu_torch.train.recipes import apply_recipe
 
-    cfg = apply_recipe(shanghai_km_unet(), "trajgru", "pic")
+    cfg = apply_recipe(shanghai_km_unet(), model, "pic")
     cfg.data.img_size, cfg.data.batch_size = img_size, B
     cfg.data.seq_len, cfg.data.out_frames = seq_len, out_frames
     cfg.model.num_classes = out_frames
@@ -499,6 +582,75 @@ def compare_steps(card, cpu):
     return readings
 
 
+def scan_inputs(np, rng, shape, dt_case):
+    """(x, dt, A, B, C, D) of K8 and an upstream gradient g, numpy fp32: x,
+    B, C and g N(0, 1), D U(0.5, 1.5), A = -exp(A_log) with A_log as
+    MambaBlock's init makes it (row d is -1, ..., -N), dt by ``dt_case``."""
+    Bsz, L, D, N = shape
+    x = rng.normal(size=(Bsz, L, D))
+    if dt_case == "mamba":
+        dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), D))
+        dt = np.logaddexp(0.0, rng.normal(0.0, 0.5, (Bsz, L, D)) + dt0 + np.log(-np.expm1(-dt0)))
+    elif dt_case == "small":
+        dt = rng.uniform(1e-4, 1e-3, (Bsz, L, D))
+    else:
+        dt = rng.uniform(4.0, 16.0, (Bsz, L, D))
+    A = -np.tile(np.arange(1, N + 1, dtype=np.float64), (D, 1))
+    Bm, Cm = rng.normal(size=(Bsz, L, N)), rng.normal(size=(Bsz, L, N))
+    Dp = rng.uniform(0.5, 1.5, D)
+    g = rng.normal(size=(Bsz, L, D))
+    return [a.astype(np.float32) for a in (x, dt, A, Bm, Cm, Dp)], g.astype(np.float32)
+
+
+SCAN_OUTPUTS = ("y", "dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+def scan_reference(torch, args, g):
+    """The plain versions' outputs (y and the six gradients) on fp32 ``args``
+    and ``g``, and the tolerance of each: 4 times the plain version's largest
+    distance from its own float64 result on the same inputs, plus 1e-6 of the
+    largest |float64 value| (the floor where the plain version lands on it)."""
+    from kmunet_tpu_torch.kernels import scan
+
+    def run(a, gg):
+        return (scan.selective_scan_plain(*a), *scan.selective_scan_backward_plain(*a, gg))
+
+    ref = run(args, g)
+    exact = run([a.double() for a in args], g.double())
+    tols = [4.0 * float((r.double() - e).abs().max()) + 1e-6 * float(e.abs().max())
+            for r, e in zip(ref, exact)]
+    return ref, tols
+
+
+def check_scan(torch, key, args, g, ref, tols, dtype, errors_f, errors_b):
+    """Holds K8 and its backward in ``dtype`` (x, dt, B, C and g in it; A and
+    D fp32) to the plain versions: in fp32 to ``ref`` within ``tols``
+    (``scan_reference``); in bf16 and fp16 to the plain versions on the same
+    rounded inputs within the same tolerances plus one ulp of the dtype for
+    the outputs in it. Records the worst errors under ``key``/dtype."""
+    from kmunet_tpu_torch.kernels import scan
+
+    a = [t.to(dtype) if i in (0, 1, 3, 4) else t for i, t in enumerate(args)]
+    gd = g.to(dtype)
+    got = (scan.selective_scan_forward(*a), *scan.selective_scan_backward(*a, gd))
+    if dtype == torch.float32:
+        want = ref
+    else:
+        want = (scan.selective_scan_plain(*a), *scan.selective_scan_backward_plain(*a, gd))
+    k = f"{key}/{str(dtype)[6:]}"
+    errs = []
+    for name, out, w, tol in zip(SCAN_OUTPUTS, got, want, tols):
+        if out.dtype != w.dtype or out.shape != w.shape:
+            raise AssertionError(f"K8 {k} {name}: {out.dtype} {tuple(out.shape)}, want "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        bound = torch.full_like(w, tol, dtype=torch.float32)
+        if w.dtype != torch.float32:
+            bound = bound + ulp_tolerance(torch, w.float(), w.dtype)
+        errs.append(check_close(f"K8 {k} {name}", out, w, bound))
+    errors_f[k] = errs[0]
+    errors_b[k] = max(errs[1:])
+
+
 def grouped_case_inputs(np, rng, shape):
     """img (B, H, W, C), an upstream gradient (B, Ho, Wo, C) and the named
     coordinate cases, each (x, y) of (B, G, Ho, Wo) with every group on its
@@ -585,19 +737,22 @@ def main() -> int:
     import torch.nn.functional as F
 
     from kmunet_tpu_torch import serve
-    from kmunet_tpu_torch.kernels import bilinear, build
+    from kmunet_tpu_torch.kernels import bilinear, build, scan
 
     kernels = {"bilinear_gather": bilinear.bilinear_gather,
                "bilinear_gather_backward": bilinear.bilinear_gather_backward,
                "bilinear_gather_grouped": bilinear.bilinear_gather_grouped,
                "bilinear_gather_grouped_backward": bilinear.bilinear_gather_grouped_backward,
                "bilinear_gather_multiview": bilinear.bilinear_gather_multiview,
-               "bilinear_gather_multiview_backward": bilinear.bilinear_gather_multiview_backward}
+               "bilinear_gather_multiview_backward": bilinear.bilinear_gather_multiview_backward,
+               "selective_scan": scan.selective_scan,
+               "selective_scan_backward": scan.selective_scan_backward}
 
-    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0):
+    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0, k8=0, k8b=0):
         return {"bilinear_gather": k5, "bilinear_gather_backward": k6,
                 "bilinear_gather_grouped": k4, "bilinear_gather_grouped_backward": k6g,
-                "bilinear_gather_multiview": k7, "bilinear_gather_multiview_backward": k6s}
+                "bilinear_gather_multiview": k7, "bilinear_gather_multiview_backward": k6s,
+                "selective_scan": k8, "selective_scan_backward": k8b}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -619,14 +774,15 @@ def main() -> int:
     print(card, flush=True)
 
     with Phase("build") as f:
-        sources = (bilinear.SOURCE, bilinear.BACKWARD_SOURCE)
+        sources = (bilinear.SOURCE, bilinear.BACKWARD_SOURCE, scan.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, started together
             builds = list(pool.map(build.build, sources))
         for entry in (bilinear.forward_kernel, bilinear.backward_kernel,
                       bilinear.grouped_kernel, bilinear.grouped_backward_kernel,
-                      bilinear.multiview_kernel, bilinear.multiview_backward_kernel):
+                      bilinear.multiview_kernel, bilinear.multiview_backward_kernel,
+                      scan.forward_kernel, scan.backward_kernel):
             entry()
-        f.update(sources=[K5_SOURCE, K6_SOURCE],
+        f.update(sources=[K5_SOURCE, K6_SOURCE, K8_SOURCE],
                  libraries=[os.path.relpath(b.path, REPO) for b in builds],
                  nvcc_seconds=[round(b.seconds, 3) for b in builds])
     for source, built in zip(sources, builds):
@@ -674,6 +830,7 @@ def main() -> int:
             errors_b[k] = max(errs)
 
     errors, k6_errors, k4_errors, k6g_errors, k7_errors, k6s_errors = {}, {}, {}, {}, {}, {}
+    k8_errors, k8b_errors, k8_tolerances = {}, {}, {}
     with Phase("kernel") as f:
         rng = np.random.default_rng(0)
         plain_ops = (bilinear.bilinear_gather_forward, bilinear.bilinear_gather_backward,
@@ -722,11 +879,29 @@ def main() -> int:
             got = bilinear.bilinear_gather_multiview_forward(img32.to(dtype), x, y, "zeros")
             if not torch.equal(got, want.to(dtype)):
                 raise AssertionError(f"K7 layout {dtype}: view l is not the source shifted")
+        # K8 and its backward: y and the six gradients.
+        for shape_name, (shape, dt_cases) in SCAN_SHAPES.items():
+            for dt_case in dt_cases:
+                args, g = scan_inputs(np, rng, shape, dt_case)
+                args = [torch.from_numpy(a).to(dev) for a in args]
+                g = torch.from_numpy(g).to(dev)
+                ref, tols = scan_reference(torch, args, g)
+                key = f"{shape_name}/{dt_case}"
+                k8_tolerances[key] = dict(zip(SCAN_OUTPUTS, tols))
+                for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                    check_scan(torch, key, args, g, ref, tols, dtype, k8_errors, k8b_errors)
+                del args, g, ref
         torch.cuda.synchronize()
-        f.update(cases=len(errors) + len(k4_errors) + len(k7_errors), k5_max_abs_err=errors,
-                 k6_max_abs_err=k6_errors, k4_max_abs_err=k4_errors,
+        f.update(cases=len(errors) + len(k4_errors) + len(k7_errors) + len(k8_errors),
+                 k5_max_abs_err=errors, k6_max_abs_err=k6_errors, k4_max_abs_err=k4_errors,
                  k6_grouped_max_abs_err=k6g_errors, k7_max_abs_err=k7_errors,
-                 k6_shared_max_abs_err=k6s_errors, k7_layout="exact")
+                 k6_shared_max_abs_err=k6s_errors, k7_layout="exact",
+                 k8_max_abs_err=k8_errors, k8_backward_max_abs_err=k8b_errors,
+                 k8_tolerance="fp32: 4 x the plain version's largest distance from float64 on "
+                              "the same inputs + 1e-6 x the largest |value|; bf16, fp16: that "
+                              "+ one ulp of the dtype, against the plain version on the same "
+                              "rounded inputs",
+                 k8_tolerances_fp32=k8_tolerances)
 
     def serve_path(path, window, f):
         """Serves REQUESTS fp32 requests of B=2 on the card with
@@ -851,7 +1026,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         batch = synthetic_batch(np, CHECK_BATCH, seed=2)
-        cfg = trajgru_config(CHECK_BATCH, "float32")
+        cfg = zoo_config("trajgru", CHECK_BATCH, "float32")
         reset_counts()
         card = step_gradients(cfg, "cuda", batch, flow_scale=FLOW_SCALE)
         launches = path_launches["train_trajgru"] = read_counts()
@@ -861,23 +1036,67 @@ def main() -> int:
         f.update(batch=CHECK_BATCH, compute="float32", reference="float64 on the CPU",
                  flow_scale=FLOW_SCALE, launches=launches, check=check, tf32=False)
 
-    def time_kernel(kernel, plain, library, img, x, n_out, backward, iters, plain_iters):
-        """A kernel's numbers beside its bound, its plain version and the
-        library call on the same inputs: ms by CUDA events over back-to-back
-        calls, queued ms by CUDA events over calls queued behind a spin,
-        device ms by the profiler."""
-        bound, bound_by, moved, ops = gather_bound(torch, img, x, n_out, backward)
+    with Phase("serve_mamba") as f:
+        # REQUESTS fp32 requests of B=2 on the card, TF32 off, held to the
+        # same weights on the CPU.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = serve.build_zoo_model("mamba_unet", device="cuda", dtype=torch.float32, seed=0)
+        requests = [rng.uniform(size=(REQUEST_BATCH, 128, 128, 5)).astype(np.float32)
+                    for _ in range(REQUESTS)]
+        reset_counts()
+        answers = [serve.predict(model, frames) for frames in requests]
+        launches = path_launches["serve_mamba"] = read_counts()
+        expect_launches("serve_mamba", launches, launches_per(k8=MAMBA_SCANS * REQUESTS))
+        model_cpu = serve.build_zoo_model("mamba_unet", device="cpu", dtype=torch.float32, seed=0)
+        model_cpu.load_state_dict(model.state_dict())
+        err, scale = 0.0, 0.0
+        for frames, answer in zip(requests, answers):
+            if tuple(answer.shape) != (REQUEST_BATCH, 128, 128, 20):
+                raise AssertionError(f"mamba_unet answer shape {tuple(answer.shape)}")
+            if not bool(torch.isfinite(answer).all()):
+                raise AssertionError("mamba_unet answer has non-finite values")
+            err = max(err, float((answer.cpu() - serve.predict(model_cpu, frames)).abs().max()))
+            scale = max(scale, float(answer.abs().max()))
+        if err > 1e-4:
+            raise AssertionError(f"serve_mamba: card vs CPU forward: max abs err {err} > 1e-4")
+        f.update(requests=REQUESTS, batch=REQUEST_BATCH, launches=launches,
+                 max_abs_err_vs_cpu=err, answer_max_abs=scale, tf32=False)
+        del model, model_cpu, answers
+
+    with Phase("train_mamba") as f:
+        # One fp32 step of the recipe on the card, TF32 off, against the
+        # same gradient in float64 on the CPU.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        batch = synthetic_batch(np, CHECK_BATCH, seed=4)
+        cfg = zoo_config("mamba_unet", CHECK_BATCH, "float32")
+        reset_counts()
+        card = step_gradients(cfg, "cuda", batch)
+        launches = path_launches["train_mamba"] = read_counts()
+        expect_launches("train_mamba", launches, launches_per(k8=MAMBA_SCANS, k8b=MAMBA_SCANS))
+        check = compare_steps(card, float64_gradients(cfg, batch))
+        f.update(batch=CHECK_BATCH, compute="float32", size=128,
+                 reference="float64 on the CPU", launches=launches, check=check, tf32=False)
+
+    def time_kernel(kernel, plain, library, bound, iters, plain_iters):
+        """A kernel's numbers beside its ``bound`` ((bound_ms, bound_by,
+        bytes, ops)), its plain version and the library call (None where no
+        one PyTorch call computes the function) on the same inputs: ms by
+        CUDA events over back-to-back calls, queued ms by CUDA events over
+        calls queued behind a spin, device ms by the profiler."""
+        bound, bound_by, moved, ops = bound
         queued = queued_ms(torch, kernel, min(iters, 50))
-        library_queued = queued_ms(torch, library, min(iters, 50))
+        library_queued = queued_ms(torch, library, min(iters, 50)) if library else [None] * 3
         return {"ms": cuda_ms(torch, kernel, iters, 10),
                 "queued_ms": queued[0], "library_queued_ms": library_queued[0],
                 "queued_issue_ms": [queued[1], library_queued[1]],
                 "queued_spin_ms": [queued[2], library_queued[2]],
                 "plain_ms": cuda_ms(torch, plain, plain_iters),
-                "library_ms": cuda_ms(torch, library, iters, 10),
+                "library_ms": cuda_ms(torch, library, iters, 10) if library else None,
                 "device_ms": device_ms(torch, kernel, min(iters, 50)),
                 "plain_device_ms": device_ms(torch, plain, plain_iters),
-                "library_device_ms": device_ms(torch, library, min(iters, 50)),
+                "library_device_ms": device_ms(torch, library, min(iters, 50)) if library else None,
                 "bound_ms": bound, "bound_by": bound_by, "bytes": moved, "ops": ops}
 
     with Phase("timing") as f:
@@ -927,7 +1146,7 @@ def main() -> int:
             k5, lambda: bilinear.bilinear_gather_plain(img, x, y, "zeros"),
             lambda: F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="zeros",
                                   align_corners=True),
-            img, x, B * H * W * C, False, 200, 20)}
+            gather_bound(torch, img, x, B * H * W * C, False), 200, 20)}
         timed["bilinear_gather"]["library_max_abs_diff"] = float((F.grid_sample(
             img_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True).permute(
                 0, 2, 3, 1).float() - k5().float()).abs().max())
@@ -937,7 +1156,7 @@ def main() -> int:
             # bilinear (0), zeros padding (0), align_corners
             lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 0, True,
                                                             [True, True]),
-            img, x, B * H * W * C, True, 200, 20)
+            gather_bound(torch, img, x, B * H * W * C, True), 200, 20)
         del img, x, y, g, grid, img_nchw, g_nchw
 
         # K4 and K6's grouped entry at DySample's dec3 shape, border mode, at
@@ -964,7 +1183,7 @@ def main() -> int:
 
         timed["bilinear_gather_grouped"] = time_kernel(
             k4, lambda: bilinear.bilinear_gather_grouped_plain(img, x, y, "border"),
-            library_grouped, img, x, B * Ho * Wo * C, False, 100, 5)
+            library_grouped, gather_bound(torch, img, x, B * Ho * Wo * C, False), 100, 5)
         timed["bilinear_gather_grouped"]["library_max_abs_diff"] = float((
             library_grouped().view(B, G, Cg, Ho, Wo).permute(0, 3, 4, 1, 2).reshape(
                 B, Ho, Wo, C).float() - k4().float()).abs().max())
@@ -974,7 +1193,7 @@ def main() -> int:
             # bilinear (0), border padding (1), align_corners=False
             lambda: torch.ops.aten.grid_sampler_2d_backward(g_lib, img_lib, grid, 0, 1, False,
                                                             [True, True]),
-            img, x, B * Ho * Wo * C, True, 20, 3)
+            gather_bound(torch, img, x, B * Ho * Wo * C, True), 20, 3)
         del img, x, y, g, grid, img_lib, g_lib
 
         # TrajGRU: the forward and the recipe's step at B=16 bf16.
@@ -987,7 +1206,8 @@ def main() -> int:
         forward[f"trajgru_B{TRAJGRU_BATCH}_bfloat16"] = {
             "ms": ms, "frames_per_s": TRAJGRU_BATCH * 20 / (ms / 1e3)}
         del model, frames, out
-        model, state, step, _ = train_setup(trajgru_config(TRAJGRU_BATCH, "bfloat16"), "cuda")
+        model, state, step, _ = train_setup(zoo_config("trajgru", TRAJGRU_BATCH, "bfloat16"),
+                                              "cuda")
         batch = torch.from_numpy(synthetic_batch(np, TRAJGRU_BATCH, seed=3)).to(dev)
         torch.cuda.reset_peak_memory_stats()
         losses = []
@@ -1026,21 +1246,61 @@ def main() -> int:
 
         timed["bilinear_gather_multiview"] = time_kernel(
             k7, lambda: bilinear.bilinear_gather_multiview_plain(img, x, y, "zeros"),
-            library_multiview, img, x, B * Ho * Wo * G * C, False, 100, 5)
+            library_multiview, gather_bound(torch, img, x, B * Ho * Wo * G * C, False), 100, 5)
         timed["bilinear_gather_multiview"]["library_max_abs_diff"] = float((
             library_multiview().view(B, G, C, Ho, Wo).permute(0, 3, 4, 1, 2).reshape(
                 B, Ho, Wo, G * C).float() - k7().float()).abs().max())
         timed["bilinear_gather_multiview_backward"] = time_kernel(
             lambda: bilinear.bilinear_gather_multiview_backward(img, x, y, g, "zeros"),
             lambda: bilinear.bilinear_gather_multiview_backward_plain(img, x, y, g, "zeros"),
-            library_multiview_backward, img, x, B * Ho * Wo * G * C, True, 20, 3)
+            library_multiview_backward,
+            gather_bound(torch, img, x, B * Ho * Wo * G * C, True), 20, 3)
         del img, x, y, g, grid, img_lib, g_lib
+
+        # Mamba-UNet: the forward and the recipe's step at B=16 bf16.
+        model = serve.build_zoo_model("mamba_unet", device="cuda", dtype=torch.bfloat16, seed=0)
+        frames = torch.rand(MAMBA_BATCH, 128, 128, 5, device=dev).to(torch.bfloat16)
+        out = serve.predict(model, frames)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("Mamba-UNet B=16 bf16 forward has non-finite values")
+        ms = cuda_ms(torch, lambda: serve.predict(model, frames), 5)
+        forward[f"mamba_unet_B{MAMBA_BATCH}_bfloat16"] = {
+            "ms": ms, "frames_per_s": MAMBA_BATCH * 20 / (ms / 1e3)}
+        del model, frames, out
+        model, state, step, _ = train_setup(zoo_config("mamba_unet", MAMBA_BATCH, "bfloat16"),
+                                              "cuda")
+        batch = torch.from_numpy(synthetic_batch(np, MAMBA_BATCH, seed=5)).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        ms = cuda_ms(torch, lambda: losses.append(step(state, batch)[1]["loss"]), 5)
+        if not all(bool(torch.isfinite(v)) for v in losses):
+            raise AssertionError("Mamba-UNet B=16 bf16 step has a non-finite loss")
+        train[f"mamba_unet_B{MAMBA_BATCH}_bfloat16"] = {
+            "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del model, state, step, batch
+
+        # K8 and its backward at refine3's shape, bf16, the seeded block's dt.
+        args, g = scan_inputs(np, rng, REFINE3, "mamba")
+        args = [torch.from_numpy(a).to(dev) for a in args]
+        args = [a.to(torch.bfloat16) if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
+        g = torch.from_numpy(g).to(dev).to(torch.bfloat16)
+        timed["selective_scan"] = time_kernel(
+            lambda: scan.selective_scan_forward(*args),
+            lambda: scan.selective_scan_plain(*args), None, scan_bound(REFINE3, 2, False),
+            20, 1)
+        timed["selective_scan_backward"] = time_kernel(
+            lambda: scan.selective_scan_backward(*args, g),
+            lambda: scan.selective_scan_backward_plain(*args, g), None,
+            scan_bound(REFINE3, 2, True), 10, 1)
+        del args, g
         f.update(forward=forward, train_step=train, tf32_conv=True,
                  shapes={"bilinear_gather": list(BRIDGE), "bilinear_gather_backward": list(BRIDGE),
                          "bilinear_gather_grouped": list(DEC3),
                          "bilinear_gather_grouped_backward": list(DEC3),
                          "bilinear_gather_multiview": list(RNN1),
-                         "bilinear_gather_multiview_backward": list(RNN1)},
+                         "bilinear_gather_multiview_backward": list(RNN1),
+                         "selective_scan": list(REFINE3),
+                         "selective_scan_backward": list(REFINE3)},
                  dtype="bfloat16", kernels=timed)
 
     def by_path(name):
@@ -1056,7 +1316,9 @@ def main() -> int:
             ("bilinear_gather_grouped", K4_SOURCE, K4_REPLACES, k4_errors),
             ("bilinear_gather_grouped_backward", K6G_SOURCE, K6G_REPLACES, k6g_errors),
             ("bilinear_gather_multiview", K7_SOURCE, K7_REPLACES, k7_errors),
-            ("bilinear_gather_multiview_backward", K6S_SOURCE, K6S_REPLACES, k6s_errors)):
+            ("bilinear_gather_multiview_backward", K6S_SOURCE, K6S_REPLACES, k6s_errors),
+            ("selective_scan", K8_SOURCE, K8_REPLACES, k8_errors),
+            ("selective_scan_backward", K8B_SOURCE, K8B_REPLACES, k8b_errors)):
         t = timed[name]
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path(name).values()),

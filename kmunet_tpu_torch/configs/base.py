@@ -39,6 +39,7 @@ class TrainConfig:
     optimizer: str = "adamw"
     lr: float = 1e-3
     weight_decay: float = 0.05
+    momentum: float = 0.9             # sgd only
     schedule: str = "cosine_epoch"    # CosineAnnealingLR stepped per epoch
     cosine_t_max: int = 200
     eta_min: float = 5e-4

@@ -15,7 +15,13 @@ changes are:
   ``spline_scaler`` (k, k, C, F) -> (F, C, k, k);
 - HSMSSD's ``BCdt_proj_kernel`` (C, 3N) -> ``BCdt_proj`` (3N, C) and
   ``dw_kernel`` (3, 3, 1, 3N) -> ``dw_weight`` (3N, 1, 3, 3);
-- ConvLSTM's per-channel peepholes ``Wci``, ``Wcf``, ``Wco`` keep their names.
+- ConvLSTM's per-channel peepholes ``Wci``, ``Wcf``, ``Wco`` keep their names;
+- Mamba's ``conv1d_kernel`` (d_conv, 1, d_inner) -> ``conv1d_weight``
+  (d_inner, 1, d_conv), ``dt_proj_kernel`` (dt_rank, d_inner) ->
+  ``dt_proj_weight`` (d_inner, dt_rank), and Mamba-UNet's
+  ``get_all_att_kernel`` (3, 1, 1) -> ``get_all_att_weight`` (1, 1, 3);
+  ``conv1d_bias``, ``dt_proj_bias``, ``A_log``, ``skip_scale1/2`` and the 0-d
+  ``alpha1..3`` and ``beta`` keep their names.
 
 ``to_state_dict`` raises if a flax leaf is left unused or a torch key unfilled.
 """
@@ -46,6 +52,18 @@ _RENAMES = {
     "Wci": ("Wci", None),
     "Wcf": ("Wcf", None),
     "Wco": ("Wco", None),
+    "conv1d_kernel": ("conv1d_weight", (2, 1, 0)),
+    "conv1d_bias": ("conv1d_bias", None),
+    "dt_proj_kernel": ("dt_proj_weight", (1, 0)),
+    "dt_proj_bias": ("dt_proj_bias", None),
+    "A_log": ("A_log", None),
+    "skip_scale1": ("skip_scale1", None),
+    "skip_scale2": ("skip_scale2", None),
+    "get_all_att_kernel": ("get_all_att_weight", (2, 1, 0)),
+    "alpha1": ("alpha1", None),
+    "alpha2": ("alpha2", None),
+    "alpha3": ("alpha3", None),
+    "beta": ("beta", None),
 }
 # Torch bookkeeping with no flax counterpart; set to 0, never read in eval.
 _TORCH_ONLY = "num_batches_tracked"
@@ -89,7 +107,9 @@ def to_state_dict(model: nn.Module, params: Mapping, batch_stats: Mapping | None
             continue
         if tuple(value.shape) != tuple(target[key].shape):
             raise ValueError(f"{key}: flax {value.shape} -> torch {tuple(target[key].shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(value)).to(target[key].dtype)
+        # ascontiguousarray makes a 0-d leaf (Mamba-UNet's alpha1..3, beta) 1-d.
+        value = np.ascontiguousarray(value).reshape(value.shape)
+        out[key] = torch.from_numpy(value).to(target[key].dtype)
     for key in target:
         if key.endswith(_TORCH_ONLY):
             out[key] = torch.zeros_like(target[key])

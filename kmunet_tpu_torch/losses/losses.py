@@ -1,8 +1,8 @@
 """Nowcasting losses (port of ``kmunet_tpu/losses/losses.py``).
 
-``hybrid_loss`` (the SH training loss) and ``weighted_mse_mae`` (the
-ConvLSTM and TrajGRU recipes') are ported; the other three
-(``rainfall_loss``, ``en_rainfall_loss``, ``rain_loss``) wait for ROADMAP
+``hybrid_loss`` (the SH training loss), ``weighted_mse_mae`` (the ConvLSTM
+and TrajGRU recipes'), ``rainfall_loss`` (Mamba-UNet's) and ``rain_loss``
+(the other zoo recipes') are ported; ``en_rainfall_loss`` waits for ROADMAP
 Queue 1 item 5.
 """
 
@@ -33,6 +33,30 @@ def hybrid_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 0.7) ->
     ssim_loss = 1.0 - ssim
 
     return alpha * (0.55 * mse + 0.45 * weighted) + (1.0 - alpha) * ssim_loss
+
+
+def rainfall_loss(pred: torch.Tensor, target: torch.Tensor, omega_t: float = 0.57,
+                  alpha: float = 0.25) -> torch.Tensor:
+    """Dynamic quantile weighted L1 with exp emphasis above 0.7: over- and
+    under-predictions weighted 1 - 0.57 and 0.57, plus, where the target is
+    at least 0.7, ``alpha * exp(target)`` times 1 - omega_t and omega_t;
+    both sums divided by the number of elements."""
+    w0 = 0.57
+    err = (pred - target).abs()
+    ge = (pred >= target).to(pred.dtype)
+    lt = 1.0 - ge
+    heavy = (target >= 0.7).to(pred.dtype)
+    wi = alpha * torch.exp(target)
+    base = torch.sum(ge * (1 - w0) * err) + torch.sum(lt * w0 * err)
+    quant = (torch.sum(ge * heavy * (1 - omega_t) * wi * err)
+             + torch.sum(lt * heavy * omega_t * wi * err))
+    n = pred.numel()
+    return base / n + quant / n
+
+
+def rain_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """MSE + MAE."""
+    return torch.mean((pred - target) ** 2) + torch.mean((pred - target).abs())
 
 
 def weighted_mse_mae(pred: torch.Tensor, target: torch.Tensor, mse_weight: float = 1.0,

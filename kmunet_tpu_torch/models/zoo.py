@@ -1,9 +1,9 @@
 """Model zoo registry (port of ``kmunet_tpu/models/zoo.py``): config names
 to constructors, for the models the port has.
 
-The port has KM_UNetV3 in its SH variant and the two encoder-forecaster
-RNNs (``convlstm``, ``trajgru``). The others raise ``NotImplementedError``
-naming their ROADMAP item.
+The port has KM_UNetV3 in its SH variant, the two encoder-forecaster RNNs
+(``convlstm``, ``trajgru``) and Mamba-UNet (``mamba_unet``). The others
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from kmunet_tpu_torch.models import ef, km_unet
+from kmunet_tpu_torch.models import ef, km_unet, mamba_unet
 
 # Which models take (B, S, H, W) sequences and return (B, T, H, W), and
 # which take (B, H, W, C) frame stacks and return (B, H, W, T).
@@ -39,6 +39,15 @@ def build(model_cfg, dysample_window: bool = True) -> nn.Module:
         if extra:
             raise ValueError(f"{name} takes no model.extra, got {sorted(extra)}")
         return (ef.ConvLSTM_EF if name == "convlstm" else ef.TrajGRU_EF)(out_frames=n)
+    if name == "mamba_unet":
+        if "seq_mesh" in extra:
+            raise NotImplementedError("mamba_unet seq_mesh: the sequence-parallel scan needs a "
+                                      "device mesh, not in the port yet (ROADMAP Queue 1 item 9)")
+        unknown = set(extra) - {"c_list", "bridge"}
+        if unknown:
+            raise ValueError(f"mamba_unet takes model.extra c_list and bridge, "
+                             f"got {sorted(unknown)}")
+        return mamba_unet.Mamba_UNet(predicted_frames=n, **extra)
     raise NotImplementedError(f"model {name!r}: not in the port yet (the zoo is ROADMAP "
                               "Queue 1 item 10)")
 
@@ -48,4 +57,6 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     distributions."""
     if isinstance(model, ef._EF):
         return ef.init_weights_(model, generator)
+    if isinstance(model, mamba_unet.Mamba_UNet):
+        return mamba_unet.init_weights_(model, generator)
     return km_unet.init_weights_(model, generator)

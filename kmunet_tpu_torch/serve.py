@@ -3,13 +3,16 @@
     model = build_km_unet_v3_sh()               # on "cuda"; raises without a card
     forecast = predict(model, frames)           # (B, H, W, 5) -> (B, H, W, 20)
 
-    model = build_zoo_model("trajgru")          # or "convlstm", "km_unet_v3"
+    model = build_zoo_model("trajgru")          # or "convlstm"
     forecast = predict(model, frames)           # (B, 5, H, W) -> (B, 20, H, W)
+
+    model = build_zoo_model("mamba_unet")       # or "km_unet_v3"
+    forecast = predict(model, frames)           # (B, H, W, 5) -> (B, H, W, 20)
 
 Pass ``device="cpu"`` to run on the CPU (the gathers then take their plain
 versions); nothing falls back to the CPU on its own. Pass
 ``dysample_window=False`` for DySample's exact path (the K4 grouped gather).
-TrajGRU's warp is the K7 multiview gather.
+TrajGRU's warp is the K7 multiview gather, Mamba-UNet's scan K8.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def build_km_unet_v3_sh(device=None, dtype: torch.dtype = torch.float32, seed: i
 def build_zoo_model(name: str, device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
                     out_frames: int = 20) -> torch.nn.Module:
     """The zoo's model ``name`` (``km_unet_v3`` for the SH variant,
-    ``convlstm``, ``trajgru``) forecasting ``out_frames`` frames, in eval
+    ``convlstm``, ``trajgru``, ``mamba_unet``) forecasting ``out_frames`` frames, in eval
     mode, initialised from ``seed`` with the JAX package's distributions, on
     ``device`` in ``dtype``."""
     device = resolve_device(device)
@@ -56,8 +59,8 @@ def build_zoo_model(name: str, device=None, dtype: torch.dtype = torch.float32, 
 def predict(model: torch.nn.Module, frames) -> torch.Tensor:
     """Forecast from input frames, a tensor or array, moved to the model's
     device and dtype: KM_UNetV3 maps (B, H, W, 5) to maps (B, H, W, T) in
-    [0, 1], a sequence model (``zoo.SEQUENCE_MODELS``) (B, 5, H, W) to
-    (B, T, H, W)."""
+    [0, 1], Mamba-UNet (B, H, W, 5) to (B, H, W, T), a sequence model
+    (``zoo.SEQUENCE_MODELS``) (B, 5, H, W) to (B, T, H, W)."""
     p = next(model.parameters())
     frames = torch.as_tensor(frames).to(device=p.device, dtype=p.dtype)
     return model(frames)

@@ -1,7 +1,7 @@
 """The training step of the port (port of ``kmunet_tpu/train/engine.py``),
 under the JAX engine's names::
 
-    cfg = shanghai_km_unet()          # or apply_recipe(shanghai_km_unet(), "trajgru", "pic")
+    cfg = shanghai_km_unet()          # or apply_recipe(shanghai_km_unet(), "mamba_unet", "pic")
     model = build_model(cfg)
     loss_fn = build_loss(cfg)
     tx = build_optimizer(cfg, steps_per_epoch=100)
@@ -16,10 +16,14 @@ takes its plain versions); nothing falls back to the CPU on its own. The
 
 ``build_model(cfg, dysample_window=False)`` takes DySample's exact path
 (the K4 grouped gather and its K6 backward on the card). The models come
-from the zoo (``models/zoo.py``): KM_UNetV3-SH, and the sequence models
-ConvLSTM and TrajGRU (``cfg.model.name``; ``train/recipes.py::apply_recipe``
-sets their reference recipes: Adam, ``weighted_mse_mae``, MultiStepLR).
-TrajGRU's warp runs K7 and its backward K6's shared-source entry.
+from the zoo (``models/zoo.py``): KM_UNetV3-SH, the sequence models
+ConvLSTM and TrajGRU, and Mamba-UNet (``cfg.model.name``;
+``train/recipes.py::apply_recipe`` sets their reference recipes: Adam,
+``weighted_mse_mae`` and MultiStepLR for the RNNs; SGD with momentum,
+``rainfall_loss`` and CosineAnnealingLR for Mamba-UNet's "pic"). TrajGRU's
+warp runs K7 and its backward K6's shared-source entry; Mamba-UNet's scans
+run K8 and its backward. Mamba-UNet has no BatchNorm and no stochastic
+depth: its ``batch_stats`` are empty and the generator may be None.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP item: the LAPS variant and ``head_norm`` (Queue 1 item 3), the other
@@ -38,7 +42,7 @@ import torch
 from torch import nn
 
 from kmunet_tpu_torch.configs import ExperimentConfig
-from kmunet_tpu_torch.losses import hybrid_loss, weighted_mse_mae
+from kmunet_tpu_torch.losses import hybrid_loss, rain_loss, rainfall_loss, weighted_mse_mae
 from kmunet_tpu_torch.models import zoo
 from kmunet_tpu_torch.serve import resolve_device
 from kmunet_tpu_torch.train.optimizers import AdamW, AdamWState, make_optimizer
@@ -72,14 +76,18 @@ def build_loss(cfg: ExperimentConfig) -> Callable:
     name = cfg.train.loss
     if name == "hybrid":
         return functools.partial(hybrid_loss, alpha=cfg.train.loss_alpha)
+    if name == "rainfall":
+        return rainfall_loss
+    if name == "rain":
+        return rain_loss
     if name == "weighted_mse_mae":
         thresholds = tuple(cfg.data.thresholds)
         # The loss keeps the reference's (B, S, C, H, W) contract: the
         # (B, T, H, W) maps get the singleton channel axis.
         return lambda p, t: weighted_mse_mae(p[:, :, None], t[:, :, None], lam=None,
                                              thresholds=thresholds)
-    raise NotImplementedError(f"loss {name!r}: the port has hybrid and weighted_mse_mae "
-                              "only (ROADMAP Queue 1 item 5)")
+    raise NotImplementedError(f"loss {name!r}: the port has hybrid, rainfall, rain and "
+                              "weighted_mse_mae only (ROADMAP Queue 1 item 5)")
 
 
 def build_optimizer(cfg: ExperimentConfig, steps_per_epoch: int) -> AdamW:
@@ -92,8 +100,9 @@ def build_optimizer(cfg: ExperimentConfig, steps_per_epoch: int) -> AdamW:
         sched = cosine_annealing_per_epoch(t.lr, t.eta_min, t.cosine_t_max, steps_per_epoch)
     else:
         sched = make_schedule(t.schedule, t.lr, steps_per_epoch,
-                              milestones=tuple(t.milestones), gamma=t.gamma)
-    return make_optimizer(t.optimizer, sched, weight_decay=t.weight_decay)
+                              milestones=tuple(t.milestones), gamma=t.gamma,
+                              t_max=t.cosine_t_max, eta_min=t.eta_min)
+    return make_optimizer(t.optimizer, sched, weight_decay=t.weight_decay, momentum=t.momentum)
 
 
 def init_state(cfg: ExperimentConfig, model: nn.Module, tx: AdamW, seed: int = 0,
@@ -148,14 +157,15 @@ def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
     cdtype = _COMPUTE_DTYPES[cfg.train.compute_dtype]
     in_f, out_f = cfg.data.in_frames, cfg.data.out_frames
     layout = _model_layout(cfg)
+    takes_generator = cfg.model.name == "km_unet_v3"
 
     def loss_of(params: dict, batch: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         inp, tgt = _split_batch(batch, in_f, out_f, layout)
         params_c = {k: p.to(cdtype) if p.is_floating_point() else p for k, p in params.items()}
-        # KM_UNetV3's stochastic depth takes the generator; the sequence
+        # KM_UNetV3's stochastic depth takes the generator; the other
         # models have none.
-        kwargs = {"generator": generator} if layout == "stack" else {}
+        kwargs = {"generator": generator} if takes_generator else {}
         out = torch.func.functional_call(model, params_c, (inp.to(cdtype),), kwargs)
         return loss_fn(_to_btHW(out.float(), layout), tgt)
 
@@ -164,7 +174,7 @@ def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
 
 def make_train_step(model: nn.Module, loss_fn: Callable, tx: AdamW, cfg: ExperimentConfig):
     """``step(state, batch, generator) -> (state, {"loss", "grad_norm"})``:
-    one optimizer step (AdamW or Adam) on ``batch`` (B, seq_len, H, W), a
+    one optimizer step (AdamW, Adam or SGD) on ``batch`` (B, seq_len, H, W), a
     tensor or array moved to the model's device as fp32. The metrics are 0-d
     tensors on that device (reading them waits for it); ``grad_norm`` is the
     global L2 norm of the fp32 gradients."""

@@ -1,8 +1,8 @@
 """Optimizers of the port (port of ``kmunet_tpu/train/optimizers.py``).
 
-AdamW (the SH recipe's) and Adam (the ConvLSTM and TrajGRU recipes') are
-ported; the other seven of the reference's factory wait for ROADMAP Queue 1
-item 5.
+AdamW (the SH recipe's), Adam (the ConvLSTM and TrajGRU recipes') and SGD
+with momentum (Mamba-UNet's "pic" recipe and most of the zoo's) are ported;
+the other six of the reference's factory wait for ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -96,12 +96,49 @@ class Adam(AdamW):
         return super().update(grads, state, params)
 
 
-def make_optimizer(name: str, learning_rate: Schedule, *, weight_decay: float = 0.0) -> AdamW:
-    """The optimizer factory; the port has ``adamw`` and ``adam``."""
+class SGD(AdamW):
+    """``optax.sgd(lr, momentum)``: trace <- g + momentum * trace, from a
+    zero trace (so the first update is -lr * g), and p <- p - lr * trace,
+    the schedule read at the count before the update; momentum 0 is plain
+    SGD (the JAX factory's ``momentum or None``) and keeps no trace. A
+    nonzero ``weight_decay`` is coupled into the gradient, as the JAX
+    factory chains ``optax.add_decayed_weights`` before it. The state is
+    AdamW's, with the trace in ``mu`` and ``nu`` empty."""
+
+    def __init__(self, learning_rate: Schedule, momentum: float = 0.9,
+                 weight_decay: float = 0.0):
+        super().__init__(learning_rate, weight_decay=0.0)
+        self.momentum = momentum
+        self.l2 = weight_decay
+
+    def init(self, params: list[torch.Tensor]) -> AdamWState:
+        return AdamWState(0, [torch.zeros_like(p) for p in params] if self.momentum else [], [])
+
+    @torch.no_grad()
+    def update(self, grads: list[torch.Tensor], state: AdamWState,
+               params: list[torch.Tensor]) -> AdamWState:
+        """Applies one update to ``params`` in place; returns the new state."""
+        lr = self.lr(state.count)
+        if self.l2:
+            grads = torch._foreach_add(grads, params, alpha=self.l2)
+        trace = state.mu
+        if self.momentum:
+            torch._foreach_mul_(trace, self.momentum)
+            torch._foreach_add_(trace, grads)
+        torch._foreach_add_(params, torch._foreach_mul(trace if self.momentum else grads, -lr))
+        return AdamWState(state.count + 1, trace, state.nu)
+
+
+def make_optimizer(name: str, learning_rate: Schedule, *, weight_decay: float = 0.0,
+                   momentum: float = 0.9) -> AdamW:
+    """The optimizer factory; the port has ``adamw``, ``adam`` and ``sgd``
+    (``momentum`` is SGD's)."""
     name = name.lower()
     if name == "adamw":
         return AdamW(learning_rate, weight_decay=weight_decay)
     if name == "adam":
         return Adam(learning_rate, weight_decay=weight_decay)
+    if name == "sgd":
+        return SGD(learning_rate, momentum=momentum, weight_decay=weight_decay)
     raise NotImplementedError(
-        f"optimizer {name!r}: the port has adamw and adam only (ROADMAP Queue 1 item 5)")
+        f"optimizer {name!r}: the port has adamw, adam and sgd only (ROADMAP Queue 1 item 5)")

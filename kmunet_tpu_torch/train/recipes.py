@@ -7,9 +7,8 @@ Every reference script steps its scheduler once per epoch, so the
 MultiStepLR milestones [15000, 30000] never fire within <= 150 epochs;
 they are kept as written (epoch units). The bare ``torch.optim.AdamW``
 calls inherit torch's default weight decay 1e-2; the bare ``Adam`` calls
-its 0. What the port's engine cannot run yet (SGD, the cosine schedule by
-name, ``rain`` and ``rainfall`` losses) raises there, naming its ROADMAP
-item.
+its 0. The port's engine runs every optimizer, schedule and loss the
+table names.
 """
 
 from __future__ import annotations
@@ -87,8 +86,8 @@ RECIPES: dict[tuple[str, str], Recipe] = {
 def apply_recipe(cfg: ExperimentConfig, model: str, recipe: str) -> ExperimentConfig:
     """Overwrites ``cfg.train`` with the (model, recipe) settings and sets
     ``cfg.model.name``; the data config stays as it is (``shanghai_km_unet()``
-    for "pic"). The port's config has no ``momentum`` (SGD's, not ported)
-    and no ``epochs`` (no epoch loop yet): those two stay in the table."""
+    for "pic"). The port's config has no ``epochs`` (no epoch loop yet):
+    that stays in the table."""
     key = (model, recipe)
     if key not in RECIPES:
         available = sorted(k for k in RECIPES if k[1] == recipe)
@@ -98,6 +97,7 @@ def apply_recipe(cfg: ExperimentConfig, model: str, recipe: str) -> ExperimentCo
     t.optimizer = r.optimizer
     t.lr = r.lr
     t.weight_decay = r.weight_decay
+    t.momentum = r.momentum
     t.loss = r.loss
     t.schedule = r.schedule
     t.eta_min = r.eta_min

@@ -22,14 +22,19 @@ def cosine_annealing_per_epoch(base_lr: float, eta_min: float, t_max: int,
 
 
 def make_schedule(name: str, base_lr: float, steps_per_epoch: int, *,
-                  milestones: Sequence[int] = (30, 60),
-                  gamma: float = 0.1) -> Callable[[int], float]:
-    """``lr(step)`` of the schedule ``name``; the port has ``MultiStepLR``:
-    ``base_lr * gamma ** (the number of milestones <= step // steps_per_epoch)``.
-    The other names of the JAX factory raise ``NotImplementedError``."""
+                  milestones: Sequence[int] = (30, 60), gamma: float = 0.1,
+                  t_max: int = 200, eta_min: float = 0.0) -> Callable[[int], float]:
+    """``lr(step)`` of the schedule ``name``; the port has ``MultiStepLR``,
+    ``base_lr * gamma ** (the number of milestones <= step // steps_per_epoch)``,
+    and ``CosineAnnealingLR``, ``cosine_annealing_per_epoch`` with ``eta_min``
+    and ``t_max``. The other names of the JAX factory raise
+    ``NotImplementedError``."""
+    if name == "CosineAnnealingLR":
+        return cosine_annealing_per_epoch(base_lr, eta_min, t_max, steps_per_epoch)
     if name != "MultiStepLR":
-        raise NotImplementedError(f"schedule {name!r}: the port has cosine_epoch and "
-                                  "MultiStepLR only (ROADMAP Queue 1 item 5)")
+        raise NotImplementedError(f"schedule {name!r}: the port has cosine_epoch, "
+                                  "CosineAnnealingLR and MultiStepLR only (ROADMAP Queue 1 "
+                                  "item 5)")
     spe = max(steps_per_epoch, 1)
     ms = sorted(milestones)
 

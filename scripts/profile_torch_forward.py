@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's KM_UNetV3-SH or TrajGRU forward, or its train
-step, spends its time on the card.
+"""Where the PyTorch port's KM_UNetV3-SH, TrajGRU or Mamba-UNet forward, or
+its train step, spends its time on the card.
 
     python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16] [--exact]
     python3 scripts/profile_torch_forward.py --train [--batch 16] [--exact]
     python3 scripts/profile_torch_forward.py --model trajgru [--train] [--batch 16]
+    python3 scripts/profile_torch_forward.py --model mamba_unet [--train] [--batch 16]
 
 Prints JSON lines: the card (``nvidia-smi`` name and power limit); for the
 forward, the time of each top-level module of the model, from CUDA events
@@ -20,6 +21,9 @@ exact path (``dysample_window=False``: the K4 grouped gather) in place of
 its window path. ``--model trajgru`` profiles TrajGRU_EF (5 -> 20 frames at
 128^2, B=16 by default) and its ("trajgru", "pic") recipe step (Adam,
 weighted_mse_mae); a cell's module time sums all its calls of a forward.
+``--model mamba_unet`` profiles Mamba_UNet (5 -> 20 frames at 128^2, B=16
+by default; 20 selective scans, K8, per forward) and its ("mamba_unet",
+"pic") recipe step (SGD with momentum, rainfall loss, CosineAnnealingLR).
 Needs an NVIDIA GPU.
 """
 
@@ -72,15 +76,15 @@ def module_times(model, frames, iters: int) -> dict:
 
 def train_step(batch: int, dtype: str, window: bool, model_name: str):
     """One train step at ``batch`` as a closure, after two warm-up steps: the
-    SH recipe for km_unet_v3, the ("trajgru", "pic") recipe for trajgru."""
+    SH recipe for km_unet_v3, the (model, "pic") recipe for the zoo's."""
     from kmunet_tpu_torch.configs import shanghai_km_unet
     from kmunet_tpu_torch.data import SyntheticNowcastDataset
     from kmunet_tpu_torch.train import engine
     from kmunet_tpu_torch.train.recipes import apply_recipe
 
     cfg = shanghai_km_unet()
-    if model_name == "trajgru":
-        cfg = apply_recipe(cfg, "trajgru", "pic")
+    if model_name != "km_unet_v3":
+        cfg = apply_recipe(cfg, model_name, "pic")
     cfg.data.img_size, cfg.data.batch_size, cfg.train.compute_dtype = 128, batch, dtype
     model = engine.build_model(cfg, dysample_window=window)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
@@ -101,9 +105,10 @@ def train_step(batch: int, dtype: str, window: bool, model_name: str):
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--model", default="km_unet_v3", choices=["km_unet_v3", "trajgru"])
+    p.add_argument("--model", default="km_unet_v3",
+                   choices=["km_unet_v3", "trajgru", "mamba_unet"])
     p.add_argument("--batch", type=int, default=None,
-                   help="default 16 for --train and for trajgru, else 128")
+                   help="default 16 for --train and for the zoo's models, else 128")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--train", action="store_true", help="profile one train step")
@@ -115,7 +120,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30, check=True).stdout.strip()
     if args.batch is None:
-        args.batch = 16 if args.train or args.model == "trajgru" else 128
+        args.batch = 16 if args.train or args.model != "km_unet_v3" else 128
     if args.train:
         run = train_step(args.batch, args.dtype, not args.exact, args.model)
         emit({"card": card, "model": args.model, "batch": args.batch, "dtype": args.dtype,
@@ -125,6 +130,9 @@ def main() -> int:
         if args.model == "trajgru":
             model = serve.build_zoo_model("trajgru", device="cuda", dtype=dtype, seed=0)
             frames = torch.rand(args.batch, 5, 128, 128, device="cuda").to(dtype)
+        elif args.model == "mamba_unet":
+            model = serve.build_zoo_model("mamba_unet", device="cuda", dtype=dtype, seed=0)
+            frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
         else:
             model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0,
                                               dysample_window=not args.exact)

@@ -54,7 +54,7 @@ from chip_smoke import (  # noqa: E402
     scale_flows,
     sh_config,
     synthetic_batch,
-    trajgru_config,
+    zoo_config,
 )
 from kmunet_tpu_torch import convert  # noqa: E402
 from kmunet_tpu_torch.train import engine  # noqa: E402
@@ -231,7 +231,8 @@ def main() -> int:
     seq, out = (9, 4) if args.size == 32 else (25, 20)
     flow_scale = 1.0
     if args.model == "trajgru":
-        cfg = trajgru_config(2, "float32", img_size=args.size, seq_len=seq, out_frames=out)
+        cfg = zoo_config("trajgru", 2, "float32", img_size=args.size, seq_len=seq,
+                         out_frames=out)
         flow_scale = FLOW_SCALE
     else:
         cfg = sh_config(2, "float32", drop_path=0.0, img_size=args.size, seq_len=seq,

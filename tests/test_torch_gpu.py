@@ -2,7 +2,8 @@
 multiview form K7 and their K6 backward against their plain versions, the
 gathers' gradients against the CPU's, and the forward and a train step
 through them, on DySample's window and exact paths and for TrajGRU, against
-the CPU's. Marked ``gpu``; they skip where there is no card. This file
+the CPU's; K8, the selective scan, and its backward against their plain
+versions, and Mamba-UNet's forward and a train step through them. Marked ``gpu``; they skip where there is no card. This file
 imports no JAX, so it runs on a machine without
 it: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 """
@@ -13,7 +14,7 @@ import torch
 
 import chip_smoke
 from kmunet_tpu_torch import serve
-from kmunet_tpu_torch.kernels import bilinear
+from kmunet_tpu_torch.kernels import bilinear, scan
 # By its own name (pytest puts tests/ on sys.path): tests/ has no __init__.py,
 # so an installed regular package named ``tests`` would shadow ``tests.*``.
 from torch_cases import (  # noqa: F401
@@ -420,7 +421,8 @@ def test_cuda_trajgru_train_step_matches_cpu(cuda_device, monkeypatch):
     shared-source launches."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    cfg = chip_smoke.trajgru_config(2, "float32", img_size=32, seq_len=9, out_frames=4)
+    cfg = chip_smoke.zoo_config("trajgru", 2, "float32", img_size=32, seq_len=9,
+                                 out_frames=4)
     batch = np.random.default_rng(7).random((2, 9, 32, 32), dtype=np.float32)
     counters = (bilinear.bilinear_gather_multiview, bilinear.bilinear_gather_multiview_backward)
     runs = {}
@@ -431,3 +433,122 @@ def test_cuda_trajgru_train_step_matches_cpu(cuda_device, monkeypatch):
         launched = [c.launches - b for c, b in zip(counters, before)]
         assert launched == ([27, 27] if device.type == "cuda" else [0, 0])
     chip_smoke.compare_steps(runs["cuda"], runs["cpu"])
+
+
+# (B, L, D, N) of K8 on the card besides chip_smoke.py's: N of 1, 2 and 32
+# (the blocks that ask for more than 48 KB of shared memory) and ragged D.
+SCAN_GPU_SHAPES = {
+    "encoder4": (2, 256, 48, 16),
+    "ragged_l": (2, 1000, 24, 16),
+    "d6_n4": (2, 100, 6, 4),
+    "d24_n8": (2, 77, 24, 8),
+    "l1": (1, 1, 16, 16),
+    "d5_n32": (2, 50, 5, 32),
+    "d130_n1": (2, 40, 130, 1),
+    "d70_n2": (2, 40, 70, 2),
+}
+
+
+def _scan_args(shape, dt_case, device, seed=0):
+    args, g = chip_smoke.scan_inputs(np, np.random.default_rng(seed), shape, dt_case)
+    return [torch.from_numpy(a).to(device) for a in args], torch.from_numpy(g).to(device)
+
+
+@pytest.mark.parametrize("dt_case", chip_smoke.SCAN_DT_CASES)
+@pytest.mark.parametrize("shape", list(SCAN_GPU_SHAPES))
+def test_cuda_scan_kernels_match_plain(cuda_device, shape, dt_case):
+    """K8 and its backward in fp32, bf16 and fp16 against the plain versions
+    within ``chip_smoke.check_scan``'s tolerances (4 times the plain
+    version's distance from float64, plus one ulp of the dtype); one launch
+    of each per call."""
+    args, g = _scan_args(SCAN_GPU_SHAPES[shape], dt_case, cuda_device)
+    ref, tols = chip_smoke.scan_reference(torch, args, g)
+    before = (scan.selective_scan.launches, scan.selective_scan_backward.launches)
+    errors_f, errors_b = {}, {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        chip_smoke.check_scan(torch, shape, args, g, ref, tols, dtype, errors_f, errors_b)
+    torch.cuda.synchronize()
+    assert (scan.selective_scan.launches - before[0],
+            scan.selective_scan_backward.launches - before[1]) == (3, 3)
+
+
+def test_cuda_scan_backward_is_deterministic(cuda_device):
+    """No atomics: two backward calls give the same bits."""
+    args, g = _scan_args((2, 300, 40, 16), "mamba", cuda_device, seed=1)
+    first = scan.selective_scan_backward(*args, g)
+    second = scan.selective_scan_backward(*args, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_cuda_scan_gradient_matches_cpu(cuda_device):
+    """``selective_scan`` through autograd on the card (K8 and its backward)
+    against the CPU (the plain versions), fp32, with A and D in bf16 as the
+    bf16 engine casts them: y and all six gradients within 1e-4 of each
+    one's largest |value|, each gradient in its input's dtype."""
+    args, g = _scan_args((2, 200, 24, 16), "mamba", cuda_device, seed=2)
+    args[2], args[5] = args[2].bfloat16(), args[5].bfloat16()
+    outs = {}
+    for device in (cuda_device, torch.device("cpu")):
+        leaves = [a.detach().to(device).requires_grad_() for a in args]
+        y = scan.selective_scan(*leaves)
+        y.backward(g.to(device))
+        outs[device.type] = [y.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for name, a, b in zip(chip_smoke.SCAN_OUTPUTS, outs["cuda"], outs["cpu"]):
+        assert a.dtype == b.dtype, name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 1e-4 * float(b.float().abs().max()), name
+
+
+def test_cuda_scan_rejects_what_it_does_not_take(cuda_device):
+    args, g = _scan_args((2, 8, 4, 4), "mamba", cuda_device)
+    x, dt, A, Bm, Cm, Dp = args
+    with pytest.raises(ValueError, match="state size"):
+        scan.selective_scan_forward(x, dt, torch.zeros(4, 3, device=cuda_device),
+                                    Bm[..., :3].contiguous(), Cm[..., :3].contiguous(), Dp)
+    with pytest.raises(TypeError):
+        scan.selective_scan_forward(x.double(), dt.double(), A, Bm.double(), Cm.double(), Dp)
+    with pytest.raises(TypeError):
+        scan.selective_scan_forward(x, dt.half(), A, Bm, Cm, Dp)
+    with pytest.raises(ValueError, match="contiguous"):
+        scan.selective_scan_forward(x.transpose(0, 1).contiguous().transpose(0, 1), dt, A, Bm,
+                                    Cm, Dp)
+    with pytest.raises(ValueError):
+        scan.selective_scan_backward(x, dt, A, Bm, Cm, Dp, g[:, :4])
+    with pytest.raises(ValueError):
+        scan.selective_scan_forward(x, dt, A, Bm[:, :4], Cm, Dp)
+
+
+def test_cuda_mamba_forward_matches_cpu(cuda_device, monkeypatch):
+    """``build_zoo_model("mamba_unet")`` on the card against the CPU at 32^2,
+    B=2, 5 -> 20 frames, TF32 off: 20 K8 launches per forward (one
+    MambaBlock on two views in each of the 10 DMFM layers) and no other
+    kernel, within 1e-4 abs."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    frames = np.random.default_rng(3).uniform(size=(2, 32, 32, 5)).astype(np.float32)
+    model_gpu = serve.build_zoo_model("mamba_unet", device=cuda_device, seed=4)
+    model_cpu = serve.build_zoo_model("mamba_unet", device="cpu", seed=4)
+    counters = (bilinear.bilinear_gather, bilinear.bilinear_gather_multiview, scan.selective_scan,
+                scan.selective_scan_backward)
+    before = [c.launches for c in counters]
+    got = serve.predict(model_gpu, frames).cpu().numpy()
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, chip_smoke.MAMBA_SCANS, 0]
+    want = serve.predict(model_cpu, frames).numpy()
+    assert got.shape == (2, 32, 32, 20)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_cuda_mamba_train_step_matches_cpu(cuda_device, monkeypatch):
+    """One fp32 step of the ("mamba_unet", "pic") recipe at 32^2, B=2, seq 9
+    -> 4 outputs on the card against the CPU's float64 gradient within
+    ``chip_smoke.compare_steps``: 20 K8 and 20 K8-backward launches."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = chip_smoke.zoo_config("mamba_unet", 2, "float32", img_size=32, seq_len=9,
+                                 out_frames=4)
+    batch = np.random.default_rng(8).random((2, 9, 32, 32), dtype=np.float32)
+    before = (scan.selective_scan.launches, scan.selective_scan_backward.launches)
+    card = chip_smoke.step_gradients(cfg, cuda_device, batch, seed=1)
+    assert (scan.selective_scan.launches - before[0],
+            scan.selective_scan_backward.launches - before[1]) == (20, 20)
+    chip_smoke.compare_steps(card, chip_smoke.float64_gradients(cfg, batch, seed=1))

@@ -263,7 +263,8 @@ def test_synthetic_items_match_jax():
 
 def test_engine_refuses_what_the_port_lacks():
     cfg = configs.shanghai_km_unet()
-    for section, field, value in [("train", "optimizer", "sgd"), ("train", "schedule", "StepLR"),
+    for section, field, value in [("train", "optimizer", "rmsprop"),
+                                  ("train", "schedule", "StepLR"),
                                   ("train", "grad_clip", 1.0), ("train", "wd_mask_norms", True)]:
         bad = configs.shanghai_km_unet()
         setattr(getattr(bad, section), field, value)
@@ -275,7 +276,7 @@ def test_engine_refuses_what_the_port_lacks():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             engine.make_loss_of(engine.build_model(cfg), engine.build_loss(cfg), bad)
     bad = configs.shanghai_km_unet()
-    bad.train.loss = "rainfall"
+    bad.train.loss = "en_rainfall"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.build_loss(bad)
     bad = configs.shanghai_km_unet()
@@ -409,7 +410,8 @@ def jax_steps():
     return initial, batch, steps
 
 
-def _assert_step_matches(model, lr, got_grads, got_after, want, before, share=0.0):
+def _assert_step_matches(model, lr, got_grads, got_after, want, before, share=0.0,
+                         update=None):
     """One step's gradients and the variables after it against JAX's.
 
     The gradients within GRAD_RTOL of each leaf's largest plus ``share`` of
@@ -418,7 +420,8 @@ def _assert_step_matches(model, lr, got_grads, got_after, want, before, share=0.
     parameters and BatchNorm statistics after it
     within ATOL plus what the two gradients' difference makes of AdamW's
     update from the moments ``before`` ((count, mu, nu) by state_dict name)
-    at ``lr``."""
+    at ``lr``, or of ``update(g)``, the step's update direction for the
+    gradient g, where the optimizer is another."""
     stats = want["after"]["batch_stats"]
     want_g = convert.to_state_dict(model, want["grads"], stats)
     largest = max(float(w.abs().max()) for k, w in want_g.items() if k in got_grads)
@@ -438,8 +441,9 @@ def _assert_step_matches(model, lr, got_grads, got_after, want, before, share=0.
         err = (got_after[key] - w).abs().double()
         if key in got_grads:
             # What the two gradients, held together above, make of the step.
-            update = functools.partial(_adam_update, mu=mu[key], nu=nu[key], count=count)
-            err = err - lr * (update(got_grads[key]) - update(want_g[key])).abs()
+            step_of = update or functools.partial(_adam_update, mu=mu[key], nu=nu[key],
+                                                  count=count)
+            err = err - lr * (step_of(got_grads[key]) - step_of(want_g[key])).abs()
         assert _max(err) <= ATOL, (key, _max(err))
 
 

@@ -276,7 +276,7 @@ def test_zoo_builds_the_port_models_and_refuses_the_others():
     assert isinstance(zoo.build(cfg), ef.TrajGRU_EF) and zoo.build(cfg).out_frames == 3
     assert isinstance(zoo.build(configs.ModelConfig(name="convlstm")), ef.ConvLSTM_EF)
     assert zoo.SEQUENCE_MODELS == {"convlstm", "trajgru"}
-    for name in ("smaat_unet", "mamba_unet", "swin_unet"):
+    for name in ("smaat_unet", "lptqpn", "swin_unet"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
             zoo.build(configs.ModelConfig(name=name))
 
