@@ -9,10 +9,12 @@ Phases, each printing one JSON line with its seconds:
 2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K5, K4 and K7,
               the gather and its grouped and multiview forms),
               ``csrc/bilinear_gather_backward.cu`` (K6, the backward of all
-              three) and ``csrc/selective_scan.cu`` (K8, the selective scan,
-              and its backward) built with nvcc for sm_90a, one nvcc each,
-              all started together; the ``-Xptxas -v`` reports are printed
-              once.
+              three), ``csrc/selective_scan.cu`` (K8, the selective scan,
+              and its backward), ``csrc/kanconv.cu`` (K1, the fused KAN
+              conv) and ``csrc/hsmssd.cu`` (K2, the HSM-SSD compress, and
+              K3, the fused mixer) built with nvcc for sm_90a, one nvcc
+              each, all started together; the ``-Xptxas -v`` reports are
+              printed once.
 3. kernel  -- K5 and K6 against their plain PyTorch versions on the card,
               zeros and border modes, fp32/bf16/fp16, at the DAGEM bridge
               shape, a ragged one and one whose C takes no 16-byte vectors,
@@ -49,7 +51,17 @@ Phases, each printing one JSON line with its seconds:
               largest distance from float64 on the same inputs plus 1e-6 of
               the largest |value| (``scan_reference``), bf16 and fp16
               against the plain versions on the same rounded inputs within
-              that plus one ulp of the dtype (``check_scan``).
+              that plus one ulp of the dtype (``check_scan``). Then, with
+              TF32 off, K1 at KM_UNetV3-SH's four KAN shapes at B=2 and a
+              ragged one (``KAN_SHAPES``), x in [-1.2, 1.2], in [-3, 3] and
+              at the knots (``check_kanconv``), and K2 and K3 at its three
+              mixer shapes at B=2, a ragged L=1000 with N=8 and L=1, dt
+              N(0, 1) and 40 N(0, 1), dt, B and C the strided slices of one
+              bcdt (``MIXER_SHAPES``, ``check_mixer``): fp32 within 1e-5 abs
+              + 1e-5 of the largest |value| of the plain version, bf16 and
+              fp16 against the plain version in fp32 on the same rounded
+              inputs within that plus one ulp of the dtype (K3's y also
+              one ulp of each h2 carried through the scatter).
 4. slice   -- the serving path: KM_UNetV3-SH at full width (embed_dims
               16/32/64, 128^2, 5 -> 20 frames), seeded weights, eval mode,
               built and served through ``kmunet_tpu_torch.serve`` on the card
@@ -77,7 +89,19 @@ Phases, each printing one JSON line with its seconds:
               both sides hold rounding noise). ``train_exact`` repeats both
               with ``dysample_window=False``: K4 and K6's grouped entry must
               launch 3 times per step, K5 and K6 9 times. No SH path may
-              launch K7, K8 or their backwards.
+              launch K7, K8 or their backwards. No phase above launches
+              K1, K2 or K3.
+   serve_fused -- the serving path with ``kan_fused=True,
+              ssd_mixer="fused"``: K1 must launch 4 times per forward (the
+              four KAN convs), K3 15 times (the 15 HSM-SSD mixers), K5 9
+              times and no other kernel; each answer within 1e-4 abs of the
+              same weights on the CPU (the plain versions).
+   serve_compress -- the same with ``ssd_mixer="compress"``: K2 15 times
+              per forward, K5 9 times, no other kernel.
+   train_fused -- one fp32 SH step at B=2 (no stochastic depth) through K1
+              and K3 (their backward the plain versions' autograd) on the
+              card, TF32 off, against the same step on the CPU through
+              ``compare_steps``: K1 4, K3 15, K5 and K6 9 launches.
    serve_trajgru -- TrajGRU_EF at full width (encoder RNNs 64/192/192
               channels with 13/13/9 flow fields, forecaster 192/192/64 with
               13/13/9), 128^2, 5 -> 20 frames, seeded weights, built and
@@ -142,7 +166,16 @@ Phases, each printing one JSON line with its seconds:
               the bytes over the HBM rate and the recurrence's fp32
               operations, 8*B*L*D*N + 2*B*L*D as scan_pallas.py counts them,
               over the fp32 rate) and their plain versions; no one PyTorch
-              call computes the scan, so their library time is null.
+              call computes the scan, so their library time is null. For
+              KM_UNetV3-SH through K1 and K3: the forward at B=128 bf16
+              beside the default path's and the train step at B=16 bf16;
+              K1 at enc1 (B=128, 16 -> 16 at 128^2, bf16) and K2 and K3 at
+              enc1_vim's mixer (B=128, C=16, L=16384, N=64, bf16), beside
+              their bounds (the bytes, against the operations these inputs
+              need over the tensor cores' rate: for K1 a MAC per nonzero
+              basis and one for the base branch, the dense count beside it)
+              and their plain versions (today's default paths); no one
+              PyTorch call computes them, so their library time is null.
 Then the kernels line, and last ``{"ok": true, "device": {...}}``. Any failed
 phase raises: the run exits non-zero and prints no result, also when no CUDA
 device is present. A hard deadline ends a run that hangs.
@@ -258,6 +291,43 @@ SCAN_DT_CASES = ("mamba", "small", "large")
 REFINE3 = (16, 16384, 48, 16)  # K8's timing shape: refine3 at B=16 (B, L, D, N)
 MAMBA_SCANS = 20  # 10 DMFM layers, one MambaBlock each on two token views
 MAMBA_BATCH = 16  # bench.py's zoo batch, timed in bf16
+
+H100_BF16_FLOPS = 989e12  # dense bf16/fp16 on the tensor cores: K1-K3's products
+K1_SOURCE = "kmunet_tpu_torch/csrc/kanconv.cu"
+K1_REPLACES = "kmunet_tpu/kernels/kanconv_pallas.py:151"
+K2_SOURCE = "kmunet_tpu_torch/csrc/hsmssd.cu"
+K2_REPLACES = "kmunet_tpu/kernels/ssd_pallas.py:79"
+K3_SOURCE = K2_SOURCE  # the fused mixer is a second entry of the same source
+K3_REPLACES = "kmunet_tpu/kernels/ssd_mix_pallas.py:150"
+# K1's shapes (B, C, F, H, W): KM_UNetV3-SH's four KAN convs at 128^2 input
+# and B=2 (enc1 16->16 at 128^2, enc2 16->32 at 64^2, enc3 32->64 and dec1
+# 64->32 at 32^2) and a ragged one; each with the x cases of KAN_X_CASES.
+KAN_SHAPES = {
+    "enc1": (2, 16, 16, 128, 128),
+    "enc2": (2, 16, 32, 64, 64),
+    "enc3": (2, 32, 64, 32, 32),
+    "dec1": (2, 64, 32, 32, 32),
+    "ragged": (2, 3, 5, 7, 9),
+}
+# x of each case: "unit" U(-1.2, 1.2); "wide" U(-3, 3), past the outer knots
+# (+-2.2) where fewer than 4 bases are nonzero; "knots" exactly at the
+# extended grid's knots -2.2, -1.8, ..., 2.2. Zero padding around each.
+KAN_X_CASES = ("unit", "wide", "knots")
+KAN_CONVS = 4  # enc1-3 and dec1: one K1 launch each per forward
+ENC1_KAN = (128, 16, 16, 128, 128)  # K1's timing shape (B, C, F, H, W): enc1 at B=128
+# K2's and K3's shapes (B, C, L, N): KM_UNetV3-SH's three mixer shapes at B=2
+# (enc1 and dec3 at 128^2, enc2 and dec2 at 64^2, enc3 at 32^2), a ragged L
+# with N=8, and L=1; each with the dt cases listed: "seeded" N(0, 1),
+# "large" 40 N(0, 1), where one token takes most of a softmax.
+MIXER_SHAPES = {
+    "enc1": ((2, 16, 16384, 64), ("seeded", "large")),
+    "enc2": ((2, 32, 4096, 64), ("seeded",)),
+    "enc3": ((2, 64, 1024, 64), ("seeded", "large")),
+    "ragged_l1000_n8": ((2, 16, 1000, 8), ("seeded", "large")),
+    "l1": ((2, 16, 1, 64), ("seeded",)),
+}
+SSD_MIXERS = 15  # 5 EnhancedViM blocks of 3 directional ViMs: one K2 or K3 call each
+ENC1_MIX = (128, 16, 16384, 64)  # K2's and K3's timing shape (B, C, L, N): enc1_vim's mixer
 
 
 def emit(obj) -> None:
@@ -512,13 +582,16 @@ def reach_flows(torch, model, frames, reach):
     return before, largest_flows(torch, model, frames)
 
 
-def train_setup(cfg, device, seed=0, dysample_window=True, flow_scale=1.0):
+def train_setup(cfg, device, seed=0, dysample_window=True, flow_scale=1.0, kan_fused=False,
+                ssd_mixer="einsum"):
     """(model, state, step, tx) of ``cfg`` with weights from ``seed``, on
-    DySample's window path or (``dysample_window=False``) its exact path; a
-    TrajGRU's flows multiplied by ``flow_scale``."""
+    DySample's window path or (``dysample_window=False``) its exact path, with
+    ``kan_fused`` and ``ssd_mixer`` as ``KM_UNetV3`` takes them; a TrajGRU's
+    flows multiplied by ``flow_scale``."""
     from kmunet_tpu_torch.train import engine
 
-    model = engine.build_model(cfg, dysample_window=dysample_window)
+    model = engine.build_model(cfg, dysample_window=dysample_window, kan_fused=kan_fused,
+                               ssd_mixer=ssd_mixer)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=seed, device=device)
     if flow_scale != 1.0:
@@ -526,12 +599,14 @@ def train_setup(cfg, device, seed=0, dysample_window=True, flow_scale=1.0):
     return model, state, engine.make_train_step(model, engine.build_loss(cfg), tx, cfg), tx
 
 
-def step_gradients(cfg, device, batch, seed=0, dysample_window=True, flow_scale=1.0):
+def step_gradients(cfg, device, batch, seed=0, dysample_window=True, flow_scale=1.0,
+                   kan_fused=False, ssd_mixer="einsum"):
     """One train step of ``cfg`` on ``device`` from weights made from
     ``seed``: (loss, grad norm, {name: gradient}), the gradients read on the
     CPU where the optimizer takes them, so they are the ones the step
     applied."""
-    _, state, step, tx = train_setup(cfg, device, seed, dysample_window, flow_scale)
+    _, state, step, tx = train_setup(cfg, device, seed, dysample_window, flow_scale, kan_fused,
+                                     ssd_mixer)
     seen = []
     update = tx.update
     tx.update = lambda grads, st, params: seen.append([g.cpu() for g in grads]) or update(
@@ -651,6 +726,67 @@ def check_scan(torch, key, args, g, ref, tols, dtype, errors_f, errors_b):
     errors_b[k] = max(errs[1:])
 
 
+def check_kanconv(torch, key, xp32, base32, spline32, errors):
+    """Holds K1 in fp32, bf16 and fp16 (xp and the weights in the dtype, as
+    a model in it holds them) to the plain version: in fp32 within 1e-5 abs
+    + 1e-5 of the largest |value|; in bf16 and fp16 against the plain version
+    in fp32 on the same rounded inputs, within that plus one ulp of the
+    dtype. Records the worst error under ``key``/dtype. TF32 must be off."""
+    from kmunet_tpu_torch.kernels import kanconv
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        xp, base, spline = (t.to(dtype) for t in (xp32, base32, spline32))
+        got = kanconv.kanconv_forward(xp, base, spline)
+        want = kanconv.kanconv_plain(xp.float(), base.float(), spline.float())
+        if got.dtype != dtype or got.shape != want.shape:
+            raise AssertionError(f"K1 {key}: {got.dtype} {tuple(got.shape)}")
+        tol = 1e-5 + 1e-5 * want.abs().max()
+        if dtype != torch.float32:
+            tol = tol + ulp_tolerance(torch, want, dtype)
+        k = f"{key}/{str(dtype)[6:]}"
+        errors[k] = check_close(f"K1 {k}", got, want, torch.broadcast_to(tol, want.shape))
+
+
+def check_mixer(torch, key, args32, errors_k2, errors_k3):
+    """Holds K2 and K3 in fp32, bf16 and fp16 (x and bcdt in the dtype, dt,
+    B and C the strided slices of bcdt; A, the weights and D fp32) to the
+    plain versions on the same (rounded) inputs, which compute in fp32 and
+    round h2 to the dtype before the scatter as K3 does: each output within
+    1e-5 abs + 1e-5 of its largest |value|; in bf16 and fp16 plus one ulp of
+    the dtype, and for y plus one ulp of each h2 carried through the scatter
+    (sum_n ulp(h2[n, c]) |C[n, l]|: an h2 whose fp32 value lies at a rounding
+    boundary may round either way). Records the worst errors under
+    ``key``/dtype. TF32 must be off."""
+    from kmunet_tpu_torch.kernels import ssd
+
+    x32, bcdt32, A, w_hz, w_out, D = args32
+    N = A.shape[0]
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x, bcdt = x32.to(dtype), bcdt32.to(dtype)
+        Bm, Cm, dt = bcdt.split(N, dim=1)
+        h = ssd.hsmssd_compress_forward(x, dt, Bm, A)
+        y, h2 = ssd.hsmssd_mix_forward(x, dt, Bm, Cm, A, w_hz, w_out, D)
+        want_h = ssd.hsmssd_compress_plain(x, dt, Bm, A)
+        want_y, want_h2 = ssd.hsmssd_mix_plain(x, dt, Bm, Cm, A, w_hz, w_out, D)
+        k = f"{key}/{str(dtype)[6:]}"
+        errs = []
+        for name, got, want in (("h", h, want_h), ("y", y, want_y), ("h2", h2, want_h2)):
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"{k} {name}: {got.dtype} {tuple(got.shape)}")
+            want = want.float()
+            tol = 1e-5 + 1e-5 * want.abs().max()
+            if dtype != torch.float32:
+                tol = tol + ulp_tolerance(torch, want, dtype)
+                if name == "y":
+                    tol = tol + torch.einsum("bnc,bnl->bcl",
+                                             ulp_tolerance(torch, want_h2.float(), dtype),
+                                             Cm.float().abs())
+            errs.append(check_close(f"{'K2' if name == 'h' else 'K3'} {k} {name}", got, want,
+                                    torch.broadcast_to(tol, want.shape)))
+        errors_k2[k] = errs[0]
+        errors_k3[k] = max(errs[1:])
+
+
 def grouped_case_inputs(np, rng, shape):
     """img (B, H, W, C), an upstream gradient (B, Ho, Wo, C) and the named
     coordinate cases, each (x, y) of (B, G, Ho, Wo) with every group on its
@@ -681,6 +817,85 @@ def shifted_views(torch, img, shifts):
         ys.append((ii - dy).expand(H, W))
     stack = lambda t: torch.stack(t).expand(B, -1, -1, -1).contiguous()  # noqa: E731
     return torch.cat(views, -1), stack(xs), stack(ys)
+
+
+def kan_inputs(torch, rng, shape, case, device):
+    """K1's inputs on ``device``, fp32: xp (B, C, H+2, W+2), x by ``case``
+    with a zero border, as KANConv2d pads it; base (F, C, 3, 3) and the
+    c-major spline (F, 8C, 3, 3), N(0, 0.3)."""
+    import numpy as np
+
+    B, C, F, H, W = shape
+    if case == "unit":
+        x = rng.uniform(-1.2, 1.2, (B, C, H, W))
+    elif case == "wide":
+        x = rng.uniform(-3.0, 3.0, (B, C, H, W))
+    else:
+        x = rng.choice(-1.0 + 0.4 * np.arange(-3, 9), (B, C, H, W))
+    xp = np.pad(x, ((0, 0), (0, 0), (1, 1), (1, 1)))
+    base = 0.3 * rng.normal(size=(F, C, 3, 3))
+    spline = 0.3 * rng.normal(size=(F, 8 * C, 3, 3))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (xp, base, spline)]
+
+
+def kan_bound(torch, xp, F):
+    """(bound_ms, bound_by, bytes, ops) of K1 on these inputs (B, C, H+2,
+    W+2) -> (B, F, H, W): xp read once and the output written once over the
+    HBM rate, against the operations these inputs need over the tensor cores'
+    rate for their type: 2 (a MAC) per (pixel, f, c, tap) for the base branch
+    and per nonzero basis there for the spline branch (4 inside [-1, 1],
+    fewer past it). Also the dense count (all 8 bases), as the TPU kernel
+    does it."""
+    import torch.nn.functional as tF
+
+    from kmunet_tpu_torch.ops.spline import cardinal_bspline_basis_flat
+
+    B, C, Hp, Wp = xp.shape
+    H, W = Hp - 2, Wp - 2
+    nnz = (cardinal_bspline_basis_flat(xp.float()) != 0).view(B, C, 8, Hp, Wp).sum(2)
+    taps = float(tF.avg_pool2d(nnz.float(), 3, 1).sum()) * 9  # nonzero bases over the 9 taps
+    ops = 2 * F * (taps + 9 * B * C * H * W)
+    moved = (xp.numel() + B * F * H * W) * xp.element_size()
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_BF16_FLOPS * 1e3
+    dense = 2 * F * 9 * 9 * B * C * H * W
+    return (max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved,
+            ops, dense)
+
+
+def mixer_inputs(torch, rng, shape, dt_case, device):
+    """K2's and K3's inputs on ``device``, fp32: x (B, C, L) N(0, 1); bcdt
+    (B, 3N, L) N(0, 1), its dt rows times 40 in the "large" case, to be split
+    into B, C, dt as the mixer splits it; A U(1, 16) as HSMSSD's init; w_hz
+    (2C, C) and w_out (C, C) N(0, 1/C); D U(0.5, 1.5)."""
+    import numpy as np
+
+    B, C, L, N = shape
+    bcdt = rng.normal(size=(B, 3 * N, L))
+    if dt_case == "large":
+        bcdt[:, 2 * N:] *= 40.0
+    arrays = (rng.normal(size=(B, C, L)), bcdt, rng.uniform(1.0, 16.0, N),
+              rng.normal(size=(2 * C, C)) / np.sqrt(C), rng.normal(size=(C, C)) / np.sqrt(C),
+              rng.uniform(0.5, 1.5, 1))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+def mixer_bound(shape, esz, fused: bool):
+    """(bound_ms, bound_by, bytes, ops) of K2 (``fused`` False) or K3 at
+    (B, C, L, N) with x, dt, B, C and the outputs of ``esz`` bytes: x, dt, B
+    (and C) read once, h (or y and h2) written once, A (and the MLP's
+    weights) fp32, over the HBM rate; against the products, 2 operations per
+    (b, l, n, c) for the compress (and as many for the scatter, plus the
+    MLP's 6 per (b, n, c, c')), over the tensor cores' rate for the type."""
+    B, C, L, N = shape
+    moved = (B * C * L + 2 * B * N * L + B * N * C) * esz + N * 4
+    ops = 2 * B * L * N * C
+    if fused:
+        moved += (B * N * L + B * C * L) * esz + (3 * C * C + 1) * 4
+        ops += 2 * B * L * N * C + 6 * B * N * C * C
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_BF16_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved, ops
 
 
 def expect_launches(path, launches, want):
@@ -737,7 +952,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from kmunet_tpu_torch import serve
-    from kmunet_tpu_torch.kernels import bilinear, build, scan
+    from kmunet_tpu_torch.kernels import bilinear, build, kanconv, scan, ssd
 
     kernels = {"bilinear_gather": bilinear.bilinear_gather,
                "bilinear_gather_backward": bilinear.bilinear_gather_backward,
@@ -746,13 +961,17 @@ def main() -> int:
                "bilinear_gather_multiview": bilinear.bilinear_gather_multiview,
                "bilinear_gather_multiview_backward": bilinear.bilinear_gather_multiview_backward,
                "selective_scan": scan.selective_scan,
-               "selective_scan_backward": scan.selective_scan_backward}
+               "selective_scan_backward": scan.selective_scan_backward,
+               "fused_kanconv": kanconv.fused_kanconv,
+               "hsmssd_compress": ssd.hsmssd_compress,
+               "hsmssd_mix": ssd.hsmssd_mix}
 
-    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0, k8=0, k8b=0):
+    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0, k8=0, k8b=0, k1=0, k2=0, k3=0):
         return {"bilinear_gather": k5, "bilinear_gather_backward": k6,
                 "bilinear_gather_grouped": k4, "bilinear_gather_grouped_backward": k6g,
                 "bilinear_gather_multiview": k7, "bilinear_gather_multiview_backward": k6s,
-                "selective_scan": k8, "selective_scan_backward": k8b}
+                "selective_scan": k8, "selective_scan_backward": k8b,
+                "fused_kanconv": k1, "hsmssd_compress": k2, "hsmssd_mix": k3}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -774,15 +993,17 @@ def main() -> int:
     print(card, flush=True)
 
     with Phase("build") as f:
-        sources = (bilinear.SOURCE, bilinear.BACKWARD_SOURCE, scan.SOURCE)
+        sources = (bilinear.SOURCE, bilinear.BACKWARD_SOURCE, scan.SOURCE, kanconv.SOURCE,
+                   ssd.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, started together
             builds = list(pool.map(build.build, sources))
         for entry in (bilinear.forward_kernel, bilinear.backward_kernel,
                       bilinear.grouped_kernel, bilinear.grouped_backward_kernel,
                       bilinear.multiview_kernel, bilinear.multiview_backward_kernel,
-                      scan.forward_kernel, scan.backward_kernel):
+                      scan.forward_kernel, scan.backward_kernel, kanconv.kernel,
+                      ssd.compress_kernel, ssd.mix_kernel):
             entry()
-        f.update(sources=[K5_SOURCE, K6_SOURCE, K8_SOURCE],
+        f.update(sources=[K5_SOURCE, K6_SOURCE, K8_SOURCE, K1_SOURCE, K2_SOURCE],
                  libraries=[os.path.relpath(b.path, REPO) for b in builds],
                  nvcc_seconds=[round(b.seconds, 3) for b in builds])
     for source, built in zip(sources, builds):
@@ -831,6 +1052,7 @@ def main() -> int:
 
     errors, k6_errors, k4_errors, k6g_errors, k7_errors, k6s_errors = {}, {}, {}, {}, {}, {}
     k8_errors, k8b_errors, k8_tolerances = {}, {}, {}
+    k1_errors, k2_errors, k3_errors = {}, {}, {}
     with Phase("kernel") as f:
         rng = np.random.default_rng(0)
         plain_ops = (bilinear.bilinear_gather_forward, bilinear.bilinear_gather_backward,
@@ -891,8 +1113,21 @@ def main() -> int:
                 for dtype in (torch.float32, torch.bfloat16, torch.float16):
                     check_scan(torch, key, args, g, ref, tols, dtype, k8_errors, k8b_errors)
                 del args, g, ref
+        # K1, K2 and K3 against their plain versions, which run cuDNN convs
+        # and cuBLAS products here: TF32 off.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for shape_name, shape in KAN_SHAPES.items():
+            for case in KAN_X_CASES:
+                check_kanconv(torch, f"{shape_name}/{case}",
+                              *kan_inputs(torch, rng, shape, case, dev), k1_errors)
+        for shape_name, (shape, dt_cases) in MIXER_SHAPES.items():
+            for dt_case in dt_cases:
+                check_mixer(torch, f"{shape_name}/{dt_case}",
+                            mixer_inputs(torch, rng, shape, dt_case, dev), k2_errors, k3_errors)
         torch.cuda.synchronize()
-        f.update(cases=len(errors) + len(k4_errors) + len(k7_errors) + len(k8_errors),
+        f.update(cases=len(errors) + len(k4_errors) + len(k7_errors) + len(k8_errors)
+                 + len(k1_errors) + len(k2_errors),
                  k5_max_abs_err=errors, k6_max_abs_err=k6_errors, k4_max_abs_err=k4_errors,
                  k6_grouped_max_abs_err=k6g_errors, k7_max_abs_err=k7_errors,
                  k6_shared_max_abs_err=k6s_errors, k7_layout="exact",
@@ -901,17 +1136,22 @@ def main() -> int:
                               "the same inputs + 1e-6 x the largest |value|; bf16, fp16: that "
                               "+ one ulp of the dtype, against the plain version on the same "
                               "rounded inputs",
-                 k8_tolerances_fp32=k8_tolerances)
+                 k8_tolerances_fp32=k8_tolerances, k1_max_abs_err=k1_errors,
+                 k2_max_abs_err=k2_errors, k3_max_abs_err=k3_errors,
+                 k1_k3_tolerance="fp32: 1e-5 + 1e-5 x the largest |value| of the plain version; "
+                                 "bf16, fp16: that + one ulp of the dtype against the plain "
+                                 "version in fp32 on the same rounded inputs (K3's y also + "
+                                 "sum_n ulp(h2) |C|)")
 
-    def serve_path(path, window, f):
+    def serve_path(path, window, f, kan_fused=False, ssd_mixer="einsum"):
         """Serves REQUESTS fp32 requests of B=2 on the card with
-        ``dysample_window=window``, counting launches, and holds the answers
-        to the same weights on the CPU."""
+        ``dysample_window=window``, ``kan_fused`` and ``ssd_mixer``, counting
+        launches, and holds the answers to the same weights on the CPU."""
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-        model = serve.build_km_unet_v3_sh(device="cuda", dtype=torch.float32, seed=0,
-                                          dysample_window=window)
+        options = dict(dysample_window=window, kan_fused=kan_fused, ssd_mixer=ssd_mixer)
+        model = serve.build_km_unet_v3_sh(device="cuda", dtype=torch.float32, seed=0, **options)
         requests = [rng.uniform(size=(REQUEST_BATCH, 128, 128, 5)).astype(np.float32)
                     for _ in range(REQUESTS)]
         if not window:  # seeded offsets are ~1e-3 px: make them reach OFFSET_REACH_PX
@@ -921,10 +1161,12 @@ def main() -> int:
         reset_counts()
         answers = [serve.predict(model, frames) for frames in requests]
         launches = path_launches[path] = read_counts()
-        expect_launches(path, launches, launches_per(k5=TAPS * REQUESTS,
-                                                     k4=0 if window else DYSAMPLES * REQUESTS))
-        model_cpu = serve.build_km_unet_v3_sh(device="cpu", dtype=torch.float32, seed=0,
-                                              dysample_window=window)
+        expect_launches(path, launches, launches_per(
+            k5=TAPS * REQUESTS, k4=0 if window else DYSAMPLES * REQUESTS,
+            k1=KAN_CONVS * REQUESTS if kan_fused else 0,
+            k2=SSD_MIXERS * REQUESTS if ssd_mixer == "compress" else 0,
+            k3=SSD_MIXERS * REQUESTS if ssd_mixer == "fused" else 0))
+        model_cpu = serve.build_km_unet_v3_sh(device="cpu", dtype=torch.float32, seed=0, **options)
         model_cpu.load_state_dict(model.state_dict())
         slice_err = 0.0
         for frames, answer in zip(requests, answers):
@@ -937,7 +1179,7 @@ def main() -> int:
         if slice_err > 1e-4:
             raise AssertionError(f"{path}: card vs CPU forward: max abs err {slice_err} > 1e-4")
         f.update(requests=REQUESTS, batch=REQUEST_BATCH, launches=launches,
-                 max_abs_err_vs_cpu=slice_err, tf32=False)
+                 max_abs_err_vs_cpu=slice_err, tf32=False, **options)
 
     def train_path(path, window, f):
         """TRAIN_STEPS bf16 steps of B=16 on the card with
@@ -986,6 +1228,31 @@ def main() -> int:
         train_path("train", True, f)
     with Phase("train_exact") as f:
         train_path("train_exact", False, f)
+
+    # KM_UNetV3-SH with its KAN convs through K1 and its HSM-SSD mixers
+    # through K3 (or K2): the same weights' answers on the CPU take the plain
+    # versions.
+    with Phase("serve_fused") as f:
+        serve_path("serve_fused", True, f, kan_fused=True, ssd_mixer="fused")
+    with Phase("serve_compress") as f:
+        serve_path("serve_compress", True, f, ssd_mixer="compress")
+    with Phase("train_fused") as f:
+        # One fp32 SH step at B=2 through K1 and K3 (their backward the
+        # plain versions' autograd) on the card, TF32 off, against the same
+        # step on the CPU, with no stochastic depth.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        batch = synthetic_batch(np, CHECK_BATCH, seed=6)
+        cfg = sh_config(CHECK_BATCH, "float32", drop_path=0.0)
+        options = dict(kan_fused=True, ssd_mixer="fused")
+        reset_counts()
+        card = step_gradients(cfg, "cuda", batch, **options)
+        launches = path_launches["train_fused"] = read_counts()
+        expect_launches("train_fused", launches, launches_per(
+            k5=TAPS, k6=TAPS, k1=KAN_CONVS, k3=SSD_MIXERS))
+        check = compare_steps(card, step_gradients(cfg, "cpu", batch, **options))
+        f.update(batch=CHECK_BATCH, compute="float32", launches=launches, check=check,
+                 tf32=False, **options)
 
     with Phase("serve_trajgru") as f:
         # REQUESTS fp32 requests of B=2 on the card, TF32 off, held to the
@@ -1293,6 +1560,60 @@ def main() -> int:
             lambda: scan.selective_scan_backward_plain(*args, g), None,
             scan_bound(REFINE3, 2, True), 10, 1)
         del args, g
+
+        # KM_UNetV3-SH through K1 and K3: the forward at B=128 bf16, beside
+        # the default path's B128_bfloat16 above, and the bf16 step at B=16.
+        fused = dict(kan_fused=True, ssd_mixer="fused")
+        model = serve.build_km_unet_v3_sh(device="cuda", dtype=torch.bfloat16, seed=0, **fused)
+        frames = torch.rand(128, 128, 128, 5, device=dev).to(torch.bfloat16)
+        out = serve.predict(model, frames)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("B=128 bf16 forward through K1 and K3 has non-finite values")
+        ms = cuda_ms(torch, lambda: serve.predict(model, frames), 5)
+        forward["B128_bfloat16_fused"] = {"ms": ms, "frames_per_s": 128 * 20 / (ms / 1e3)}
+        del model, frames, out
+        model, state, step, _ = train_setup(sh_config(16, "bfloat16"), "cuda", **fused)
+        batch = torch.rand(16, 25, 128, 128, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda: step(state, batch, gen), 5)
+        train["B16_bfloat16_fused"] = {"ms": ms,
+                                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del model, state, step, batch
+
+        # K1 at enc1 (B=128, 16 -> 16 at 128^2, bf16), x N(0, 1) as the
+        # GroupNorm before it makes it, zero padded.
+        B, C, Fo, H, W = ENC1_KAN
+        xp = F.pad(torch.randn(B, C, H, W, device=dev), (1, 1, 1, 1)).to(torch.bfloat16)
+        base = (0.3 * torch.randn(Fo, C, 3, 3, device=dev)).to(torch.bfloat16)
+        spline = (0.3 * torch.randn(Fo, 8 * C, 3, 3, device=dev)).to(torch.bfloat16)
+        *bound, dense_ops = kan_bound(torch, xp, Fo)
+        timed["fused_kanconv"] = time_kernel(
+            lambda: kanconv.kanconv_forward(xp, base, spline),
+            lambda: kanconv.kanconv_plain(xp, base, spline), None, bound, 20, 5)
+        timed["fused_kanconv"].update(dense_ops=dense_ops,
+                                      ops_ms_fp32=bound[3] / H100_FP32_FLOPS * 1e3)
+        del xp, base, spline
+
+        # K2 and K3 at enc1_vim's mixer (B=128, C=16, L=16384, N=64, bf16),
+        # dt, B and C the slices of one bcdt.
+        B, C, L, N = ENC1_MIX
+        x = torch.randn(B, C, L, device=dev).to(torch.bfloat16)
+        bcdt = torch.randn(B, 3 * N, L, device=dev).to(torch.bfloat16)
+        Bm, Cm, dt = bcdt.split(N, dim=1)
+        A = 1.0 + 15.0 * torch.rand(N, device=dev)
+        w_hz = torch.randn(2 * C, C, device=dev) / C ** 0.5
+        w_out = torch.randn(C, C, device=dev) / C ** 0.5
+        Dp = torch.ones(1, device=dev)
+        timed["hsmssd_compress"] = time_kernel(
+            lambda: ssd.hsmssd_compress_forward(x, dt, Bm, A),
+            lambda: ssd.hsmssd_compress_plain(x, dt, Bm, A), None,
+            mixer_bound(ENC1_MIX, 2, False), 50, 5)
+        timed["hsmssd_mix"] = time_kernel(
+            lambda: ssd.hsmssd_mix_forward(x, dt, Bm, Cm, A, w_hz, w_out, Dp),
+            lambda: ssd.hsmssd_mix_plain(x, dt, Bm, Cm, A, w_hz, w_out, Dp), None,
+            mixer_bound(ENC1_MIX, 2, True), 50, 5)
+        del x, bcdt, Bm, Cm, dt
         f.update(forward=forward, train_step=train, tf32_conv=True,
                  shapes={"bilinear_gather": list(BRIDGE), "bilinear_gather_backward": list(BRIDGE),
                          "bilinear_gather_grouped": list(DEC3),
@@ -1300,7 +1621,9 @@ def main() -> int:
                          "bilinear_gather_multiview": list(RNN1),
                          "bilinear_gather_multiview_backward": list(RNN1),
                          "selective_scan": list(REFINE3),
-                         "selective_scan_backward": list(REFINE3)},
+                         "selective_scan_backward": list(REFINE3),
+                         "fused_kanconv": list(ENC1_KAN), "hsmssd_compress": list(ENC1_MIX),
+                         "hsmssd_mix": list(ENC1_MIX)},
                  dtype="bfloat16", kernels=timed)
 
     def by_path(name):
@@ -1318,7 +1641,10 @@ def main() -> int:
             ("bilinear_gather_multiview", K7_SOURCE, K7_REPLACES, k7_errors),
             ("bilinear_gather_multiview_backward", K6S_SOURCE, K6S_REPLACES, k6s_errors),
             ("selective_scan", K8_SOURCE, K8_REPLACES, k8_errors),
-            ("selective_scan_backward", K8B_SOURCE, K8B_REPLACES, k8b_errors)):
+            ("selective_scan_backward", K8B_SOURCE, K8B_REPLACES, k8b_errors),
+            ("fused_kanconv", K1_SOURCE, K1_REPLACES, k1_errors),
+            ("hsmssd_compress", K2_SOURCE, K2_REPLACES, k2_errors),
+            ("hsmssd_mix", K3_SOURCE, K3_REPLACES, k3_errors)):
         t = timed[name]
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path(name).values()),

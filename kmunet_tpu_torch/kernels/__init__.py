@@ -7,4 +7,7 @@
 | K7 multiview bilinear gather | ``bilinear`` | ``csrc/bilinear_gather.cu`` | ``kmunet_tpu/kernels/bilinear_pallas.py::gather_bilinear_multiview`` |
 | K6 the backward of K5, K4 (``shared=False``) and K7 (``shared=True``) | ``bilinear`` | ``csrc/bilinear_gather_backward.cu`` | ``kmunet_tpu/kernels/bilinear_pallas.py::_backward_impl`` |
 | K8 selective scan and its backward | ``scan`` | ``csrc/selective_scan.cu`` | ``kmunet_tpu/kernels/scan_pallas.py::selective_scan_pallas`` (``_forward``, ``_backward``) |
+| K1 fused KAN conv | ``kanconv`` | ``csrc/kanconv.cu`` | ``kmunet_tpu/kernels/kanconv_pallas.py::fused_kanconv`` |
+| K2 HSM-SSD online-softmax compress | ``ssd`` | ``csrc/hsmssd.cu`` | ``kmunet_tpu/kernels/ssd_pallas.py::hsmssd_compress`` |
+| K3 fused HSM-SSD mixer | ``ssd`` | ``csrc/hsmssd.cu`` | ``kmunet_tpu/kernels/ssd_mix_pallas.py::hsmssd_mix`` |
 """

@@ -37,13 +37,13 @@ from kmunet_tpu_torch.ops.sample import resize_bilinear
 
 class StableHybridKANConv(nn.Module):
     """GroupNorm(4) pre-norm -> KANConv2d -> residual (1x1 conv when the
-    width changes) -> ReLU."""
+    width changes) -> ReLU; ``fused`` as in ``KANConv2d``."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int, fused: bool = False):
         super().__init__()
         self.pre_norm = nn.GroupNorm(4, in_channels, eps=1e-5)
         self.residual = nn.Conv2d(in_channels, features, 1) if in_channels != features else None
-        self.kanconv = KANConv2d(in_channels, features, kernel_size=3, padding=1)
+        self.kanconv = KANConv2d(in_channels, features, kernel_size=3, padding=1, fused=fused)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -58,15 +58,16 @@ class StableHybridKANConv(nn.Module):
 
 class DirectionViM(nn.Module):
     """Direction projection -> EfficientViM block (state_dim 64, a kept
-    quirk) -> direction attention."""
+    quirk) -> direction attention; ``ssd_mixer`` as ``HSMSSD``'s ``mixer``."""
 
     KERNELS = {"height": (3, 1), "width": (1, 3), "channel": (1, 1)}
 
-    def __init__(self, channels: int, mode: str = "height"):
+    def __init__(self, channels: int, mode: str = "height", ssd_mixer: str = "einsum"):
         super().__init__()
         ks = self.KERNELS[mode]
         self.proj = nn.Conv2d(channels, channels, ks, padding=same_padding(ks))
-        self.vit_mamba = EfficientViMBlock(channels, mlp_ratio=4, ssd_expand=1, state_dim=64)
+        self.vit_mamba = EfficientViMBlock(channels, mlp_ratio=4, ssd_expand=1, state_dim=64,
+                                           mixer=ssd_mixer)
         self.attn = DirectionAttention(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -78,12 +79,13 @@ class EnhancedViMBlock(nn.Module):
     TripleNorm + 1x1 MLP residual (the 'separate' layout); both residual
     branches go through stochastic depth of rate ``drop_path``."""
 
-    def __init__(self, channels: int, expansion: int = 4, drop_path: float = 0.1):
+    def __init__(self, channels: int, expansion: int = 4, drop_path: float = 0.1,
+                 ssd_mixer: str = "einsum"):
         super().__init__()
         C = channels
-        self.height_block = DirectionViM(C, "height")
-        self.width_block = DirectionViM(C, "width")
-        self.channel_block = DirectionViM(C, "channel")
+        self.height_block = DirectionViM(C, "height", ssd_mixer)
+        self.width_block = DirectionViM(C, "width", ssd_mixer)
+        self.channel_block = DirectionViM(C, "channel", ssd_mixer)
         self.Dense_0 = nn.Linear(3 * C, C // 4)
         self.Dense_1 = nn.Linear(C // 4, 3)
         self.drop_path = DropPath(drop_path)
@@ -108,31 +110,36 @@ class KM_UNetV3(nn.Module):
     ``drop_path`` is the EnhancedViM blocks' stochastic-depth rate;
     ``dysample_window`` picks the three DySamples' path (the JAX package's
     ``DYSAMPLE_WINDOW``): True the dense window formulation, False the exact
-    grouped gather (K4 on the card)."""
+    grouped gather (K4 on the card). ``kan_fused`` runs the four KAN convs
+    through K1 and ``ssd_mixer`` ("einsum", "compress" or "fused") the 15
+    HSM-SSD mixers through K2 or K3 on the card: the same function as the
+    defaults, which the JAX model computes."""
 
     def __init__(self, num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1,
-                 dysample_window: bool = True):
+                 dysample_window: bool = True, kan_fused: bool = False,
+                 ssd_mixer: str = "einsum"):
         super().__init__()
         d0, d1, d2 = embed_dims
         self.conv_f = nn.Conv2d(5, 16, 3, padding=1)  # 5 input frames
         widths = [16, d0, d1, d2]
         for i in (1, 2, 3):
             c_in, c = widths[i - 1], widths[i]
-            setattr(self, f"enc{i}_kan", StableHybridKANConv(c_in, c))
-            setattr(self, f"enc{i}_vim", EnhancedViMBlock(c, drop_path=drop_path))
+            setattr(self, f"enc{i}_kan", StableHybridKANConv(c_in, c, kan_fused))
+            setattr(self, f"enc{i}_vim", EnhancedViMBlock(c, drop_path=drop_path,
+                                                          ssd_mixer=ssd_mixer))
             setattr(self, f"enc{i}_iwp", IntelligentWaveletPooling(c))
             setattr(self, f"lca{i}", LocalContrastAttention(c))
         self.bridge = DAGEM(d2)
         self.dec1_up = DySample(d2, window=dysample_window)
-        self.dec1_kan = StableHybridKANConv(d2, d1)
+        self.dec1_kan = StableHybridKANConv(d2, d1, kan_fused)
         self.attention1 = MultiScaleFusion((d0, d1, d1))
         self.dec2_up = DySample(2 * d1, window=dysample_window)
         self.dec2_conv = nn.Conv2d(2 * d1, d1, 3, padding=1)
-        self.dec2_vim = EnhancedViMBlock(d1, drop_path=drop_path)
+        self.dec2_vim = EnhancedViMBlock(d1, drop_path=drop_path, ssd_mixer=ssd_mixer)
         self.attention2 = MultiScaleFusion((d0, d1, d1))
         self.dec3_up = DySample(2 * d1, window=dysample_window)
         self.dec3_conv = nn.Conv2d(2 * d1, d0, 3, padding=1)
-        self.dec3_vim = EnhancedViMBlock(d0, drop_path=drop_path)
+        self.dec3_vim = EnhancedViMBlock(d0, drop_path=drop_path, ssd_mixer=ssd_mixer)
         self.head = nn.Conv2d(d0, num_classes, 3, padding=1)
         self.output_norm = nn.GroupNorm(1, num_classes, eps=1e-5)
 
@@ -163,10 +170,11 @@ class KM_UNetV3(nn.Module):
 
 
 def KM_UNetV3_SH(num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1,
-                 dysample_window: bool = True) -> KM_UNetV3:
+                 dysample_window: bool = True, kan_fused: bool = False,
+                 ssd_mixer: str = "einsum") -> KM_UNetV3:
     """Shanghai variant (20 forecast frames from 5 input frames)."""
     return KM_UNetV3(num_classes=num_classes, embed_dims=tuple(embed_dims), drop_path=drop_path,
-                     dysample_window=dysample_window)
+                     dysample_window=dysample_window, kan_fused=kan_fused, ssd_mixer=ssd_mixer)
 
 
 @torch.no_grad()

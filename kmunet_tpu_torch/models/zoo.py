@@ -18,13 +18,18 @@ from kmunet_tpu_torch.models import ef, km_unet, mamba_unet
 SEQUENCE_MODELS = {"convlstm", "trajgru"}
 
 
-def build(model_cfg, dysample_window: bool = True) -> nn.Module:
+def build(model_cfg, dysample_window: bool = True, kan_fused: bool = False,
+          ssd_mixer: str = "einsum") -> nn.Module:
     """The model of ``model_cfg`` (``configs.ModelConfig``) for
     ``num_classes`` output frames; ``dysample_window`` picks KM_UNetV3's
     DySample path (the JAX package's ``DYSAMPLE_WINDOW``, which its config
-    does not carry either)."""
+    does not carry either), ``kan_fused`` and ``ssd_mixer`` its KAN convs'
+    and HSM-SSD mixers' (``KM_UNetV3``); another model given either raises."""
     name, n = model_cfg.name, model_cfg.num_classes
     extra = dict(model_cfg.extra)
+    if name != "km_unet_v3" and (kan_fused or ssd_mixer != "einsum"):
+        raise ValueError(f"{name} has no KAN conv or HSM-SSD mixer: kan_fused and ssd_mixer "
+                         "are KM_UNetV3's")
     if name == "km_unet_v3":
         if model_cfg.variant != "sh":
             raise NotImplementedError(f"km_unet_v3 variant {model_cfg.variant!r}: not in the "
@@ -34,7 +39,8 @@ def build(model_cfg, dysample_window: bool = True) -> nn.Module:
             raise NotImplementedError(f"model.extra {sorted(extra)}: not in the port yet; "
                                       "head_norm is ROADMAP Queue 1 item 3")
         return km_unet.KM_UNetV3(num_classes=n, embed_dims=tuple(model_cfg.embed_dims),
-                                 drop_path=drop_path, dysample_window=dysample_window)
+                                 drop_path=drop_path, dysample_window=dysample_window,
+                                 kan_fused=kan_fused, ssd_mixer=ssd_mixer)
     if name in SEQUENCE_MODELS:
         if extra:
             raise ValueError(f"{name} takes no model.extra, got {sorted(extra)}")

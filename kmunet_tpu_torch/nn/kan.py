@@ -4,7 +4,9 @@
 
 with ``xp`` the zero-padded input and ``B`` the cubic B-spline basis (8
 functions per channel on a uniform grid over [-1, 1]). The input is padded
-*before* the basis is evaluated, because basis(0) != 0.
+*before* the basis is evaluated, because basis(0) != 0. The function is
+``kernels/kanconv.py``'s: its plain version by default, ``fused_kanconv``
+(K1 on the card) with ``fused=True``.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kmunet_tpu_torch.kernels.kanconv import fused_kanconv, kanconv_plain
 from kmunet_tpu_torch.nn.init import kaiming_uniform_
-from kmunet_tpu_torch.ops.spline import bspline_basis, cardinal_bspline_basis_flat, knots
+from kmunet_tpu_torch.ops.spline import bspline_basis, knots
 
 
 class KANConv2d(nn.Module):
@@ -22,14 +25,20 @@ class KANConv2d(nn.Module):
 
     Parameters, in PyTorch layout: ``base_weight`` (F, C, k, k),
     ``spline_weight`` (F, C, n, k, k) and ``spline_scaler`` (F, C, k, k), with
-    ``n = grid_size + 3`` bases per channel.
+    ``n = grid_size + 3`` bases per channel. ``fused=True`` computes the
+    same function through ``fused_kanconv`` (K1 on the card), which takes a
+    3x3 kernel on the grid of 5 cubic intervals only.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  padding: int = 0, grid_size: int = 5, spline_order: int = 3,
-                 scale_noise: float = 0.1):
+                 scale_noise: float = 0.1, fused: bool = False):
         super().__init__()
         k = kernel_size
+        if fused and (k, grid_size, spline_order) != (3, 5, 3):
+            raise ValueError("fused=True takes kernel_size 3, grid_size 5 and spline_order 3, "
+                             f"got {(k, grid_size, spline_order)}")
+        self.fused = fused
         self.padding = padding
         self.grid_size = grid_size
         self.spline_order = spline_order
@@ -58,7 +67,8 @@ class KANConv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.padding
         xp = F.pad(x, (p, p, p, p)) if p else x
-        basis = cardinal_bspline_basis_flat(xp, self.grid_size, self.spline_order)
         F_, C, n_basis, k, _ = self.spline_weight.shape
         sk = (self.spline_weight * self.spline_scaler[:, :, None]).reshape(F_, C * n_basis, k, k)
-        return F.conv2d(F.silu(xp), self.base_weight) + F.conv2d(basis, sk)
+        if self.fused:
+            return fused_kanconv(xp, self.base_weight, sk)
+        return kanconv_plain(xp, self.base_weight, sk, self.grid_size, self.spline_order)

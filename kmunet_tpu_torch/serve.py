@@ -11,7 +11,9 @@
 
 Pass ``device="cpu"`` to run on the CPU (the gathers then take their plain
 versions); nothing falls back to the CPU on its own. Pass
-``dysample_window=False`` for DySample's exact path (the K4 grouped gather).
+``dysample_window=False`` for DySample's exact path (the K4 grouped gather),
+``kan_fused=True`` for the KAN convs through K1 and ``ssd_mixer="fused"``
+(or ``"compress"``) for the HSM-SSD mixers through K3 (or K2).
 TrajGRU's warp is the K7 multiview gather, Mamba-UNet's scan K8.
 """
 
@@ -33,12 +35,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_km_unet_v3_sh(device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
-                        dysample_window: bool = True) -> torch.nn.Module:
+                        dysample_window: bool = True, kan_fused: bool = False,
+                        ssd_mixer: str = "einsum") -> torch.nn.Module:
     """KM_UNetV3-SH (20 output frames, embed_dims 16/32/64) in eval mode,
     initialised from ``seed`` with the JAX package's distributions, on
-    ``device`` in ``dtype``; ``dysample_window`` as in ``KM_UNetV3``."""
+    ``device`` in ``dtype``; ``dysample_window``, ``kan_fused`` and
+    ``ssd_mixer`` as in ``KM_UNetV3``."""
     device = resolve_device(device)
-    model = KM_UNetV3_SH(dysample_window=dysample_window)
+    model = KM_UNetV3_SH(dysample_window=dysample_window, kan_fused=kan_fused,
+                         ssd_mixer=ssd_mixer)
     init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, dtype=dtype).eval()
 

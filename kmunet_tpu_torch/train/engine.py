@@ -15,7 +15,10 @@ takes its plain versions); nothing falls back to the CPU on its own. The
 ``model.extra["drop_path"]`` is 0.
 
 ``build_model(cfg, dysample_window=False)`` takes DySample's exact path
-(the K4 grouped gather and its K6 backward on the card). The models come
+(the K4 grouped gather and its K6 backward on the card); ``kan_fused=True``
+and ``ssd_mixer="fused"`` (or ``"compress"``) run KM_UNetV3's KAN convs and
+HSM-SSD mixers through K1 and K3 (or K2), their backward the autograd of the
+plain versions. The models come
 from the zoo (``models/zoo.py``): KM_UNetV3-SH, the sequence models
 ConvLSTM and TrajGRU, and Mamba-UNet (``cfg.model.name``;
 ``train/recipes.py::apply_recipe`` sets their reference recipes: Adam,
@@ -64,11 +67,14 @@ class TrainState:
     opt_state: AdamWState
 
 
-def build_model(cfg: ExperimentConfig, dysample_window: bool = True) -> nn.Module:
+def build_model(cfg: ExperimentConfig, dysample_window: bool = True, kan_fused: bool = False,
+                ssd_mixer: str = "einsum") -> nn.Module:
     """The zoo's model of ``cfg.model``; ``dysample_window=False`` takes
     KM_UNetV3's DySample exact path (the JAX package's ``DYSAMPLE_WINDOW``,
-    which its config does not carry either)."""
-    return zoo.build(cfg.model, dysample_window=dysample_window)
+    which its config does not carry either); ``kan_fused`` and ``ssd_mixer``
+    as in ``KM_UNetV3``."""
+    return zoo.build(cfg.model, dysample_window=dysample_window, kan_fused=kan_fused,
+                     ssd_mixer=ssd_mixer)
 
 
 def build_loss(cfg: ExperimentConfig) -> Callable:

@@ -3,6 +3,7 @@
 its train step, spends its time on the card.
 
     python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16] [--exact]
+    python3 scripts/profile_torch_forward.py --kan-fused --ssd-mixer fused [--train]
     python3 scripts/profile_torch_forward.py --train [--batch 16] [--exact]
     python3 scripts/profile_torch_forward.py --model trajgru [--train] [--batch 16]
     python3 scripts/profile_torch_forward.py --model mamba_unet [--train] [--batch 16]
@@ -18,8 +19,10 @@ the kernels that take the most device time, and the launches and device
 time of the layout changes (PyTorch's copy kernels and cuDNN's NCHW <-> NHWC
 transforms). ``--exact`` runs DySample's
 exact path (``dysample_window=False``: the K4 grouped gather) in place of
-its window path. ``--model trajgru`` profiles TrajGRU_EF (5 -> 20 frames at
-128^2, B=16 by default) and its ("trajgru", "pic") recipe step (Adam,
+its window path. ``--kan-fused`` runs KM_UNetV3's four KAN convs through K1
+and ``--ssd-mixer fused`` (or ``compress``) its 15 HSM-SSD mixers through K3
+(or K2) in place of the plain convs and einsums. ``--model trajgru``
+profiles TrajGRU_EF (5 -> 20 frames at 128^2, B=16 by default) and its ("trajgru", "pic") recipe step (Adam,
 weighted_mse_mae); a cell's module time sums all its calls of a forward.
 ``--model mamba_unet`` profiles Mamba_UNet (5 -> 20 frames at 128^2, B=16
 by default; 20 selective scans, K8, per forward) and its ("mamba_unet",
@@ -74,7 +77,7 @@ def module_times(model, frames, iters: int) -> dict:
     return {name: sum(a.elapsed_time(b) for a, b in evs) / iters for name, evs in events.items()}
 
 
-def train_step(batch: int, dtype: str, window: bool, model_name: str):
+def train_step(batch: int, dtype: str, window: bool, model_name: str, **options):
     """One train step at ``batch`` as a closure, after two warm-up steps: the
     SH recipe for km_unet_v3, the (model, "pic") recipe for the zoo's."""
     from kmunet_tpu_torch.configs import shanghai_km_unet
@@ -86,7 +89,7 @@ def train_step(batch: int, dtype: str, window: bool, model_name: str):
     if model_name != "km_unet_v3":
         cfg = apply_recipe(cfg, model_name, "pic")
     cfg.data.img_size, cfg.data.batch_size, cfg.train.compute_dtype = 128, batch, dtype
-    model = engine.build_model(cfg, dysample_window=window)
+    model = engine.build_model(cfg, dysample_window=window, **options)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=0)
     step = engine.make_train_step(model, engine.build_loss(cfg), tx, cfg)
@@ -113,7 +116,13 @@ def main() -> int:
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--train", action="store_true", help="profile one train step")
     p.add_argument("--exact", action="store_true", help="DySample's exact path")
+    p.add_argument("--kan-fused", action="store_true", help="KM_UNetV3's KAN convs through K1")
+    p.add_argument("--ssd-mixer", default="einsum", choices=["einsum", "compress", "fused"],
+                   help="KM_UNetV3's HSM-SSD mixers: einsums, K2 or K3")
     args = p.parse_args()
+    options = dict(kan_fused=args.kan_fused, ssd_mixer=args.ssd_mixer)
+    if args.model != "km_unet_v3" and (args.kan_fused or args.ssd_mixer != "einsum"):
+        p.error("--kan-fused and --ssd-mixer are KM_UNetV3's")
     if not torch.cuda.is_available():
         print("profile_torch_forward: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -122,9 +131,9 @@ def main() -> int:
     if args.batch is None:
         args.batch = 16 if args.train or args.model != "km_unet_v3" else 128
     if args.train:
-        run = train_step(args.batch, args.dtype, not args.exact, args.model)
+        run = train_step(args.batch, args.dtype, not args.exact, args.model, **options)
         emit({"card": card, "model": args.model, "batch": args.batch, "dtype": args.dtype,
-              "train": True, "exact": args.exact})
+              "train": True, "exact": args.exact, **options})
     else:
         dtype = getattr(torch, args.dtype)
         if args.model == "trajgru":
@@ -135,7 +144,7 @@ def main() -> int:
             frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
         else:
             model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0,
-                                              dysample_window=not args.exact)
+                                              dysample_window=not args.exact, **options)
             frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
 
         def run():
@@ -145,7 +154,8 @@ def main() -> int:
             run()
         torch.cuda.synchronize()
         emit({"card": card, "model": args.model, "batch": args.batch, "dtype": args.dtype,
-              "exact": args.exact, "module_ms": module_times(model, frames, args.iters)})
+              "exact": args.exact, **options,
+              "module_ms": module_times(model, frames, args.iters)})
 
     from torch.profiler import ProfilerActivity, profile
 

@@ -3,7 +3,10 @@ multiview form K7 and their K6 backward against their plain versions, the
 gathers' gradients against the CPU's, and the forward and a train step
 through them, on DySample's window and exact paths and for TrajGRU, against
 the CPU's; K8, the selective scan, and its backward against their plain
-versions, and Mamba-UNet's forward and a train step through them. Marked ``gpu``; they skip where there is no card. This file
+versions, and Mamba-UNet's forward and a train step through them; K1, the
+fused KAN conv, and K2 and K3, the HSM-SSD compress and fused mixer, against
+their plain versions, their gradients against the CPU's, and KM_UNetV3-SH's
+forward and a train step through them. Marked ``gpu``; they skip where there is no card. This file
 imports no JAX, so it runs on a machine without
 it: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 """
@@ -14,7 +17,7 @@ import torch
 
 import chip_smoke
 from kmunet_tpu_torch import serve
-from kmunet_tpu_torch.kernels import bilinear, scan
+from kmunet_tpu_torch.kernels import bilinear, kanconv, scan, ssd
 # By its own name (pytest puts tests/ on sys.path): tests/ has no __init__.py,
 # so an installed regular package named ``tests`` would shadow ``tests.*``.
 from torch_cases import (  # noqa: F401
@@ -552,3 +555,146 @@ def test_cuda_mamba_train_step_matches_cpu(cuda_device, monkeypatch):
     assert (scan.selective_scan.launches - before[0],
             scan.selective_scan_backward.launches - before[1]) == (20, 20)
     chip_smoke.compare_steps(card, chip_smoke.float64_gradients(cfg, batch, seed=1))
+
+
+# K1's shapes (B, C, F, H, W): the four SH KAN convs at 32^2 input and a ragged one.
+KAN_GPU_SHAPES = {
+    "enc1": (2, 16, 16, 32, 32),
+    "enc3": (2, 32, 64, 8, 8),
+    "dec1": (2, 64, 32, 8, 8),
+    "ragged": (3, 3, 5, 7, 9),
+    "f17": (1, 5, 17, 20, 18),
+}
+# K2's and K3's (B, C, L, N): the SH mixer shapes at 32^2 input, ragged ones.
+MIXER_GPU_SHAPES = {
+    "enc1": (2, 16, 1024, 64),
+    "enc3": (2, 64, 64, 64),
+    "ragged_n8": (2, 16, 1000, 8),
+    "c3_n4": (3, 3, 77, 4),
+    "l1": (2, 16, 1, 64),
+}
+
+
+@pytest.mark.parametrize("case", chip_smoke.KAN_X_CASES)
+@pytest.mark.parametrize("shape", list(KAN_GPU_SHAPES))
+def test_cuda_kanconv_matches_plain(cuda_device, shape, case, monkeypatch):
+    """K1 in fp32, bf16 and fp16 against the plain version within
+    ``chip_smoke.check_kanconv``'s tolerances; one launch per call."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    args = chip_smoke.kan_inputs(torch, np.random.default_rng(0), KAN_GPU_SHAPES[shape], case,
+                                 cuda_device)
+    before = kanconv.fused_kanconv.launches
+    chip_smoke.check_kanconv(torch, shape, *args, {})
+    torch.cuda.synchronize()
+    assert kanconv.fused_kanconv.launches - before == 3
+
+
+@pytest.mark.parametrize("dt_case", ["seeded", "large"])
+@pytest.mark.parametrize("shape", list(MIXER_GPU_SHAPES))
+def test_cuda_mixer_kernels_match_plain(cuda_device, shape, dt_case, monkeypatch):
+    """K2 and K3 in fp32, bf16 and fp16, dt, B and C strided slices of one
+    bcdt, against the plain versions within ``chip_smoke.check_mixer``'s
+    tolerances; one call of each per dtype."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    args = chip_smoke.mixer_inputs(torch, np.random.default_rng(1), MIXER_GPU_SHAPES[shape],
+                                   dt_case, cuda_device)
+    before = (ssd.hsmssd_compress.launches, ssd.hsmssd_mix.launches)
+    chip_smoke.check_mixer(torch, shape, args, {}, {})
+    torch.cuda.synchronize()
+    assert (ssd.hsmssd_compress.launches - before[0], ssd.hsmssd_mix.launches - before[1]) == (3, 3)
+
+
+def test_cuda_kanconv_and_mixer_gradients_match_cpu(cuda_device, monkeypatch):
+    """``fused_kanconv``, ``hsmssd_compress`` and ``hsmssd_mix`` through
+    autograd on the card (the kernels forward, the plain versions' autograd
+    backward) against the CPU (the plain versions), fp32, TF32 off: outputs
+    and gradients within 1e-5 of each one's largest |value| plus 1e-6; A's
+    gradient, 0 in exact arithmetic (the softmax is shift-invariant per n),
+    within 1e-4 of 0 on both sides, as tests/test_ssd_mix.py holds it (each
+    side's fp32 noise reached 3.7e-6 on the card)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(2)
+    kan_args = chip_smoke.kan_inputs(torch, rng, (2, 16, 32, 12, 10), "wide", "cpu")
+    x, bcdt, A, w_hz, w_out, D = chip_smoke.mixer_inputs(torch, rng, (2, 32, 300, 64), "seeded",
+                                                         "cpu")
+    N = A.shape[0]
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_() for t in (*kan_args, x, bcdt, A, w_hz, w_out, D)]
+        xp, base, spline, xt, bc, a, wh, wo, d = leaves
+        Bm, Cm, dt = bc.split(N, dim=1)
+        y, h2 = ssd.hsmssd_mix(xt, dt, Bm, Cm, a, wh, wo, d)
+        outs = (kanconv.fused_kanconv(xp, base, spline), ssd.hsmssd_compress(xt, dt, Bm, a), y, h2)
+        torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+        return [o.detach().cpu() for o in outs] + [t.grad.cpu() for t in leaves]
+
+    counters = (kanconv.fused_kanconv, ssd.hsmssd_compress, ssd.hsmssd_mix)
+    before = [c.launches for c in counters]
+    got = run(cuda_device)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    for i, (a, b) in enumerate(zip(got, run(torch.device("cpu")))):
+        if i == 9:  # A's gradient
+            assert float(a.abs().max()) <= 1e-4 and float(b.abs().max()) <= 1e-4
+            continue
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-6, i
+
+
+def test_cuda_kanconv_and_mixer_reject_what_they_do_not_take(cuda_device):
+    xp, base, spline = chip_smoke.kan_inputs(torch, np.random.default_rng(3), (1, 4, 4, 6, 6),
+                                             "unit", cuda_device)
+    with pytest.raises(TypeError):
+        kanconv.kanconv_forward(xp.double(), base, spline)
+    with pytest.raises(TypeError):
+        kanconv.kanconv_forward(xp, base.cpu(), spline)
+    with pytest.raises(ValueError):
+        kanconv.kanconv_forward(xp.transpose(2, 3), base, spline)
+    x, bcdt, A, w_hz, w_out, D = chip_smoke.mixer_inputs(torch, np.random.default_rng(4),
+                                                         (1, 8, 40, 8), "seeded", cuda_device)
+    Bm, Cm, dt = bcdt.split(8, dim=1)
+    with pytest.raises(TypeError):
+        ssd.hsmssd_mix_forward(x.half(), dt, Bm, Cm, A, w_hz, w_out, D)
+    with pytest.raises(ValueError):
+        ssd.hsmssd_compress_forward(x, dt.transpose(1, 2).contiguous().transpose(1, 2), Bm, A)
+    with pytest.raises(ValueError):
+        ssd.hsmssd_compress_forward(x, dt[:, :6], Bm[:, :6], A[:6])
+
+
+@pytest.mark.parametrize("kan_fused,ssd_mixer", [(True, "fused"), (False, "compress")])
+def test_cuda_kernel_paths_forward_matches_cpu(cuda_device, kan_fused, ssd_mixer, monkeypatch):
+    """KM_UNetV3-SH at 32^2, B=2, with ``kan_fused`` and ``ssd_mixer`` on
+    the card against the CPU, TF32 off, within 1e-4 abs: per forward 4 K1
+    launches (or none), 15 of K3 or K2, 9 of K5."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    options = dict(kan_fused=kan_fused, ssd_mixer=ssd_mixer)
+    frames = np.random.default_rng(5).uniform(size=(2, 32, 32, 5)).astype(np.float32)
+    model_gpu = serve.build_km_unet_v3_sh(device=cuda_device, seed=6, **options)
+    model_cpu = serve.build_km_unet_v3_sh(device="cpu", seed=6, **options)
+    counters = (bilinear.bilinear_gather, kanconv.fused_kanconv, ssd.hsmssd_compress,
+                ssd.hsmssd_mix)
+    before = [c.launches for c in counters]
+    got = serve.predict(model_gpu, frames).cpu().numpy()
+    mixers = chip_smoke.SSD_MIXERS
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        chip_smoke.TAPS, chip_smoke.KAN_CONVS if kan_fused else 0,
+        mixers if ssd_mixer == "compress" else 0, mixers if ssd_mixer == "fused" else 0]
+    np.testing.assert_allclose(got, serve.predict(model_cpu, frames).numpy(), rtol=0, atol=1e-4)
+
+
+def test_cuda_fused_path_train_step_matches_cpu(cuda_device, monkeypatch):
+    """One fp32 SH step (32^2, B2, seq 9 -> 4 outputs, no stochastic depth)
+    through K1 and K3 on the card against the same step on the CPU within
+    ``chip_smoke.compare_steps``: 4 K1, 15 K3, 9 K5 and 9 K6 launches."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = chip_smoke.sh_config(2, "float32", drop_path=0.0, img_size=32, seq_len=9,
+                               out_frames=4)
+    batch = np.random.default_rng(9).random((2, 9, 32, 32), dtype=np.float32)
+    options = dict(kan_fused=True, ssd_mixer="fused")
+    counters = (kanconv.fused_kanconv, ssd.hsmssd_mix, bilinear.bilinear_gather,
+                bilinear.bilinear_gather_backward)
+    before = [c.launches for c in counters]
+    card = chip_smoke.step_gradients(cfg, cuda_device, batch, seed=1, **options)
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 15, 9, 9]
+    chip_smoke.compare_steps(card, chip_smoke.step_gradients(cfg, "cpu", batch, seed=1, **options))
