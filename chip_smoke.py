@@ -11,10 +11,10 @@ Phases, each printing one JSON line with its seconds:
               ``csrc/bilinear_gather_backward.cu`` (K6, the backward of all
               three), ``csrc/selective_scan.cu`` (K8, the selective scan,
               and its backward), ``csrc/kanconv.cu`` (K1, the fused KAN
-              conv) and ``csrc/hsmssd.cu`` (K2, the HSM-SSD compress, and
-              K3, the fused mixer) built with nvcc for sm_90a, one nvcc
-              each, all started together; the ``-Xptxas -v`` reports are
-              printed once.
+              conv), ``csrc/hsmssd.cu`` (K2, the HSM-SSD compress, and
+              K3, the fused mixer) and ``csrc/hsmssd_ablate.cu`` (K3a, the
+              mixer ablation) built with nvcc for sm_90a, one nvcc each, all
+              started together; the ``-Xptxas -v`` reports are printed once.
 3. kernel  -- K5 and K6 against their plain PyTorch versions on the card,
               zeros and border modes, fp32/bf16/fp16, at the DAGEM bridge
               shape, a ragged one and one whose C takes no 16-byte vectors,
@@ -52,16 +52,23 @@ Phases, each printing one JSON line with its seconds:
               the largest |value| (``scan_reference``), bf16 and fp16
               against the plain versions on the same rounded inputs within
               that plus one ulp of the dtype (``check_scan``). Then, with
-              TF32 off, K1 at KM_UNetV3-SH's four KAN shapes at B=2 and a
-              ragged one (``KAN_SHAPES``), x in [-1.2, 1.2], in [-3, 3] and
-              at the knots (``check_kanconv``), and K2 and K3 at its three
-              mixer shapes at B=2, a ragged L=1000 with N=8 and L=1, dt
+              TF32 off, K1 at KM_UNetV3-SH's four KAN shapes at B=2,
+              KM_UNetV3-LAPS's four at B=1 (256^2 at enc1) and a ragged one
+              (``KAN_SHAPES``), x in [-1.2, 1.2], in [-3, 3] and at the
+              knots (``check_kanconv``), and K2 and K3 at SH's three mixer
+              shapes at B=2, LAPS's three at B=1 (L=65536 at enc1), a
+              ragged L=1000 with N=8 and L=1, dt
               N(0, 1) and 40 N(0, 1), dt, B and C the strided slices of one
               bcdt (``MIXER_SHAPES``, ``check_mixer``): fp32 within 1e-5 abs
               + 1e-5 of the largest |value| of the plain version, bf16 and
               fp16 against the plain version in fp32 on the same rounded
               inputs within that plus one ulp of the dtype (K3's y also
-              one ulp of each h2 carried through the scatter).
+              one ulp of each h2 carried through the scatter). Then K3a in
+              its five modes at the TPU script's shape (B=64, C=16,
+              L=16384, N=64, tiles of 4096, bf16), several tiles of 64, C
+              != N and one tile (``ABLATE_SHAPES``, ``check_ablate``):
+              within one bf16 ulp of the output's scale of the plain
+              version on the same inputs.
 4. slice   -- the serving path: KM_UNetV3-SH at full width (embed_dims
               16/32/64, 128^2, 5 -> 20 frames), seeded weights, eval mode,
               built and served through ``kmunet_tpu_torch.serve`` on the card
@@ -138,6 +145,26 @@ Phases, each printing one JSON line with its seconds:
               the card against the same gradient in float64 on the CPU
               through ``compare_steps``: K8 and its backward must launch 20
               times each and no other kernel.
+   ablate_mix -- the K3a script's path: ``scripts/torch_ablate_mix_kernel.py``
+              (``run``) at its default shape, ABLATE_ITERS chained calls per
+              mode after 2 warm-up calls and as many of K2; K3a must launch
+              5 x (2 + ABLATE_ITERS) times, K2 2 + ABLATE_ITERS times, no
+              other kernel.
+   serve_laps -- KM_UNetV3-LAPS at full width (embed_dims 16/32/64, no
+              bridge, align-corners bilinear x2), 256^2, 5 -> 3 frames,
+              seeded weights, built and served through
+              ``serve.build_km_unet_v3_laps`` for a few requests of B=1 in
+              fp32 with TF32 off, on its plain path (no kernel), with
+              ``head_norm=False`` (no kernel), through K1 and K3
+              (``kan_fused=True, ssd_mixer="fused"``: 4 K1 and 15 K3 per
+              forward) and through K2 (``ssd_mixer="compress"``: 15 per
+              forward); each answer (1, 256, 256, 3), finite, within 1e-4
+              abs of the same weights on the CPU.
+   train_laps -- one fp32 ``laps_km_unet()`` step (the SH recipe's hybrid
+              loss and AdamW) at full width, 256^2, seq_len 8, B=1, no
+              stochastic depth, through K1 and K3 on the card (4 and 15
+              launches, no other kernel) against the same step on the CPU
+              through ``compare_steps``.
 6. timing  -- CUDA events after warm-up, PyTorch's default TF32 settings:
               the forward at B=128 bf16 on the window and the exact path and
               at B=8 fp32 (ms, frames/s = B*20/s); the train step at B=16 and
@@ -176,6 +203,11 @@ Phases, each printing one JSON line with its seconds:
               basis and one for the base branch, the dense count beside it)
               and their plain versions (today's default paths); no one
               PyTorch call computes them, so their library time is null.
+              K3a in each mode at the TPU script's shape beside its byte
+              bound and its plain version (library null). KM_UNetV3-LAPS:
+              the forward at B=1 and B=32 bf16 at 256^2 (B=32 has as many
+              pixels as SH's B=128 at 128^2) on the plain and the K1 + K3
+              path, and the bf16 ``laps_km_unet()`` step at B=1 on both.
 Then the kernels line, and last ``{"ok": true, "device": {...}}``. Any failed
 phase raises: the run exits non-zero and prints no result, also when no CUDA
 device is present. A hard deadline ends a run that hangs.
@@ -301,12 +333,18 @@ K3_SOURCE = K2_SOURCE  # the fused mixer is a second entry of the same source
 K3_REPLACES = "kmunet_tpu/kernels/ssd_mix_pallas.py:150"
 # K1's shapes (B, C, F, H, W): KM_UNetV3-SH's four KAN convs at 128^2 input
 # and B=2 (enc1 16->16 at 128^2, enc2 16->32 at 64^2, enc3 32->64 and dec1
-# 64->32 at 32^2) and a ragged one; each with the x cases of KAN_X_CASES.
+# 64->32 at 32^2), KM_UNetV3-LAPS's four at 256^2 input and B=1 (the same
+# convs at twice the side), and a ragged one; each with the x cases of
+# KAN_X_CASES.
 KAN_SHAPES = {
     "enc1": (2, 16, 16, 128, 128),
     "enc2": (2, 16, 32, 64, 64),
     "enc3": (2, 32, 64, 32, 32),
     "dec1": (2, 64, 32, 32, 32),
+    "laps_enc1": (1, 16, 16, 256, 256),
+    "laps_enc2": (1, 16, 32, 128, 128),
+    "laps_enc3": (1, 32, 64, 64, 64),
+    "laps_dec1": (1, 64, 32, 64, 64),
     "ragged": (2, 3, 5, 7, 9),
 }
 # x of each case: "unit" U(-1.2, 1.2); "wide" U(-3, 3), past the outer knots
@@ -316,18 +354,43 @@ KAN_X_CASES = ("unit", "wide", "knots")
 KAN_CONVS = 4  # enc1-3 and dec1: one K1 launch each per forward
 ENC1_KAN = (128, 16, 16, 128, 128)  # K1's timing shape (B, C, F, H, W): enc1 at B=128
 # K2's and K3's shapes (B, C, L, N): KM_UNetV3-SH's three mixer shapes at B=2
-# (enc1 and dec3 at 128^2, enc2 and dec2 at 64^2, enc3 at 32^2), a ragged L
-# with N=8, and L=1; each with the dt cases listed: "seeded" N(0, 1),
-# "large" 40 N(0, 1), where one token takes most of a softmax.
+# (enc1 and dec3 at 128^2, enc2 and dec2 at 64^2, enc3 at 32^2),
+# KM_UNetV3-LAPS's three at B=1 (enc1 and dec3 at 256^2: 128 slices of the
+# compress pass per batch element on 132 SMs, against SH's 32; enc2 and dec2
+# at 128^2; enc3 at 64^2), a ragged L with N=8, and L=1; each with the dt
+# cases listed: "seeded" N(0, 1), "large" 40 N(0, 1), where one token takes
+# most of a softmax.
 MIXER_SHAPES = {
     "enc1": ((2, 16, 16384, 64), ("seeded", "large")),
     "enc2": ((2, 32, 4096, 64), ("seeded",)),
     "enc3": ((2, 64, 1024, 64), ("seeded", "large")),
+    "laps_enc1": ((1, 16, 65536, 64), ("seeded", "large")),
+    "laps_enc2": ((1, 32, 16384, 64), ("seeded", "large")),
+    "laps_enc3": ((1, 64, 4096, 64), ("seeded", "large")),
     "ragged_l1000_n8": ((2, 16, 1000, 8), ("seeded", "large")),
     "l1": ((2, 16, 1, 64), ("seeded",)),
 }
 SSD_MIXERS = 15  # 5 EnhancedViM blocks of 3 directional ViMs: one K2 or K3 call each
 ENC1_MIX = (128, 16, 16384, 64)  # K2's and K3's timing shape (B, C, L, N): enc1_vim's mixer
+
+K3A_SOURCE = "kmunet_tpu_torch/csrc/hsmssd_ablate.cu"
+K3A_REPLACES = "scripts/ablate_mix_kernel.py:98"
+K3A_SCRIPT = "scripts/torch_ablate_mix_kernel.py"
+# K3a's shapes (B, C, L, N, tile): the TPU script's (B=64, C=16, 128^2
+# tokens, N=64, tiles of 4096), several tiles of 64 tokens, C != N with N=32,
+# one tile with C=24 and N=16, and C=5 with N=8.
+ABLATE_SHAPES = {
+    "script": (64, 16, 16384, 64, 4096),
+    "tile64": (2, 16, 1024, 64, 64),
+    "c8_n32": (3, 8, 4096, 32, 1024),
+    "one_tile_c24_n16": (2, 24, 512, 16, 512),
+    "c5_n8": (1, 5, 256, 8, 128),
+}
+ABLATE_ITERS = 3  # the ablate_mix phase's chained calls per mode, after 2 warm-up calls
+LAPS_SIZE = 256  # laps_km_unet()'s img_size
+LAPS_FRAMES = 3
+LAPS_SEQ = 8
+LAPS_BATCHES = (1, 32)  # the recipe's batch, and SH's B=128 at 128^2 in pixels
 
 
 def emit(obj) -> None:
@@ -495,11 +558,12 @@ def scan_bound(shape, esz, backward: bool):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved, ops
 
 
-def synthetic_batch(np, B, seed):
-    """B items of the synthetic SH corpus (128^2, seq_len 25) from ``seed``."""
+def synthetic_batch(np, B, seed, img_size=128, seq_len=25):
+    """B items of the synthetic corpus (by default the SH bench's: 128^2,
+    seq_len 25) from ``seed``."""
     from kmunet_tpu_torch.data import SyntheticNowcastDataset
 
-    data = SyntheticNowcastDataset(length=B, img_size=128, seq_len=25, seed=seed)
+    data = SyntheticNowcastDataset(length=B, img_size=img_size, seq_len=seq_len, seed=seed)
     return np.stack([data[i] for i in range(B)])
 
 
@@ -512,6 +576,18 @@ def sh_config(B, dtype, drop_path=0.1, img_size=128, seq_len=25, out_frames=20):
     cfg.data.img_size, cfg.data.batch_size = img_size, B
     cfg.data.seq_len, cfg.data.out_frames = seq_len, out_frames
     cfg.model.num_classes = out_frames
+    cfg.train.compute_dtype = dtype
+    cfg.model.extra["drop_path"] = drop_path
+    return cfg
+
+
+def laps_config(B, dtype, drop_path=0.1, img_size=LAPS_SIZE):
+    """``laps_km_unet()`` (the LAPS variant, 5 -> 3 frames, seq_len 8, the SH
+    recipe's hybrid loss and AdamW) at batch B in compute ``dtype``."""
+    from kmunet_tpu_torch.configs import laps_km_unet
+
+    cfg = laps_km_unet()
+    cfg.data.img_size, cfg.data.batch_size = img_size, B
     cfg.train.compute_dtype = dtype
     cfg.model.extra["drop_path"] = drop_path
     return cfg
@@ -787,6 +863,49 @@ def check_mixer(torch, key, args32, errors_k2, errors_k3):
         errors_k3[k] = max(errs[1:])
 
 
+def ablate_inputs(torch, shape, seed, device):
+    """K3a's inputs on ``device``, bf16, as the TPU script draws them: xt,
+    dt, Bm, Cm N(0, 1) and A U(1, 16), from a generator seeded ``seed``."""
+    B, C, L, N, _ = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    normal = [torch.randn(s, generator=g, device=device) for s in ((B, C, L), (B, L, N),
+                                                                   (B, L, N), (B, L, N))]
+    A = 1.0 + 15.0 * torch.rand(N, generator=g, device=device)
+    return [t.to(torch.bfloat16) for t in (*normal, A)]
+
+
+def check_ablate(torch, key, args, tile, errors):
+    """Holds K3a in each mode to its plain version on the same bf16 inputs,
+    within one bf16 ulp of the output's scale (2^(floor(log2 max|y|) - 7):
+    the kernel sums in another order, so an h / (den + 1) at a rounding
+    boundary may round the other way). Records the worst error under
+    ``key``/mode/bfloat16."""
+    from kmunet_tpu_torch.kernels import ablate_mix
+
+    for mode in ablate_mix.MODES:
+        got = ablate_mix.ablate_mix_forward(mode, *args, tile)
+        want = ablate_mix.ablate_mix_plain(mode, *args, tile).float()
+        if got.dtype != torch.bfloat16 or got.shape != want.shape:
+            raise AssertionError(f"K3a {key} {mode}: {got.dtype} {tuple(got.shape)}")
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().max())) - 7)
+        errors[f"{key}/{mode}/bfloat16"] = check_close(f"K3a {key} {mode}", got, want,
+                                                       torch.broadcast_to(ulp, want.shape))
+
+
+def ablate_bound(shape, mode):
+    """(bound_ms, bound_by, bytes, ops) of K3a at (B, C, L, N, tile), bf16:
+    xt, dt, Bm, Cm read once and y written once over the HBM rate, against
+    the products (2 operations per (b, l, n, c) each for h and y; dma_only
+    one addition per value it loads) over the fp32 rate of the CUDA cores
+    that run them."""
+    B, C, L, N, _ = shape
+    moved = (2 * B * C * L + 3 * B * L * N) * 2 + N * 4
+    ops = (B * C * L + 3 * B * L * N) if mode == "dma_only" else 4 * B * L * N * C
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved, ops
+
+
 def grouped_case_inputs(np, rng, shape):
     """img (B, H, W, C), an upstream gradient (B, Ho, Wo, C) and the named
     coordinate cases, each (x, y) of (B, G, Ho, Wo) with every group on its
@@ -952,7 +1071,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from kmunet_tpu_torch import serve
-    from kmunet_tpu_torch.kernels import bilinear, build, kanconv, scan, ssd
+    from kmunet_tpu_torch.kernels import ablate_mix, bilinear, build, kanconv, scan, ssd
 
     kernels = {"bilinear_gather": bilinear.bilinear_gather,
                "bilinear_gather_backward": bilinear.bilinear_gather_backward,
@@ -964,14 +1083,17 @@ def main() -> int:
                "selective_scan_backward": scan.selective_scan_backward,
                "fused_kanconv": kanconv.fused_kanconv,
                "hsmssd_compress": ssd.hsmssd_compress,
-               "hsmssd_mix": ssd.hsmssd_mix}
+               "hsmssd_mix": ssd.hsmssd_mix,
+               "ablate_mix": ablate_mix.ablate_mix}
 
-    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0, k8=0, k8b=0, k1=0, k2=0, k3=0):
+    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0, k8=0, k8b=0, k1=0, k2=0, k3=0,
+                     k3a=0):
         return {"bilinear_gather": k5, "bilinear_gather_backward": k6,
                 "bilinear_gather_grouped": k4, "bilinear_gather_grouped_backward": k6g,
                 "bilinear_gather_multiview": k7, "bilinear_gather_multiview_backward": k6s,
                 "selective_scan": k8, "selective_scan_backward": k8b,
-                "fused_kanconv": k1, "hsmssd_compress": k2, "hsmssd_mix": k3}
+                "fused_kanconv": k1, "hsmssd_compress": k2, "hsmssd_mix": k3,
+                "ablate_mix": k3a}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -994,16 +1116,16 @@ def main() -> int:
 
     with Phase("build") as f:
         sources = (bilinear.SOURCE, bilinear.BACKWARD_SOURCE, scan.SOURCE, kanconv.SOURCE,
-                   ssd.SOURCE)
+                   ssd.SOURCE, ablate_mix.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, started together
             builds = list(pool.map(build.build, sources))
         for entry in (bilinear.forward_kernel, bilinear.backward_kernel,
                       bilinear.grouped_kernel, bilinear.grouped_backward_kernel,
                       bilinear.multiview_kernel, bilinear.multiview_backward_kernel,
                       scan.forward_kernel, scan.backward_kernel, kanconv.kernel,
-                      ssd.compress_kernel, ssd.mix_kernel):
+                      ssd.compress_kernel, ssd.mix_kernel, ablate_mix.kernel):
             entry()
-        f.update(sources=[K5_SOURCE, K6_SOURCE, K8_SOURCE, K1_SOURCE, K2_SOURCE],
+        f.update(sources=[K5_SOURCE, K6_SOURCE, K8_SOURCE, K1_SOURCE, K2_SOURCE, K3A_SOURCE],
                  libraries=[os.path.relpath(b.path, REPO) for b in builds],
                  nvcc_seconds=[round(b.seconds, 3) for b in builds])
     for source, built in zip(sources, builds):
@@ -1052,7 +1174,7 @@ def main() -> int:
 
     errors, k6_errors, k4_errors, k6g_errors, k7_errors, k6s_errors = {}, {}, {}, {}, {}, {}
     k8_errors, k8b_errors, k8_tolerances = {}, {}, {}
-    k1_errors, k2_errors, k3_errors = {}, {}, {}
+    k1_errors, k2_errors, k3_errors, k3a_errors = {}, {}, {}, {}
     with Phase("kernel") as f:
         rng = np.random.default_rng(0)
         plain_ops = (bilinear.bilinear_gather_forward, bilinear.bilinear_gather_backward,
@@ -1121,13 +1243,18 @@ def main() -> int:
             for case in KAN_X_CASES:
                 check_kanconv(torch, f"{shape_name}/{case}",
                               *kan_inputs(torch, rng, shape, case, dev), k1_errors)
+        mixer_slices = {}  # the compress pass's slices per batch element, merged by K2 and K3
         for shape_name, (shape, dt_cases) in MIXER_SHAPES.items():
             for dt_case in dt_cases:
-                check_mixer(torch, f"{shape_name}/{dt_case}",
-                            mixer_inputs(torch, rng, shape, dt_case, dev), k2_errors, k3_errors)
+                args32 = mixer_inputs(torch, rng, shape, dt_case, dev)
+                mixer_slices[shape_name] = ssd._slices(args32[0])[0]
+                check_mixer(torch, f"{shape_name}/{dt_case}", args32, k2_errors, k3_errors)
+        for i, (shape_name, shape) in enumerate(ABLATE_SHAPES.items()):
+            check_ablate(torch, shape_name, ablate_inputs(torch, shape, i, dev), shape[4],
+                         k3a_errors)
         torch.cuda.synchronize()
         f.update(cases=len(errors) + len(k4_errors) + len(k7_errors) + len(k8_errors)
-                 + len(k1_errors) + len(k2_errors),
+                 + len(k1_errors) + len(k2_errors) + len(k3a_errors),
                  k5_max_abs_err=errors, k6_max_abs_err=k6_errors, k4_max_abs_err=k4_errors,
                  k6_grouped_max_abs_err=k6g_errors, k7_max_abs_err=k7_errors,
                  k6_shared_max_abs_err=k6s_errors, k7_layout="exact",
@@ -1137,11 +1264,14 @@ def main() -> int:
                               "+ one ulp of the dtype, against the plain version on the same "
                               "rounded inputs",
                  k8_tolerances_fp32=k8_tolerances, k1_max_abs_err=k1_errors,
-                 k2_max_abs_err=k2_errors, k3_max_abs_err=k3_errors,
+                 k2_max_abs_err=k2_errors, k3_max_abs_err=k3_errors, mixer_slices=mixer_slices,
                  k1_k3_tolerance="fp32: 1e-5 + 1e-5 x the largest |value| of the plain version; "
                                  "bf16, fp16: that + one ulp of the dtype against the plain "
                                  "version in fp32 on the same rounded inputs (K3's y also + "
-                                 "sum_n ulp(h2) |C|)")
+                                 "sum_n ulp(h2) |C|)",
+                 k3a_max_abs_err=k3a_errors,
+                 k3a_tolerance="one bf16 ulp of the output's scale, 2^(floor(log2 max|y|) - 7), "
+                               "against the plain version on the same bf16 inputs")
 
     def serve_path(path, window, f, kan_fused=False, ssd_mixer="einsum"):
         """Serves REQUESTS fp32 requests of B=2 on the card with
@@ -1345,6 +1475,82 @@ def main() -> int:
         check = compare_steps(card, float64_gradients(cfg, batch))
         f.update(batch=CHECK_BATCH, compute="float32", size=128,
                  reference="float64 on the CPU", launches=launches, check=check, tf32=False)
+
+    with Phase("ablate_mix") as f:
+        # The K3a script's path, as a user runs it: every mode at the TPU
+        # script's shape, then K2 on the same tokens.
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location("torch_ablate_mix_kernel",
+                                                      os.path.join(REPO, K3A_SCRIPT))
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        reset_counts()
+        ablate_chained = script.run(iters=ABLATE_ITERS)
+        launches = path_launches["ablate_mix"] = read_counts()
+        calls = 2 + ABLATE_ITERS  # chained_time_ms's warm-up calls and the timed ones
+        expect_launches("ablate_mix", launches,
+                        launches_per(k3a=len(ablate_mix.MODES) * calls, k2=calls))
+        f.update(script=K3A_SCRIPT, shape=list(ABLATE_SHAPES["script"]), launches=launches,
+                 chained_ms={m: r[0] for m, r in ablate_chained.items()},
+                 bound_ms={m: r[1] for m, r in ablate_chained.items()})
+
+    def serve_laps(path, **options):
+        """Serves REQUESTS fp32 requests of B=1 at 256^2 through
+        ``build_km_unet_v3_laps(**options)`` on the card, counting launches,
+        and holds the answers to the same weights on the CPU."""
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = serve.build_km_unet_v3_laps(device="cuda", dtype=torch.float32, seed=0, **options)
+        requests = [rng.uniform(size=(1, LAPS_SIZE, LAPS_SIZE, 5)).astype(np.float32)
+                    for _ in range(REQUESTS)]
+        reset_counts()
+        answers = [serve.predict(model, frames) for frames in requests]
+        launches = path_launches[path] = read_counts()
+        mixer = options.get("ssd_mixer", "einsum")
+        expect_launches(path, launches, launches_per(
+            k1=KAN_CONVS * REQUESTS if options.get("kan_fused") else 0,
+            k2=SSD_MIXERS * REQUESTS if mixer == "compress" else 0,
+            k3=SSD_MIXERS * REQUESTS if mixer == "fused" else 0))
+        model_cpu = serve.build_km_unet_v3_laps(device="cpu", dtype=torch.float32, seed=0,
+                                                **options)
+        model_cpu.load_state_dict(model.state_dict())
+        err = 0.0
+        for frames, answer in zip(requests, answers):
+            if tuple(answer.shape) != (1, LAPS_SIZE, LAPS_SIZE, LAPS_FRAMES):
+                raise AssertionError(f"{path}: answer shape {tuple(answer.shape)}")
+            if not bool(torch.isfinite(answer).all()):
+                raise AssertionError(f"{path}: answer has non-finite values")
+            err = max(err, float((answer.cpu() - serve.predict(model_cpu, frames)).abs().max()))
+        if err > 1e-4:
+            raise AssertionError(f"{path}: card vs CPU forward: max abs err {err} > 1e-4")
+        return {"launches_per_forward": {k: v / REQUESTS for k, v in launches.items() if v},
+                "max_abs_err_vs_cpu": err, **options}
+
+    with Phase("serve_laps") as f:
+        f.update(requests=REQUESTS, batch=1, size=LAPS_SIZE, tf32=False, paths={
+            "serve_laps": serve_laps("serve_laps"),
+            "serve_laps_head_norm_off": serve_laps("serve_laps_head_norm_off", head_norm=False),
+            "serve_laps_fused": serve_laps("serve_laps_fused", kan_fused=True,
+                                           ssd_mixer="fused"),
+            "serve_laps_compress": serve_laps("serve_laps_compress", ssd_mixer="compress")})
+
+    with Phase("train_laps") as f:
+        # One fp32 laps_km_unet() step at B=1, 256^2, through K1 and K3 on
+        # the card, TF32 off, against the same step on the CPU, with no
+        # stochastic depth.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        batch = synthetic_batch(np, 1, seed=7, img_size=LAPS_SIZE, seq_len=LAPS_SEQ)
+        cfg = laps_config(1, "float32", drop_path=0.0)
+        options = dict(kan_fused=True, ssd_mixer="fused")
+        reset_counts()
+        card = step_gradients(cfg, "cuda", batch, **options)
+        launches = path_launches["train_laps"] = read_counts()
+        expect_launches("train_laps", launches, launches_per(k1=KAN_CONVS, k3=SSD_MIXERS))
+        check = compare_steps(card, step_gradients(cfg, "cpu", batch, **options))
+        f.update(batch=1, size=LAPS_SIZE, compute="float32", launches=launches, check=check,
+                 tf32=False, **options)
 
     def time_kernel(kernel, plain, library, bound, iters, plain_iters):
         """A kernel's numbers beside its ``bound`` ((bound_ms, bound_by,
@@ -1614,6 +1820,47 @@ def main() -> int:
             lambda: ssd.hsmssd_mix_plain(x, dt, Bm, Cm, A, w_hz, w_out, Dp), None,
             mixer_bound(ENC1_MIX, 2, True), 50, 5)
         del x, bcdt, Bm, Cm, dt
+
+        # K3a in each mode at the TPU script's shape; the line carries full's.
+        shape = ABLATE_SHAPES["script"]
+        args = ablate_inputs(torch, shape, len(ABLATE_SHAPES), dev)
+        modes = {mode: time_kernel(
+            lambda mode=mode: ablate_mix.ablate_mix_forward(mode, *args, shape[4]),
+            lambda mode=mode: ablate_mix.ablate_mix_plain(mode, *args, shape[4]), None,
+            ablate_bound(shape, mode), 50, 3) for mode in ablate_mix.MODES}
+        for mode, t in modes.items():
+            t["chained_ms"] = ablate_chained[mode][0]
+        timed["ablate_mix"] = {**modes["full"], "modes": modes}
+        del args
+
+        # KM_UNetV3-LAPS at 256^2: the forward at B=1 and B=32 and the
+        # laps_km_unet() step at B=1, bf16, on the plain and the K1 + K3 path.
+        for fused in (False, True):
+            options = dict(kan_fused=True, ssd_mixer="fused") if fused else {}
+            suffix = "_fused" if fused else ""
+            for B in LAPS_BATCHES:
+                model = serve.build_km_unet_v3_laps(device="cuda", dtype=torch.bfloat16, seed=0,
+                                                    **options)
+                frames = torch.rand(B, LAPS_SIZE, LAPS_SIZE, 5, device=dev).to(torch.bfloat16)
+                out = serve.predict(model, frames)
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"LAPS B={B} bf16 forward{suffix} has non-finite values")
+                ms = cuda_ms(torch, lambda: serve.predict(model, frames), 5)
+                forward[f"laps_B{B}_bfloat16{suffix}"] = {
+                    "ms": ms, "frames_per_s": B * LAPS_FRAMES / (ms / 1e3)}
+                del model, frames, out
+            model, state, step, _ = train_setup(laps_config(1, "bfloat16"), "cuda", **options)
+            batch = torch.from_numpy(synthetic_batch(np, 1, seed=8, img_size=LAPS_SIZE,
+                                                     seq_len=LAPS_SEQ)).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            ms = cuda_ms(torch, lambda: losses.append(step(state, batch, gen)[1]["loss"]), 5)
+            if not all(bool(torch.isfinite(v)) for v in losses):
+                raise AssertionError(f"LAPS B=1 bf16 step{suffix} has a non-finite loss")
+            train[f"laps_B1_bfloat16{suffix}"] = {
+                "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            del model, state, step, batch
         f.update(forward=forward, train_step=train, tf32_conv=True,
                  shapes={"bilinear_gather": list(BRIDGE), "bilinear_gather_backward": list(BRIDGE),
                          "bilinear_gather_grouped": list(DEC3),
@@ -1623,14 +1870,15 @@ def main() -> int:
                          "selective_scan": list(REFINE3),
                          "selective_scan_backward": list(REFINE3),
                          "fused_kanconv": list(ENC1_KAN), "hsmssd_compress": list(ENC1_MIX),
-                         "hsmssd_mix": list(ENC1_MIX)},
+                         "hsmssd_mix": list(ENC1_MIX),
+                         "ablate_mix": list(ABLATE_SHAPES["script"])},
                  dtype="bfloat16", kernels=timed)
 
     def by_path(name):
         return {path: counts[name] for path, counts in path_launches.items()}
 
     def worst(errs, dtype):
-        return max(v for k, v in errs.items() if k.endswith(dtype))
+        return max((v for k, v in errs.items() if k.endswith(dtype)), default=None)
 
     line = []
     for name, source, replaces, errs in (
@@ -1644,18 +1892,24 @@ def main() -> int:
             ("selective_scan_backward", K8B_SOURCE, K8B_REPLACES, k8b_errors),
             ("fused_kanconv", K1_SOURCE, K1_REPLACES, k1_errors),
             ("hsmssd_compress", K2_SOURCE, K2_REPLACES, k2_errors),
-            ("hsmssd_mix", K3_SOURCE, K3_REPLACES, k3_errors)):
+            ("hsmssd_mix", K3_SOURCE, K3_REPLACES, k3_errors),
+            ("ablate_mix", K3A_SOURCE, K3A_REPLACES, k3a_errors)):
         t = timed[name]
+        max_abs_err = worst(errs, "float32")
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path(name).values()),
                      "launches_by_path": by_path(name),
-                     "max_abs_err": worst(errs, "float32"),
+                     # K3a takes bf16 only.
+                     "max_abs_err": worst(errs, "bfloat16") if max_abs_err is None else max_abs_err,
                      "max_abs_err_bfloat16": worst(errs, "bfloat16"),
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"],
                      "library_device_ms": t["library_device_ms"], "queued_ms": t["queued_ms"],
                      "library_queued_ms": t["library_queued_ms"]})
+    line[-1]["modes"] = {mode: {k: t[k] for k in ("ms", "queued_ms", "device_ms", "chained_ms",
+                                                  "plain_ms", "bound_ms", "bound_by")}
+                         for mode, t in timed["ablate_mix"]["modes"].items()}
     emit({"kernels": line})
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

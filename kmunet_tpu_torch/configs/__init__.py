@@ -5,7 +5,9 @@ from kmunet_tpu_torch.configs.base import (
     ExperimentConfig,
     ModelConfig,
     TrainConfig,
+    laps_km_unet,
     shanghai_km_unet,
 )
 
-__all__ = ["DataConfig", "ExperimentConfig", "ModelConfig", "TrainConfig", "shanghai_km_unet"]
+__all__ = ["DataConfig", "ExperimentConfig", "ModelConfig", "TrainConfig", "laps_km_unet",
+           "shanghai_km_unet"]

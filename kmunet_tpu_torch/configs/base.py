@@ -5,6 +5,17 @@ imports nothing of the JAX package).
 ``shanghai_km_unet()`` is the reference recipe (train_shanghai.py): AdamW lr
 1e-3, weight decay 0.05 on every parameter, cosine T_max 200 and eta_min
 5e-4 stepped per epoch, HybridLoss alpha 0.7, 5 -> 20 frames.
+``laps_km_unet()`` is the LAPS one (train_LAPS.py): the LAPS variant, 5 -> 3
+frames, batch 1, values not rescaled, thresholds on normalized values, the
+same optimizer and loss.
+
+``DataConfig.value_scale`` and ``TrainConfig.scatter_eval`` are carried for
+parity with the JAX package's recipes only: the JAX package reads them in
+its evaluation (``metrics/evaluator.py``, ``metrics/scatter_eval.py``),
+which the port does not have yet, so nothing in the port reads them and
+they change no training step. The port's evaluation, when it comes, reads
+``value_scale`` and refuses ``scatter_eval=True`` until it implements the
+scatter metrics.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ class DataConfig:
     in_frames: int = 5
     out_frames: int = 20
     batch_size: int = 2
+    value_scale: float = 90.0         # raw value = normalized * value_scale (evaluation only)
     thresholds: Sequence[float] = (20, 30, 35, 40)  # weighted_mse_mae's bands
 
 
@@ -52,6 +64,7 @@ class TrainConfig:
     wd_mask_norms: bool = False       # False: decay every parameter, as the reference
     compute_dtype: str = "float32"    # float32 | bfloat16 (the AMP analogue)
     remat: bool = False
+    scatter_eval: bool = False        # LAPS's flattened per-threshold metrics (evaluation only)
 
 
 @dataclasses.dataclass
@@ -66,4 +79,13 @@ def shanghai_km_unet() -> ExperimentConfig:
         data=DataConfig(out_frames=20, batch_size=2),
         model=ModelConfig(variant="sh", num_classes=20),
         train=TrainConfig(),
+    )
+
+
+def laps_km_unet() -> ExperimentConfig:
+    return ExperimentConfig(
+        data=DataConfig(seq_len=8, out_frames=3, batch_size=1, value_scale=1.0,
+                        thresholds=(0.1, 0.3, 0.5, 0.7, 0.8)),
+        model=ModelConfig(variant="laps", num_classes=3),
+        train=TrainConfig(scatter_eval=True),
     )

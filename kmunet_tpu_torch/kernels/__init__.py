@@ -10,4 +10,5 @@
 | K1 fused KAN conv | ``kanconv`` | ``csrc/kanconv.cu`` | ``kmunet_tpu/kernels/kanconv_pallas.py::fused_kanconv`` |
 | K2 HSM-SSD online-softmax compress | ``ssd`` | ``csrc/hsmssd.cu`` | ``kmunet_tpu/kernels/ssd_pallas.py::hsmssd_compress`` |
 | K3 fused HSM-SSD mixer | ``ssd`` | ``csrc/hsmssd.cu`` | ``kmunet_tpu/kernels/ssd_mix_pallas.py::hsmssd_mix`` |
+| K3a HSM-SSD mixer ablation (five modes) | ``ablate_mix`` | ``csrc/hsmssd_ablate.cu`` | ``scripts/ablate_mix_kernel.py::run`` (``make_kernel``) |
 """

@@ -1,10 +1,12 @@
-"""KM_UNetV3, SH variant (port of ``kmunet_tpu/models/km_unet.py``).
+"""KM_UNetV3 in its SH and LAPS variants (port of
+``kmunet_tpu/models/km_unet.py``).
 
-Input (B, H, W, frames) NHWC, output (B, H, W, num_classes) sigmoid maps;
-NCHW inside. Ladder at 128^2: 128 -> 64 -> 32 -> 16 (IWP x3), the DAGEM
-bridge, then 16 -> 32 -> 64 -> 128 (DySample x3). Kept quirks of the
-reference: the EfficientViM blocks hardcode state_dim=64; the skip fusion
-takes [e1, e2, e2]; the head is GroupNorm(1) then sigmoid.
+Input (B, H, W, 5) NHWC, output (B, H, W, num_classes) sigmoid maps; NCHW
+inside. Ladder at 128^2: 128 -> 64 -> 32 -> 16 (IWP x3), then 16 -> 32 -> 64
+-> 128. SH: the DAGEM bridge, and DySample x2 upsamplings; LAPS: no bridge,
+and align-corners bilinear x2 resizes. Kept quirks of the reference: the
+EfficientViM blocks hardcode state_dim=64; the skip fusion takes [e1, e2,
+e2]; the head is GroupNorm(1) (``head_norm``, on by default) then sigmoid.
 
 ``model.train()`` switches every BatchNorm to flax's training semantics and
 the EnhancedViM blocks' stochastic depth on; the forward then takes the
@@ -106,19 +108,27 @@ class EnhancedViMBlock(nn.Module):
 
 
 class KM_UNetV3(nn.Module):
-    """The flagship, SH variant: DAGEM bridge and DySample upsampling.
-    ``drop_path`` is the EnhancedViM blocks' stochastic-depth rate;
-    ``dysample_window`` picks the three DySamples' path (the JAX package's
-    ``DYSAMPLE_WINDOW``): True the dense window formulation, False the exact
-    grouped gather (K4 on the card). ``kan_fused`` runs the four KAN convs
-    through K1 and ``ssd_mixer`` ("einsum", "compress" or "fused") the 15
-    HSM-SSD mixers through K2 or K3 on the card: the same function as the
-    defaults, which the JAX model computes."""
+    """The flagship. ``variant`` "sh": the DAGEM bridge and DySample
+    upsampling; "laps": neither, align-corners bilinear x2 resizes instead
+    (the JAX package's ``variant``). ``head_norm``: GroupNorm(1) on the head
+    before the sigmoid. ``drop_path`` is the EnhancedViM blocks'
+    stochastic-depth rate; ``dysample_window`` picks the three DySamples'
+    path (the JAX package's ``DYSAMPLE_WINDOW``): True the dense window
+    formulation, False the exact grouped gather (K4 on the card); the LAPS
+    variant, which has no DySample, refuses False. ``kan_fused`` runs the
+    four KAN convs through K1 and ``ssd_mixer`` ("einsum", "compress" or
+    "fused") the 15 HSM-SSD mixers through K2 or K3 on the card: the same
+    function as the defaults, which the JAX model computes."""
 
     def __init__(self, num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1,
                  dysample_window: bool = True, kan_fused: bool = False,
-                 ssd_mixer: str = "einsum"):
+                 ssd_mixer: str = "einsum", variant: str = "sh", head_norm: bool = True):
         super().__init__()
+        if variant not in ("sh", "laps"):
+            raise ValueError(f"variant must be 'sh' or 'laps', got {variant!r}")
+        if variant == "laps" and not dysample_window:
+            raise ValueError("dysample_window=False: the LAPS variant has no DySample")
+        self.variant = variant
         d0, d1, d2 = embed_dims
         self.conv_f = nn.Conv2d(5, 16, 3, padding=1)  # 5 input frames
         widths = [16, d0, d1, d2]
@@ -129,19 +139,28 @@ class KM_UNetV3(nn.Module):
                                                           ssd_mixer=ssd_mixer))
             setattr(self, f"enc{i}_iwp", IntelligentWaveletPooling(c))
             setattr(self, f"lca{i}", LocalContrastAttention(c))
-        self.bridge = DAGEM(d2)
-        self.dec1_up = DySample(d2, window=dysample_window)
+        if variant == "sh":
+            self.bridge = DAGEM(d2)
+            self.dec1_up = DySample(d2, window=dysample_window)
         self.dec1_kan = StableHybridKANConv(d2, d1, kan_fused)
         self.attention1 = MultiScaleFusion((d0, d1, d1))
-        self.dec2_up = DySample(2 * d1, window=dysample_window)
+        if variant == "sh":
+            self.dec2_up = DySample(2 * d1, window=dysample_window)
         self.dec2_conv = nn.Conv2d(2 * d1, d1, 3, padding=1)
         self.dec2_vim = EnhancedViMBlock(d1, drop_path=drop_path, ssd_mixer=ssd_mixer)
         self.attention2 = MultiScaleFusion((d0, d1, d1))
-        self.dec3_up = DySample(2 * d1, window=dysample_window)
+        if variant == "sh":
+            self.dec3_up = DySample(2 * d1, window=dysample_window)
         self.dec3_conv = nn.Conv2d(2 * d1, d0, 3, padding=1)
         self.dec3_vim = EnhancedViMBlock(d0, drop_path=drop_path, ssd_mixer=ssd_mixer)
         self.head = nn.Conv2d(d0, num_classes, 3, padding=1)
-        self.output_norm = nn.GroupNorm(1, num_classes, eps=1e-5)
+        self.output_norm = nn.GroupNorm(1, num_classes, eps=1e-5) if head_norm else None
+
+    def _up2(self, x, name):
+        if self.variant == "sh":
+            return getattr(self, name)(x)
+        H, W = x.shape[2:]
+        return resize_bilinear(x, (2 * H, 2 * W), align_corners=True)
 
     def _skip(self, d, e1, e2, fusion):
         size = d.shape[2:]
@@ -161,20 +180,34 @@ class KM_UNetV3(nn.Module):
             x = getattr(self, f"lca{i}")(x)
             skips.append(x)
         e1, e2, e3 = skips
-        d = self.dec1_kan(self.dec1_up(self.bridge(e3)))
+        bridge = self.bridge(e3) if self.variant == "sh" else e3
+        d = self.dec1_kan(self._up2(bridge, "dec1_up"))
         d = self._skip(d, e1, e2, self.attention1)
-        d = self.dec2_vim(self.dec2_conv(self.dec2_up(d)), generator)
+        d = self.dec2_vim(self.dec2_conv(self._up2(d, "dec2_up")), generator)
         d = self._skip(d, e1, e2, self.attention2)
-        d = self.dec3_vim(self.dec3_conv(self.dec3_up(d)), generator)
-        return torch.sigmoid(self.output_norm(self.head(d))).permute(0, 2, 3, 1)
+        d = self.dec3_vim(self.dec3_conv(self._up2(d, "dec3_up")), generator)
+        d = self.head(d)
+        if self.output_norm is not None:
+            d = self.output_norm(d)
+        return torch.sigmoid(d).permute(0, 2, 3, 1)
 
 
 def KM_UNetV3_SH(num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1,
                  dysample_window: bool = True, kan_fused: bool = False,
-                 ssd_mixer: str = "einsum") -> KM_UNetV3:
+                 ssd_mixer: str = "einsum", head_norm: bool = True) -> KM_UNetV3:
     """Shanghai variant (20 forecast frames from 5 input frames)."""
     return KM_UNetV3(num_classes=num_classes, embed_dims=tuple(embed_dims), drop_path=drop_path,
-                     dysample_window=dysample_window, kan_fused=kan_fused, ssd_mixer=ssd_mixer)
+                     dysample_window=dysample_window, kan_fused=kan_fused, ssd_mixer=ssd_mixer,
+                     head_norm=head_norm)
+
+
+def KM_UNetV3_LAPS(num_classes: int = 3, embed_dims=(16, 32, 64), drop_path: float = 0.1,
+                   kan_fused: bool = False, ssd_mixer: str = "einsum",
+                   head_norm: bool = True) -> KM_UNetV3:
+    """LAPS/NC variant (3 forecast frames from 5 input frames)."""
+    return KM_UNetV3(num_classes=num_classes, embed_dims=tuple(embed_dims), drop_path=drop_path,
+                     kan_fused=kan_fused, ssd_mixer=ssd_mixer, variant="laps",
+                     head_norm=head_norm)
 
 
 @torch.no_grad()

@@ -3,6 +3,9 @@
     model = build_km_unet_v3_sh()               # on "cuda"; raises without a card
     forecast = predict(model, frames)           # (B, H, W, 5) -> (B, H, W, 20)
 
+    model = build_km_unet_v3_laps()             # the LAPS variant
+    forecast = predict(model, frames)           # (B, H, W, 5) -> (B, H, W, 3)
+
     model = build_zoo_model("trajgru")          # or "convlstm"
     forecast = predict(model, frames)           # (B, 5, H, W) -> (B, 20, H, W)
 
@@ -13,7 +16,8 @@ Pass ``device="cpu"`` to run on the CPU (the gathers then take their plain
 versions); nothing falls back to the CPU on its own. Pass
 ``dysample_window=False`` for DySample's exact path (the K4 grouped gather),
 ``kan_fused=True`` for the KAN convs through K1 and ``ssd_mixer="fused"``
-(or ``"compress"``) for the HSM-SSD mixers through K3 (or K2).
+(or ``"compress"``) for the HSM-SSD mixers through K3 (or K2), on either
+variant; ``head_norm=False`` for a head without its GroupNorm.
 TrajGRU's warp is the K7 multiview gather, Mamba-UNet's scan K8.
 """
 
@@ -23,7 +27,7 @@ import torch
 
 from kmunet_tpu_torch.configs import ModelConfig
 from kmunet_tpu_torch.models import zoo
-from kmunet_tpu_torch.models.km_unet import KM_UNetV3_SH, init_weights_
+from kmunet_tpu_torch.models.km_unet import KM_UNetV3_LAPS, KM_UNetV3_SH, init_weights_
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,18 +38,35 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def build_km_unet_v3_sh(device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
-                        dysample_window: bool = True, kan_fused: bool = False,
-                        ssd_mixer: str = "einsum") -> torch.nn.Module:
-    """KM_UNetV3-SH (20 output frames, embed_dims 16/32/64) in eval mode,
-    initialised from ``seed`` with the JAX package's distributions, on
-    ``device`` in ``dtype``; ``dysample_window``, ``kan_fused`` and
-    ``ssd_mixer`` as in ``KM_UNetV3``."""
+def _ready(model, device, dtype, seed) -> torch.nn.Module:
+    """``model`` initialised from ``seed`` with the JAX package's
+    distributions, on ``device`` in ``dtype``, in eval mode."""
     device = resolve_device(device)
-    model = KM_UNetV3_SH(dysample_window=dysample_window, kan_fused=kan_fused,
-                         ssd_mixer=ssd_mixer)
     init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, dtype=dtype).eval()
+
+
+def build_km_unet_v3_sh(device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                        dysample_window: bool = True, kan_fused: bool = False,
+                        ssd_mixer: str = "einsum", head_norm: bool = True) -> torch.nn.Module:
+    """KM_UNetV3-SH (20 output frames, embed_dims 16/32/64) in eval mode,
+    initialised from ``seed`` with the JAX package's distributions, on
+    ``device`` in ``dtype``; ``dysample_window``, ``kan_fused``,
+    ``ssd_mixer`` and ``head_norm`` as in ``KM_UNetV3``."""
+    return _ready(KM_UNetV3_SH(dysample_window=dysample_window, kan_fused=kan_fused,
+                               ssd_mixer=ssd_mixer, head_norm=head_norm), device, dtype, seed)
+
+
+def build_km_unet_v3_laps(device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                          head_norm: bool = True, kan_fused: bool = False,
+                          ssd_mixer: str = "einsum") -> torch.nn.Module:
+    """KM_UNetV3-LAPS (3 output frames, embed_dims 16/32/64; no bridge,
+    align-corners bilinear upsampling) in eval mode, initialised from
+    ``seed`` with the JAX package's distributions, on ``device`` in
+    ``dtype``; ``head_norm``, ``kan_fused`` and ``ssd_mixer`` as in
+    ``KM_UNetV3``."""
+    return _ready(KM_UNetV3_LAPS(head_norm=head_norm, kan_fused=kan_fused, ssd_mixer=ssd_mixer),
+                  device, dtype, seed)
 
 
 def build_zoo_model(name: str, device=None, dtype: torch.dtype = torch.float32, seed: int = 0,

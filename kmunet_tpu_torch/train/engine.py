@@ -1,7 +1,7 @@
 """The training step of the port (port of ``kmunet_tpu/train/engine.py``),
 under the JAX engine's names::
 
-    cfg = shanghai_km_unet()          # or apply_recipe(shanghai_km_unet(), "mamba_unet", "pic")
+    cfg = shanghai_km_unet()          # or laps_km_unet(), apply_recipe(shanghai_km_unet(), ...)
     model = build_model(cfg)
     loss_fn = build_loss(cfg)
     tx = build_optimizer(cfg, steps_per_epoch=100)
@@ -19,7 +19,10 @@ takes its plain versions); nothing falls back to the CPU on its own. The
 and ``ssd_mixer="fused"`` (or ``"compress"``) run KM_UNetV3's KAN convs and
 HSM-SSD mixers through K1 and K3 (or K2), their backward the autograd of the
 plain versions. The models come
-from the zoo (``models/zoo.py``): KM_UNetV3-SH, the sequence models
+from the zoo (``models/zoo.py``): KM_UNetV3 in its SH or LAPS variant
+(``cfg.model.variant``; ``laps_km_unet()`` is the LAPS recipe, 5 -> 3 frames
+at B=1, with the SH recipe's loss and optimizer) with ``model.extra``'s
+``drop_path`` and ``head_norm``, the sequence models
 ConvLSTM and TrajGRU, and Mamba-UNet (``cfg.model.name``;
 ``train/recipes.py::apply_recipe`` sets their reference recipes: Adam,
 ``weighted_mse_mae`` and MultiStepLR for the RNNs; SGD with momentum,
@@ -29,8 +32,8 @@ run K8 and its backward. Mamba-UNet has no BatchNorm and no stochastic
 depth: its ``batch_stats`` are empty and the generator may be None.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item: the LAPS variant and ``head_norm`` (Queue 1 item 3), the other
-models (item 10), losses, optimizers and schedules (item 5),
+ROADMAP item: the other models (Queue 1 item 10), losses, optimizers and
+schedules (item 5),
 ``kan_reg_weight`` (item 4), and ``remat``, ``grad_clip`` and
 ``wd_mask_norms`` (item 8).
 """

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's KM_UNetV3-SH, TrajGRU or Mamba-UNet forward, or
-its train step, spends its time on the card.
+"""Where the PyTorch port's KM_UNetV3-SH, KM_UNetV3-LAPS, TrajGRU or
+Mamba-UNet forward, or its train step, spends its time on the card.
 
     python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16] [--exact]
     python3 scripts/profile_torch_forward.py --kan-fused --ssd-mixer fused [--train]
     python3 scripts/profile_torch_forward.py --train [--batch 16] [--exact]
     python3 scripts/profile_torch_forward.py --model trajgru [--train] [--batch 16]
     python3 scripts/profile_torch_forward.py --model mamba_unet [--train] [--batch 16]
+    python3 scripts/profile_torch_forward.py --model laps [--kan-fused --ssd-mixer fused] [--train]
 
 Prints JSON lines: the card (``nvidia-smi`` name and power limit); for the
 forward, the time of each top-level module of the model, from CUDA events
@@ -27,6 +28,8 @@ weighted_mse_mae); a cell's module time sums all its calls of a forward.
 ``--model mamba_unet`` profiles Mamba_UNet (5 -> 20 frames at 128^2, B=16
 by default; 20 selective scans, K8, per forward) and its ("mamba_unet",
 "pic") recipe step (SGD with momentum, rainfall loss, CosineAnnealingLR).
+``--model laps`` profiles KM_UNetV3-LAPS (5 -> 3 frames at 256^2, B=32 by
+default) and its ``laps_km_unet()`` step (B=1 by default, seq_len 8).
 Needs an NVIDIA GPU.
 """
 
@@ -79,21 +82,27 @@ def module_times(model, frames, iters: int) -> dict:
 
 def train_step(batch: int, dtype: str, window: bool, model_name: str, **options):
     """One train step at ``batch`` as a closure, after two warm-up steps: the
-    SH recipe for km_unet_v3, the (model, "pic") recipe for the zoo's."""
-    from kmunet_tpu_torch.configs import shanghai_km_unet
+    SH recipe for km_unet_v3 (at 128^2), ``laps_km_unet()`` for laps (at its
+    256^2), the (model, "pic") recipe for the zoo's (at 128^2)."""
+    from kmunet_tpu_torch.configs import laps_km_unet, shanghai_km_unet
     from kmunet_tpu_torch.data import SyntheticNowcastDataset
     from kmunet_tpu_torch.train import engine
     from kmunet_tpu_torch.train.recipes import apply_recipe
 
-    cfg = shanghai_km_unet()
-    if model_name != "km_unet_v3":
-        cfg = apply_recipe(cfg, model_name, "pic")
-    cfg.data.img_size, cfg.data.batch_size, cfg.train.compute_dtype = 128, batch, dtype
+    if model_name == "laps":
+        cfg = laps_km_unet()
+    else:
+        cfg = shanghai_km_unet()
+        if model_name != "km_unet_v3":
+            cfg = apply_recipe(cfg, model_name, "pic")
+        cfg.data.img_size = 128
+    cfg.data.batch_size, cfg.train.compute_dtype = batch, dtype
     model = engine.build_model(cfg, dysample_window=window, **options)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=0)
     step = engine.make_train_step(model, engine.build_loss(cfg), tx, cfg)
-    data = SyntheticNowcastDataset(length=batch, img_size=128, seed=0)
+    data = SyntheticNowcastDataset(length=batch, img_size=cfg.data.img_size,
+                                   seq_len=cfg.data.seq_len, seed=0)
     frames = torch.from_numpy(np.stack([data[i] for i in range(batch)])).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -109,9 +118,10 @@ def train_step(batch: int, dtype: str, window: bool, model_name: str, **options)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="km_unet_v3",
-                   choices=["km_unet_v3", "trajgru", "mamba_unet"])
+                   choices=["km_unet_v3", "laps", "trajgru", "mamba_unet"])
     p.add_argument("--batch", type=int, default=None,
-                   help="default 16 for --train and for the zoo's models, else 128")
+                   help="default 16 for --train and for the zoo's models, else 128; "
+                        "laps: 1 for --train, else 32")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--train", action="store_true", help="profile one train step")
@@ -121,13 +131,16 @@ def main() -> int:
                    help="KM_UNetV3's HSM-SSD mixers: einsums, K2 or K3")
     args = p.parse_args()
     options = dict(kan_fused=args.kan_fused, ssd_mixer=args.ssd_mixer)
-    if args.model != "km_unet_v3" and (args.kan_fused or args.ssd_mixer != "einsum"):
+    if args.model not in ("km_unet_v3", "laps") and (args.kan_fused
+                                                     or args.ssd_mixer != "einsum"):
         p.error("--kan-fused and --ssd-mixer are KM_UNetV3's")
     if not torch.cuda.is_available():
         print("profile_torch_forward: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30, check=True).stdout.strip()
+    if args.batch is None and args.model == "laps":
+        args.batch = 1 if args.train else 32
     if args.batch is None:
         args.batch = 16 if args.train or args.model != "km_unet_v3" else 128
     if args.train:
@@ -142,6 +155,9 @@ def main() -> int:
         elif args.model == "mamba_unet":
             model = serve.build_zoo_model("mamba_unet", device="cuda", dtype=dtype, seed=0)
             frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
+        elif args.model == "laps":
+            model = serve.build_km_unet_v3_laps(device="cuda", dtype=dtype, seed=0, **options)
+            frames = torch.rand(args.batch, 256, 256, 5, device="cuda").to(dtype)
         else:
             model = serve.build_km_unet_v3_sh(device="cuda", dtype=dtype, seed=0,
                                               dysample_window=not args.exact, **options)

@@ -6,7 +6,10 @@ the CPU's; K8, the selective scan, and its backward against their plain
 versions, and Mamba-UNet's forward and a train step through them; K1, the
 fused KAN conv, and K2 and K3, the HSM-SSD compress and fused mixer, against
 their plain versions, their gradients against the CPU's, and KM_UNetV3-SH's
-forward and a train step through them. Marked ``gpu``; they skip where there is no card. This file
+forward and a train step through them; K3a, the mixer ablation, in its five
+modes against its plain version; KM_UNetV3-LAPS's forward on each path and
+a ``laps_km_unet()`` step through K1 and K3 against the CPU's. Marked
+``gpu``; they skip where there is no card. This file
 imports no JAX, so it runs on a machine without
 it: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 """
@@ -17,7 +20,7 @@ import torch
 
 import chip_smoke
 from kmunet_tpu_torch import serve
-from kmunet_tpu_torch.kernels import bilinear, kanconv, scan, ssd
+from kmunet_tpu_torch.kernels import ablate_mix, bilinear, kanconv, scan, ssd
 # By its own name (pytest puts tests/ on sys.path): tests/ has no __init__.py,
 # so an installed regular package named ``tests`` would shadow ``tests.*``.
 from torch_cases import (  # noqa: F401
@@ -557,17 +560,22 @@ def test_cuda_mamba_train_step_matches_cpu(cuda_device, monkeypatch):
     chip_smoke.compare_steps(card, chip_smoke.float64_gradients(cfg, batch, seed=1))
 
 
-# K1's shapes (B, C, F, H, W): the four SH KAN convs at 32^2 input and a ragged one.
+# K1's shapes (B, C, F, H, W): the four SH KAN convs at 32^2 input, LAPS's
+# enc1 at 256^2 and B=1 (its grid's largest), and ragged ones.
 KAN_GPU_SHAPES = {
     "enc1": (2, 16, 16, 32, 32),
+    "laps_enc1": (1, 16, 16, 256, 256),
     "enc3": (2, 32, 64, 8, 8),
     "dec1": (2, 64, 32, 8, 8),
     "ragged": (3, 3, 5, 7, 9),
     "f17": (1, 5, 17, 20, 18),
 }
-# K2's and K3's (B, C, L, N): the SH mixer shapes at 32^2 input, ragged ones.
+# K2's and K3's (B, C, L, N): the SH mixer shapes at 32^2 input, LAPS's enc1
+# at 256^2 and B=1 (L=65536: the most compress slices per batch element),
+# ragged ones.
 MIXER_GPU_SHAPES = {
     "enc1": (2, 16, 1024, 64),
+    "laps_enc1": (1, 16, 65536, 64),
     "enc3": (2, 64, 64, 64),
     "ragged_n8": (2, 16, 1000, 8),
     "c3_n4": (3, 3, 77, 4),
@@ -698,3 +706,85 @@ def test_cuda_fused_path_train_step_matches_cpu(cuda_device, monkeypatch):
     card = chip_smoke.step_gradients(cfg, cuda_device, batch, seed=1, **options)
     assert [c.launches - b for c, b in zip(counters, before)] == [4, 15, 9, 9]
     chip_smoke.compare_steps(card, chip_smoke.step_gradients(cfg, "cpu", batch, seed=1, **options))
+
+
+# K3a's (B, C, L, N, tile): several tiles of 64, C != N, one tile, N=8.
+ABLATE_GPU_SHAPES = {
+    "tile64": (2, 16, 1024, 64, 64),
+    "c8_n32": (3, 8, 4096, 32, 1024),
+    "one_tile": (2, 24, 512, 16, 512),
+    "c5_n8": (1, 5, 256, 8, 128),
+}
+
+
+@pytest.mark.parametrize("shape", list(ABLATE_GPU_SHAPES))
+def test_cuda_ablate_mix_matches_plain(cuda_device, shape, monkeypatch):
+    """K3a in its five modes against the plain version within
+    ``chip_smoke.check_ablate``'s tolerance; one call per mode."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shape = ABLATE_GPU_SHAPES[shape]
+    args = chip_smoke.ablate_inputs(torch, shape, 7, cuda_device)
+    before = ablate_mix.ablate_mix.launches
+    chip_smoke.check_ablate(torch, "gpu", args, shape[4], {})
+    torch.cuda.synchronize()
+    assert ablate_mix.ablate_mix.launches - before == len(ablate_mix.MODES)
+
+
+def test_cuda_ablate_mix_rejects_what_it_does_not_take(cuda_device):
+    xt, dt, Bm, Cm, A = chip_smoke.ablate_inputs(torch, (1, 4, 256, 8, 0), 8, cuda_device)
+    with pytest.raises(ValueError, match="64-token"):
+        ablate_mix.ablate_mix_forward("full", xt, dt, Bm, Cm, A, 32)
+    with pytest.raises(ValueError, match="state size"):
+        ablate_mix.ablate_mix_forward("full", xt, *(t[..., :4].contiguous() for t in (dt, Bm, Cm)),
+                                      A[:4], 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ablate_mix.ablate_mix_forward("full", torch.cat([xt, xt], -1)[..., ::2], dt, Bm, Cm, A,
+                                      64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ablate_mix.ablate_mix_forward("full", xt, dt.cpu(), Bm, Cm, A, 64)
+
+
+LAPS_OPTIONS = {"plain": {}, "head_norm_off": {"head_norm": False},
+                "fused": {"kan_fused": True, "ssd_mixer": "fused"},
+                "compress": {"ssd_mixer": "compress"}}
+
+
+@pytest.mark.parametrize("path", list(LAPS_OPTIONS))
+def test_cuda_laps_forward_matches_cpu(cuda_device, path, monkeypatch):
+    """KM_UNetV3-LAPS at 64^2, B=1, on each path on the card against the CPU,
+    TF32 off, within 1e-4 abs: per forward 4 K1 launches on the kernel path,
+    15 of K3 or K2 on theirs, none of any other kernel (no bridge, no
+    DySample)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    options = LAPS_OPTIONS[path]
+    frames = np.random.default_rng(10).uniform(size=(1, 64, 64, 5)).astype(np.float32)
+    model_gpu = serve.build_km_unet_v3_laps(device=cuda_device, seed=6, **options)
+    model_cpu = serve.build_km_unet_v3_laps(device="cpu", seed=6, **options)
+    counters = (bilinear.bilinear_gather, kanconv.fused_kanconv, ssd.hsmssd_compress,
+                ssd.hsmssd_mix)
+    before = [c.launches for c in counters]
+    got = serve.predict(model_gpu, frames).cpu().numpy()
+    mixer = options.get("ssd_mixer")
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        0, chip_smoke.KAN_CONVS if options.get("kan_fused") else 0,
+        chip_smoke.SSD_MIXERS if mixer == "compress" else 0,
+        chip_smoke.SSD_MIXERS if mixer == "fused" else 0]
+    assert got.shape == (1, 64, 64, 3)
+    np.testing.assert_allclose(got, serve.predict(model_cpu, frames).numpy(), rtol=0, atol=1e-4)
+
+
+def test_cuda_laps_train_step_matches_cpu(cuda_device, monkeypatch):
+    """One fp32 ``laps_km_unet()`` step (32^2, B=1, seq 8 -> 3, no
+    stochastic depth) through K1 and K3 on the card against the same step on
+    the CPU within ``chip_smoke.compare_steps``: 4 K1 and 15 K3 launches."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = chip_smoke.laps_config(1, "float32", drop_path=0.0, img_size=32)
+    batch = np.random.default_rng(11).random((1, 8, 32, 32), dtype=np.float32)
+    options = dict(kan_fused=True, ssd_mixer="fused")
+    counters = (kanconv.fused_kanconv, ssd.hsmssd_mix)
+    before = [c.launches for c in counters]
+    card = chip_smoke.step_gradients(cfg, cuda_device, batch, seed=2, **options)
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 15]
+    chip_smoke.compare_steps(card, chip_smoke.step_gradients(cfg, "cpu", batch, seed=2, **options))

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``kmunet_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax or the JAX package (the machine with the
-card has none of them)."""
+"""The port stands alone: no module of ``kmunet_tpu_torch``, not
+``chip_smoke.py`` and not the port's scripts import JAX, flax or the JAX
+package (the machine with the card has none of them)."""
 
 import ast
 import pathlib
@@ -11,7 +11,11 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kmunet_tpu")
-SOURCES = sorted((REPO / "kmunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+# The port's scripts that run on the card; scripts/torch_grad_precision.py
+# imports JAX on purpose, behind --jax, and stays out.
+SCRIPTS = [REPO / "scripts" / "torch_ablate_mix_kernel.py",
+           REPO / "scripts" / "profile_torch_forward.py"]
+SOURCES = sorted((REPO / "kmunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
 
 def _imported_roots(path):
@@ -36,6 +40,10 @@ def test_package_imports_with_jax_blocked():
         f"for name in {FORBIDDEN!r}:\n"
         "    sys.modules[name] = None  # any import of it raises ImportError\n"
         "import kmunet_tpu_torch.serve, kmunet_tpu_torch.convert, kmunet_tpu_torch.kernels.bilinear\n"
+        "import kmunet_tpu_torch.kernels.ablate_mix, kmunet_tpu_torch.utils.profiler\n"
+        "import runpy\n"
+        f"for path in {[str(p) for p in SCRIPTS]!r}:\n"
+        "    runpy.run_path(path, run_name='imported')\n"
         "import pkgutil, importlib, kmunet_tpu_torch\n"
         "for m in pkgutil.walk_packages(kmunet_tpu_torch.__path__, 'kmunet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

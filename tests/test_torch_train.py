@@ -280,7 +280,7 @@ def test_engine_refuses_what_the_port_lacks():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.build_loss(bad)
     bad = configs.shanghai_km_unet()
-    bad.model.variant = "laps"
+    bad.model.name = "smaat_unet"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.build_model(bad)
 

@@ -1,0 +1,75 @@
+"""The port on the repo's trained KM_UNetV3 checkpoints, against the JAX
+package, on the CPU.
+
+Each checkpoint is copied under ``tmp_path`` (the JAX package's manager
+creates and manages its directory; the repo's copy is never written),
+restored with ``kmunet_tpu/train/checkpoint.py``, converted strictly, and
+its forward held to the JAX model's at 32^2, B2, fp32, within 1e-4 abs (the
+per-layer bound of BASELINE.json). The model is read from the param tree:
+the variant from the DAGEM bridge (SH) or its absence (LAPS), ``head_norm``
+from the head's GroupNorm, the output frames from the head's kernel. The
+JAX SH model takes the window DySample and the XLA gather, as on the CPU.
+"""
+
+import pathlib
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import kmunet_tpu.nn.resample as resample_jax
+import kmunet_tpu.ops.sample as sample_jax
+from kmunet_tpu.models.km_unet import KM_UNetV3 as KM_UNetV3_jax
+from kmunet_tpu.train.checkpoint import CheckpointManager
+from kmunet_tpu_torch import serve
+from kmunet_tpu_torch.models.km_unet import KM_UNetV3
+from tests.torch_parity import port
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+# name -> (checkpoint step directory, the model it holds: variant, head_norm, frames)
+CHECKPOINTS = {
+    "laps": ("outputs/laps/ckpt/1856", ("laps", True, 3)),
+    "sh_head_norm_off": ("outputs/round5_headnorm/km_unet_v3/ckpt/1088", ("sh", False, 20)),
+    "sh_group_norm_head": ("outputs/quality_table/km_unet_v3/ckpt/1264", ("sh", True, 20)),
+}
+ATOL = 1e-4
+
+
+def restore(name, tmp_path):
+    """The checkpoint's params and batch_stats as float32 numpy trees, and
+    the model read from them (variant, head_norm, output frames)."""
+    src = REPO / CHECKPOINTS[name][0]
+    directory = tmp_path / "ckpt"
+    shutil.copytree(src, directory / src.name)
+    manager = CheckpointManager(str(directory))
+    try:
+        step, state = manager.restore_latest(None)
+    finally:
+        manager.close()
+    assert step == int(src.name)
+    variables = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                             {"params": state["params"], "batch_stats": state["batch_stats"]})
+    params = variables["params"]
+    read = ("sh" if "bridge" in params else "laps", "output_norm" in params,
+            params["head"]["kernel"].shape[-1])
+    return variables, read
+
+
+@pytest.mark.parametrize("name", list(CHECKPOINTS))
+def test_trained_checkpoint_forward_matches_jax(name, tmp_path):
+    variables, (variant, head_norm, frames) = restore(name, tmp_path)
+    assert (variant, head_norm, frames) == CHECKPOINTS[name][1]
+    x = np.random.default_rng(list(CHECKPOINTS).index(name)).uniform(
+        size=(2, 32, 32, 5)).astype(np.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(resample_jax, "DYSAMPLE_WINDOW", True)
+        mp.setattr(sample_jax, "USE_PALLAS_GATHER", None)
+        jm = KM_UNetV3_jax(num_classes=frames, variant=variant, head_norm=head_norm)
+        want = np.asarray(jax.jit(jm.apply)(jax.tree.map(jnp.asarray, variables), jnp.asarray(x)))
+    model = port(KM_UNetV3(num_classes=frames, variant=variant, head_norm=head_norm), variables)
+    got = serve.predict(model, x).numpy()
+    assert got.shape == (2, 32, 32, frames) and np.isfinite(got).all()
+    assert want.std() > 1e-3  # the trained model's answer is not constant
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
