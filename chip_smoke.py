@@ -17,29 +17,32 @@ Phases, each printing one JSON line with its seconds:
               started together; the ``-Xptxas -v`` reports are printed once.
 3. kernel  -- K5 and K6 against their plain PyTorch versions on the card,
               zeros and border modes, fp32/bf16/fp16, at the DAGEM bridge
-              shape, a ragged one and one whose C takes no 16-byte vectors,
-              on out-of-range, integer, last-pixel,
-              grid and far-outside coordinates. K5: fp32 within 1e-5 abs of
-              the plain version; bf16 and fp16 within one ulp of the
-              kernel's fp32 result on the same rounded image. K6: fp32
-              within 1e-5 abs + 1e-5 relative of the plain version, plus
-              for d_img 1e-6 of the sum of its terms' |values| (about 17
-              fp32 ulps of it: its atomics add those terms, as many as the
-              outputs that land on the pixel, in another order, and so do
-              the warp sums of d_x and d_y); bf16 and fp16 against the
-              kernel's own fp32 result on the same rounded image and
-              gradient: d_img within one ulp plus that slack, d_x and d_y
-              (fp32) within the slack. Then K4 and K6's grouped entry the
-              same way, with the same bounds, at DySample's three shapes
-              (dec1/dec2/dec3 at B=2, C=64, G=4), a ragged shape of Cg=6,
-              one of Cg=3, and G=1 and G=8, each group on its own draw of
-              the coordinate cases. Then K7 and K6's shared-source entry the
+              shape, a ragged one, one whose C takes no 16-byte vectors and
+              one of 16^2 -> 160^2 (K6's bin lists past its shared memory),
+              on out-of-range, integer, last-pixel, grid and far-outside
+              coordinates. K5: fp32 within 1e-5 abs of the plain version;
+              bf16 and fp16 within one ulp of the kernel's fp32 result on
+              the same rounded image. K6: fp32 within 1e-5 abs + 1e-5
+              relative of the plain version, plus for d_img 1e-6 of the sum
+              of its terms' |values| (about 17 fp32 ulps of it: its owner
+              pass adds those terms, as many as the outputs that land on the
+              pixel, in another order than the plain version, and so do the
+              warp sums of d_x and d_y); bf16 and fp16 against the kernel's
+              own fp32 result on the same rounded image and gradient: d_img
+              within one ulp plus that slack, d_x and d_y (fp32) within the
+              slack; and a second call on the same inputs must give bitwise
+              equal d_img, d_x and d_y (every entry, shape, case, mode and
+              dtype). Then K4 and K6's grouped entry the same way, with the
+              same bounds, at DySample's three shapes (dec1/dec2/dec3 at
+              B=2, C=64, G=4), a ragged shape of Cg=6, one of Cg=3, G=1, G=8
+              and 16^2 -> 160^2, each group on its own draw of the
+              coordinate cases. Then K7 and K6's shared-source entry the
               same way, with the same bounds, at TrajGRU's three RNN shapes
               (32^2 C=64 G=13, 8^2 C=192 G=13, 4^2 C=192 G=9, at B=2), C=6
-              and C=3 (one channel per thread in fp32 and bf16), and G=1 and
-              G=16, each view on its own draw of the coordinate cases; and a
-              layout case: at integer coordinates x = j - dx_l, y = i - dy_l,
-              K7's channel block l must equal the source shifted by
+              and C=3 (one channel per thread in fp32 and bf16), G=1, G=16
+              and 16^2 -> 160^2, each view on its own draw of the coordinate
+              cases; and a layout case: at integer coordinates x = j - dx_l,
+              y = i - dy_l, K7's channel block l must equal the source shifted by
               (dy_l, dx_l), zeros outside, exactly. Then K8 and its backward
               (y and the six gradients) at Mamba-UNet's scan shapes at B=2
               (the refine layers at L=16384 with D=16/32/48, encoder4 at
@@ -178,7 +181,9 @@ Phases, each printing one JSON line with its seconds:
               by CUDA events over back-to-back calls (``ms``: what a caller
               waits, host issue included), by CUDA events over calls queued
               behind a spinning kernel (``queued_ms``: device time, no host
-              gap) and by the profiler's device time (``device_ms``). For
+              gap) and by the profiler's device time (``device_ms``), with
+              the device launches it counts per call and the device time of
+              each kernel it names (K6's unit, bin and owner passes). For
               TrajGRU: the forward at B=16 bf16 (ms, frames/s) and the
               recipe's train step at B=16 bf16 (ms), and K7 and K6's
               shared-source entry at enc_rnn1's shape (B=16, 32^2, C=64,
@@ -243,7 +248,8 @@ K6G_SOURCE = K6_SOURCE
 K6G_REPLACES = K6_REPLACES  # _backward_impl, shared=False, G > 1
 # K4's shapes (B, H, W, C, G, Ho, Wo): DySample's three 2x upsamplings of the
 # SH decoder at a small batch, a ragged one of Cg=6 and one of Cg=3 (no
-# 16-byte vector in fp32), and G=1 and G=8.
+# 16-byte vector in fp32), G=1 and G=8, and segments of 25,600 units, whose
+# bin lists K6's bin pass builds in global memory (past its shared memory).
 GROUPED_SHAPES = {
     "dec1": (2, 16, 16, 64, 4, 32, 32),
     "dec2": (2, 32, 32, 64, 4, 64, 64),
@@ -252,6 +258,7 @@ GROUPED_SHAPES = {
     "cg3": (2, 5, 6, 6, 2, 4, 8),
     "g1": (2, 7, 9, 24, 1, 8, 7),
     "g8": (2, 9, 7, 64, 8, 10, 12),
+    "unstaged": (1, 16, 16, 8, 2, 160, 160),
 }
 DEC3 = (128, 64, 64, 64, 4, 128, 128)  # K4's timing shape: dec3 at B=128
 DYSAMPLES = 3  # one K4 launch per DySample forward, one grouped K6 per backward
@@ -275,7 +282,8 @@ K7_REPLACES = K4_REPLACES  # _forward_grouped's pallas_call, shared=True
 K6S_SOURCE = K6_SOURCE
 K6S_REPLACES = K6_REPLACES  # _backward_impl, shared=True
 # K7's shapes (B, H, W, C, G, Ho, Wo): TrajGRU's three RNN levels at 128^2
-# input and B=2, C of 6 and 3 (no 16-byte vector in fp32), and G=1 and G=16.
+# input and B=2, C of 6 and 3 (no 16-byte vector in fp32), G=1 and G=16, and
+# K6's unstaged segments as in GROUPED_SHAPES.
 MULTIVIEW_SHAPES = {
     "rnn1": (2, 32, 32, 64, 13, 32, 32),
     "rnn2": (2, 8, 8, 192, 13, 8, 8),
@@ -284,6 +292,7 @@ MULTIVIEW_SHAPES = {
     "c3": (2, 5, 6, 3, 9, 4, 8),
     "g1": (2, 7, 9, 24, 1, 8, 7),
     "g16": (2, 9, 7, 16, 16, 10, 12),
+    "unstaged": (1, 16, 16, 8, 2, 160, 160),
 }
 RNN1 = (16, 32, 32, 64, 13, 32, 32)  # K7's timing shape: enc_rnn1 at B=16
 # TrajGRU cell steps per forward: 5 input frames through 3 encoder RNNs, 20
@@ -493,10 +502,12 @@ def queued_ms(torch, fn, iters: int, spin_cycles: int = 50_000_000):
     return start.elapsed_time(end) / iters, issue_ms, spin0.elapsed_time(spin1)
 
 
-def device_ms(torch, fn, iters: int) -> float | None:
-    """Mean device time of ``fn()`` per call, summed over the kernels it
-    launches, from ``torch.profiler``: unlike ``cuda_ms`` it leaves out the
-    gaps in which the device waits for the host to issue the next call."""
+def device_ms(torch, fn, iters: int):
+    """(mean device time of ``fn()`` per call, summed over the kernels it
+    launches; its device launches per call; its device ms per call by
+    kernel name), from ``torch.profiler``: unlike ``cuda_ms`` it leaves out
+    the gaps in which the device waits for the host to issue the next call.
+    (None, None, None) where the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -507,7 +518,14 @@ def device_ms(torch, fn, iters: int) -> float | None:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
-    return total_us / 1e3 / iters if total_us > 0 else None  # None: no CUPTI trace
+    if total_us <= 0:
+        return None, None, None  # no CUPTI trace
+    by_name = {}
+    for e in kernels:  # "void (anonymous namespace)::owner_kernel<...>(...)" -> "owner_kernel"
+        name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = re.split(r"[<(]", name)[0].split("::")[-1].strip()
+        by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3 / iters
+    return total_us / 1e3 / iters, sum(e.count for e in kernels) / iters, by_name
 
 
 def check_close(name, got, want, tol) -> float:
@@ -1158,8 +1176,13 @@ def main() -> int:
                 want = forward(img.float(), x, y, mode)
                 tol = ulp_tolerance(torch, want, dtype)
             errors_f[k] = check_close(f"{names[0]} {k}", got, want, tol)
-            # The backward: atomics and warp sums add in another order.
+            # The backward: its owner pass and warp sums add in another
+            # order than the plain version, the same order on every call.
             got_b = backward(img, x, y, g, mode)
+            again = backward(img, x, y, g, mode)
+            for name, a, b in zip(("d_img", "d_x", "d_y"), got_b, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{names[1]} {k} {name}: two calls differ")
             want_b = ref_b if dtype == torch.float32 else backward(img.float(), x, y,
                                                                     g.float(), mode)
             errs = []
@@ -1181,7 +1204,8 @@ def main() -> int:
                      bilinear.bilinear_gather_plain, bilinear.bilinear_gather_backward_plain)
         for shape_name, (B, H, W, C), (Ho, Wo) in (("bridge", BRIDGE, BRIDGE[1:3]),
                                                    ("ragged", RAGGED, (RAGGED[1] + 1, RAGGED[2] - 2)),
-                                                   ("odd", ODD, (ODD[1] - 1, ODD[2] + 2))):
+                                                   ("odd", ODD, (ODD[1] - 1, ODD[2] + 2)),
+                                                   ("unstaged", (1, 16, 16, 8), (160, 160))):
             img32 = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32)).to(dev)
             g32 = torch.from_numpy(rng.normal(size=(B, Ho, Wo, C)).astype(np.float32)).to(dev)
             for case, (x, y) in coordinate_cases(rng, B, H, W, Ho, Wo).items():
@@ -1561,15 +1585,18 @@ def main() -> int:
         bound, bound_by, moved, ops = bound
         queued = queued_ms(torch, kernel, min(iters, 50))
         library_queued = queued_ms(torch, library, min(iters, 50)) if library else [None] * 3
+        device, device_launches, by_kernel = device_ms(torch, kernel, min(iters, 50))
         return {"ms": cuda_ms(torch, kernel, iters, 10),
                 "queued_ms": queued[0], "library_queued_ms": library_queued[0],
                 "queued_issue_ms": [queued[1], library_queued[1]],
                 "queued_spin_ms": [queued[2], library_queued[2]],
                 "plain_ms": cuda_ms(torch, plain, plain_iters),
                 "library_ms": cuda_ms(torch, library, iters, 10) if library else None,
-                "device_ms": device_ms(torch, kernel, min(iters, 50)),
-                "plain_device_ms": device_ms(torch, plain, plain_iters),
-                "library_device_ms": device_ms(torch, library, min(iters, 50)) if library else None,
+                "device_ms": device, "device_launches_per_call": device_launches,
+                "device_ms_by_kernel": by_kernel,
+                "plain_device_ms": device_ms(torch, plain, plain_iters)[0],
+                "library_device_ms": (device_ms(torch, library, min(iters, 50))[0] if library
+                                      else None),
                 "bound_ms": bound, "bound_by": bound_by, "bytes": moved, "ops": ops}
 
     with Phase("timing") as f:
@@ -1906,6 +1933,7 @@ def main() -> int:
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"],
                      "library_device_ms": t["library_device_ms"], "queued_ms": t["queued_ms"],
+                     "device_launches_per_call": t["device_launches_per_call"],
                      "library_queued_ms": t["library_queued_ms"]})
     line[-1]["modes"] = {mode: {k: t[k] for k in ("ms", "queued_ms", "device_ms", "chained_ms",
                                                   "plain_ms", "bound_ms", "bound_by")}

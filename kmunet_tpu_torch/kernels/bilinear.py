@@ -271,12 +271,28 @@ def bilinear_gather_multiview_backward_plain(
 
 
 @functools.cache
+def _library(source: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>``, built on first use."""
+    return ctypes.CDLL(str(build.build(source).path))
+
+
+@functools.cache
 def _kernel(source: str, name: str, n_pointers: int, n_ints: int) -> ctypes._CFuncPtr:
     """The C entry ``name`` of the library built from ``csrc/<source>``:
     ``n_pointers`` tensor pointers, ``n_ints`` ints, then the stream."""
-    fn = getattr(ctypes.CDLL(str(build.build(source).path)), name)
+    fn = getattr(_library(source), name)
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def workspace_kernel() -> ctypes._CFuncPtr:
+    """K6's workspace size in bytes for (B, H, W, C, G, Ho, Wo, shared), -1
+    for shapes K6 refuses; built on first use (from K6's source)."""
+    fn = _library(BACKWARD_SOURCE).kmunet_bilinear_gather_backward_workspace
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_longlong
     return fn
 
 
@@ -356,6 +372,17 @@ def _vec(img, *tensors, channels=None) -> int:
     return wide if channels % wide == 0 and aligned else 1
 
 
+def _workspace(img, G: int, Ho: int, Wo: int, shared: bool) -> torch.Tensor:
+    """K6's workspace on ``img``'s device: the units' cells, the bin lists
+    and their weights, the bins' offsets (csrc/bilinear_gather_backward.cu)."""
+    B, H, W, C = img.shape
+    nbytes = workspace_kernel()(B, H, W, C, G, Ho, Wo, int(shared))
+    if nbytes < 0:
+        raise ValueError(f"K6 takes no workspace for img {tuple(img.shape)}, G={G}, "
+                         f"Ho={Ho}, Wo={Wo}: more than 2**30 bins or units")
+    return torch.empty(nbytes, dtype=torch.uint8, device=img.device)
+
+
 def _launch(fn, img, *args) -> None:
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
@@ -391,19 +418,19 @@ def bilinear_gather_backward(
     """(d_img, d_x, d_y) of the gather for the upstream gradient ``g``
     (B, Ho, Wo, C) in ``img``'s dtype. A CPU ``img`` takes the plain version;
     a CUDA ``img`` launches K6, which takes fp32, bf16 and fp16 images with
-    fp32 coordinates, and returns d_x, d_y in fp32."""
+    fp32 coordinates, sums each d_img element in fp32 in an order fixed by
+    the inputs and writes it once in ``img``'s dtype (the same bits on every
+    call), and returns d_x, d_y in fp32."""
     if img.device.type == "cpu":
         return bilinear_gather_backward_plain(img, x, y, g, padding_mode)
     _check(img, x, y, padding_mode)
     _check_grad(img, x, g)
     B, H, W, C = img.shape
     Ho, Wo = x.shape[1:3]
-    d_img32 = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
-    d_img = d_img32 if img.dtype == torch.float32 else torch.empty_like(img)
-    d_x = torch.empty_like(x)
-    d_y = torch.empty_like(y)
+    d_img, d_x, d_y = torch.empty_like(img), torch.empty_like(x), torch.empty_like(y)
+    ws = _workspace(img, 1, Ho, Wo, False)
     _launch(backward_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(), g.data_ptr(),
-            d_img32.data_ptr(), d_img.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
+            ws.data_ptr(), d_img.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
             B, H, W, C, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
             _vec(img, g))
     bilinear_gather_backward.launches += 1
@@ -472,8 +499,9 @@ def bilinear_gather_grouped_backward(
     """(d_img, d_x, d_y) of the grouped gather for the upstream gradient
     ``g`` (B, Ho, Wo, C) in ``img``'s dtype. A CPU ``img`` takes the plain
     version; a CUDA ``img`` launches K6's grouped entry, which takes fp32,
-    bf16 and fp16 images with fp32 coordinates, and returns d_x, d_y
-    (B, G, Ho, Wo) in fp32. Its launches count on
+    bf16 and fp16 images with fp32 coordinates, sums d_img as
+    ``bilinear_gather_backward`` does (the same bits on every call), and
+    returns d_x, d_y (B, G, Ho, Wo) in fp32. Its launches count on
     ``bilinear_gather_grouped_backward.launches``."""
     if img.device.type == "cpu":
         return bilinear_gather_grouped_backward_plain(img, x, y, g, padding_mode)
@@ -481,12 +509,10 @@ def bilinear_gather_grouped_backward(
     _check_grad(img, x, g)
     B, H, W, C = img.shape
     G, Ho, Wo = x.shape[1:]
-    d_img32 = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
-    d_img = d_img32 if img.dtype == torch.float32 else torch.empty_like(img)
-    d_x = torch.empty_like(x)
-    d_y = torch.empty_like(y)
+    d_img, d_x, d_y = torch.empty_like(img), torch.empty_like(x), torch.empty_like(y)
+    ws = _workspace(img, G, Ho, Wo, False)
     _launch(grouped_backward_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(),
-            g.data_ptr(), d_img32.data_ptr(), d_img.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
+            g.data_ptr(), ws.data_ptr(), d_img.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
             B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
             _vec(img, g, channels=C // G))
     bilinear_gather_grouped_backward.launches += 1
@@ -558,20 +584,19 @@ def bilinear_gather_multiview_backward(
     ``g`` (B, Ho, Wo, G*C) in ``img``'s dtype. A CPU ``img`` takes the plain
     version; a CUDA ``img`` launches K6's shared-source entry, which takes
     fp32, bf16 and fp16 images with fp32 coordinates, sums d_img over the
-    views in fp32, and returns d_x, d_y (B, G, Ho, Wo) in fp32. Its launches
-    count on ``bilinear_gather_multiview_backward.launches``."""
+    views as ``bilinear_gather_backward`` sums it (the same bits on every
+    call), and returns d_x, d_y (B, G, Ho, Wo) in fp32. Its launches count on
+    ``bilinear_gather_multiview_backward.launches``."""
     if img.device.type == "cpu":
         return bilinear_gather_multiview_backward_plain(img, x, y, g, padding_mode)
     _check(img, x, y, padding_mode, views=True)
     _check_grad(img, x, g, views=True)
     B, H, W, C = img.shape
     G, Ho, Wo = x.shape[1:]
-    d_img32 = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
-    d_img = d_img32 if img.dtype == torch.float32 else torch.empty_like(img)
-    d_x = torch.empty_like(x)
-    d_y = torch.empty_like(y)
+    d_img, d_x, d_y = torch.empty_like(img), torch.empty_like(x), torch.empty_like(y)
+    ws = _workspace(img, G, Ho, Wo, True)
     _launch(multiview_backward_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(),
-            g.data_ptr(), d_img32.data_ptr(), d_img.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
+            g.data_ptr(), ws.data_ptr(), d_img.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
             B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
             _vec(img, g))
     bilinear_gather_multiview_backward.launches += 1

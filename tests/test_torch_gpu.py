@@ -28,6 +28,7 @@ from torch_cases import (  # noqa: F401
     GATHER_SHAPES,
     GROUPED_SHAPES,
     MULTIVIEW_SHAPES,
+    coordinate_cases,
     cuda_device,
     gather_inputs,
     grouped_inputs,
@@ -103,8 +104,8 @@ def _grad_inputs(shape, case, device, dtype):
 @pytest.mark.parametrize("mode", ["zeros", "border"])
 def test_cuda_backward_kernel_matches_plain(cuda_device, mode, shape, case, dtype):
     """fp32 within 1e-5 abs + 1e-5 relative of the plain version, plus for
-    d_img 1e-6 of the sum of its terms' |values| (the atomics and warp sums
-    add in another order); bf16 against the kernel's own fp32 result on the
+    d_img 1e-6 of the sum of its terms' |values| (its owner pass and warp
+    sums add in another order); bf16 against the kernel's own fp32 result on the
     same rounded inputs, d_img within one bf16 ulp more."""
     img, x, y, g = _grad_inputs(GATHER_SHAPES[shape], case, cuda_device, dtype)
     before = bilinear.bilinear_gather_backward.launches
@@ -305,6 +306,65 @@ def _multiview(shape, case, device, dtype):
     img_t, g_t = (torch.from_numpy(a).to(device, dtype) for a in (img, g))
     x_t, y_t = (torch.from_numpy(a).to(device) for a in (x, y))
     return img_t, x_t, y_t, g_t
+
+
+_K6_ENTRIES = {"gather": (bilinear.bilinear_gather_backward, GATHER_SHAPES),
+               "grouped": (bilinear.bilinear_gather_grouped_backward, GROUPED_SHAPES),
+               "multiview": (bilinear.bilinear_gather_multiview_backward, MULTIVIEW_SHAPES)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("entry", list(_K6_ENTRIES))
+def test_cuda_backward_kernels_are_deterministic(cuda_device, entry, mode, case, dtype):
+    """K6 adds floats with no atomics, each d_img element's terms in an order
+    fixed by the inputs: two calls on the same inputs give bitwise equal
+    d_img, d_x and d_y, at every shape of the entry (last_pixel puts every
+    unit of a segment into one bin)."""
+    backward, shapes = _K6_ENTRIES[entry]
+    for shape in shapes:
+        if entry == "gather":
+            img, x, y, g = _grad_inputs(GATHER_SHAPES[shape], case, cuda_device, dtype)
+        else:
+            img, x, y, g = (_grouped if entry == "grouped" else _multiview)(
+                shape, case, cuda_device, dtype)
+        first = backward(img, x, y, g, mode)
+        second = backward(img, x, y, g, mode)
+        for name, a, b in zip(("d_img", "d_x", "d_y"), first, second):
+            assert torch.equal(a, b), f"{shape} {name}"
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("entry", list(_K6_ENTRIES))
+def test_cuda_backward_kernels_build_large_bins_in_global_memory(cuda_device, entry, mode,
+                                                                 case):
+    """A 16^2 source under 160^2 outputs: 25,600 units a segment, more than
+    K6's bin pass stages in shared memory, so it builds the offsets and the
+    lists in global memory (last_pixel: one bin of 25,600, sorted there).
+    fp32 within the bounds of the tests above, and the same bits twice."""
+    backward, _ = _K6_ENTRIES[entry]
+    plain = {"gather": bilinear.bilinear_gather_backward_plain,
+             "grouped": bilinear.bilinear_gather_grouped_backward_plain,
+             "multiview": bilinear.bilinear_gather_multiview_backward_plain}[entry]
+    if entry == "gather":
+        rng = np.random.default_rng(9)
+        img = rng.normal(size=(1, 16, 16, 8)).astype(np.float32)
+        x, y = coordinate_cases(rng, 1, 16, 16, 160, 160)[case]
+        g = rng.normal(size=(1, 160, 160, 8)).astype(np.float32)
+    else:
+        shape = (1, 16, 16, 8, 2, 160, 160)
+        img, x, y, g = (grouped_inputs if entry == "grouped" else multiview_inputs)(shape, case)
+    img, x, y, g = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+                    for a in (img, x, y, g))
+    got = backward(img, x, y, g, mode)
+    assert all(torch.equal(a, b) for a, b in zip(got, backward(img, x, y, g, mode)))
+    want = plain(img, x, y, g, mode)
+    term_sums = plain(img, x, y, g.abs(), mode)[0]
+    for name, a, b in zip(("d_img", "d_x", "d_y"), got, want):
+        tol = 1e-5 + 1e-5 * b.abs() + (1e-6 * term_sums if name == "d_img" else 0.0)
+        assert bool(((a - b).abs() <= tol).all()), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
