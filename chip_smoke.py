@@ -47,7 +47,8 @@ Phases, each printing one JSON line with its seconds:
               (y and the six gradients) at Mamba-UNet's scan shapes at B=2
               (the refine layers at L=16384 with D=16/32/48, encoder4 at
               L=256, the L=64 and L=16 levels with D=64-128), a ragged L of
-              1000, ragged D of 6 and 24, N of 4 and 8, and L=1, with A as
+              1000, ragged D of 6 and 24, N of 4 and 8, L=1 and L=65 (one
+              token past the kernels' 64-token chunk), with A as
               MambaBlock's init makes it and dt as the seeded block makes it,
               small (decay near 1) and large (decay near 0)
               (``SCAN_SHAPES``): fp32 within 4 times the plain version's own
@@ -198,7 +199,11 @@ Phases, each printing one JSON line with its seconds:
               the bytes over the HBM rate and the recurrence's fp32
               operations, 8*B*L*D*N + 2*B*L*D as scan_pallas.py counts them,
               over the fp32 rate) and their plain versions; no one PyTorch
-              call computes the scan, so their library time is null. For
+              call computes the scan, so their library time is null; and
+              both at refine1's (B=16, L=16384, D=16) and encoder4's (B=16,
+              L=256, D=48) shapes beside their bounds, on the timing line
+              (``scan_timing``: ms, queued ms, device ms, device launches
+              per call and device ms by kernel, no plain version). For
               KM_UNetV3-SH through K1 and K3: the forward at B=128 bf16
               beside the default path's and the train step at B=16 bf16;
               K1 at enc1 (B=128, 16 -> 16 at 128^2, bf16) and K2 and K3 at
@@ -310,7 +315,8 @@ K8B_REPLACES = "kmunet_tpu/kernels/scan_pallas.py:299"
 # K8's shapes (B, L, D, N): Mamba-UNet's scans at 128^2 and B=2 (the refine
 # layers at 128^2, encoder4 at 16^2, encoder5 and decoder3 at 8^2, encoder6,
 # decoder1 and decoder2 at 4^2), a ragged L, ragged D of 6 and 24, N of 4
-# and 8, and L=1; each with the dt cases listed (SCAN_DT_CASES).
+# and 8, L=1, and L one past the kernels' 64-token chunk; each with the dt
+# cases listed (SCAN_DT_CASES).
 SCAN_SHAPES = {
     "refine1": ((2, 16384, 16, 16), ("mamba",)),
     "refine2": ((2, 16384, 32, 16), ("mamba",)),
@@ -323,6 +329,7 @@ SCAN_SHAPES = {
     "d6_n4": ((2, 100, 6, 4), ("mamba", "small", "large")),
     "d24_n8": ((2, 77, 24, 8), ("mamba", "small", "large")),
     "l1": ((2, 1, 16, 16), ("mamba",)),
+    "l65": ((2, 65, 48, 16), ("mamba", "small", "large")),
 }
 # dt of each case: "mamba" as the seeded MambaBlock makes it, softplus of a
 # N(0, 0.5) projection plus its bias (dt_proj_bias: softplus^-1 of
@@ -330,6 +337,9 @@ SCAN_SHAPES = {
 # (memory over the whole sequence); "large" U(4, 16), a decay near 0.
 SCAN_DT_CASES = ("mamba", "small", "large")
 REFINE3 = (16, 16384, 48, 16)  # K8's timing shape: refine3 at B=16 (B, L, D, N)
+# K8's other timing shapes at B=16: refine1 (the fewest channels) and
+# encoder4 (a short scan, L=256).
+SCAN_TIMING_SHAPES = {"refine1": (16, 16384, 16, 16), "encoder4": (16, 256, 48, 16)}
 MAMBA_SCANS = 20  # 10 DMFM layers, one MambaBlock each on two token views
 MAMBA_BATCH = 16  # bench.py's zoo batch, timed in bf16
 
@@ -1793,6 +1803,24 @@ def main() -> int:
             lambda: scan.selective_scan_backward_plain(*args, g), None,
             scan_bound(REFINE3, 2, True), 10, 1)
         del args, g
+        scan_timing = {}
+        for name, shape in SCAN_TIMING_SHAPES.items():
+            args, g = scan_inputs(np, rng, shape, "mamba")
+            args = [torch.from_numpy(a).to(dev) for a in args]
+            args = [a.to(torch.bfloat16) if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
+            g = torch.from_numpy(g).to(dev).to(torch.bfloat16)
+            scan_timing[name] = {"shape": list(shape)}
+            for key, fn, backward in (
+                    ("selective_scan", lambda: scan.selective_scan_forward(*args), False),
+                    ("selective_scan_backward", lambda: scan.selective_scan_backward(*args, g),
+                     True)):
+                bound, bound_by, _, _ = scan_bound(shape, 2, backward)
+                device, launches, by_kernel = device_ms(torch, fn, 20)
+                scan_timing[name][key] = {
+                    "ms": cuda_ms(torch, fn, 20, 5), "queued_ms": queued_ms(torch, fn, 20)[0],
+                    "device_ms": device, "device_launches_per_call": launches,
+                    "device_ms_by_kernel": by_kernel, "bound_ms": bound, "bound_by": bound_by}
+            del args, g
 
         # KM_UNetV3-SH through K1 and K3: the forward at B=128 bf16, beside
         # the default path's B128_bfloat16 above, and the bf16 step at B=16.
@@ -1888,7 +1916,7 @@ def main() -> int:
             train[f"laps_B1_bfloat16{suffix}"] = {
                 "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
             del model, state, step, batch
-        f.update(forward=forward, train_step=train, tf32_conv=True,
+        f.update(forward=forward, train_step=train, tf32_conv=True, scan_timing=scan_timing,
                  shapes={"bilinear_gather": list(BRIDGE), "bilinear_gather_backward": list(BRIDGE),
                          "bilinear_gather_grouped": list(DEC3),
                          "bilinear_gather_grouped_backward": list(DEC3),

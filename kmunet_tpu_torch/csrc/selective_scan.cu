@@ -12,63 +12,111 @@
 //   backward  its custom VJP's _backward (pl.pallas_call of _bwd_kernel): the
 //             six gradients dx, ddt, dA, dB, dC, dD.
 //
-// Design. The TPU kernel expands each chunk of tokens to lane-packed
-// (Q, D*N) arrays with one-hot MXU matmuls and runs a Hillis-Steele scan in
-// VMEM, because a TPU has wide vector units and a matrix unit but no cheap
-// gather or shuffle. Here the recurrence is walked as written: one thread
-// (lane) per (b, d, n), holding h[b, d, n] in a register, a block of 128
-// lanes per (b, tile of 128 / N channels), the N lanes of a channel in one
-// warp. A block walks all L tokens in order, in chunks (kChunk tokens
-// forward, kChunkB backward) whose x, dt, B, C (and g) it stages in shared
-// memory as fp32, zeros past the last token (dt = 0 leaves h as it is, so
-// every chunk is walked whole). The loads go through registers and those of
-// the next chunk are issued before this chunk's walk: with one warp per
-// scheduler nothing else hides a memory latency, and a latency per load per
-// chunk is what a plain staging loop costs. The walk over a chunk is
-// unrolled and stores nothing: each lane keeps C_t * h_t in registers, so
-// that the loads and exps of later tokens can be issued while the state's
-// fma chain runs. A second pass over the chunk, whose tokens are
-// independent, reduces y_t = sum_n C h over the N lanes of a channel by warp
-// shuffles. N is a template argument: one instantiation per state size.
-//   The backward runs two phases in one block, as the TPU kernel does:
-// phase 0 walks the tokens forward and writes the state at each chunk's
-// entry to an fp32 scratch (B, chunks, D, N); phase 1 takes the chunks in
-// reverse, rebuilds the chunk's states from its entry state into registers,
-// and walks the cotangent of the state back,
-//   hh_t = g_t * C_t + a_{t+1} * hh_{t+1}     (a_t = exp(dt_t * A)),
-// carrying a_t * hh_t into the chunk before; each lane keeps its terms of
-// dx, ddt and dB in registers, and a second pass over the chunk reduces
-// them: dx and ddt are sums over n (warp shuffles); dB and dC are sums over
-// d, reduced by shuffles over a warp's channels, then over the block's warps
-// in a fixed order, and written per (b, channel tile) as fp32 partial sums;
-// dA per (b, d, n) and dD per (b, d) are summed over the tokens in
-// registers, with Kahan's compensation. The caller sums the partials over
-// tiles and batches. No atomics: the gradients are the same from run to run.
+// Design. The TPU kernel walks the chunks of L in order on one core and runs
+// a log-depth scan inside each chunk in VMEM. Here the chunks run in
+// parallel, with a carry pass between them. L is cut into chunks (the last
+// one ragged): kTf = 32 tokens in the forward (halved down to 16 while the
+// walks would have fewer than 64 K threads, for a short L), kT = 64 in the
+// backward. A chunk's transfer over its tokens is its local end state (the
+// walk from a zero state) and its decay exp(A * sum dt): the exponential of
+// the summed dt, not the product of the tokens' exps.
+//   Forward, three launches (one where L fits a chunk):
+//   1. walk_kernel<kSummary>: a block per (chunk, b, tile of up to 128
+//      channels) stages the chunk's x, dt and B in shared memory as fp32 (all
+//      loads in flight at once); a thread per (d, part) holds kNS = 4 of the
+//      channel's N states in registers and walks the chunk from zero: the
+//      local end state E (B, chunks, D, N) and S = sum dt (B, chunks, D).
+//   2. carry_kernel: h_in(c) = exp(A S(c-1)) h_in(c-1) + E(c-1), in place
+//      over E. A block per (32 (d, n) lanes, b); its 16 warps take the chunks
+//      in 16 runs: each composes its run's transfer h -> P h + e, each run's
+//      entry is the transfers before it applied in order, and each walks its
+//      run again from there.
+//   3. walk_kernel<kOutput>: each (b, chunk, d, part) walks its chunk again
+//      from h_in; y_t = sum_n C h over the part's states by a chain of fmas
+//      and over the channel's N / kNS parts by shuffles, + D x, written once.
+//   Backward, three launches (one where L fits a chunk):
+//   A. walk_kernel<kSummaryGrad>: the same walk, over x, dt, g, B and C, also
+//      gives the chunk's reverse summary: the message m0 = sum_t P_t g_t C_t
+//      (P_t the product of the chunk's decays up to t) that the cotangent walk
+//        hh_t = g_t C_t + a_{t+1} hh_{t+1}      (a_t = exp(dt_t A))
+//      carries out of the chunk's first token from a zero message; its
+//      transfer factor is the same decay.
+//   B. carry_kernel: the entry states forward and the incoming messages in
+//      reverse, m_in(c) = m0(c+1) + exp(A S(c+1)) m_in(c+1), in place over E
+//      and M0.
+//   C. backward_kernel: a block per (chunk, b), a lane per (d, n) for a group
+//      of channels at a time, all D channels of the chunk in one block. The
+//      chunk's x, dt, g, B and C are staged in shared memory as fp32, zeros
+//      past the last token (dt = 0 leaves h as it is and g = 0 leaves the
+//      message as it is). A lane walks the chunk from h_in and keeps the
+//      state at each kQ = 8-token sub-chunk's entry (sub-chunks past the
+//      last token change nothing and are skipped: a short L walks only its
+//      own tokens); then, sub-chunk by sub-chunk from the last, it rebuilds
+//      the kQ states with their decays a_t in registers (one exp per token
+//      per walk) and walks the message back through them. dx and ddt are sums over n, taken by a butterfly
+//      over the N lanes of a channel (each step halves the tokens a lane
+//      keeps: about one shuffle per value), staged, and written once in the
+//      dtype. dB and dC are sums over d: a butterfly over a warp's channels,
+//      then the warps in order, then the channel groups in order, in shared
+//      memory, written once per chunk as (B, L, N) in the dtype. dA and dD
+//      are summed over each sub-chunk's tokens, then over the sub-chunks,
+//      into fp32 partials per (b, chunk), (B, chunks, D, N) and (B, chunks,
+//      D), which the caller sums in a fixed order.
+//   Every sum is taken in a fixed order and there are no float atomics: two
+//   calls give the same bits. Scratch, all fp32 and per (b, chunk), at
+//   refine3 (B=16, L=16384, D=48, N=16): the forward's E 25.2 MB and S 1.6
+//   MB (512 chunks); the backward's E and M0 12.6 MB each, S 0.8 MB, and its
+//   dA and dD partials 12.6 and 0.8 MB (256 chunks). No (B, tiles, L, N)
+//   partials: dB and dC are final when written.
+//   kT, kTf, kQ, kNS and pass C's blocks per SM are compile-time tunables
+//   (KMUNET_SCAN_* below); scripts/torch_scan_variants.py builds and times
+//   other values on the card.
 //
 // Bound. Bytes: x, dt read and y written once (B*L*D each), B and C once
-// (B*L*N each). At Mamba-UNet's refine3 (B=16, L=16384, D=48, N=16, bf16)
-// that is 92 MB, 27.6 us at 3.35 TB/s; the backward reads x, dt, B, C, g and
-// writes dx, ddt, dB, dC, about 160 MB, 47.6 us. The recurrence's fp32 work
-// (8 operations per (b, l, d, n) and 2 per (b, l, d), as scan_pallas.py
-// counts it) is 1.6 GFLOP there, 24 us at 67 TFLOP/s. This kernel is bound
-// by neither: each lane walks the L tokens one after another, so its time is
-// L times the issue time of one step (an exp and the fma of the state, about
-// 30 instructions) for the one or two warps each scheduler holds, and
-// refine1 at B=16 has only B*D*N = 4,096 lanes, about one warp per SM.
-// Splitting L into chunks scanned in parallel, with a second pass for the
-// carries, is later work.
+// (B*L*N each). At Mamba-UNet's refine3 (bf16) that is 92 MB, 27.6 us at
+// 3.35 TB/s; the backward reads x, dt, B, C, g and writes dx, ddt, dB, dC,
+// about 160 MB, 47.6 us. The recurrence's fp32 work (8 operations per (b,
+// l, d, n) and 2 per (b, l, d), as scan_pallas.py counts it) is 1.6 GFLOP
+// there, 24 us at 67 TFLOP/s. Below both lies the exp unit: every walk
+// takes B*L*D*N exps (201 M at refine3), about 48 us at 16 per clock per SM;
+// the forward walks twice, the backward three times (summary, checkpoints,
+// rebuild). On the card neither bounds these kernels: with the exps replaced
+// by an add the forward took as long, and fewer states per thread (more
+// warps) made the walks faster, so each walk waits on its tokens' dependent
+// chains (load, exp, the state's fma, the sum over n) with too few warps to
+// hide them; pass C also issues about 40 instructions per (b, l, d, n)
+// (three walks, the message, four butterflies). PERF.md has the times.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <stdint.h>
+
+// Compile-time tunables (the values chosen on an H100).
+#ifndef KMUNET_SCAN_CHUNK
+#define KMUNET_SCAN_CHUNK 64  // kT: tokens of a backward chunk
+#endif
+#ifndef KMUNET_SCAN_FWD_CHUNK
+#define KMUNET_SCAN_FWD_CHUNK 32  // kTf: tokens of a forward chunk, at most
+#endif
+#ifndef KMUNET_SCAN_SUB
+#define KMUNET_SCAN_SUB 8  // kQ: tokens of a backward sub-chunk, held in registers
+#endif
+#ifndef KMUNET_SCAN_NS
+#define KMUNET_SCAN_NS 4  // kNSMax: states per thread of the walks
+#endif
+#ifndef KMUNET_SCAN_BWD_BLOCKS
+#define KMUNET_SCAN_BWD_BLOCKS 3  // pass C's blocks per SM: its registers are capped to fit
+#endif
 
 namespace {
 
-constexpr int kThreads = 128;  // lanes per block; a block covers kThreads / N channels
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;     // tokens of a forward chunk
-constexpr int kChunkB = 16;    // tokens of a backward chunk: one checkpoint each
+constexpr int kT = KMUNET_SCAN_CHUNK;
+constexpr int kTf = KMUNET_SCAN_FWD_CHUNK;
+constexpr int kQ = KMUNET_SCAN_SUB;
+constexpr int kNSMax = KMUNET_SCAN_NS;
+constexpr int kTP = kT + 4;  // a staged column's row in pass C's shared memory, padded
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kT % kQ == 0 && kQ % 4 == 0, "a chunk is whole sub-chunks of whole float4s");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -83,323 +131,602 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half(v);
 }
 
-// Sum over the N lanes of one channel (xor offsets below N).
+// 2^v on the exp unit; callers pass v = dt * A * log2(e). Results below
+// 2^-126 flush to 0, which leaves a state or message unchanged to fp32.
+__device__ __forceinline__ float exp2_fast(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
 template <int N>
-__device__ __forceinline__ float sum_over_n(float v) {
+__device__ __forceinline__ void store_floats(float* __restrict__ p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int off = N / 2; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+    for (int k = 0; k < N / 4; ++k)
+      reinterpret_cast<float4*>(p)[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                                                    v[4 * k + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = v[j];
+  }
 }
 
-// Sum over the channels of a warp, per n (xor offsets N .. 16).
 template <int N>
-__device__ __forceinline__ float sum_over_warp_channels(float v) {
+__device__ __forceinline__ void load_floats(const float* __restrict__ p, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int off = N; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+    for (int k = 0; k < N / 4; ++k) {
+      const float4 f = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = f.x;
+      v[4 * k + 1] = f.y;
+      v[4 * k + 2] = f.z;
+      v[4 * k + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = p[j];
+  }
 }
 
-// sum += v, with the rounding error carried in comp (Kahan): dA and dD sum
-// L terms per lane, which a plain fp32 sum would round L times.
-__device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
-  const float y = v - comp;
-  const float t = sum + y;
-  comp = (t - sum) - y;
-  sum = t;
-}
-
-// A chunk of Q tokens of one (B, L, width) tensor, columns [c0, c0 + COLS),
-// in registers: this thread's elements i = threadIdx.x + k * kThreads of the
-// chunk's [Q][COLS] tile, as fp32, zeros past the last token or column. All
-// loads are issued before any is used, so the chunk costs one memory latency.
-template <int Q, int COLS>
-struct Chunk {
-  static constexpr int kPer = (Q * COLS + kThreads - 1) / kThreads;
-  float v[kPer];
-
-  template <typename T>
-  __device__ __forceinline__ void load(const T* __restrict__ src, int b, int L, int width,
-                                       int t0, int c0) {
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      const int t = t0 + i / COLS, c = c0 + i % COLS;
-      v[k] = (i < Q * COLS && t < L && c < width) ? to_f32(src[(b * L + t) * width + c]) : 0.f;
-    }
-  }
-
-  __device__ __forceinline__ void store(float* dst) const {
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      if (i < Q * COLS) dst[i] = v[k];
-    }
-  }
+// The summary and output passes: a block per (chunk, b, tile of up to kDW
+// channels) stages the chunk's tokens in shared memory as fp32 (x, dt and g
+// [Tc][DW], B and C [Tc][N]: all loads in flight at once, each value
+// converted once) and a thread per (d, part) walks them, each part kNS of
+// the channel's N states in registers, the kParts parts of a channel in
+// adjacent lanes.
+template <int N>
+struct Walk {
+  static constexpr int kNS = N < kNSMax ? N : kNSMax;
+  static constexpr int kParts = N / kNS;
+  static constexpr int kDW = 128;
 };
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-scan_forward_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                    const float* __restrict__ A, const T* __restrict__ Bm,
-                    const T* __restrict__ Cm, const float* __restrict__ Dp,
-                    T* __restrict__ y, int L, int D) {
-  constexpr int DT = kThreads / N, Q = kChunk;
-  extern __shared__ float smem[];
-  float* xs = smem;           // [Q][DT]
-  float* dts = xs + Q * DT;   // [Q][DT]
-  float* bs = dts + Q * DT;   // [Q][N]
-  float* cs = bs + Q * N;     // [Q][N]
-  float* ys = cs + Q * N;     // [Q][DT]: sum_n C h
+enum WalkMode { kSummary = 0, kSummaryGrad = 1, kOutput = 2 };
 
-  const int b = blockIdx.y, d0 = blockIdx.x * DT;
-  const int n = threadIdx.x % N, dl = threadIdx.x / N, d = d0 + dl;
-  const float a_dn = d < D ? A[d * N + n] : 0.f;
-  const int chunks = (L + Q - 1) / Q;
-  Chunk<Q, DT> rx, rdt;
-  Chunk<Q, N> rb, rc;
-  rx.load(x, b, L, D, 0, d0);
-  rdt.load(dt, b, L, D, 0, d0);
-  rb.load(Bm, b, L, N, 0, 0);
-  rc.load(Cm, b, L, N, 0, 0);
-  float h = 0.f;
-  for (int c = 0; c < chunks; ++c) {
-    const int t0 = c * Q, len = min(Q, L - t0);
-    __syncthreads();  // the previous chunk's shared memory is read
-    rx.store(xs);
-    rdt.store(dts);
-    rb.store(bs);
-    rc.store(cs);
-    __syncthreads();
-    if (c + 1 < chunks) {  // the next chunk's loads fly during this chunk's walk
-      rx.load(x, b, L, D, t0 + Q, d0);
-      rdt.load(dt, b, L, D, t0 + Q, d0);
-      rb.load(Bm, b, L, N, t0 + Q, 0);
-      rc.load(Cm, b, L, N, t0 + Q, 0);
-    }
-    float p[Q];  // C_t * h_t; past the last token dt = 0 leaves h as it is
+// Floats of shared memory a walk block stages.
+int walk_smem_floats(int mode, int Tc, int DW, int N) {
+  return Tc * ((mode == kSummaryGrad ? 3 : 2) * DW + (mode == kSummary ? 1 : 2) * N);
+}
+
+// kSummary (pass 1) and kSummaryGrad (pass A): each (b, chunk, d, part)
+// walks the chunk's tokens from a zero state: its kNS states of E and S =
+// sum dt (part 0); kSummaryGrad also the reverse summary M0. kOutput (pass
+// 3): the walk from the entry state hin (zero without it), y = sum_n C h,
+// over the part's states by a chain of fmas and over the channel's parts by
+// shuffles, + D x.
+template <typename T, int N, int kMode>
+__global__ void __launch_bounds__(Walk<N>::kDW * Walk<N>::kParts)
+walk_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __restrict__ A,
+            const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dp,
+            const T* __restrict__ g, const float* __restrict__ hin, float* __restrict__ E,
+            float* __restrict__ M0, float* __restrict__ S, T* __restrict__ y, int L, int D,
+            int C, int Tc, int DW) {
+  constexpr int NS = Walk<N>::kNS, P = Walk<N>::kParts;
+  constexpr bool kGrad = kMode == kSummaryGrad, kOut = kMode == kOutput;
+  constexpr bool kStageC = kMode != kSummary;
+  extern __shared__ __align__(16) float smem[];
+  const int c = blockIdx.x, b = blockIdx.y, d0 = blockIdx.z * DW;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int dw = min(DW, D - d0), t0 = c * Tc, len = min(Tc, L - t0);
+  float* bs = smem;                              // [Tc][N]
+  float* cs = bs + Tc * N;                       // [Tc][N]
+  float* xs = bs + (kStageC ? 2 : 1) * Tc * N;   // [Tc][DW]
+  float* dts = xs + Tc * DW;                     // [Tc][DW]
+  float* gs = dts + Tc * DW;                     // [Tc][DW]
+  {  // B and C: a lane per n, nt / N rows at a time
+    const int rows = nt / N, r0 = tid / N, j = tid % N;
+    if (r0 < rows)
+#pragma unroll 8
+      for (int t = r0; t < len; t += rows) {
+        const int o = (b * L + t0 + t) * N + j;
+        bs[t * N + j] = to_f32(Bm[o]);
+        if constexpr (kStageC) cs[t * N + j] = to_f32(Cm[o]);
+      }
+  }
+  {  // x, dt, g: a lane per channel, nt / DW rows at a time; zeros past D
+    const int rows = nt / DW, r0 = tid / DW, j = tid % DW;
+    if (r0 < rows)
+#pragma unroll 8
+      for (int t = r0; t < len; t += rows) {
+        const int o = (b * L + t0 + t) * D + d0 + j;
+        const bool in = j < dw;
+        xs[t * DW + j] = in ? to_f32(x[o]) : 0.f;
+        dts[t * DW + j] = in ? to_f32(dt[o]) : 0.f;
+        if constexpr (kGrad) gs[t * DW + j] = in ? to_f32(g[o]) : 0.f;
+      }
+  }
+  __syncthreads();
+  const int dl = tid / P, part = tid % P, n0 = part * NS;
+  const bool active = dl < dw;
+  const int dr = active ? dl : 0;  // the staged column a padding thread reads
+  const int d = d0 + dr, ch = (b * C + c) * D + d;
+  float a2[NS], h[NS], Pc[NS], m[NS];
 #pragma unroll
-    for (int t = 0; t < Q; ++t) {
-      const float dtv = dts[t * DT + dl];
-      h = fmaf(expf(dtv * a_dn), h, dtv * xs[t * DT + dl] * bs[t * N + n]);
-      p[t] = cs[t * N + n] * h;
-    }
+  for (int n = 0; n < NS; ++n) {
+    a2[n] = A[d * N + n0 + n] * kLog2e;
+    h[n] = 0.f;
+    Pc[n] = 1.f;
+    m[n] = 0.f;
+  }
+  if (kOut && hin != nullptr) load_floats<NS>(hin + ch * N + n0, h);
+  const float dp = kOut ? Dp[d] : 0.f;
+  float s = 0.f;
+#pragma unroll 4
+  for (int t = 0; t < len; ++t) {
+    const float xv = xs[t * DW + dr], dtv = dts[t * DW + dr], u = dtv * xv;
+    float bv[NS], cv[NS];
+    load_floats<NS>(bs + t * N + n0, bv);
+    if constexpr (kStageC) load_floats<NS>(cs + t * N + n0, cv);
+    if constexpr (kOut) {
+      float p = 0.f;
 #pragma unroll
-    for (int t = 0; t < Q; ++t) {
-      const float yv = sum_over_n<N>(p[t]);
-      if (n == 0) ys[t * DT + dl] = yv;
+      for (int n = 0; n < NS; ++n) {
+        h[n] = fmaf(exp2_fast(dtv * a2[n]), h[n], u * bv[n]);
+        p = fmaf(cv[n], h[n], p);
+      }
+#pragma unroll
+      for (int off = P / 2; off > 0; off /= 2) p += __shfl_xor_sync(0xffffffffu, p, off);
+      if (active && part == 0) y[(b * L + t0 + t) * D + d] = from_f32<T>(p + xv * dp);
+    } else {
+      s += dtv;
+      const float gv = kGrad ? gs[t * DW + dr] : 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float a = exp2_fast(dtv * a2[n]);
+        h[n] = fmaf(a, h[n], u * bv[n]);
+        if constexpr (kGrad) {
+          Pc[n] *= a;
+          m[n] = fmaf(Pc[n], gv * cv[n], m[n]);
+        }
+      }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < len * DT; i += kThreads) {
-      const int t = i / DT, col = d0 + i % DT;
-      if (col < D) y[(b * L + t0 + t) * D + col] = from_f32<T>(ys[i] + xs[i] * Dp[col]);
+  }
+  if constexpr (!kOut) {
+    if (active) {
+      store_floats<NS>(E + ch * N + n0, h);
+      if constexpr (kGrad) store_floats<NS>(M0 + ch * N + n0, m);
+      if (part == 0) S[ch] = s;
     }
   }
 }
 
+// Pass 2 / B: the carries over the C chunks of each (b, d, n), in place: E
+// becomes each chunk's entry state and, given M0, M0 each chunk's incoming
+// message. A block per (tile of 32 (d, n) lanes, b); its kCarryWarps warps
+// split the chunks into as many runs in order. Each warp composes its run's
+// transfer h -> P h + e (P the product of the chunks' decays exp(A S)),
+// from the first chunk, into shared memory; each then takes its run's entry
+// state as the transfers of the runs before it applied in order to zero, and
+// walks its run again, writing the entry states. The messages go the same
+// way from the last chunk.
+constexpr int kCarryWarps = 16;
+constexpr int kCarryBatch = 8;  // chunks whose loads are issued together
+
+// One run's walk over chunks c0 .. c1 - 1 (forward) or c1 - 1 .. c0 (in
+// reverse) from the value h: h = dec(c) h + v(c) per chunk; with kWrite each
+// chunk's v is replaced by its entry value h. Returns h after the run and,
+// in P, the product of the run's decays.
+template <bool kWrite>
+__device__ __forceinline__ float carry_run(float* __restrict__ v0, const float* __restrict__ s0,
+                                           int stride, int D, float a2, int c0, int c1,
+                                           bool forward, bool active, float h, float& P) {
+  P = 1.f;
+  const int n = c1 - c0;
+  const auto chunk = [&](int k) { return forward ? c0 + k : c1 - 1 - k; };  // the k-th of the walk
+  for (int k0 = 0; k0 < n; k0 += kCarryBatch) {
+    float v[kCarryBatch], dec[kCarryBatch];
+#pragma unroll
+    for (int k = 0; k < kCarryBatch; ++k) {
+      const bool in = k0 + k < n;
+      v[k] = (in && active) ? v0[chunk(k0 + k) * stride] : 0.f;
+      dec[k] = in ? exp2_fast(a2 * s0[chunk(k0 + k) * D]) : 1.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kCarryBatch; ++k) {
+      if (kWrite && k0 + k < n && active) v0[chunk(k0 + k) * stride] = h;
+      h = fmaf(dec[k], h, v[k]);
+      P *= dec[k];
+    }
+  }
+  return h;
+}
+
+__global__ void __launch_bounds__(32 * kCarryWarps)
+carry_kernel(const float* __restrict__ A, float* __restrict__ E, float* __restrict__ M0,
+             const float* __restrict__ S, int D, int N, int C) {
+  __shared__ float tp[kCarryWarps][32], te[kCarryWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane, b = blockIdx.y;  // j = d * N + n
+  const bool active = j < D * N;
+  const int jr = active ? j : 0;
+  const float a2 = A[jr] * kLog2e;
+  const int run = (C + kCarryWarps - 1) / kCarryWarps;
+  const int c0 = min(C, w * run), c1 = min(C, c0 + run);
+  const long long base = (long long)b * C * D * N + jr;  // chunk c at base + c * D * N
+  const float* s0 = S + (long long)b * C * D + jr / N;   // chunk c at s0[c * D]
+  for (int dir = 0; dir < (M0 != nullptr ? 2 : 1); ++dir) {
+    const bool forward = dir == 0;
+    float* v0 = (forward ? E : M0) + base;
+    float P;
+    const float e = carry_run<false>(v0, s0, D * N, D, a2, c0, c1, forward, active, 0.f, P);
+    tp[w][lane] = P;
+    te[w][lane] = e;
+    __syncthreads();
+    float h = 0.f;  // the runs before this one, in the direction of the walk
+    if (forward) {
+      for (int k = 0; k < w; ++k) h = fmaf(tp[k][lane], h, te[k][lane]);
+    } else {
+      for (int k = kCarryWarps - 1; k > w; --k) h = fmaf(tp[k][lane], h, te[k][lane]);
+    }
+    carry_run<true>(v0, s0, D * N, D, a2, c0, c1, forward, active, h, P);
+    __syncthreads();  // tp and te are read before the next direction writes them
+  }
+}
+
+// Pass C's block: kCG channels of N lanes each, 256 lanes where N >= 8.
+template <int N>
+struct Bwd {
+  static constexpr int kCG = N >= 8 ? 256 / N : 32;
+  static constexpr int kThreads = kCG * N;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kSub = kT / kQ;
+  // floats of shared memory: B, C [N][kTP]; x, dt, g [kCG][kTP]; the
+  // sub-chunk checkpoints [kSub][kThreads]; dx, ddt [kQ][kCG]; the warps'
+  // dB, dC [kWarps][kQ][N]; the chunk's dB, dC [kT][N].
+  static constexpr int kSmem = 2 * N * kTP + 3 * kCG * kTP + kSub * kThreads + 2 * kQ * kCG +
+                               2 * kWarps * kQ * N + 2 * kT * N;
+};
+
+// Sums v[0 .. W) over the lanes whose ids differ in the bits O, O/2, ...,
+// OLO, by a butterfly: while a lane holds more than one value, each step
+// keeps one half of them (the upper half where the lane's bit is set) and
+// adds the partner's copy of that half; after that, steps add the partner's
+// value. kept_tokens<...> gives which of the kQ tokens a lane then holds.
+template <int W, int O, int OLO>
+__device__ __forceinline__ void butterfly(float (&v)[kQ], int lane) {
+  if constexpr (O >= OLO && O > 0) {
+    if constexpr (W > 1) {
+      const bool up = lane & O;
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) {
+        const float send = up ? v[i] : v[i + W / 2];
+        const float keep = up ? v[i + W / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      butterfly<W / 2, O / 2, OLO>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      butterfly<1, O / 2, OLO>(v, lane);
+    }
+  }
+}
+
+// After butterfly<kQ, O, OLO>: the number of tokens each lane holds.
+__host__ __device__ constexpr int kept_width(int O, int OLO) {
+  int w = kQ;
+  for (int o = O; o >= OLO && o > 0; o /= 2)
+    if (w > 1) w /= 2;
+  return w;
+}
+
+// After butterfly<kQ, O, OLO>: the lane holds the sums of tokens first ..
+// first + kept_width - 1; writer is false for all but one lane of those that
+// hold the same sums.
+template <int O, int OLO>
+__device__ __forceinline__ void kept_tokens(int lane, int& first, bool& writer) {
+  int w = kQ;
+  first = 0;
+  writer = true;
+  for (int o = O; o >= OLO && o > 0; o /= 2) {
+    if (w > 1) {
+      if (lane & o) first += w / 2;
+      w /= 2;
+    } else if (lane & o) {
+      writer = false;
+    }
+  }
+}
+
+// Pass C: a block per (chunk c, b); see the source note.
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-scan_backward_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                     const float* __restrict__ A, const T* __restrict__ Bm,
-                     const T* __restrict__ Cm, const float* __restrict__ Dp,
-                     const T* __restrict__ g, T* __restrict__ dx, T* __restrict__ ddt,
-                     float* __restrict__ dA_part, float* __restrict__ dB_part,
-                     float* __restrict__ dC_part, float* __restrict__ dD_part,
-                     float* __restrict__ ckpt, int L, int D) {
-  constexpr int DT = kThreads / N, Q = kChunkB;
-  extern __shared__ float smem[];
-  float* xs = smem;                  // [Q][DT]
-  float* dts = xs + Q * DT;          // [Q][DT]
-  float* gs = dts + Q * DT;          // [Q][DT]
-  float* bs = gs + Q * DT;           // [Q][N]
-  float* cs = bs + Q * N;            // [Q][N]
-  float* dxs = cs + Q * N;           // [Q][DT]: sum_n hh * B
-  float* ddts = dxs + Q * DT;        // [Q][DT]
-  float* dbw = ddts + Q * DT;        // [Q][kWarps][N]: dB over each warp's channels
-  float* dcw = dbw + Q * kWarps * N; // [Q][kWarps][N]
+__global__ void __launch_bounds__(Bwd<N>::kThreads, KMUNET_SCAN_BWD_BLOCKS)
+backward_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __restrict__ A,
+                const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dp,
+                const T* __restrict__ g, const float* __restrict__ hin,
+                const float* __restrict__ min_, T* __restrict__ dx, T* __restrict__ ddt,
+                T* __restrict__ dB, T* __restrict__ dC, float* __restrict__ dA_part,
+                float* __restrict__ dD_part, int L, int D, int C) {
+  using K = Bwd<N>;
+  constexpr int CG = K::kCG, NT = K::kThreads, W = K::kWarps;
+  constexpr int WN = kept_width(N / 2, 1), WC = kept_width(16, N);
+  extern __shared__ __align__(16) float smem[];
+  float* bs = smem;                 // [N][kTP]
+  float* cs = bs + N * kTP;         // [N][kTP]
+  float* xs = cs + N * kTP;         // [CG][kTP]
+  float* dts = xs + CG * kTP;       // [CG][kTP]
+  float* gs = dts + CG * kTP;       // [CG][kTP]
+  float* cks = gs + CG * kTP;       // [kSub][NT]: each lane's sub-chunk entry states
+  float* dxq = cks + K::kSub * NT;  // [kQ][CG]: sum_n hh B
+  float* ddtq = dxq + kQ * CG;      // [kQ][CG]
+  float* pb = ddtq + kQ * CG;       // [W][kQ][N]: dB over each warp's channels
+  float* pc = pb + W * kQ * N;      // [W][kQ][N]
+  float* accb = pc + W * kQ * N;    // [kT][N]: dB over the groups so far
+  float* accc = accb + kT * N;      // [kT][N]
 
-  const int b = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x, d0 = tile * DT;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n = threadIdx.x % N, dl = threadIdx.x / N, d = d0 + dl;
-  const bool active = d < D;
-  const float a_dn = active ? A[d * N + n] : 0.f;
-  const int chunks = (L + Q - 1) / Q;
-  Chunk<Q, DT> rx, rdt, rg;
-  Chunk<Q, N> rb, rc;
-
-  // Phase 0: the forward walk; each chunk's entry state to the scratch.
-  rx.load(x, b, L, D, 0, d0);
-  rdt.load(dt, b, L, D, 0, d0);
-  rb.load(Bm, b, L, N, 0, 0);
-  float h = 0.f;
-  for (int c = 0; c < chunks; ++c) {
-    if (active) ckpt[((b * chunks + c) * D + d) * N + n] = h;
-    __syncthreads();
-    rx.store(xs);
-    rdt.store(dts);
-    rb.store(bs);
-    __syncthreads();
-    if (c + 1 < chunks) {
-      rx.load(x, b, L, D, (c + 1) * Q, d0);
-      rdt.load(dt, b, L, D, (c + 1) * Q, d0);
-      rb.load(Bm, b, L, N, (c + 1) * Q, 0);
-    }
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, n = tid % N, dl = tid / N;
+  const int t0 = c * kT, len = min(kT, L - t0);
+  const int subs = (len + kQ - 1) / kQ;  // sub-chunks that hold a token: the rest change nothing
 #pragma unroll
-    for (int t = 0; t < Q; ++t) {
-      const float dtv = dts[t * DT + dl];
-      h = fmaf(expf(dtv * a_dn), h, dtv * xs[t * DT + dl] * bs[t * N + n]);
+  for (int i = tid; i < kT * N; i += NT) {
+    const int t = i / N, k = i % N, o = (b * L + t0 + t) * N + k;
+    bs[k * kTP + t] = t < len ? to_f32(Bm[o]) : 0.f;
+    cs[k * kTP + t] = t < len ? to_f32(Cm[o]) : 0.f;
+    accb[i] = 0.f;
+    accc[i] = 0.f;
+  }
+  int first_n, first_c;
+  bool writes_n, writes_c;
+  kept_tokens<N / 2, 1>(lane, first_n, writes_n);
+  kept_tokens<16, N>(lane, first_c, writes_c);
+  const float* br = bs + n * kTP;
+  const float* cr = cs + n * kTP;
+  const float* xr = xs + dl * kTP;
+  const float* dr = dts + dl * kTP;
+  const float* gr = gs + dl * kTP;
+
+  for (int d0 = 0; d0 < D; d0 += CG) {
+#pragma unroll
+    for (int i = tid; i < kT * CG; i += NT) {
+      const int t = i / CG, j = i % CG, o = (b * L + t0 + t) * D + d0 + j;
+      const bool in = t < len && d0 + j < D;
+      xs[j * kTP + t] = in ? to_f32(x[o]) : 0.f;
+      dts[j * kTP + t] = in ? to_f32(dt[o]) : 0.f;
+      gs[j * kTP + t] = in ? to_f32(g[o]) : 0.f;
+    }
+    __syncthreads();
+    const int d = d0 + dl;
+    const bool active = d < D;
+    const float an = active ? A[d * N + n] : 0.f, a2 = an * kLog2e;
+    const int sidx = ((b * C + c) * D + d) * N + n;  // (b, c, d, n) of the scratch
+
+    // The chunk from its entry state: each sub-chunk's entry state.
+    float h = (active && hin != nullptr) ? hin[sidx] : 0.f;
+#pragma unroll 1
+    for (int k = 0; k < subs; ++k) {
+      cks[k * NT + tid] = h;
+#pragma unroll
+      for (int t = k * kQ, e = t + kQ; t < e; t += 4) {
+        const float4 d4 = *reinterpret_cast<const float4*>(dr + t);
+        const float4 x4 = *reinterpret_cast<const float4*>(xr + t);
+        const float4 b4 = *reinterpret_cast<const float4*>(br + t);
+        h = fmaf(exp2_fast(d4.x * a2), h, (d4.x * x4.x) * b4.x);
+        h = fmaf(exp2_fast(d4.y * a2), h, (d4.y * x4.y) * b4.y);
+        h = fmaf(exp2_fast(d4.z * a2), h, (d4.z * x4.z) * b4.z);
+        h = fmaf(exp2_fast(d4.w * a2), h, (d4.w * x4.w) * b4.w);
+      }
+    }
+
+    // The sub-chunks from the last: rebuild, walk the message back, reduce.
+    float m = (active && min_ != nullptr) ? min_[sidx] : 0.f;
+    float da = 0.f, dd = 0.f;
+#pragma unroll 1
+    for (int k = subs - 1; k >= 0; --k) {
+      const int base = k * kQ;
+      const float hk = cks[k * NT + tid];
+      float hr[kQ], ar[kQ];
+      h = hk;
+#pragma unroll
+      for (int t = 0; t < kQ; t += 4) {
+        const float4 d4 = *reinterpret_cast<const float4*>(dr + base + t);
+        const float4 x4 = *reinterpret_cast<const float4*>(xr + base + t);
+        const float4 b4 = *reinterpret_cast<const float4*>(br + base + t);
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w}, xv[4] = {x4.x, x4.y, x4.z, x4.w};
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ar[t + j] = exp2_fast(dv[j] * a2);
+          h = fmaf(ar[t + j], h, (dv[j] * xv[j]) * bv[j]);
+          hr[t + j] = h;
+        }
+      }
+      float qx[kQ], qdt[kQ], qb[kQ], qc[kQ];
+      float da_k = 0.f, dd_k = 0.f;  // the sub-chunk's terms, then added to the chunk's
+#pragma unroll
+      for (int t = kQ - 4; t >= 0; t -= 4) {
+        const float4 d4 = *reinterpret_cast<const float4*>(dr + base + t);
+        const float4 x4 = *reinterpret_cast<const float4*>(xr + base + t);
+        const float4 b4 = *reinterpret_cast<const float4*>(br + base + t);
+        const float4 g4 = *reinterpret_cast<const float4*>(gr + base + t);
+        const float4 c4 = *reinterpret_cast<const float4*>(cr + base + t);
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w}, xv[4] = {x4.x, x4.y, x4.z, x4.w};
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w}, gv[4] = {g4.x, g4.y, g4.z, g4.w};
+        const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int j = 3; j >= 0; --j) {
+          const int tt = t + j;
+          const float hh = fmaf(gv[j], cv[j], m);
+          const float p = hh * (tt > 0 ? hr[tt - 1] : hk) * ar[tt];
+          qx[tt] = hh * bv[j];
+          qdt[tt] = fmaf(hh * xv[j], bv[j], p * an);
+          qb[tt] = hh * (dv[j] * xv[j]);
+          qc[tt] = gv[j] * hr[tt];
+          da_k = fmaf(p, dv[j], da_k);
+          dd_k = fmaf(gv[j], xv[j], dd_k);
+          m = ar[tt] * hh;
+        }
+      }
+      da += da_k;
+      dd += dd_k;
+      butterfly<kQ, N / 2, 1>(qx, lane);
+      butterfly<kQ, N / 2, 1>(qdt, lane);
+      if (writes_n) {
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          dxq[(first_n + j) * CG + dl] = qx[j];
+          ddtq[(first_n + j) * CG + dl] = qdt[j];
+        }
+      }
+      butterfly<kQ, 16, N>(qb, lane);
+      butterfly<kQ, 16, N>(qc, lane);
+      if (writes_c) {
+#pragma unroll
+        for (int j = 0; j < WC; ++j) {
+          pb[(warp * kQ + first_c + j) * N + n] = qb[j];
+          pc[(warp * kQ + first_c + j) * N + n] = qc[j];
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < kQ * CG; i += NT) {
+        const int t = i / CG, j = i % CG, tok = base + t;
+        if (tok < len && d0 + j < D) {
+          const int o = (b * L + t0 + tok) * D + d0 + j;
+          dx[o] = from_f32<T>(dxq[i] * dts[j * kTP + tok] + gs[j * kTP + tok] * Dp[d0 + j]);
+          ddt[o] = from_f32<T>(ddtq[i]);
+        }
+      }
+      for (int i = tid; i < kQ * N; i += NT) {
+        const int t = i / N, kk = i % N;
+        float sb = 0.f, sc = 0.f;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          sb += pb[(w * kQ + t) * N + kk];
+          sc += pc[(w * kQ + t) * N + kk];
+        }
+        accb[(base + t) * N + kk] += sb;
+        accc[(base + t) * N + kk] += sc;
+      }
+      __syncthreads();
+    }
+    if (active) {
+      dA_part[sidx] = da;
+      if (n == 0) dD_part[(b * C + c) * D + d] = dd;
     }
   }
+  for (int i = tid; i < len * N; i += NT) {
+    const int o = (b * L + t0) * N + i;
+    dB[o] = from_f32<T>(accb[i]);
+    dC[o] = from_f32<T>(accc[i]);
+  }
+}
 
-  // Phase 1: the chunks in reverse.
-  const int last = (chunks - 1) * Q;
-  rx.load(x, b, L, D, last, d0);
-  rdt.load(dt, b, L, D, last, d0);
-  rg.load(g, b, L, D, last, d0);
-  rb.load(Bm, b, L, N, last, 0);
-  rc.load(Cm, b, L, N, last, 0);
-  float h_next = active ? ckpt[((b * chunks + chunks - 1) * D + d) * N + n] : 0.f;
-  float m = 0.f;  // a_{t+1} * hh_{t+1}, carried back
-  float da = 0.f, da_comp = 0.f, dd = 0.f, dd_comp = 0.f;
-  for (int c = chunks - 1; c >= 0; --c) {
-    const int t0 = c * Q, len = min(Q, L - t0);
-    __syncthreads();  // the previous chunk's shared memory is read
-    rx.store(xs);
-    rdt.store(dts);
-    rg.store(gs);
-    rb.store(bs);
-    rc.store(cs);
-    __syncthreads();
-    const float h_in = h_next;  // this chunk's entry state
-    if (c > 0) {
-      rx.load(x, b, L, D, t0 - Q, d0);
-      rdt.load(dt, b, L, D, t0 - Q, d0);
-      rg.load(g, b, L, D, t0 - Q, d0);
-      rb.load(Bm, b, L, N, t0 - Q, 0);
-      rc.load(Cm, b, L, N, t0 - Q, 0);
-      h_next = active ? ckpt[((b * chunks + c - 1) * D + d) * N + n] : 0.f;
-    }
-    float hr[Q];  // the chunk's states
-    h = h_in;
-#pragma unroll
-    for (int t = 0; t < Q; ++t) {
-      const float dtv = dts[t * DT + dl];
-      h = fmaf(expf(dtv * a_dn), h, dtv * xs[t * DT + dl] * bs[t * N + n]);
-      hr[t] = h;
-    }
-    // Past the last token g = C = dt = 0: hh stays m and m stays as it is.
-    float qx[Q], qdt[Q], qb[Q];  // this lane's terms of dx, ddt, dB
-#pragma unroll
-    for (int t = Q - 1; t >= 0; --t) {
-      const float dtv = dts[t * DT + dl], xv = xs[t * DT + dl];
-      const float gv = gs[t * DT + dl], bv = bs[t * N + n];
-      const float a = expf(dtv * a_dn);
-      const float hh = fmaf(gv, cs[t * N + n], m);
-      const float p = hh * (t > 0 ? hr[t - 1] : h_in) * a;
-      qx[t] = hh * bv;
-      qdt[t] = hh * xv * bv + p * a_dn;
-      qb[t] = hh * (dtv * xv);
-      kahan_add(da, da_comp, p * dtv);
-      kahan_add(dd, dd_comp, gv * xv);
-      m = a * hh;
-    }
-#pragma unroll
-    for (int t = 0; t < Q; ++t) {
-      const float sx = sum_over_n<N>(qx[t]);
-      const float sdt = sum_over_n<N>(qdt[t]);
-      const float sb = sum_over_warp_channels<N>(qb[t]);
-      const float sc = sum_over_warp_channels<N>(gs[t * DT + dl] * hr[t]);
-      if (n == 0) {
-        dxs[t * DT + dl] = sx;
-        ddts[t * DT + dl] = sdt;
-      }
-      if (lane < N) {
-        dbw[(t * kWarps + warp) * N + n] = sb;
-        dcw[(t * kWarps + warp) * N + n] = sc;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < len * DT; i += kThreads) {
-      const int t = i / DT, col = d0 + i % DT;
-      if (col < D) {
-        const int o = (b * L + t0 + t) * D + col;
-        dx[o] = from_f32<T>(dxs[i] * dts[i] + gs[i] * Dp[col]);
-        ddt[o] = from_f32<T>(ddts[i]);
-      }
-    }
-    for (int i = threadIdx.x; i < len * N; i += kThreads) {
-      const int t = i / N, k = i % N;
-      float sb = 0.f, sc = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        sb += dbw[(t * kWarps + w) * N + k];
-        sc += dcw[(t * kWarps + w) * N + k];
-      }
-      const int o = ((b * tiles + tile) * L + t0 + t) * N + k;
-      dB_part[o] = sb;
-      dC_part[o] = sc;
-    }
-  }
-  if (active) {
-    dA_part[(b * D + d) * N + n] = da;
-    if (n == 0) dD_part[b * D + d] = dd;
-  }
+int chunks(int L, int T) { return (L + T - 1) / T; }
+
+constexpr int kMinForwardChunk = 16;
+
+// The forward's chunk: kT tokens, halved down to kMinForwardChunk while the
+// flat passes would have fewer than 64 K threads (a short L gets more,
+// shorter chunks). The backward's is always kT (its pass C stages kT tokens).
+int forward_chunk(int B, int L, int D, int N) {
+  const long long parts = N / (N < kNSMax ? N : kNSMax);
+  int T = kTf;
+  while (T > kMinForwardChunk && (long long)B * chunks(L, T) * D * parts < 65536) T /= 2;
+  return T;
 }
 
 bool valid(int B, int L, int D, int N) {
   if (B < 1 || B > 65535 || L < 1 || D < 1 || N < 1 || N > 32 || (N & (N - 1)) != 0)
     return false;
   const long long limit = 1LL << 31;  // every index fits in int
-  const long long chunks = (L + kChunkB - 1) / kChunkB;
-  const long long tiles = (D + kThreads / N - 1) / (kThreads / N);
-  return (long long)B * L * D < limit && (long long)B * chunks * D * N < limit &&
-         (long long)B * tiles * L * N < limit;
+  return (long long)B * L * D < limit &&
+         (long long)B * chunks(L, kMinForwardChunk) * D * N < limit &&
+         (long long)B * L * N < limit;
 }
 
-// Dynamic shared memory above 48 KB must be asked for (N = 1).
+// A kernel's shared memory: the dynamic size above 48 KB must be asked for,
+// and the SM's split between L1 and shared memory is set to the most shared
+// memory, so that as many blocks fit as the registers allow.
 template <typename K>
-int launch_with_smem(K kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem);
-  return 0;
+int smem_attributes(K kernel, size_t smem) {
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
+  }
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// Launches walk_kernel<T, N, kMode> over (chunks, B, channel tiles).
+template <typename T, int N, int kMode>
+int launch_walk(const T* x, const T* dt, const float* A, const T* Bm, const T* Cm,
+                const float* Dp, const T* g, const float* hin, float* E, float* M0, float* S,
+                T* y, int B, int L, int D, int C, int Tc, cudaStream_t stream) {
+  const int DW = D < Walk<N>::kDW ? D : Walk<N>::kDW;
+  const int threads = (DW * Walk<N>::kParts + 31) / 32 * 32;
+  const size_t smem = sizeof(float) * walk_smem_floats(kMode, Tc, DW, N);
+  const int err = smem_attributes(walk_kernel<T, N, kMode>, smem);
+  if (err != 0) return err;
+  const dim3 grid(C, B, (D + DW - 1) / DW);
+  walk_kernel<T, N, kMode><<<grid, threads, smem, stream>>>(x, dt, A, Bm, Cm, Dp, g, hin, E,
+                                                            M0, S, y, L, D, C, Tc, DW);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int N>
 int forward_n(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-              const void* Dp, void* y, int B, int L, int D, cudaStream_t stream) {
-  constexpr int DT = kThreads / N;
-  const dim3 grid((D + DT - 1) / DT, B);
-  const size_t smem = sizeof(float) * kChunk * (3 * DT + 2 * N);
-  int err = launch_with_smem(scan_forward_kernel<T, N>, smem);
-  if (err != 0) return err;
-  scan_forward_kernel<T, N><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const float*>(A),
-      static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<const float*>(Dp),
-      static_cast<T*>(y), L, D);
-  return (int)cudaGetLastError();
+              const void* Dp, void* y, void* E, void* S, int B, int L, int D,
+              cudaStream_t stream) {
+  const int Tc = forward_chunk(B, L, D, N), C = chunks(L, Tc);
+  const T* xt = static_cast<const T*>(x);
+  const T* dtt = static_cast<const T*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const T* Bt = static_cast<const T*>(Bm);
+  const T* Ct = static_cast<const T*>(Cm);
+  const float* Df = static_cast<const float*>(Dp);
+  float* Ef = static_cast<float*>(E);
+  float* Sf = static_cast<float*>(S);
+  if (C > 1) {
+    int err = launch_walk<T, N, kSummary>(xt, dtt, Af, Bt, Ct, Df, nullptr, nullptr, Ef,
+                                          nullptr, Sf, nullptr, B, L, D, C, Tc, stream);
+    if (err != 0) return err;
+    carry_kernel<<<dim3((D * N + 31) / 32, B), 32 * kCarryWarps, 0, stream>>>(Af, Ef, nullptr,
+                                                                             Sf, D, N, C);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  return launch_walk<T, N, kOutput>(xt, dtt, Af, Bt, Ct, Df, nullptr, C > 1 ? Ef : nullptr,
+                                    nullptr, nullptr, nullptr, static_cast<T*>(y), B, L, D, C,
+                                    Tc, stream);
 }
 
 template <typename T, int N>
 int backward_n(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-               const void* Dp, const void* g, void* dx, void* ddt, void* dA_part,
-               void* dB_part, void* dC_part, void* dD_part, void* ckpt, int B, int L, int D,
+               const void* Dp, const void* g, void* dx, void* ddt, void* dB, void* dC,
+               void* dA_part, void* dD_part, void* E, void* M0, void* S, int B, int L, int D,
                cudaStream_t stream) {
-  constexpr int DT = kThreads / N;
-  const dim3 grid((D + DT - 1) / DT, B);
-  const size_t smem = sizeof(float) * kChunkB * (5 * DT + 2 * N + 2 * kWarps * N);
-  int err = launch_with_smem(scan_backward_kernel<T, N>, smem);
+  const int C = chunks(L, kT);
+  const T* xt = static_cast<const T*>(x);
+  const T* dtt = static_cast<const T*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const T* Bt = static_cast<const T*>(Bm);
+  const T* Ct = static_cast<const T*>(Cm);
+  const T* gt = static_cast<const T*>(g);
+  float* Ef = static_cast<float*>(E);
+  float* Mf = static_cast<float*>(M0);
+  if (C > 1) {
+    int err = launch_walk<T, N, kSummaryGrad>(xt, dtt, Af, Bt, Ct, nullptr, gt, nullptr, Ef,
+                                              Mf, static_cast<float*>(S), nullptr, B, L, D, C,
+                                              kT, stream);
+    if (err != 0) return err;
+    carry_kernel<<<dim3((D * N + 31) / 32, B), 32 * kCarryWarps, 0, stream>>>(
+        Af, Ef, Mf, static_cast<const float*>(S), D, N, C);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  const size_t smem = sizeof(float) * Bwd<N>::kSmem;
+  const int err = smem_attributes(backward_kernel<T, N>, smem);
   if (err != 0) return err;
-  scan_backward_kernel<T, N><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const float*>(A),
-      static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<const float*>(Dp),
-      static_cast<const T*>(g), static_cast<T*>(dx), static_cast<T*>(ddt),
-      static_cast<float*>(dA_part), static_cast<float*>(dB_part), static_cast<float*>(dC_part),
-      static_cast<float*>(dD_part), static_cast<float*>(ckpt), L, D);
+  backward_kernel<T, N><<<dim3(C, B), Bwd<N>::kThreads, smem, stream>>>(
+      xt, dtt, Af, Bt, Ct, static_cast<const float*>(Dp), gt, C > 1 ? Ef : nullptr,
+      C > 1 ? Mf : nullptr, static_cast<T*>(dx), static_cast<T*>(ddt), static_cast<T*>(dB),
+      static_cast<T*>(dC), static_cast<float*>(dA_part), static_cast<float*>(dD_part), L, D, C);
   return (int)cudaGetLastError();
 }
 
-// One instantiation per state size: N sets the lanes of a channel, the
-// channels of a block and every loop bound of the kernels.
+// One instantiation per state size: N sets the registers of a channel's
+// states, the lanes of a channel and every loop bound of the kernels.
 #define KMUNET_SCAN_BY_N(fn, T, ...)                 \
   switch (N) {                                       \
     case 1: return fn<T, 1>(__VA_ARGS__);            \
@@ -413,60 +740,74 @@ int backward_n(const void* x, const void* dt, const void* A, const void* Bm, con
 
 template <typename T>
 int forward(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-            const void* Dp, void* y, int B, int L, int D, int N, cudaStream_t stream) {
-  KMUNET_SCAN_BY_N(forward_n, T, x, dt, A, Bm, Cm, Dp, y, B, L, D, stream)
+            const void* Dp, void* y, void* E, void* S, int B, int L, int D, int N,
+            cudaStream_t stream) {
+  KMUNET_SCAN_BY_N(forward_n, T, x, dt, A, Bm, Cm, Dp, y, E, S, B, L, D, stream)
 }
 
 template <typename T>
 int backward(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-             const void* Dp, const void* g, void* dx, void* ddt, void* dA_part, void* dB_part,
-             void* dC_part, void* dD_part, void* ckpt, int B, int L, int D, int N,
-             cudaStream_t stream) {
-  KMUNET_SCAN_BY_N(backward_n, T, x, dt, A, Bm, Cm, Dp, g, dx, ddt, dA_part, dB_part, dC_part,
-                   dD_part, ckpt, B, L, D, stream)
+             const void* Dp, const void* g, void* dx, void* ddt, void* dB, void* dC,
+             void* dA_part, void* dD_part, void* E, void* M0, void* S, int B, int L, int D,
+             int N, cudaStream_t stream) {
+  KMUNET_SCAN_BY_N(backward_n, T, x, dt, A, Bm, Cm, Dp, g, dx, ddt, dB, dC, dA_part, dD_part,
+                   E, M0, S, B, L, D, stream)
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16, 2 = fp16, of x, dt, B, C, y (and g, dx, ddt);
-// A and D fp32. N a power of two up to 32. Returns cudaGetLastError() after
-// the launch, or -1 for an argument the kernel does not take.
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16, of x, dt, B, C, y (and g, dx, ddt, dB,
+// dC); A and D fp32. N a power of two up to 32. The scratch is per (b, chunk)
+// with chunks = ceil(L / kmunet_selective_scan_chunk()), all fp32: E (B,
+// chunks, D, N), S (B, chunks, D), and for the backward M0 like E; unused
+// when L fits one chunk. Returns cudaGetLastError() after the launches, or -1
+// for an argument the kernels do not take.
+
+// Tokens per chunk of the backward (kT).
+extern "C" int kmunet_selective_scan_chunk() { return kT; }
+
+// Chunks of the forward (backward = 0) or the backward (1) at this shape:
+// the scratch's second dimension.
+extern "C" int kmunet_selective_scan_chunks(int B, int L, int D, int N, int backward) {
+  if (!valid(B, L, D, N)) return -1;
+  return backward ? chunks(L, kT) : chunks(L, forward_chunk(B, L, D, N));
+}
 
 // K8: y (B, L, D).
 extern "C" int kmunet_selective_scan(const void* x, const void* dt, const void* A,
                                      const void* Bm, const void* Cm, const void* Dp, void* y,
-                                     int B, int L, int D, int N, int dtype, void* stream) {
+                                     void* E, void* S, int B, int L, int D, int N, int dtype,
+                                     void* stream) {
   if (!valid(B, L, D, N)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return forward<float>(x, dt, A, Bm, Cm, Dp, y, B, L, D, N, s);
-    case 1: return forward<__nv_bfloat16>(x, dt, A, Bm, Cm, Dp, y, B, L, D, N, s);
-    case 2: return forward<__half>(x, dt, A, Bm, Cm, Dp, y, B, L, D, N, s);
+    case 0: return forward<float>(x, dt, A, Bm, Cm, Dp, y, E, S, B, L, D, N, s);
+    case 1: return forward<__nv_bfloat16>(x, dt, A, Bm, Cm, Dp, y, E, S, B, L, D, N, s);
+    case 2: return forward<__half>(x, dt, A, Bm, Cm, Dp, y, E, S, B, L, D, N, s);
     default: return -1;
   }
 }
 
-// K8's backward for the upstream gradient g (B, L, D): dx, ddt (B, L, D) in
-// the dtype; fp32 partial sums dA_part (B, D, N), dB_part and dC_part
-// (B, tiles, L, N) with tiles = ceil(D / (128 / N)), dD_part (B, D); ckpt an
-// fp32 scratch (B, ceil(L / 16), D, N).
+// K8's backward for the upstream gradient g (B, L, D): dx, ddt (B, L, D) and
+// dB, dC (B, L, N) in the dtype; fp32 partial sums per (b, chunk): dA_part
+// (B, chunks, D, N) and dD_part (B, chunks, D).
 extern "C" int kmunet_selective_scan_backward(
     const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-    const void* Dp, const void* g, void* dx, void* ddt, void* dA_part, void* dB_part,
-    void* dC_part, void* dD_part, void* ckpt, int B, int L, int D, int N, int dtype,
+    const void* Dp, const void* g, void* dx, void* ddt, void* dB, void* dC, void* dA_part,
+    void* dD_part, void* E, void* M0, void* S, int B, int L, int D, int N, int dtype,
     void* stream) {
   if (!valid(B, L, D, N)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return backward<float>(x, dt, A, Bm, Cm, Dp, g, dx, ddt, dA_part, dB_part, dC_part,
-                             dD_part, ckpt, B, L, D, N, s);
+      return backward<float>(x, dt, A, Bm, Cm, Dp, g, dx, ddt, dB, dC, dA_part, dD_part, E,
+                             M0, S, B, L, D, N, s);
     case 1:
-      return backward<__nv_bfloat16>(x, dt, A, Bm, Cm, Dp, g, dx, ddt, dA_part, dB_part,
-                                     dC_part, dD_part, ckpt, B, L, D, N, s);
+      return backward<__nv_bfloat16>(x, dt, A, Bm, Cm, Dp, g, dx, ddt, dB, dC, dA_part,
+                                     dD_part, E, M0, S, B, L, D, N, s);
     case 2:
-      return backward<__half>(x, dt, A, Bm, Cm, Dp, g, dx, ddt, dA_part, dB_part, dC_part,
-                              dD_part, ckpt, B, L, D, N, s);
+      return backward<__half>(x, dt, A, Bm, Cm, Dp, g, dx, ddt, dB, dC, dA_part, dD_part, E,
+                              M0, S, B, L, D, N, s);
     default: return -1;
   }
 }

@@ -9,7 +9,10 @@ its custom VJP's backward ``_backward`` (the ``pl.pallas_call`` of
 ``_bwd_kernel``), which compute what ``kmunet_tpu/ops/scan.py::
 _selective_scan_xla`` computes. Both CUDA kernels are in
 ``csrc/selective_scan.cu``; its source note says what bounds them and how
-they are laid out.
+they are laid out: L cut into chunks that run in parallel, with a carry
+pass between them (three device launches per call of either, one where L
+fits one chunk; the backward's launcher adds two sums), and fp32 scratch per
+(b, chunk) that the launchers allocate.
 
 ``selective_scan`` is what callers use: an autograd function
 (``SelectiveScan``) whose forward is K8 and whose backward is K8's backward
@@ -40,8 +43,6 @@ from kmunet_tpu_torch.kernels import build
 
 SOURCE = "selective_scan.cu"
 PLAIN_CHUNK = 64  # tokens per chunk of the plain versions
-BACKWARD_CHUNK = 16  # tokens per checkpoint of the backward kernel (csrc's kChunkB)
-THREADS = 128  # threads per block of the kernels: D_TILE = THREADS / N channels each
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _STATE_SIZES = (1, 2, 4, 8, 16, 32)  # N: the lanes of one channel sit in one warp
 
@@ -164,12 +165,32 @@ def _kernel(name: str, n_pointers: int, n_ints: int) -> ctypes._CFuncPtr:
 
 def forward_kernel() -> ctypes._CFuncPtr:
     """K8's entry point, built on first use."""
-    return _kernel("kmunet_selective_scan", 7, 5)
+    return _kernel("kmunet_selective_scan", 9, 5)
 
 
 def backward_kernel() -> ctypes._CFuncPtr:
     """K8's backward entry point, built on first use (from the same source)."""
-    return _kernel("kmunet_selective_scan_backward", 14, 5)
+    return _kernel("kmunet_selective_scan_backward", 16, 5)
+
+
+@functools.cache
+def _library_fn(name: str, n_ints: int) -> ctypes._CFuncPtr:
+    fn = getattr(ctypes.CDLL(str(build.build(SOURCE).path)), name)
+    fn.argtypes, fn.restype = [ctypes.c_int] * n_ints, ctypes.c_int
+    return fn
+
+
+@functools.cache
+def chunk_tokens() -> int:
+    """Tokens per chunk of the backward kernel (csrc's kT), from the built
+    library; the forward's are at most half as many (csrc's kTf)."""
+    return _library_fn("kmunet_selective_scan_chunk", 0)()
+
+
+@functools.cache
+def _chunks(Bsz: int, L: int, D: int, N: int, backward: bool) -> int:
+    """The kernels' chunks at this shape: the scratch's second dimension."""
+    return _library_fn("kmunet_selective_scan_chunks", 5)(Bsz, L, D, N, int(backward))
 
 
 def _check(x, dt, A, Bm, Cm, Dp) -> None:
@@ -191,17 +212,29 @@ def _check(x, dt, A, Bm, Cm, Dp) -> None:
         raise ValueError(f"the kernel takes a state size N in {_STATE_SIZES}, got {N}")
     if min(Bsz, L, D) < 1:
         raise ValueError(f"the kernel takes B, L, D >= 1, got {tuple(x.shape)}")
-    # The kernels index in int32.
-    if max(Bsz * L * D, Bsz * _chunks(L) * D * N, Bsz * _tiles(D, N) * L * N) >= 2**31:
+    if Bsz > 65535:
+        raise ValueError(f"the kernel takes a batch of at most 65535, got {Bsz}")
+    # The kernels index in int32 (the forward's chunks are at least 16 tokens).
+    if max(Bsz * L * D, Bsz * -(-L // 16) * D * N, Bsz * L * N) >= 2**31:
         raise ValueError("the kernel takes tensors of fewer than 2**31 elements")
 
 
-def _chunks(L: int) -> int:
-    return -(-L // BACKWARD_CHUNK)
+def _scratch(x, N: int, backward: bool):
+    """The kernels' fp32 scratch per (b, chunk): E (B, chunks, D, N), S (B,
+    chunks, D) and, for the backward, M0 like E (csrc's source note); None
+    where L fits one chunk, which needs none."""
+    Bsz, L, D = x.shape
+    chunks = _chunks(Bsz, L, D, N, backward)
+    if chunks == 1:
+        return (None, None, None) if backward else (None, None)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    E = torch.empty((Bsz, chunks, D, N), **f32)
+    S = torch.empty((Bsz, chunks, D), **f32)
+    return (E, torch.empty_like(E), S) if backward else (E, S)
 
 
-def _tiles(D: int, N: int) -> int:
-    return -(-D // (THREADS // N))
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(fn, x, *args) -> None:
@@ -223,8 +256,9 @@ def selective_scan_forward(x, dt, A, Bm, Cm, Dp) -> torch.Tensor:
     _check(x, dt, A, Bm, Cm, Dp)
     Bsz, L, D = x.shape
     y = torch.empty_like(x)
+    E, S = _scratch(x, A.shape[1], backward=False)
     _launch(forward_kernel(), x, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), Dp.data_ptr(), y.data_ptr(), Bsz, L, D, A.shape[1],
+            Cm.data_ptr(), Dp.data_ptr(), y.data_ptr(), _ptr(E), _ptr(S), Bsz, L, D, A.shape[1],
             _DTYPE_CODES[x.dtype])
     selective_scan.launches += 1
     return y
@@ -233,11 +267,10 @@ def selective_scan_forward(x, dt, A, Bm, Cm, Dp) -> torch.Tensor:
 def selective_scan_backward(x, dt, A, Bm, Cm, Dp, g):
     """(dx, ddt, dA, dB, dC, dD) of the scan for the upstream gradient ``g``
     (B, L, D), each in its input's dtype. A CPU ``x`` takes the plain
-    version; a CUDA ``x`` launches K8's backward, which writes dx and ddt,
-    and fp32 partial sums of dB and dC per (batch, channel tile) and of dA
-    and dD per batch, summed here in a fixed order: no atomics, so the
-    gradients are the same from run to run. Its launches count on
-    ``selective_scan_backward.launches``."""
+    version; a CUDA ``x`` launches K8's backward, which writes dx, ddt, dB
+    and dC, and fp32 partial sums of dA and dD per (batch, chunk), summed
+    here in a fixed order: no atomics, so the gradients are the same from
+    run to run. Its launches count on ``selective_scan_backward.launches``."""
     if x.device.type == "cpu":
         return selective_scan_backward_plain(x, dt, A, Bm, Cm, Dp, g)
     a_dtype, d_dtype = A.dtype, Dp.dtype
@@ -250,20 +283,19 @@ def selective_scan_backward(x, dt, A, Bm, Cm, Dp, g):
         raise ValueError("g must be contiguous")
     Bsz, L, D = x.shape
     N = A.shape[1]
-    f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
-    dA_part = torch.empty((Bsz, D, N), **f32)
-    dB_part = torch.empty((Bsz, _tiles(D, N), L, N), **f32)
-    dC_part = torch.empty_like(dB_part)
-    dD_part = torch.empty((Bsz, D), **f32)
-    ckpt = torch.empty((Bsz, _chunks(L), D, N), **f32)  # each chunk's entry state
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    E, M0, S = _scratch(x, N, backward=True)
+    chunks = _chunks(Bsz, L, D, N, backward=True)
+    dA_part = torch.empty((Bsz, chunks, D, N), dtype=torch.float32, device=x.device)
+    dD_part = torch.empty((Bsz, chunks, D), dtype=torch.float32, device=x.device)
     _launch(backward_kernel(), x, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), Dp.data_ptr(), g.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(), dD_part.data_ptr(),
-            ckpt.data_ptr(), Bsz, L, D, N, _DTYPE_CODES[x.dtype])
+            dB.data_ptr(), dC.data_ptr(), dA_part.data_ptr(), dD_part.data_ptr(), _ptr(E),
+            _ptr(M0), _ptr(S), Bsz, L, D, N, _DTYPE_CODES[x.dtype])
     selective_scan_backward.launches += 1
-    return (dx, ddt, dA_part.sum(0).to(a_dtype), dB_part.sum(1).to(Bm.dtype),
-            dC_part.sum(1).to(Cm.dtype), dD_part.sum(0).to(d_dtype))
+    return (dx, ddt, dA_part.sum((0, 1)).to(a_dtype), dB, dC,
+            dD_part.sum((0, 1)).to(d_dtype))
 
 
 class SelectiveScan(torch.autograd.Function):

@@ -501,17 +501,26 @@ def test_cuda_trajgru_train_step_matches_cpu(cuda_device, monkeypatch):
     chip_smoke.compare_steps(runs["cuda"], runs["cpu"])
 
 
-# (B, L, D, N) of K8 on the card besides chip_smoke.py's: N of 1, 2 and 32
-# (the blocks that ask for more than 48 KB of shared memory) and ragged D.
+K8_CHUNK = 64  # tokens per chunk of K8's kernels (csrc's kT)
+# (B, L, D, N) of K8 on the card besides chip_smoke.py's, each with its dt
+# cases: N of 1, 2 and 32, ragged D, L at the chunks' edges (one token short
+# of a chunk, one chunk, one past it, three and one past them), and refine1
+# at B=2 with dt "small": decays near 1, so the carries hold the whole
+# sequence's memory over 256 chunks.
 SCAN_GPU_SHAPES = {
-    "encoder4": (2, 256, 48, 16),
-    "ragged_l": (2, 1000, 24, 16),
-    "d6_n4": (2, 100, 6, 4),
-    "d24_n8": (2, 77, 24, 8),
-    "l1": (1, 1, 16, 16),
-    "d5_n32": (2, 50, 5, 32),
-    "d130_n1": (2, 40, 130, 1),
-    "d70_n2": (2, 40, 70, 2),
+    "encoder4": ((2, 256, 48, 16), chip_smoke.SCAN_DT_CASES),
+    "ragged_l": ((2, 1000, 24, 16), chip_smoke.SCAN_DT_CASES),
+    "d6_n4": ((2, 100, 6, 4), chip_smoke.SCAN_DT_CASES),
+    "d24_n8": ((2, 77, 24, 8), chip_smoke.SCAN_DT_CASES),
+    "l1": ((1, 1, 16, 16), chip_smoke.SCAN_DT_CASES),
+    "d5_n32": ((2, 50, 5, 32), chip_smoke.SCAN_DT_CASES),
+    "d130_n1": ((2, 40, 130, 1), chip_smoke.SCAN_DT_CASES),
+    "d70_n2": ((2, 40, 70, 2), chip_smoke.SCAN_DT_CASES),
+    "l_t_minus_1": ((2, K8_CHUNK - 1, 24, 16), chip_smoke.SCAN_DT_CASES),
+    "l_t": ((2, K8_CHUNK, 24, 16), chip_smoke.SCAN_DT_CASES),
+    "l_t_plus_1": ((2, K8_CHUNK + 1, 24, 16), chip_smoke.SCAN_DT_CASES),
+    "l_3t_plus_1": ((2, 3 * K8_CHUNK + 1, 40, 8), chip_smoke.SCAN_DT_CASES),
+    "refine1_small": ((2, 16384, 16, 16), ("small",)),
 }
 
 
@@ -520,14 +529,15 @@ def _scan_args(shape, dt_case, device, seed=0):
     return [torch.from_numpy(a).to(device) for a in args], torch.from_numpy(g).to(device)
 
 
-@pytest.mark.parametrize("dt_case", chip_smoke.SCAN_DT_CASES)
-@pytest.mark.parametrize("shape", list(SCAN_GPU_SHAPES))
+@pytest.mark.parametrize("shape,dt_case", [(shape, case) for shape, (_, cases)
+                                           in SCAN_GPU_SHAPES.items() for case in cases])
 def test_cuda_scan_kernels_match_plain(cuda_device, shape, dt_case):
     """K8 and its backward in fp32, bf16 and fp16 against the plain versions
     within ``chip_smoke.check_scan``'s tolerances (4 times the plain
     version's distance from float64, plus one ulp of the dtype); one launch
     of each per call."""
-    args, g = _scan_args(SCAN_GPU_SHAPES[shape], dt_case, cuda_device)
+    assert scan.chunk_tokens() == K8_CHUNK
+    args, g = _scan_args(SCAN_GPU_SHAPES[shape][0], dt_case, cuda_device)
     ref, tols = chip_smoke.scan_reference(torch, args, g)
     before = (scan.selective_scan.launches, scan.selective_scan_backward.launches)
     errors_f, errors_b = {}, {}
@@ -544,6 +554,15 @@ def test_cuda_scan_backward_is_deterministic(cuda_device):
     first = scan.selective_scan_backward(*args, g)
     second = scan.selective_scan_backward(*args, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_scan_forward_is_deterministic(cuda_device, dtype):
+    """No atomics: two forward calls give the same bits, over five chunks and
+    their carries."""
+    args, _ = _scan_args((2, 300, 40, 16), "mamba", cuda_device, seed=1)
+    args = [a.to(dtype) if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
+    assert torch.equal(scan.selective_scan_forward(*args), scan.selective_scan_forward(*args))
 
 
 def test_cuda_scan_gradient_matches_cpu(cuda_device):
