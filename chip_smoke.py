@@ -55,7 +55,9 @@ Phases, each printing one JSON line with its seconds:
               largest distance from float64 on the same inputs plus 1e-6 of
               the largest |value| (``scan_reference``), bf16 and fp16
               against the plain versions on the same rounded inputs within
-              that plus one ulp of the dtype (``check_scan``). Then, with
+              that plus one ulp of the dtype (``check_scan``); beside each,
+              the kernels' and the plain version's largest distance from
+              the float64 result on the same rounded inputs. Then, with
               TF32 off, K1 at KM_UNetV3-SH's four KAN shapes at B=2,
               KM_UNetV3-LAPS's four at B=1 (256^2 at enc1) and a ragged one
               (``KAN_SHAPES``), x in [-1.2, 1.2], in [-3, 3] and at the
@@ -200,8 +202,9 @@ Phases, each printing one JSON line with its seconds:
               operations, 8*B*L*D*N + 2*B*L*D as scan_pallas.py counts them,
               over the fp32 rate) and their plain versions; no one PyTorch
               call computes the scan, so their library time is null; and
-              both at refine1's (B=16, L=16384, D=16) and encoder4's (B=16,
-              L=256, D=48) shapes beside their bounds, on the timing line
+              both at refine1's (B=16, L=16384, D=16), encoder4's (B=16,
+              L=256, D=48) and decoder1's (B=16, L=16, D=128) shapes beside
+              their bounds, on the timing line
               (``scan_timing``: ms, queued ms, device ms, device launches
               per call and device ms by kernel, no plain version). For
               KM_UNetV3-SH through K1 and K3: the forward at B=128 bf16
@@ -337,9 +340,10 @@ SCAN_SHAPES = {
 # (memory over the whole sequence); "large" U(4, 16), a decay near 0.
 SCAN_DT_CASES = ("mamba", "small", "large")
 REFINE3 = (16, 16384, 48, 16)  # K8's timing shape: refine3 at B=16 (B, L, D, N)
-# K8's other timing shapes at B=16: refine1 (the fewest channels) and
-# encoder4 (a short scan, L=256).
-SCAN_TIMING_SHAPES = {"refine1": (16, 16384, 16, 16), "encoder4": (16, 256, 48, 16)}
+# K8's other timing shapes at B=16: refine1 (the fewest channels), encoder4
+# (a short scan, L=256) and decoder1 (L=16, one chunk, the widest D).
+SCAN_TIMING_SHAPES = {"refine1": (16, 16384, 16, 16), "encoder4": (16, 256, 48, 16),
+                      "decoder1": (16, 16, 128, 16)}
 MAMBA_SCANS = 20  # 10 DMFM layers, one MambaBlock each on two token views
 MAMBA_BATCH = 16  # bench.py's zoo batch, timed in bf16
 
@@ -784,38 +788,42 @@ def scan_inputs(np, rng, shape, dt_case):
 SCAN_OUTPUTS = ("y", "dx", "ddt", "dA", "dB", "dC", "dD")
 
 
-def scan_reference(torch, args, g):
-    """The plain versions' outputs (y and the six gradients) on fp32 ``args``
-    and ``g``, and the tolerance of each: 4 times the plain version's largest
-    distance from its own float64 result on the same inputs, plus 1e-6 of the
-    largest |float64 value| (the floor where the plain version lands on it)."""
+def scan_plain_outputs(a, g):
+    """y and the six gradients of the plain versions on ``a`` and ``g``."""
     from kmunet_tpu_torch.kernels import scan
 
-    def run(a, gg):
-        return (scan.selective_scan_plain(*a), *scan.selective_scan_backward_plain(*a, gg))
+    return (scan.selective_scan_plain(*a), *scan.selective_scan_backward_plain(*a, g))
 
-    ref = run(args, g)
-    exact = run([a.double() for a in args], g.double())
+
+def scan_reference(torch, args, g):
+    """The plain versions' outputs (y and the six gradients) on fp32 ``args``
+    and ``g``, the tolerance of each, and their float64 results: the
+    tolerance is 4 times the plain version's largest distance from its own
+    float64 result on the same inputs, plus 1e-6 of the largest |float64
+    value| (the floor where the plain version lands on it)."""
+    ref = scan_plain_outputs(args, g)
+    exact = scan_plain_outputs([a.double() for a in args], g.double())
     tols = [4.0 * float((r.double() - e).abs().max()) + 1e-6 * float(e.abs().max())
             for r, e in zip(ref, exact)]
-    return ref, tols
+    return ref, tols, exact
 
 
-def check_scan(torch, key, args, g, ref, tols, dtype, errors_f, errors_b):
+def check_scan(torch, key, args, g, ref, tols, dtype, errors_f, errors_b, distances=None,
+               exact=None):
     """Holds K8 and its backward in ``dtype`` (x, dt, B, C and g in it; A and
     D fp32) to the plain versions: in fp32 to ``ref`` within ``tols``
     (``scan_reference``); in bf16 and fp16 to the plain versions on the same
     rounded inputs within the same tolerances plus one ulp of the dtype for
-    the outputs in it. Records the worst errors under ``key``/dtype."""
+    the outputs in it. Records the worst errors under ``key``/dtype and,
+    given ``distances``, per output the kernels' and the plain version's
+    largest distance from the float64 result on the same (rounded) inputs:
+    ``exact`` for fp32 (``scan_reference``'s), computed here for the others."""
     from kmunet_tpu_torch.kernels import scan
 
     a = [t.to(dtype) if i in (0, 1, 3, 4) else t for i, t in enumerate(args)]
     gd = g.to(dtype)
     got = (scan.selective_scan_forward(*a), *scan.selective_scan_backward(*a, gd))
-    if dtype == torch.float32:
-        want = ref
-    else:
-        want = (scan.selective_scan_plain(*a), *scan.selective_scan_backward_plain(*a, gd))
+    want = ref if dtype == torch.float32 else scan_plain_outputs(a, gd)
     k = f"{key}/{str(dtype)[6:]}"
     errs = []
     for name, out, w, tol in zip(SCAN_OUTPUTS, got, want, tols):
@@ -828,6 +836,12 @@ def check_scan(torch, key, args, g, ref, tols, dtype, errors_f, errors_b):
         errs.append(check_close(f"K8 {k} {name}", out, w, bound))
     errors_f[k] = errs[0]
     errors_b[k] = max(errs[1:])
+    if distances is not None:
+        if dtype != torch.float32:
+            exact = scan_plain_outputs([t.double() for t in a], gd.double())
+        distances[k] = {name: [float((o.double() - e).abs().max()),
+                               float((w.double() - e).abs().max())]
+                        for name, o, w, e in zip(SCAN_OUTPUTS, got, want, exact)}
 
 
 def check_kanconv(torch, key, xp32, base32, spline32, errors):
@@ -1206,7 +1220,7 @@ def main() -> int:
             errors_b[k] = max(errs)
 
     errors, k6_errors, k4_errors, k6g_errors, k7_errors, k6s_errors = {}, {}, {}, {}, {}, {}
-    k8_errors, k8b_errors, k8_tolerances = {}, {}, {}
+    k8_errors, k8b_errors, k8_tolerances, k8_float64 = {}, {}, {}, {}
     k1_errors, k2_errors, k3_errors, k3a_errors = {}, {}, {}, {}
     with Phase("kernel") as f:
         rng = np.random.default_rng(0)
@@ -1263,12 +1277,13 @@ def main() -> int:
                 args, g = scan_inputs(np, rng, shape, dt_case)
                 args = [torch.from_numpy(a).to(dev) for a in args]
                 g = torch.from_numpy(g).to(dev)
-                ref, tols = scan_reference(torch, args, g)
+                ref, tols, exact = scan_reference(torch, args, g)
                 key = f"{shape_name}/{dt_case}"
                 k8_tolerances[key] = dict(zip(SCAN_OUTPUTS, tols))
                 for dtype in (torch.float32, torch.bfloat16, torch.float16):
-                    check_scan(torch, key, args, g, ref, tols, dtype, k8_errors, k8b_errors)
-                del args, g, ref
+                    check_scan(torch, key, args, g, ref, tols, dtype, k8_errors, k8b_errors,
+                               k8_float64, exact)
+                del args, g, ref, exact
         # K1, K2 and K3 against their plain versions, which run cuDNN convs
         # and cuBLAS products here: TF32 off.
         torch.backends.cudnn.allow_tf32 = False
@@ -1297,7 +1312,9 @@ def main() -> int:
                               "the same inputs + 1e-6 x the largest |value|; bf16, fp16: that "
                               "+ one ulp of the dtype, against the plain version on the same "
                               "rounded inputs",
-                 k8_tolerances_fp32=k8_tolerances, k1_max_abs_err=k1_errors,
+                 k8_tolerances_fp32=k8_tolerances,
+                 k8_float64_distance={"per_output": "[kernels, plain version]", **k8_float64},
+                 k1_max_abs_err=k1_errors,
                  k2_max_abs_err=k2_errors, k3_max_abs_err=k3_errors, mixer_slices=mixer_slices,
                  k1_k3_tolerance="fp32: 1e-5 + 1e-5 x the largest |value| of the plain version; "
                                  "bf16, fp16: that + one ulp of the dtype against the plain "

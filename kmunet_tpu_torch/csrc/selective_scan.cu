@@ -68,9 +68,8 @@
 //   MB (512 chunks); the backward's E and M0 12.6 MB each, S 0.8 MB, and its
 //   dA and dD partials 12.6 and 0.8 MB (256 chunks). No (B, tiles, L, N)
 //   partials: dB and dC are final when written.
-//   kT, kTf, kQ, kNS and pass C's blocks per SM are compile-time tunables
-//   (KMUNET_SCAN_* below); scripts/torch_scan_variants.py builds and times
-//   other values on the card.
+//   kT, kTf, kQ, kNSMax and pass C's blocks per SM are compile-time
+//   constants, chosen on an H100.
 //
 // Bound. Bytes: x, dt read and y written once (B*L*D each), B and C once
 // (B*L*N each). At Mamba-UNet's refine3 (bf16) that is 92 MB, 27.6 us at
@@ -91,30 +90,15 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
-// Compile-time tunables (the values chosen on an H100).
-#ifndef KMUNET_SCAN_CHUNK
-#define KMUNET_SCAN_CHUNK 64  // kT: tokens of a backward chunk
-#endif
-#ifndef KMUNET_SCAN_FWD_CHUNK
-#define KMUNET_SCAN_FWD_CHUNK 32  // kTf: tokens of a forward chunk, at most
-#endif
-#ifndef KMUNET_SCAN_SUB
-#define KMUNET_SCAN_SUB 8  // kQ: tokens of a backward sub-chunk, held in registers
-#endif
-#ifndef KMUNET_SCAN_NS
-#define KMUNET_SCAN_NS 4  // kNSMax: states per thread of the walks
-#endif
-#ifndef KMUNET_SCAN_BWD_BLOCKS
-#define KMUNET_SCAN_BWD_BLOCKS 3  // pass C's blocks per SM: its registers are capped to fit
-#endif
-
 namespace {
 
-constexpr int kT = KMUNET_SCAN_CHUNK;
-constexpr int kTf = KMUNET_SCAN_FWD_CHUNK;
-constexpr int kQ = KMUNET_SCAN_SUB;
-constexpr int kNSMax = KMUNET_SCAN_NS;
-constexpr int kTP = kT + 4;  // a staged column's row in pass C's shared memory, padded
+// Chosen on an H100 (PERF.md has the sweep).
+constexpr int kT = 64;         // tokens of a backward chunk
+constexpr int kTf = 32;        // tokens of a forward chunk, at most
+constexpr int kQ = 8;          // tokens of a backward sub-chunk, held in registers
+constexpr int kNSMax = 4;      // states per thread of the walks
+constexpr int kBwdBlocks = 3;  // pass C's blocks per SM: its registers are capped to fit
+constexpr int kTP = kT + 4;    // a staged column's row in pass C's shared memory, padded
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kT % kQ == 0 && kQ % 4 == 0, "a chunk is whole sub-chunks of whole float4s");
 
@@ -132,7 +116,10 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
 }
 
 // 2^v on the exp unit; callers pass v = dt * A * log2(e). Results below
-// 2^-126 flush to 0, which leaves a state or message unchanged to fp32.
+// 2^-126 flush to 0, which leaves a state or message unchanged to fp32. On
+// the card the kernels built on it land nearer the float64 scan than the
+// plain version does, and a build on expf(dt * A) ran slower and landed no
+// nearer (PERF.md).
 __device__ __forceinline__ float exp2_fast(float v) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
@@ -430,7 +417,7 @@ __device__ __forceinline__ void kept_tokens(int lane, int& first, bool& writer) 
 
 // Pass C: a block per (chunk c, b); see the source note.
 template <typename T, int N>
-__global__ void __launch_bounds__(Bwd<N>::kThreads, KMUNET_SCAN_BWD_BLOCKS)
+__global__ void __launch_bounds__(Bwd<N>::kThreads, kBwdBlocks)
 backward_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __restrict__ A,
                 const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dp,
                 const T* __restrict__ g, const float* __restrict__ hin,
@@ -615,9 +602,11 @@ int chunks(int L, int T) { return (L + T - 1) / T; }
 
 constexpr int kMinForwardChunk = 16;
 
-// The forward's chunk: kT tokens, halved down to kMinForwardChunk while the
+// The forward's chunk: kTf tokens, halved down to kMinForwardChunk while the
 // flat passes would have fewer than 64 K threads (a short L gets more,
-// shorter chunks). The backward's is always kT (its pass C stages kT tokens).
+// shorter chunks, which ran faster than kTf at encoder4 and encoder5; so
+// there a sequence's chunks, and the last bits of its y, depend on B). The
+// backward's is always kT (its pass C stages kT tokens).
 int forward_chunk(int B, int L, int D, int N) {
   const long long parts = N / (N < kNSMax ? N : kNSMax);
   int T = kTf;
@@ -758,16 +747,13 @@ int backward(const void* x, const void* dt, const void* A, const void* Bm, const
 
 // dtype: 0 = fp32, 1 = bf16, 2 = fp16, of x, dt, B, C, y (and g, dx, ddt, dB,
 // dC); A and D fp32. N a power of two up to 32. The scratch is per (b, chunk)
-// with chunks = ceil(L / kmunet_selective_scan_chunk()), all fp32: E (B,
-// chunks, D, N), S (B, chunks, D), and for the backward M0 like E; unused
-// when L fits one chunk. Returns cudaGetLastError() after the launches, or -1
-// for an argument the kernels do not take.
-
-// Tokens per chunk of the backward (kT).
-extern "C" int kmunet_selective_scan_chunk() { return kT; }
+// with chunks = kmunet_selective_scan_chunks(...), all fp32: E (B, chunks,
+// D, N), S (B, chunks, D), and for the backward M0 like E; unused when L
+// fits one chunk. Returns cudaGetLastError() after the launches, or -1 for
+// an argument the kernels do not take.
 
 // Chunks of the forward (backward = 0) or the backward (1) at this shape:
-// the scratch's second dimension.
+// the scratch's second dimension; -1 for a shape the kernels do not take.
 extern "C" int kmunet_selective_scan_chunks(int B, int L, int D, int N, int backward) {
   if (!valid(B, L, D, N)) return -1;
   return backward ? chunks(L, kT) : chunks(L, forward_chunk(B, L, D, N));

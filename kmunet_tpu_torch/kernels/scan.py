@@ -154,43 +154,36 @@ def selective_scan_backward_plain(x, dt, A, Bm, Cm, Dp, g):
 
 
 @functools.cache
-def _kernel(name: str, n_pointers: int, n_ints: int) -> ctypes._CFuncPtr:
-    """The C entry ``name`` of the library built from ``csrc/selective_scan.cu``:
-    ``n_pointers`` tensor pointers, ``n_ints`` ints, then the stream."""
+def _entry(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of the library built from ``csrc/selective_scan.cu``."""
     fn = getattr(ctypes.CDLL(str(build.build(SOURCE).path)), name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
     return fn
+
+
+def _launcher(name: str, n_pointers: int) -> ctypes._CFuncPtr:
+    """A kernel entry: ``n_pointers`` tensor pointers, B, L, D, N and the
+    dtype code, then the stream."""
+    return _entry(name, (ctypes.c_void_p,) * n_pointers + (ctypes.c_int,) * 5
+                  + (ctypes.c_void_p,))
 
 
 def forward_kernel() -> ctypes._CFuncPtr:
     """K8's entry point, built on first use."""
-    return _kernel("kmunet_selective_scan", 9, 5)
+    return _launcher("kmunet_selective_scan", 9)
 
 
 def backward_kernel() -> ctypes._CFuncPtr:
     """K8's backward entry point, built on first use (from the same source)."""
-    return _kernel("kmunet_selective_scan_backward", 16, 5)
-
-
-@functools.cache
-def _library_fn(name: str, n_ints: int) -> ctypes._CFuncPtr:
-    fn = getattr(ctypes.CDLL(str(build.build(SOURCE).path)), name)
-    fn.argtypes, fn.restype = [ctypes.c_int] * n_ints, ctypes.c_int
-    return fn
-
-
-@functools.cache
-def chunk_tokens() -> int:
-    """Tokens per chunk of the backward kernel (csrc's kT), from the built
-    library; the forward's are at most half as many (csrc's kTf)."""
-    return _library_fn("kmunet_selective_scan_chunk", 0)()
+    return _launcher("kmunet_selective_scan_backward", 16)
 
 
 @functools.cache
 def _chunks(Bsz: int, L: int, D: int, N: int, backward: bool) -> int:
-    """The kernels' chunks at this shape: the scratch's second dimension."""
-    return _library_fn("kmunet_selective_scan_chunks", 5)(Bsz, L, D, N, int(backward))
+    """The kernels' chunks at this shape, the scratch's second dimension;
+    -1 for a shape whose tensors or scratch they cannot index in int32."""
+    return _entry("kmunet_selective_scan_chunks", (ctypes.c_int,) * 5)(Bsz, L, D, N,
+                                                                      int(backward))
 
 
 def _check(x, dt, A, Bm, Cm, Dp) -> None:
@@ -214,9 +207,9 @@ def _check(x, dt, A, Bm, Cm, Dp) -> None:
         raise ValueError(f"the kernel takes B, L, D >= 1, got {tuple(x.shape)}")
     if Bsz > 65535:
         raise ValueError(f"the kernel takes a batch of at most 65535, got {Bsz}")
-    # The kernels index in int32 (the forward's chunks are at least 16 tokens).
-    if max(Bsz * L * D, Bsz * -(-L // 16) * D * N, Bsz * L * N) >= 2**31:
-        raise ValueError("the kernel takes tensors of fewer than 2**31 elements")
+    # The kernels index in int32, their scratch too.
+    if max(Bsz * L * D, Bsz * L * N) >= 2**31 or _chunks(Bsz, L, D, N, backward=False) < 0:
+        raise ValueError("the kernel takes tensors and scratch of fewer than 2**31 elements")
 
 
 def _scratch(x, N: int, backward: bool):

@@ -536,9 +536,9 @@ def test_cuda_scan_kernels_match_plain(cuda_device, shape, dt_case):
     within ``chip_smoke.check_scan``'s tolerances (4 times the plain
     version's distance from float64, plus one ulp of the dtype); one launch
     of each per call."""
-    assert scan.chunk_tokens() == K8_CHUNK
+    assert [scan._chunks(2, L, 24, 16, True) for L in (K8_CHUNK, K8_CHUNK + 1)] == [1, 2]
     args, g = _scan_args(SCAN_GPU_SHAPES[shape][0], dt_case, cuda_device)
-    ref, tols = chip_smoke.scan_reference(torch, args, g)
+    ref, tols, _ = chip_smoke.scan_reference(torch, args, g)
     before = (scan.selective_scan.launches, scan.selective_scan_backward.launches)
     errors_f, errors_b = {}, {}
     for dtype in (torch.float32, torch.bfloat16, torch.float16):

@@ -14,8 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kmunet_tpu")
 # The port's scripts that run on the card; scripts/torch_grad_precision.py
 # imports JAX on purpose, behind --jax, and stays out.
 SCRIPTS = [REPO / "scripts" / "torch_ablate_mix_kernel.py",
-           REPO / "scripts" / "profile_torch_forward.py",
-           REPO / "scripts" / "torch_scan_variants.py"]
+           REPO / "scripts" / "profile_torch_forward.py"]
 SOURCES = sorted((REPO / "kmunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
 

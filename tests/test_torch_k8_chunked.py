@@ -276,11 +276,15 @@ def test_chunked_model_is_no_farther_from_float64_over_a_long_memory():
 
 @pytest.mark.parametrize("dt_case", chip_smoke.SCAN_DT_CASES)
 @pytest.mark.parametrize("shape", [(2, 600, 6, 16), (1, 257, 24, 4)])
-def test_chunked_model_is_as_near_float64_as_the_plain_version(shape, dt_case):
-    """Over a short memory the two differ by rounding only (measured: the
-    model's largest distance 0.3-2.5 times the plain version's): the model
-    lies inside the bound that ``chip_smoke.scan_reference`` gives the
-    kernels, 4 times the plain version's distance plus 1e-6 of the largest
-    |value|, so the formulation alone leaves the kernels' own rounding room."""
-    for name, err_model, err_plain, top in _distances(shape, dt_case):
+def test_chunked_model_lies_within_the_kernels_bound_over_a_short_memory(shape, dt_case):
+    """Over a short memory the two differ by rounding only, and the model may
+    lie farther from float64 than the plain version (measured: its largest
+    distance 0.3-2.5 times the plain version's, per output; ``pytest -s``
+    prints the ratios): it lies inside the bound that
+    ``chip_smoke.scan_reference`` gives the kernels, 4 times the plain
+    version's distance plus 1e-6 of the largest |value|."""
+    distances = _distances(shape, dt_case)
+    print(shape, dt_case, {name: round(float(em / ep), 2) if ep > 0 else None
+                           for name, em, ep, _ in distances})
+    for name, err_model, err_plain, top in distances:
         assert err_model <= 4.0 * err_plain + 1e-6 * top, (name, err_model, err_plain)
