@@ -63,13 +63,17 @@ Phases, each printing one JSON line with its seconds:
               (``KAN_SHAPES``), x in [-1.2, 1.2], in [-3, 3] and at the
               knots (``check_kanconv``), and K2 and K3 at SH's three mixer
               shapes at B=2, LAPS's three at B=1 (L=65536 at enc1), a
-              ragged L=1000 with N=8 and L=1, dt
+              ragged L=1000 with N=8, L=1 and L=65 (one token past the
+              kernels' 64-token tile), dt
               N(0, 1) and 40 N(0, 1), dt, B and C the strided slices of one
               bcdt (``MIXER_SHAPES``, ``check_mixer``): fp32 within 1e-5 abs
               + 1e-5 of the largest |value| of the plain version, bf16 and
               fp16 against the plain version in fp32 on the same rounded
               inputs within that plus one ulp of the dtype (K3's y also
-              one ulp of each h2 carried through the scatter). Then K3a in
+              one ulp of each h2 carried through the scatter); at enc1 and
+              LAPS's enc1 beside each, in fp32 and bf16, the kernels' and
+              the plain version's largest distance from float64 on the same
+              rounded inputs (``mixer_float64_distance``). Then K3a in
               its five modes at the TPU script's shape (B=64, C=16,
               L=16384, N=64, tiles of 4096, bf16), several tiles of 64, C
               != N and one tile (``ABLATE_SHAPES``, ``check_ablate``):
@@ -215,8 +219,11 @@ Phases, each printing one JSON line with its seconds:
               need over the tensor cores' rate: for K1 a MAC per nonzero
               basis and one for the base branch, the dense count beside it)
               and their plain versions (today's default paths); no one
-              PyTorch call computes them, so their library time is null.
-              K3a in each mode at the TPU script's shape beside its byte
+              PyTorch call computes them, so their library time is null;
+              and K2 and K3 by pass at SH's three mixer shapes at B=128 and
+              LAPS's enc1 at B=32 (``mixer_timing``: ms, queued ms, device
+              ms, device launches per call and device ms by kernel, beside
+              the bound). K3a in each mode at the TPU script's shape beside its byte
               bound and its plain version (library null). KM_UNetV3-LAPS:
               the forward at B=1 and B=32 bf16 at 256^2 (B=32 has as many
               pixels as SH's B=128 at 128^2) on the plain and the K1 + K3
@@ -380,9 +387,9 @@ ENC1_KAN = (128, 16, 16, 128, 128)  # K1's timing shape (B, C, F, H, W): enc1 at
 # (enc1 and dec3 at 128^2, enc2 and dec2 at 64^2, enc3 at 32^2),
 # KM_UNetV3-LAPS's three at B=1 (enc1 and dec3 at 256^2: 128 slices of the
 # compress pass per batch element on 132 SMs, against SH's 32; enc2 and dec2
-# at 128^2; enc3 at 64^2), a ragged L with N=8, and L=1; each with the dt
-# cases listed: "seeded" N(0, 1), "large" 40 N(0, 1), where one token takes
-# most of a softmax.
+# at 128^2; enc3 at 64^2), a ragged L with N=8, L=1 and L one past the
+# kernels' 64-token tile; each with the dt cases listed: "seeded" N(0, 1),
+# "large" 40 N(0, 1), where one token takes most of a softmax.
 MIXER_SHAPES = {
     "enc1": ((2, 16, 16384, 64), ("seeded", "large")),
     "enc2": ((2, 32, 4096, 64), ("seeded",)),
@@ -392,9 +399,16 @@ MIXER_SHAPES = {
     "laps_enc3": ((1, 64, 4096, 64), ("seeded", "large")),
     "ragged_l1000_n8": ((2, 16, 1000, 8), ("seeded", "large")),
     "l1": ((2, 16, 1, 64), ("seeded",)),
+    "t_plus_1": ((2, 16, 65, 64), ("seeded", "large")),
 }
+# The mixer cases whose outputs are also held to float64 (k3_float64_distance).
+MIXER_FLOAT64_CASES = ("enc1/seeded", "enc1/large", "laps_enc1/seeded", "laps_enc1/large")
 SSD_MIXERS = 15  # 5 EnhancedViM blocks of 3 directional ViMs: one K2 or K3 call each
 ENC1_MIX = (128, 16, 16384, 64)  # K2's and K3's timing shape (B, C, L, N): enc1_vim's mixer
+# K2's and K3's timing shapes by pass (``mixer_timing``): SH's three mixer
+# shapes at B=128 and LAPS's enc1 at B=32 (256^2).
+MIXER_TIMING_SHAPES = {"enc1": ENC1_MIX, "enc2": (128, 32, 4096, 64),
+                       "enc3": (128, 64, 1024, 64), "laps_enc1": (32, 16, 65536, 64)}
 
 K3A_SOURCE = "kmunet_tpu_torch/csrc/hsmssd_ablate.cu"
 K3A_REPLACES = "scripts/ablate_mix_kernel.py:98"
@@ -905,6 +919,64 @@ def check_mixer(torch, key, args32, errors_k2, errors_k3):
         errors_k3[k] = max(errs[1:])
 
 
+def mixer_float64_distance(torch, args32):
+    """Per dtype (fp32, bf16) and output (h, y, h2): [the kernels', the plain
+    version's] largest distance from the same function in float64 on the
+    same rounded inputs (the plain version run on float64 copies); y's
+    float64 reference scatters that float64 h2 rounded to the dtype, as the
+    kernels and the plain version scatter their rounded h2."""
+    from kmunet_tpu_torch.kernels import ssd
+
+    x32, bcdt32, A, w_hz, w_out, D = args32
+    N = A.shape[0]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, bcdt = x32.to(dtype), bcdt32.to(dtype)
+        Bm, Cm, dt = bcdt.split(N, dim=1)
+        args = (x, dt, Bm, Cm, A, w_hz, w_out, D)
+        x64, dt64, B64, C64, *rest = (t.double() for t in args)
+        h64 = ssd.hsmssd_compress_plain(x64, dt64, B64, rest[0])
+        h2_64 = ssd.hsmssd_mix_plain(x64, dt64, B64, C64, *rest)[1]
+        y64 = torch.einsum("bnc,bnl->bcl", h2_64.to(dtype).double(), C64)
+        got = (ssd.hsmssd_compress_forward(x, dt, Bm, A), *ssd.hsmssd_mix_forward(*args))
+        plain = (ssd.hsmssd_compress_plain(x, dt, Bm, A), *ssd.hsmssd_mix_plain(*args))
+        for name, k, p, ref in zip(("h", "y", "h2"), got, plain, (h64, y64, h2_64)):
+            out[f"{str(dtype)[6:]}/{name}"] = [float((k.double() - ref).abs().max()),
+                                               float((p.double() - ref).abs().max())]
+    return out
+
+
+def mixer_timing(torch, ssd, shapes=None, iters: int = 20):
+    """K2 and K3 (``ssd``'s launchers) in bf16 at each (B, C, L, N) of
+    ``shapes`` (MIXER_TIMING_SHAPES by default), dt, B and C the slices of
+    one bcdt: ms by CUDA events over back-to-back calls, queued ms (device
+    time, no host gap), the profiler's device ms, device launches per call
+    and device ms per call by kernel (the passes), beside the bound."""
+    out = {}
+    for name, shape in (shapes or MIXER_TIMING_SHAPES).items():
+        B, C, L, N = shape
+        x = torch.randn(B, C, L, device="cuda").to(torch.bfloat16)
+        bcdt = torch.randn(B, 3 * N, L, device="cuda").to(torch.bfloat16)
+        Bm, Cm, dt = bcdt.split(N, dim=1)
+        A = 1.0 + 15.0 * torch.rand(N, device="cuda")
+        w_hz = torch.randn(2 * C, C, device="cuda") / C ** 0.5
+        w_out = torch.randn(C, C, device="cuda") / C ** 0.5
+        Dp = torch.ones(1, device="cuda")
+        out[name] = {"shape": list(shape)}
+        for key, fn, fused in (
+                ("hsmssd_compress", lambda: ssd.hsmssd_compress_forward(x, dt, Bm, A), False),
+                ("hsmssd_mix", lambda: ssd.hsmssd_mix_forward(x, dt, Bm, Cm, A, w_hz, w_out, Dp),
+                 True)):
+            bound, bound_by, _, _ = mixer_bound(shape, 2, fused)
+            device, launches, by_kernel = device_ms(torch, fn, iters)
+            out[name][key] = {
+                "ms": cuda_ms(torch, fn, iters, 5), "queued_ms": queued_ms(torch, fn, iters)[0],
+                "device_ms": device, "device_launches_per_call": launches,
+                "device_ms_by_kernel": by_kernel, "bound_ms": bound, "bound_by": bound_by}
+        del x, bcdt, Bm, Cm, dt
+    return out
+
+
 def ablate_inputs(torch, shape, seed, device):
     """K3a's inputs on ``device``, bf16, as the TPU script draws them: xt,
     dt, Bm, Cm N(0, 1) and A U(1, 16), from a generator seeded ``seed``."""
@@ -1221,7 +1293,7 @@ def main() -> int:
 
     errors, k6_errors, k4_errors, k6g_errors, k7_errors, k6s_errors = {}, {}, {}, {}, {}, {}
     k8_errors, k8b_errors, k8_tolerances, k8_float64 = {}, {}, {}, {}
-    k1_errors, k2_errors, k3_errors, k3a_errors = {}, {}, {}, {}
+    k1_errors, k2_errors, k3_errors, k3a_errors, k3_float64 = {}, {}, {}, {}, {}
     with Phase("kernel") as f:
         rng = np.random.default_rng(0)
         plain_ops = (bilinear.bilinear_gather_forward, bilinear.bilinear_gather_backward,
@@ -1298,6 +1370,8 @@ def main() -> int:
                 args32 = mixer_inputs(torch, rng, shape, dt_case, dev)
                 mixer_slices[shape_name] = ssd._slices(args32[0])[0]
                 check_mixer(torch, f"{shape_name}/{dt_case}", args32, k2_errors, k3_errors)
+                if f"{shape_name}/{dt_case}" in MIXER_FLOAT64_CASES:
+                    k3_float64[f"{shape_name}/{dt_case}"] = mixer_float64_distance(torch, args32)
         for i, (shape_name, shape) in enumerate(ABLATE_SHAPES.items()):
             check_ablate(torch, shape_name, ablate_inputs(torch, shape, i, dev), shape[4],
                          k3a_errors)
@@ -1316,6 +1390,7 @@ def main() -> int:
                  k8_float64_distance={"per_output": "[kernels, plain version]", **k8_float64},
                  k1_max_abs_err=k1_errors,
                  k2_max_abs_err=k2_errors, k3_max_abs_err=k3_errors, mixer_slices=mixer_slices,
+                 k3_float64_distance={"per_output": "[kernels, plain version]", **k3_float64},
                  k1_k3_tolerance="fp32: 1e-5 + 1e-5 x the largest |value| of the plain version; "
                                  "bf16, fp16: that + one ulp of the dtype against the plain "
                                  "version in fp32 on the same rounded inputs (K3's y also + "
@@ -1892,6 +1967,7 @@ def main() -> int:
             lambda: ssd.hsmssd_mix_plain(x, dt, Bm, Cm, A, w_hz, w_out, Dp), None,
             mixer_bound(ENC1_MIX, 2, True), 50, 5)
         del x, bcdt, Bm, Cm, dt
+        mixers = mixer_timing(torch, ssd)
 
         # K3a in each mode at the TPU script's shape; the line carries full's.
         shape = ABLATE_SHAPES["script"]
@@ -1934,6 +2010,7 @@ def main() -> int:
                 "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
             del model, state, step, batch
         f.update(forward=forward, train_step=train, tf32_conv=True, scan_timing=scan_timing,
+                 mixer_timing=mixers,
                  shapes={"bilinear_gather": list(BRIDGE), "bilinear_gather_backward": list(BRIDGE),
                          "bilinear_gather_grouped": list(DEC3),
                          "bilinear_gather_grouped_backward": list(DEC3),

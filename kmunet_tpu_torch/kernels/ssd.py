@@ -22,7 +22,8 @@ return those of their XLA references. Nothing falls back: the launchers
 (``hsmssd_compress_forward``, ``hsmssd_mix_forward``) raise on anything they
 do not take, a CPU tensor included. Each counts its calls, one per mixer
 forward, on ``hsmssd_compress.launches`` and ``hsmssd_mix.launches`` (a call
-of K2 is two device launches, one of K3 three: see the source note).
+of K2 is two device launches, compress and merge, one of K3 three, with the
+scatter: see the source note).
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ import torch.nn.functional as F
 from kmunet_tpu_torch.kernels import build
 
 SOURCE = "hsmssd.cu"
-TILE = 64  # tokens per tile of the compress pass (csrc's kTile)
+TILE = 64  # tokens per tile of the compress and scatter passes (csrc's kT)
 MAX_C = 64
-STATE_SIZES = (4, 8, 16, 32, 64)  # N: a power of two, quads of n per thread
+STATE_SIZES = (4, 8, 16, 32, 64)  # N: a power of two; 16 states per warp, 4 and 8 padded
 # The compress pass splits each batch element's tiles into slices, one block
 # each, until B * slices reaches BLOCKS_PER_SM blocks per SM (a small batch
 # must still fill the card), but of at least MIN_TILES tiles, so that the
@@ -111,12 +112,12 @@ def _kernel(name: str, n_pointers: int, n_ints: int, n_longs: int) -> ctypes._CF
 
 def compress_kernel() -> ctypes._CFuncPtr:
     """K2's entry point, built on first use."""
-    return _kernel("kmunet_hsmssd_compress", 8, 6, 2)
+    return _kernel("kmunet_hsmssd_compress", 8, 7, 2)
 
 
 def mix_kernel() -> ctypes._CFuncPtr:
     """K3's entry point, built on first use (from the same source)."""
-    return _kernel("kmunet_hsmssd_mix", 13, 6, 3)
+    return _kernel("kmunet_hsmssd_mix", 13, 7, 3)
 
 
 @functools.cache
@@ -161,11 +162,33 @@ def _slices(x) -> tuple[int, int]:
     return -(-tiles // tps), tps
 
 
+def padded_channels(C: int) -> int:
+    """The channels of a compress partial's rows: C rounded up to 8, 16, 32
+    or 64 (csrc's CP, 8 per tensor-core column block)."""
+    cp = 8
+    while cp < C:
+        cp *= 2
+    return cp
+
+
 def _scratch(x, N, S):
+    """The compress pass's fp32 partials per (b, slice): max and
+    denominator (B, S, N), unnormalised h (B, S, N, CP)."""
     Bsz, C, _ = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
     return (torch.empty(Bsz, S, N, **f32), torch.empty(Bsz, S, N, **f32),
-            torch.empty(Bsz, S, N, C, **f32))
+            torch.empty(Bsz, S, N, padded_channels(C), **f32))
+
+
+def _aligned(*tensors) -> int:
+    """1 where the tiles can move by 16-byte copies: every base address,
+    batch stride and row of L tokens a multiple of 16 bytes (the kernels
+    then fill their tiles by cp.async, else by plain loads)."""
+    for t in tensors:
+        esz = t.element_size()
+        if t.data_ptr() % 16 or (t.stride(0) * esz) % 16 or (t.stride(1) * esz) % 16:
+            return 0
+    return 1
 
 
 def _launch(fn, x, *args) -> None:
@@ -190,7 +213,7 @@ def hsmssd_compress_forward(x, dt, Bm, A) -> torch.Tensor:
     h = torch.empty(Bsz, N, C, dtype=x.dtype, device=x.device)
     _launch(compress_kernel(), x, x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), A32.data_ptr(),
             part_m.data_ptr(), part_d.data_ptr(), part_h.data_ptr(), h.data_ptr(),
-            Bsz, C, L, N, S, tps, dt.stride(0), Bm.stride(0))
+            Bsz, C, L, N, S, tps, _aligned(x, dt, Bm), dt.stride(0), Bm.stride(0))
     hsmssd_compress.launches += 1
     return h
 
@@ -211,7 +234,8 @@ def hsmssd_mix_forward(x, dt, Bm, Cm, A, w_hz, w_out, D):
     _launch(mix_kernel(), x, x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             A32.data_ptr(), whz32.data_ptr(), wout32.data_ptr(), D32.data_ptr(),
             part_m.data_ptr(), part_d.data_ptr(), part_h.data_ptr(), y.data_ptr(),
-            h2.data_ptr(), Bsz, C, L, N, S, tps, dt.stride(0), Bm.stride(0), Cm.stride(0))
+            h2.data_ptr(), Bsz, C, L, N, S, tps, _aligned(x, dt, Bm, Cm, y), dt.stride(0),
+            Bm.stride(0), Cm.stride(0))
     hsmssd_mix.launches += 1
     return y, h2
 

@@ -18,7 +18,8 @@ step: hybrid loss, AdamW, bf16 compute unless ``--dtype float32``, 128^2,
 seq_len 25, on synthetic data) against its wall time (the idle share) and
 the kernels that take the most device time, and the launches and device
 time of the layout changes (PyTorch's copy kernels and cuDNN's NCHW <-> NHWC
-transforms). ``--exact`` runs DySample's
+transforms), and the launches and device time of each of the port's own
+kernels (``port_kernels``). ``--exact`` runs DySample's
 exact path (``dysample_window=False``: the K4 grouped gather) in place of
 its window path. ``--kan-fused`` runs KM_UNetV3's four KAN convs through K1
 and ``--ssd-mixer fused`` (or ``compress``) its 15 HSM-SSD mixers through K3
@@ -52,6 +53,20 @@ from kmunet_tpu_torch import serve  # noqa: E402
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def port_kernels(kernels) -> dict:
+    """{kernel: [launches, device ms]} for the port's own kernels (those of
+    ``kmunet_tpu_torch/csrc``, in its sources' anonymous namespaces), by
+    name without template arguments."""
+    out = {}
+    for e in kernels:
+        if "(anonymous namespace)::" not in e.key:
+            continue
+        name = e.key.split("(anonymous namespace)::")[-1].split("<")[0].split("(")[0]
+        count, ms = out.get(name, (0, 0.0))
+        out[name] = (count + e.count, ms + e.self_device_time_total / 1e3)
+    return {k: list(v) for k, v in sorted(out.items())}
 
 
 def module_times(model, frames, iters: int) -> dict:
@@ -192,7 +207,8 @@ def main() -> int:
           "copy_launches": sum(e.count for e in copies),
           "copy_ms": sum(e.self_device_time_total for e in copies) / 1e3,
           "top_kernels": [{"name": e.key[:90], "count": e.count,
-                           "ms": e.self_device_time_total / 1e3} for e in top]})
+                           "ms": e.self_device_time_total / 1e3} for e in top],
+          "port_kernels": port_kernels(kernels)})
     return 0
 
 

@@ -651,7 +651,9 @@ KAN_GPU_SHAPES = {
 }
 # K2's and K3's (B, C, L, N): the SH mixer shapes at 32^2 input, LAPS's enc1
 # at 256^2 and B=1 (L=65536: the most compress slices per batch element),
-# ragged ones.
+# ragged ones; the kernels' tile edges (L = T - 1, T + 1, 3T + 1 for their
+# T = 64 tokens), an L whose bf16 rows are not 16-byte aligned (200 bytes;
+# fp32 rows of 400 are), and C=64 with N=8 (states padded to 16).
 MIXER_GPU_SHAPES = {
     "enc1": (2, 16, 1024, 64),
     "laps_enc1": (1, 16, 65536, 64),
@@ -659,6 +661,11 @@ MIXER_GPU_SHAPES = {
     "ragged_n8": (2, 16, 1000, 8),
     "c3_n4": (3, 3, 77, 4),
     "l1": (2, 16, 1, 64),
+    "t_minus_1": (2, 16, ssd.TILE - 1, 64),
+    "t_plus_1": (2, 32, ssd.TILE + 1, 64),
+    "3t_plus_1": (2, 16, 3 * ssd.TILE + 1, 16),
+    "unaligned_bf16_l100": (2, 16, 100, 64),
+    "c64_n8": (2, 64, 300, 8),
 }
 
 
@@ -689,6 +696,21 @@ def test_cuda_mixer_kernels_match_plain(cuda_device, shape, dt_case, monkeypatch
     chip_smoke.check_mixer(torch, shape, args, {}, {})
     torch.cuda.synchronize()
     assert (ssd.hsmssd_compress.launches - before[0], ssd.hsmssd_mix.launches - before[1]) == (3, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", ["enc1", "laps_enc1", "c3_n4", "c64_n8"])
+def test_cuda_mixer_kernels_repeat_bitwise(cuda_device, shape, dtype):
+    """K2 and K3 called twice on the same inputs give equal bits: no float
+    atomics, the slices merged in order."""
+    x, bcdt, A, w_hz, w_out, D = chip_smoke.mixer_inputs(
+        torch, np.random.default_rng(3), MIXER_GPU_SHAPES[shape], "large", cuda_device)
+    x, bcdt = x.to(dtype), bcdt.to(dtype)
+    Bm, Cm, dt = bcdt.split(A.shape[0], dim=1)
+    h = [ssd.hsmssd_compress_forward(x, dt, Bm, A) for _ in range(2)]
+    mixed = [ssd.hsmssd_mix_forward(x, dt, Bm, Cm, A, w_hz, w_out, D) for _ in range(2)]
+    assert torch.equal(h[0], h[1])
+    assert torch.equal(mixed[0][0], mixed[1][0]) and torch.equal(mixed[0][1], mixed[1][1])
 
 
 def test_cuda_kanconv_and_mixer_gradients_match_cpu(cuda_device, monkeypatch):
