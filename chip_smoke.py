@@ -223,8 +223,8 @@ Phases, each printing one JSON line with its seconds:
               and K2 and K3 by pass at SH's three mixer shapes at B=128 and
               LAPS's enc1 at B=32 (``mixer_timing``: ms, queued ms, device
               ms, device launches per call and device ms by kernel, beside
-              the bound). K3a in each mode at the TPU script's shape beside its byte
-              bound and its plain version (library null). KM_UNetV3-LAPS:
+              the bound). K3a in each mode at the TPU script's shape beside
+              its byte bound and its plain version (library null). KM_UNetV3-LAPS:
               the forward at B=1 and B=32 bf16 at 256^2 (B=32 has as many
               pixels as SH's B=128 at 128^2) on the plain and the K1 + K3
               path, and the bf16 ``laps_km_unet()`` step at B=1 on both.

@@ -92,9 +92,13 @@
 // MB, 100 us). Each (b, l, n) costs the compress about 12 fp32 and SFU
 // instructions (two reads of dt, the max, s, e, d, w and its split) against
 // 4 bytes of dt and B read, and each 16 x 16 x 8 block of products two mma
-// (bf16): the issue is about a third of the byte time at enc1, so the loads
-// in flight decide. The merge's MLP is (4C + 2) C N operations per batch
-// element.
+// (bf16). Measured there (chip_smoke.py's mixer_timing, NVIDIA H100 80GB
+// HBM3 at 700 W): the compress 207-234 us (1.15-1.3x its bytes), the
+// scatter 112-119 us, the merge 6-12 us. Tiles of 32 or 16 tokens ran 1.4x
+// slower while a cheaper max pass changed nothing: the 128-byte segment
+// each row gives a tile, and the ring's depth (2 blocks of 83 KB per SM in
+// bf16), set the compress's rate, not its instructions. The merge's MLP is
+// (4C + 2) C N operations per batch element, its largest pass at C = 64.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

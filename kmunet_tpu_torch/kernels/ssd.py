@@ -162,7 +162,7 @@ def _slices(x) -> tuple[int, int]:
     return -(-tiles // tps), tps
 
 
-def padded_channels(C: int) -> int:
+def _padded_channels(C: int) -> int:
     """The channels of a compress partial's rows: C rounded up to 8, 16, 32
     or 64 (csrc's CP, 8 per tensor-core column block)."""
     cp = 8
@@ -177,7 +177,7 @@ def _scratch(x, N, S):
     Bsz, C, _ = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
     return (torch.empty(Bsz, S, N, **f32), torch.empty(Bsz, S, N, **f32),
-            torch.empty(Bsz, S, N, padded_channels(C), **f32))
+            torch.empty(Bsz, S, N, _padded_channels(C), **f32))
 
 
 def _aligned(*tensors) -> int:

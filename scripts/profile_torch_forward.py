@@ -57,13 +57,15 @@ def emit(obj) -> None:
 
 def port_kernels(kernels) -> dict:
     """{kernel: [launches, device ms]} for the port's own kernels (those of
-    ``kmunet_tpu_torch/csrc``, in its sources' anonymous namespaces), by
-    name without template arguments."""
+    ``kmunet_tpu_torch/csrc``, at the top of their sources' anonymous
+    namespaces; PyTorch's sit under ``at::``), by name without template
+    arguments."""
     out = {}
     for e in kernels:
-        if "(anonymous namespace)::" not in e.key:
+        key = e.key.removeprefix("void ")
+        if not key.startswith("(anonymous namespace)::"):
             continue
-        name = e.key.split("(anonymous namespace)::")[-1].split("<")[0].split("(")[0]
+        name = key.removeprefix("(anonymous namespace)::").split("<")[0].split("(")[0]
         count, ms = out.get(name, (0, 0.0))
         out[name] = (count + e.count, ms + e.self_device_time_total / 1e3)
     return {k: list(v) for k, v in sorted(out.items())}
