@@ -383,6 +383,13 @@ KAN_SHAPES = {
 KAN_X_CASES = ("unit", "wide", "knots")
 KAN_CONVS = 4  # enc1-3 and dec1: one K1 launch each per forward
 ENC1_KAN = (128, 16, 16, 128, 128)  # K1's timing shape (B, C, F, H, W): enc1 at B=128
+# K1's timing shapes (``kan_timing``): SH's four KAN convs at B=128 and
+# LAPS's enc1 at B=32 (256^2), bf16.
+KAN_TIMING_SHAPES = {"enc1": ENC1_KAN, "enc2": (128, 16, 32, 64, 64),
+                     "enc3": (128, 32, 64, 32, 32), "dec1": (128, 64, 32, 32, 32),
+                     "laps_enc1": (32, 16, 16, 256, 256)}
+# The K1 cases whose outputs are also held to float64 (k1_float64_distance).
+KAN_FLOAT64_CASES = ("enc1/unit", "enc1/wide", "enc1/knots", "dec1/wide", "laps_enc1/unit")
 # K2's and K3's shapes (B, C, L, N): KM_UNetV3-SH's three mixer shapes at B=2
 # (enc1 and dec3 at 128^2, enc2 and dec2 at 64^2, enc3 at 32^2),
 # KM_UNetV3-LAPS's three at B=1 (enc1 and dec3 at 256^2: 128 slices of the
@@ -877,6 +884,50 @@ def check_kanconv(torch, key, xp32, base32, spline32, errors):
             tol = tol + ulp_tolerance(torch, want, dtype)
         k = f"{key}/{str(dtype)[6:]}"
         errors[k] = check_close(f"K1 {k}", got, want, torch.broadcast_to(tol, want.shape))
+
+
+def kan_float64_distance(torch, xp32, base32, spline32):
+    """Per dtype (fp32, bf16): [K1's, the plain version's] largest distance
+    from the plain version in float64 on the same rounded inputs."""
+    from kmunet_tpu_torch.kernels import kanconv
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xp, base, spline = (t.to(dtype) for t in (xp32, base32, spline32))
+        exact = kanconv.kanconv_plain(xp.double(), base.double(), spline.double())
+        got = kanconv.kanconv_forward(xp, base, spline)
+        plain = kanconv.kanconv_plain(xp, base, spline)
+        out[str(dtype)[6:]] = [float((got.double() - exact).abs().max()),
+                               float((plain.double() - exact).abs().max())]
+    return out
+
+
+def kan_timing(torch, kanconv, shapes=None, iters: int = 20):
+    """K1 (``kanconv``'s launcher) in bf16 at each (B, C, F, H, W) of
+    ``shapes`` (KAN_TIMING_SHAPES by default), x N(0, 1) as the GroupNorm
+    before it makes it, zero padded, the weights N(0, 0.3): ms by CUDA
+    events over back-to-back calls, queued ms (device time, no host gap),
+    the profiler's device ms, device launches per call and device ms per
+    call by kernel (the wrapper's weight packing beside K1), beside the
+    bound and the dense products' time on the tensor cores."""
+    import torch.nn.functional as tF
+
+    out = {}
+    for name, shape in (shapes or KAN_TIMING_SHAPES).items():
+        B, C, Fo, H, W = shape
+        xp = tF.pad(torch.randn(B, C, H, W, device="cuda"), (1, 1, 1, 1)).to(torch.bfloat16)
+        base = (0.3 * torch.randn(Fo, C, 3, 3, device="cuda")).to(torch.bfloat16)
+        spline = (0.3 * torch.randn(Fo, 8 * C, 3, 3, device="cuda")).to(torch.bfloat16)
+        bound, bound_by, _, _, dense_ops = kan_bound(torch, xp, Fo)
+        fn = lambda: kanconv.kanconv_forward(xp, base, spline)  # noqa: E731
+        device, launches, by_kernel = device_ms(torch, fn, iters)
+        out[name] = {"shape": list(shape), "ms": cuda_ms(torch, fn, iters, 5),
+                     "queued_ms": queued_ms(torch, fn, iters)[0], "device_ms": device,
+                     "device_launches_per_call": launches, "device_ms_by_kernel": by_kernel,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "dense_ms": dense_ops / H100_BF16_FLOPS * 1e3}
+        del xp, base, spline
+    return out
 
 
 def check_mixer(torch, key, args32, errors_k2, errors_k3):
@@ -1398,6 +1449,16 @@ def main() -> int:
                  k3a_max_abs_err=k3a_errors,
                  k3a_tolerance="one bf16 ulp of the output's scale, 2^(floor(log2 max|y|) - 7), "
                                "against the plain version on the same bf16 inputs")
+
+    with Phase("k1_float64_distance") as f:
+        torch.backends.cudnn.allow_tf32 = False
+        f1 = np.random.default_rng(14)
+        distances = {}
+        for key in KAN_FLOAT64_CASES:
+            shape_name, case = key.split("/")
+            distances[key] = kan_float64_distance(
+                torch, *kan_inputs(torch, f1, KAN_SHAPES[shape_name], case, dev))
+        f.update(per_dtype="[K1, plain version]", **distances)
 
     def serve_path(path, window, f, kan_fused=False, ssd_mixer="einsum"):
         """Serves REQUESTS fp32 requests of B=2 on the card with
@@ -2022,6 +2083,9 @@ def main() -> int:
                          "hsmssd_mix": list(ENC1_MIX),
                          "ablate_mix": list(ABLATE_SHAPES["script"])},
                  dtype="bfloat16", kernels=timed)
+
+    with Phase("kan_timing") as f:
+        f.update(kan_timing(torch, kanconv))
 
     def by_path(name):
         return {path: counts[name] for path, counts in path_launches.items()}

@@ -8,59 +8,83 @@
 // B_q(x) = M4(u - q), u = (x + 1) / 0.4 + 3. xp (B, C, H+2, W+2) NCHW, zero
 // padded by the caller (a padded pixel adds silu(0) = 0 to the base branch
 // but B_q(0) != 0 to the spline branch, so the padding must be zeros of x);
-// the weights fp32, reordered by the wrapper to (C, 9, Fp) and (C, 9, 8, Fp),
-// F padded to Fp = a multiple of 16 with zeros; xp and out (B, F, H, W) in one
-// dtype (fp32, bf16 or fp16); every basis, product and sum in fp32.
+// xp and out (B, F, H, W) in one dtype (fp32, bf16 or fp16). The weights
+// come from the wrapper (kernels/kanconv.py) as bf16 pairs in the order the
+// kernel reads them (below); every basis and every sum is fp32.
 //
 // Replaces the TPU kernel kmunet_tpu/kernels/kanconv_pallas.py::fused_kanconv
 // (the pl.pallas_call in _forward, :151). Its gradient is the autodiff of the
 // plain version (kernels/kanconv.py), as the TPU kernel's custom VJP is the
 // autodiff of kanconv_reference.
 //
-// Design. The TPU kernel evaluates all 8 bases of a tile in VMEM and
-// contracts them with 9 shifted MXU matmuls, dense. Here each block computes
-// a 16 x 32 tile of output pixels for 16 output channels, a thread two
-// pixels of one column, its 2 x 16 sums in registers. It stages the tile's
-// 18 x 34 halo of xp, 4 channels at a time, in shared memory as 9 terms per
-// value, silu(x) and the 8 bases, each value's loads all in flight before
-// its terms are computed: the interval j = floor(u) gives the at most 4
-// nonzero bases (j-3 .. j; none outside [-2.2, 2.2)), evaluated once each,
-// on the piece the plain version chooses (t = u - q is exact, so t < 1, < 2,
-// < 3 select the same piece), the other bases 0. The basis never reaches
-// device memory. The products are dense, 9 MACs per (pixel, f, c, tap), as
-// the TPU kernel's: every weight is then a broadcast from shared memory (a
-// float4 feeds 8 MACs of the thread's two pixels), where skipping the zero
-// bases made each pixel gather its own 4 spline rows; that sparse first
-// version was shared-memory bound and took twice the time.
+// Design: an implicit GEMM on the tensor cores. M is the output pixels, N
+// the output channels F (padded to a multiple of 8 with zero weights), K the
+// 9 taps x C channels x 9 terms (silu(x) and the 8 bases), each term split in
+// two bf16 parts: hi = bf16(v), lo = bf16(v - hi) (the rest at most 2^-17
+// |v|). One rounding of the basis to bf16 (2^-9 |v|) summed over C x 9 taps
+// x 4 nonzero bases lands far outside the check's 1e-5 of the largest
+// output; tests/test_torch_k1_tiles.py models both.
+//   A block of 4 warps owns 8 x 16 output pixels and FB output channels
+// (16, or 32 for bf16 weights with F > 16). Per chunk of 8 input channels it
+// evaluates the terms once per value of the tile's 10 x 18 halo (the same
+// piece of M4 as the plain version picks, so x on a knot gives its bits) and
+// stores them in shared memory as 32-byte rows per (term, halo position):
+// the 8 channels' hi parts, then their lo parts, the two 16-byte halves
+// swapped where bit 2 of the column is set, so that the 8 rows an ldmatrix
+// reads (8 neighbouring columns) fall in distinct banks. A row is one k = 16
+// slice of A: its k 0-7 the hi parts and k 8-15 the lo parts of the same 8
+// channels, so that one mma.m16n8k16 against the weight rows duplicated
+// (k 0-7 and 8-15 both w_hi: the B fragment's two registers are one) adds
+// a_hi w_hi + a_lo w_hi. Where the weights are not exact in bf16 (fp32 and
+// fp16 models) an mma.m16n8k8 on the hi half adds a_hi w_lo too, so one loop
+// serves every dtype. The taps read shifted rows: tap (kh, kw) of output row
+// o is the A fragment of halo row o + kh at column offset kw (ldmatrix takes
+// one address per row, so the shift costs nothing), and a warp that owns R
+// output rows loads each halo row's fragment once per (term, kw) for the up
+// to 3 output rows that use it: (R + 2) / (3R) of the loads. The weights of
+// a chunk (81 rows x FB / 8 x 128 bytes, twice with lo parts) are staged by
+// cp.async in fragment order, one 32-bit load per (row, n8) per lane.
+//   Each term's products go to zeroed fragments (a chain of at most 18 mma)
+// and are added to the fp32 sums once per term, so that no long chain of
+// tensor-core accumulations carries its rounding. While a chunk's products
+// run, the next chunk's halo values are already loaded into registers: the
+// rows of xp are W + 2 elements, so their 18-element segments are not
+// 16-byte aligned for cp.async, and the kernel is not bound by its bytes.
+// Each block owns its outputs: no atomics, and two calls give the same bits.
 //
 // Bound. At KM_UNetV3-SH's enc1 (B = 128, 16 -> 16 channels at 128^2, bf16)
 // xp is 69.2 MB and the output 67.1 MB: 136 MB, 40.7 us at 3.35 TB/s. The
 // nonzero contraction is (4 + 1) MACs per (pixel, f, c, tap) inside [-1, 1]:
 // 48.3 GFLOP, 48.9 us on the tensor cores (the dense one, (8 + 1) MACs, 87.0
-// GFLOP, 88 us). So operations bound it. This kernel does the dense count on
-// the CUDA cores at fp32's 67 TFLOP/s, 1.3 ms at best; a dense basis fed to
-// the tensor cores is the later step.
+// GFLOP, 88 us). So operations bound it. This kernel does the dense count
+// twice over (hi and lo): 174 GFLOP, 176 us at the tensor cores' 989
+// TFLOP/s. At F = 16 each 512-byte A fragment feeds 2 mma, so its loads
+// (128 bytes per clock per SM) take longer than the products: the halo rows'
+// reuse over kh and a second block per SM are what the design does about it.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTH = 16, kTW = 32;        // output pixels per block
-constexpr int kRows = 2;                 // output rows per thread (same column)
-constexpr int kThreads = kTH / kRows * kTW;
-constexpr int kFT = 16;                  // output channels per block
-constexpr int kCC = 4;                   // input channels staged at a time
+constexpr int kTH = 8;                   // output rows per block
+constexpr int kTW = 16;                  // output columns per block: one A fragment's 16 rows
 constexpr int kHW = kTW + 2;             // halo width
-constexpr int kHalo = (kTH + 2) * kHW;
-constexpr int kStage = (kCC * kHalo + kThreads - 1) / kThreads;  // halo values per thread
+constexpr int kHalo = (kTH + 2) * kHW;   // halo positions
+constexpr int kCC = 8;                   // input channels per chunk
 constexpr int kTaps = 9;
 constexpr int kBases = 8;
 constexpr int kTerms = 1 + kBases;       // silu, then the 8 bases
-constexpr int kWeights = kCC * kTaps * kTerms * kFT;  // staged weights per channel chunk
-constexpr size_t kSmem = sizeof(float) * ((size_t)kCC * kTerms * kHalo + kWeights);
+constexpr int kWRows = kTaps * kTerms;   // weight rows per chunk: tap * kTerms + term
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kItems = kHalo * kCC / 2;  // (halo position, channel pair) per chunk
+constexpr int kRounds = (kItems + kThreads - 1) / kThreads;
+constexpr int kTermBytes = kHalo * 32;   // a term's rows: 8 hi + 8 lo bf16 per position
+constexpr int kABytes = kTerms * kTermBytes;
 constexpr float kLo = -1.f;
 constexpr float kKnot = 0.4f;            // (1 - (-1)) / 5
 constexpr float kSixth = 1.f / 6.f;
@@ -76,6 +100,43 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half(v);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where
+// !in_bounds (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in_bounds) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in_bounds ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a . [b; b]: m16n8k16, bf16 operands, fp32 d, the B fragment's two
+// registers one (k 8-15 repeat the weights of k 0-7).
+__device__ __forceinline__ void mma_k16(float* d, const uint32_t (&a)[4], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(b));
+}
+// d += a[k 0-7] . b: m16n8k8 on the fragment's hi half.
+__device__ __forceinline__ void mma_k8(float* d, const uint32_t (&a)[4], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // The pieces of M4 on [0, 1), [1, 2), [2, 3), [3, 4), as the plain version
@@ -94,154 +155,253 @@ __device__ __forceinline__ float piece3(float t) {
   return r * r * r * kSixth;
 }
 
-// The 8 bases at x, of which at most 4 (j-3 .. j, j = floor(u)) are
-// nonzero: each of those is evaluated once, on the piece the plain version
-// selects for it.
-__device__ __forceinline__ void bases_at(float x, float (&basis)[kBases]) {
+// The 9 terms at x: silu(x), then the 8 bases, of which at most 4 (j-3 ..
+// j, j = floor(u)) are nonzero: each of those is evaluated once, on the
+// piece the plain version selects for it (t = u - q is exact, so t < 1, < 2,
+// < 3 select the same piece).
+__device__ __forceinline__ void terms_at(float x, float (&v)[kTerms]) {
+  v[0] = __fdividef(x, 1.f + __expf(-x));
   const float u = (x - kLo) / kKnot + 3.f;  // a division, as the plain version
-  float v[4] = {0.f, 0.f, 0.f, 0.f};        // of bases j-3, j-2, j-1, j
+  float p[4] = {0.f, 0.f, 0.f, 0.f};        // bases j-3, j-2, j-1, j
   int lo = -8;                               // no basis of 0..7 when u is outside [0, 11)
   if (u >= 0.f && u < 11.f) {
     const int j = (int)floorf(u);
     lo = j - 3;
-    v[0] = piece3(u - (float)(j - 3));
-    v[1] = piece2(u - (float)(j - 2));
-    v[2] = piece1(u - (float)(j - 1));
-    v[3] = piece0(u - (float)j);
+    p[0] = piece3(u - (float)(j - 3));
+    p[1] = piece2(u - (float)(j - 2));
+    p[2] = piece1(u - (float)(j - 1));
+    p[3] = piece0(u - (float)j);
   }
 #pragma unroll
-  for (int b = 0; b < kBases; ++b) {
-    const int k = b - lo;
-    basis[b] = k == 0 ? v[0] : k == 1 ? v[1] : k == 2 ? v[2] : k == 3 ? v[3] : 0.f;
+  for (int q = 0; q < kBases; ++q) {
+    const int k = q - lo;
+    v[1 + q] = k == 0 ? p[0] : k == 1 ? p[1] : k == 2 ? p[2] : k == 3 ? p[3] : 0.f;
   }
 }
 
+// The halo values of channels c0 .. c0+7 at the thread's staging items
+// (below), 0 outside xp and past C.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) kanconv_kernel(
-    const T* __restrict__ xp, const float* __restrict__ wk, T* __restrict__ out, int C, int F,
-    int Fp, int H, int W, int tiles_w) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_a = smem;                           // [c][term][halo position]
-  float* s_w = smem + kCC * kTerms * kHalo;    // [c][tap][term][f]
+__device__ __forceinline__ void load_x(float (&xv)[kRounds][2], const T* __restrict__ xb,
+                                       const int (&x_off)[kRounds], const int (&s_off)[kRounds],
+                                       int c0, int C, long long plane) {
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + ((s_off[r] >> 2) & 3) * 2 + e;
+      xv[r][e] = x_off[r] >= 0 && c < C ? to_f32(xb[c * plane + x_off[r]]) : 0.f;
+    }
+}
 
-  const int tid = threadIdx.x, ty = tid / kTW, tx = tid % kTW;
+// R output rows and NW output channels per warp; P weight parts (1: w_hi,
+// 2: w_hi and w_lo). The 4 warps are kTH / R row groups by NG channel
+// groups: FB = NG * NW channels per block.
+template <typename T, int R, int NW, int P>
+__global__ void __launch_bounds__(kThreads) kanconv_kernel(
+    const T* __restrict__ xp, const uint32_t* __restrict__ wk, T* __restrict__ out, int C, int F,
+    int H, int W, int tiles_w, int fp8) {
+  constexpr int RG = kTH / R, NG = kWarps / RG, N8 = NW / 8, FB8 = NG * N8;
+  static_assert(RG * NG == kWarps && NW % 8 == 0, "4 warps of R rows and NW channels");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint32_t* s_w = reinterpret_cast<uint32_t*>(smem + kABytes);  // [row][n8][part][lane]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp % RG, ng = warp / RG;
   const int i0 = (blockIdx.x / tiles_w) * kTH, j0 = (blockIdx.x % tiles_w) * kTW;
-  const int f0 = blockIdx.y * kFT, b = blockIdx.z;
+  const int n80 = blockIdx.y * FB8;  // the block's first 8 output channels
+  const int b = blockIdx.z;
   const int Hp = H + 2, Wp = W + 2;
-  const T* xb = xp + (long long)b * C * Hp * Wp;
+  const long long plane = (long long)Hp * Wp;
+  const T* xb = xp + (long long)b * C * plane;
 
-  float acc[kRows][kFT];
+  // The thread's staging items, (halo position, channel pair), pair fastest:
+  // the offset of the position in a plane of xp (-1 outside it) and the byte
+  // offset of its hi pair in a term's rows (-1 past the items; the lo pair
+  // at ^ 16, the pair index in bits 2-3).
+  int x_off[kRounds], s_off[kRounds];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int f = 0; f < kFT; ++f) acc[r][f] = 0.f;
+  for (int r = 0; r < kRounds; ++r) {
+    const int item = tid + r * kThreads, pos = item >> 2, pair = item & 3;
+    const int row = pos / kHW, col = pos % kHW, gi = i0 + row, gj = j0 + col;
+    x_off[r] = (item < kItems && gi < Hp && gj < Wp) ? gi * Wp + gj : -1;
+    s_off[r] = item < kItems ? pos * 32 + (((col >> 2) & 1) << 4) + pair * 4 : -1;
+  }
+  float xv[kRounds][2];
 
-  for (int c0 = 0; c0 < C; c0 += kCC) {
-    // The halo's loads first, all in flight, then the terms of each value.
-    float xv[kStage];
+  // ldmatrix rows: lanes 8m .. 8m+7 address matrix m's rows, pixels
+  // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half; per kw the byte
+  // offset of that row in halo row 0.
+  const int m = lane >> 3, px = ((m & 1) << 3) + (lane & 7), half = m >> 1;
+  unsigned lane_off[3];
 #pragma unroll
-    for (int k = 0; k < kStage; ++k) {
-      const int idx = tid + k * kThreads;
-      const int c = c0 + idx / kHalo, pos = idx % kHalo;
-      const int gi = i0 + pos / kHW, gj = j0 + pos % kHW;
-      xv[k] = (idx < kCC * kHalo && c < C && gi < Hp && gj < Wp)
-                  ? to_f32(xb[((long long)c * Hp + gi) * Wp + gj]) : 0.f;
+  for (int kw = 0; kw < 3; ++kw) {
+    const int col = kw + px;
+    lane_off[kw] = (col << 5) + ((half ^ ((col >> 2) & 1)) << 4);
+  }
+  const unsigned a_warp = smem_addr(smem) + ((rg * R * kHW) << 5);
+
+  float acc[R][N8][4];
+#pragma unroll
+  for (int o = 0; o < R; ++o)
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[o][n][e] = 0.f;
+
+  const int chunks = (C + kCC - 1) / kCC;
+  load_x(xv, xb, x_off, s_off, 0, C, plane);
+#pragma unroll 1
+  for (int k = 0; k < chunks; ++k) {
+    // The chunk's weights, in flight while its terms are computed.
+    constexpr int kWUnits = kWRows * FB8 * P * 8;  // 16-byte units
+    for (int u = tid; u < kWUnits; u += kThreads) {
+      const int q = u & 7, part = (u >> 3) % P, n8l = (u >> 3) / P % FB8, row = (u >> 3) / P / FB8;
+      const bool ok = n80 + n8l < fp8;
+      const uint32_t* src =
+          wk + ((((long long)k * kWRows + row) * fp8 + (ok ? n80 + n8l : 0)) * P + part) * 32 + q * 4;
+      cp_async16(s_w + u * 4, src, ok);
     }
-#pragma unroll 4
-    for (int k = 0; k < (kWeights + kThreads - 1) / kThreads; ++k) {
-      const int idx = tid + k * kThreads, row = idx / kFT;  // row = (c - c0) * 81 + tap * 9 + term
-      if (idx < kWeights)
-        s_w[idx] = c0 + row / (kTaps * kTerms) < C
-                       ? wk[((long long)c0 * kTaps * kTerms + row) * Fp + f0 + idx % kFT] : 0.f;
-    }
 #pragma unroll
-    for (int k = 0; k < kStage; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < kCC * kHalo) {
-        const int cc = idx / kHalo, pos = idx % kHalo;
-        float basis[kBases];
-        bases_at(xv[k], basis);
-        float* a = s_a + cc * kTerms * kHalo + pos;
-        a[0] = xv[k] / (1.f + expf(-xv[k]));
+    for (int r = 0; r < kRounds; ++r) {
+      if (s_off[r] < 0) continue;
+      float v0[kTerms], v1[kTerms];
+      terms_at(xv[r][0], v0);
+      terms_at(xv[r][1], v1);
+      unsigned char* a_hi = smem + s_off[r];
+      unsigned char* a_lo = smem + (s_off[r] ^ 16);
 #pragma unroll
-        for (int q = 0; q < kBases; ++q) a[(1 + q) * kHalo] = basis[q];
+      for (int t = 0; t < kTerms; ++t) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0[t], v1[t]);
+        const __nv_bfloat162 lo =
+            __floats2bfloat162_rn(v0[t] - __low2float(hi), v1[t] - __high2float(hi));
+        *reinterpret_cast<__nv_bfloat162*>(a_hi + t * kTermBytes) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(a_lo + t * kTermBytes) = lo;
       }
     }
+    cp_async_wait_all();
     __syncthreads();
-    const int cc_end = min(kCC, C - c0);
-    for (int cc = 0; cc < cc_end; ++cc) {
-#pragma unroll 1  // unrolled, the taps' loads are hoisted into too many registers
-      for (int tap = 0; tap < kTaps; ++tap) {
-        const float* a = s_a + cc * kTerms * kHalo + (kRows * ty + tap / 3) * kHW + tx + tap % 3;
-        float av[kRows][kTerms];
+    if (k + 1 < chunks)  // in flight over the products
+      load_x(xv, xb, x_off, s_off, (k + 1) * kCC, C, plane);
+
+#pragma unroll 1
+    for (int t = 0; t < kTerms; ++t) {
+      float part[R][N8][4];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
+      for (int o = 0; o < R; ++o)
 #pragma unroll
-          for (int t = 0; t < kTerms; ++t) av[r][t] = a[t * kHalo + r * kHW];
-        const float4* w4 = reinterpret_cast<const float4*>(s_w + (cc * kTaps + tap) * kTerms * kFT);
+        for (int n = 0; n < N8; ++n)
 #pragma unroll
-        for (int t = 0; t < kTerms; ++t) {
+          for (int e = 0; e < 4; ++e) part[o][n][e] = 0.f;
+      const unsigned a_t = a_warp + t * kTermBytes;
+      const uint32_t* w_t = s_w + (t * FB8 + ng * N8) * P * 32 + lane;
 #pragma unroll
-          for (int f4 = 0; f4 < kFT / 4; ++f4) {
-            const float4 w = w4[t * (kFT / 4) + f4];
+      for (int kw = 0; kw < 3; ++kw) {
+        uint32_t w_hi[3][N8], w_lo[3][N8];
 #pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              acc[r][4 * f4] = fmaf(av[r][t], w.x, acc[r][4 * f4]);
-              acc[r][4 * f4 + 1] = fmaf(av[r][t], w.y, acc[r][4 * f4 + 1]);
-              acc[r][4 * f4 + 2] = fmaf(av[r][t], w.z, acc[r][4 * f4 + 2]);
-              acc[r][4 * f4 + 3] = fmaf(av[r][t], w.w, acc[r][4 * f4 + 3]);
+        for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+          for (int n = 0; n < N8; ++n) {
+            const uint32_t* w = w_t + ((kh * 3 + kw) * kTerms * FB8 + n) * P * 32;
+            w_hi[kh][n] = w[0];
+            w_lo[kh][n] = P == 2 ? w[32] : 0u;
+          }
+#pragma unroll
+        for (int hr = 0; hr < R + 2; ++hr) {
+          uint32_t a[4];
+          ldsm_x4(a, a_t + lane_off[kw] + hr * kHW * 32);
+#pragma unroll
+          for (int kh = 0; kh < 3; ++kh) {
+            const int o = hr - kh;
+            if (o < 0 || o >= R) continue;
+#pragma unroll
+            for (int n = 0; n < N8; ++n) {
+              mma_k16(part[o][n], a, w_hi[kh][n]);
+              if (P == 2) mma_k8(part[o][n], a, w_lo[kh][n]);
             }
           }
         }
       }
+#pragma unroll
+      for (int o = 0; o < R; ++o)
+#pragma unroll
+        for (int n = 0; n < N8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[o][n][e] += part[o][n][e];
     }
-    __syncthreads();
+    __syncthreads();  // the terms and weights are rewritten by the next chunk
   }
 
-  const int j = j0 + tx;
+  // Fragment element e of (o, n): pixel g (+ 8 for e >= 2), channel 2 tl (+ 1
+  // for odd e) of the warp's n-th 8 channels.
+  const int g = lane >> 2, tl = lane & 3;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = i0 + kRows * ty + r;
-    if (i < H && j < W) {
+  for (int o = 0; o < R; ++o) {
+    const int i = i0 + rg * R + o;
+    if (i >= H) continue;
 #pragma unroll
-      for (int f = 0; f < kFT; ++f)
-        if (f0 + f < F)
-          out[(((long long)b * F + f0 + f) * H + i) * W + j] = from_f32<T>(acc[r][f]);
-    }
+    for (int n = 0; n < N8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + g + ((e >> 1) << 3);
+        const int f = (n80 + ng * N8 + n) * 8 + 2 * tl + (e & 1);
+        if (j < W && f < F)
+          out[(((long long)b * F + f) * H + i) * W + j] = from_f32<T>(acc[o][n][e]);
+      }
   }
 }
 
-template <typename T>
-int run(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W,
-        cudaStream_t stream) {
-  const int Fp = (F + kFT - 1) / kFT * kFT;
+template <typename T, int R, int NW, int P>
+int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W,
+           cudaStream_t stream) {
+  constexpr int FB8 = kWarps / (kTH / R) * NW / 8;
+  constexpr int kSmem = kABytes + kWRows * FB8 * P * 128;
+  const int fp8 = (F + 7) / 8;
   const int tiles_w = (W + kTW - 1) / kTW, tiles_h = (H + kTH - 1) / kTH;
-  const dim3 grid(tiles_h * tiles_w, Fp / kFT, B);
-  int err = (int)cudaFuncSetAttribute(kanconv_kernel<T>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  const int groups = (fp8 + FB8 - 1) / FB8;
+  if (groups > 65535 || (long long)tiles_h * tiles_w > 0x7fffffffLL) return -1;
+  const dim3 grid(tiles_h * tiles_w, groups, B);
+  int err = (int)cudaFuncSetAttribute(kanconv_kernel<T, R, NW, P>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != 0) return err;
-  kanconv_kernel<T><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(xp), static_cast<const float*>(wk), static_cast<T*>(out), C, F, Fp,
-      H, W, tiles_w);
+  kanconv_kernel<T, R, NW, P><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const T*>(xp), static_cast<const uint32_t*>(wk), static_cast<T*>(out), C, F,
+      H, W, tiles_w, fp8);
   return (int)cudaGetLastError();
+}
+
+// bf16 weights with F > 16: 32 channels per block (2 row groups of 4 rows x
+// 2 channel groups of 16); else 16 (4 row groups of 2 rows), which keeps the
+// staged weights with lo parts at 41 KB.
+template <typename T>
+int run(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W, int parts,
+        cudaStream_t stream) {
+  if (parts == 2) return launch<T, 2, 16, 2>(xp, wk, out, B, C, F, H, W, stream);
+  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
+  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16, 2 = fp16, of xp (B, C, H+2, W+2) and out
-// (B, F, H, W); wk (C, 9, 9, Fp) fp32: per input channel and tap, the base
-// weight (term 0) and the 8 spline weights (terms 1-8), F padded to Fp, a
-// multiple of 16, with zeros. Returns cudaGetLastError() after the launch,
-// or -1 for an argument the kernel does not take.
+// (B, F, H, W). wk: the weights as 32-bit words, (ceil(C / 8), 9 taps, 9
+// terms, ceil(F / 8), parts, 32 lanes): lane 4g + l of chunk k, row (tap,
+// term), n8 tile n and part p holds the bf16 pair (w_p[8k + 2l, f],
+// w_p[8k + 2l + 1, f]) of f = 8n + g, low half first; term 0 the base weight
+// and terms 1-8 the spline weights of the 8 bases; part 0 w_hi = bf16(w),
+// part 1 (parts = 2) w_lo = bf16(w - w_hi); zeros for channels past C and F.
+// Returns cudaGetLastError() after the launch, or -1 for an argument the
+// kernel does not take.
 extern "C" int kmunet_kanconv(const void* xp, const void* wk, void* out, int B, int C, int F,
-                              int H, int W, int dtype, void* stream) {
-  if (B < 1 || B > 65535 || C < 1 || F < 1 || H < 1 || W < 1 || (F + kFT - 1) / kFT > 65535)
+                              int H, int W, int dtype, int parts, void* stream) {
+  if (B < 1 || B > 65535 || C < 1 || F < 1 || H < 1 || W < 1 || (parts != 1 && parts != 2) ||
+      (long long)(H + 2) * (W + 2) > 0x7fffffffLL)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return run<float>(xp, wk, out, B, C, F, H, W, s);
-    case 1: return run<__nv_bfloat16>(xp, wk, out, B, C, F, H, W, s);
-    case 2: return run<__half>(xp, wk, out, B, C, F, H, W, s);
+    case 0: return run<float>(xp, wk, out, B, C, F, H, W, parts, s);
+    case 1: return run<__nv_bfloat16>(xp, wk, out, B, C, F, H, W, parts, s);
+    case 2: return run<__half>(xp, wk, out, B, C, F, H, W, parts, s);
     default: return -1;
   }
 }

@@ -34,7 +34,7 @@ from kmunet_tpu_torch.ops.spline import cardinal_bspline_basis_flat
 
 SOURCE = "kanconv.cu"
 N_BASIS = 8  # grid 5, cubic: the bases K1 evaluates
-F_TILE = 16  # output channels per block (csrc's kFT): the weights are padded to it
+CHUNK = 8  # input channels per k = 16 slice (hi and lo parts) of K1's products
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -53,7 +53,7 @@ def kanconv_plain(xp, base_weight, spline_flat, grid_size: int = 5,
 def kernel() -> ctypes._CFuncPtr:
     """K1's entry point, built from ``csrc/kanconv.cu`` on first use."""
     fn = ctypes.CDLL(str(build.build(SOURCE).path)).kmunet_kanconv
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,30 +80,47 @@ def _check(xp, base_weight, spline_flat) -> None:
         raise ValueError(f"the CUDA KAN conv needs a CUDA tensor, got {xp.device}")
 
 
-def _weights(base_weight, spline_flat):
-    """The weights as K1 reads them, fp32 (C, 9 taps, 9 terms, Fp): term 0
-    the base weight, terms 1-8 the spline weights of the 8 bases; F padded
-    with zeros to Fp, a multiple of F_TILE."""
+def weight_parts(base_weight, spline_flat) -> int:
+    """1 where both weights are bf16 (exact as K1's bf16 operands), else 2:
+    each weight then goes in as w_hi = bf16(w) and w_lo = bf16(w - w_hi)."""
+    return 1 if base_weight.dtype == spline_flat.dtype == torch.bfloat16 else 2
+
+
+def packed_weights(base_weight, spline_flat, parts: int) -> torch.Tensor:
+    """The weights as K1 reads them, int32 words (C8, 9 taps, 9 terms, Fp8,
+    parts, 8, 4) for C8 = ceil(C / 8) chunks of channels and Fp8 = ceil(F /
+    8) tiles of output channels: word (k, tap, term, n, p, g, l) is the bf16
+    pair (w_p[8k + 2l, f], w_p[8k + 2l + 1, f]) of f = 8n + g, low half
+    first, the B fragment that lane 4g + l of an mma holds; term 0 the base
+    weight, terms 1-8 the spline weights of the 8 bases; part 0 w_hi, part 1
+    w_lo; zeros past C and F (a zero weight, not a zero x, masks a padded
+    channel: B_q(0) != 0)."""
     Fo, C = base_weight.shape[:2]
-    terms = torch.cat([base_weight.float().reshape(Fo, C, 1, 9),
-                       spline_flat.float().reshape(Fo, C, N_BASIS, 9)], dim=2)
-    return F.pad(terms.permute(1, 3, 2, 0), (0, -Fo % F_TILE)).contiguous()
+    w = torch.cat([base_weight.float().reshape(Fo, C, 1, 9),
+                   spline_flat.float().reshape(Fo, C, N_BASIS, 9)], dim=2)
+    w = F.pad(w.permute(1, 3, 2, 0), (0, -Fo % 8, 0, 0, 0, 0, 0, -C % CHUNK))  # (C, tap, term, F)
+    hi = w.to(torch.bfloat16)
+    stacked = torch.stack([hi, (w - hi.float()).to(torch.bfloat16)][:parts])
+    c8, fp8 = w.shape[0] // CHUNK, w.shape[3] // 8
+    stacked = stacked.view(parts, c8, 4, 2, 9, 9, fp8, 8).permute(1, 4, 5, 6, 0, 7, 2, 3)
+    return stacked.contiguous().view(torch.int32).view(c8, 9, 9, fp8, parts, 8, 4)
 
 
 def kanconv_forward(xp, base_weight, spline_flat) -> torch.Tensor:
     """K1 on CUDA tensors: (B, F, Hp-2, Wp-2) in xp's dtype (fp32, bf16 or
-    fp16); the weights of any float dtype, reordered to fp32 here once per
-    call (a few KB). Raises on what the kernel does not take. Counts its
+    fp16); the weights of any float dtype, packed here once per call (at most
+    a few hundred KB). Raises on what the kernel does not take. Counts its
     launches on ``fused_kanconv.launches``."""
     _check(xp, base_weight, spline_flat)
     Bsz, C, Hp, Wp = xp.shape
     Fo = base_weight.shape[0]
-    wk = _weights(base_weight, spline_flat)
+    parts = weight_parts(base_weight, spline_flat)
+    wk = packed_weights(base_weight, spline_flat, parts)
     out = torch.empty(Bsz, Fo, Hp - 2, Wp - 2, dtype=xp.dtype, device=xp.device)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = kernel()(xp.data_ptr(), wk.data_ptr(), out.data_ptr(), Bsz, C, Fo, Hp - 2, Wp - 2,
-                       _DTYPE_CODES[xp.dtype], stream)
+                       _DTYPE_CODES[xp.dtype], parts, stream)
     if err != 0:
         raise RuntimeError(f"kmunet_kanconv launch failed: error {err}")
     fused_kanconv.launches += 1

@@ -640,7 +640,9 @@ def test_cuda_mamba_train_step_matches_cpu(cuda_device, monkeypatch):
 
 
 # K1's shapes (B, C, F, H, W): the four SH KAN convs at 32^2 input, LAPS's
-# enc1 at 256^2 and B=1 (its grid's largest), and ragged ones.
+# enc1 at 256^2 and B=1 (its grid's largest), and ragged ones; H and W past
+# the kernel's 8 x 16 tiles, C of 24 and of 20 (no whole chunk of 8
+# channels at the end), and F = 64 at a ragged H and W.
 KAN_GPU_SHAPES = {
     "enc1": (2, 16, 16, 32, 32),
     "laps_enc1": (1, 16, 16, 256, 256),
@@ -648,6 +650,10 @@ KAN_GPU_SHAPES = {
     "dec1": (2, 64, 32, 8, 8),
     "ragged": (3, 3, 5, 7, 9),
     "f17": (1, 5, 17, 20, 18),
+    "tile_edges": (2, 16, 16, 13, 35),
+    "c24": (2, 24, 32, 10, 17),
+    "c20": (2, 20, 16, 9, 16),
+    "f64_ragged": (2, 32, 64, 11, 21),
 }
 # K2's and K3's (B, C, L, N): the SH mixer shapes at 32^2 input, LAPS's enc1
 # at 256^2 and B=1 (L=65536: the most compress slices per batch element),
@@ -681,6 +687,17 @@ def test_cuda_kanconv_matches_plain(cuda_device, shape, case, monkeypatch):
     chip_smoke.check_kanconv(torch, shape, *args, {})
     torch.cuda.synchronize()
     assert kanconv.fused_kanconv.launches - before == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", ["enc1", "ragged", "c20", "f64_ragged"])
+def test_cuda_kanconv_repeats_bitwise(cuda_device, shape, dtype):
+    """K1 called twice on the same inputs gives equal bits: each block owns
+    its outputs and sums in a fixed order, with no atomics."""
+    xp, base, spline = (t.to(dtype) for t in chip_smoke.kan_inputs(
+        torch, np.random.default_rng(4), KAN_GPU_SHAPES[shape], "wide", cuda_device))
+    assert torch.equal(kanconv.kanconv_forward(xp, base, spline),
+                       kanconv.kanconv_forward(xp, base, spline))
 
 
 @pytest.mark.parametrize("dt_case", ["seeded", "large"])
