@@ -81,7 +81,7 @@ constexpr int kTerms = 1 + kBases;       // silu, then the 8 bases
 constexpr int kWRows = kTaps * kTerms;   // weight rows per chunk: tap * kTerms + term
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kItems = kHalo * kCC / 2;  // (halo position, channel pair) per chunk
+constexpr int kItems = kHalo * kCC;      // (halo position, channel) per chunk
 constexpr int kRounds = (kItems + kThreads - 1) / kThreads;
 constexpr int kTermBytes = kHalo * 32;   // a term's rows: 8 hi + 8 lo bf16 per position
 constexpr int kABytes = kTerms * kTermBytes;
@@ -139,59 +139,44 @@ __device__ __forceinline__ void mma_k8(float* d, const uint32_t (&a)[4], uint32_
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
-// The pieces of M4 on [0, 1), [1, 2), [2, 3), [3, 4), as the plain version
-// writes them.
-__device__ __forceinline__ float piece0(float t) { return t * t * t * kSixth; }
-__device__ __forceinline__ float piece1(float t) {
-  const float t2 = t * t, t3 = t2 * t;
-  return (-3.f * t3 + 12.f * t2 - 12.f * t + 4.f) * kSixth;
-}
-__device__ __forceinline__ float piece2(float t) {
-  const float t2 = t * t, t3 = t2 * t;
-  return (3.f * t3 - 24.f * t2 + 60.f * t - 44.f) * kSixth;
-}
-__device__ __forceinline__ float piece3(float t) {
-  const float r = 4.f - t;
-  return r * r * r * kSixth;
+// silu(x) into s and the 4 bases that may be nonzero at x, B_{j-3} .. B_j
+// for j = floor(u), u = (x + 1) / 0.4 + 3 (as one fma), into p: the uniform
+// cubic B-spline's pieces at the fraction f = u - j, the plain version's
+// pieces of M4 written in f (the same values within rounding; M4 is
+// continuous, so an x on a knot whose u lands an ulp below the integer
+// gives the same terms within rounding). Returns j, or -1 where u is outside
+// [0, 11) (or NaN), where none of the 8 bases is nonzero.
+__device__ __forceinline__ int terms_at(float x, float& s, float (&p)[4]) {
+  s = __fdividef(x, 1.f + __expf(-x));
+  const float u = fmaf(x, 1.f / kKnot, 3.f - kLo / kKnot);
+  if (!(u >= 0.f && u < 11.f)) return -1;
+  const float fl = floorf(u), f = u - fl, g = 1.f - f, f2 = f * f, f3 = f2 * f;
+  p[0] = g * g * g * kSixth;
+  p[1] = fmaf(3.f, f3, fmaf(-6.f, f2, 4.f)) * kSixth;
+  p[2] = fmaf(-3.f, f3, fmaf(3.f, f2, fmaf(3.f, f, 1.f))) * kSixth;
+  p[3] = f3 * kSixth;
+  return (int)fl;
 }
 
-// The 9 terms at x: silu(x), then the 8 bases, of which at most 4 (j-3 ..
-// j, j = floor(u)) are nonzero: each of those is evaluated once, on the
-// piece the plain version selects for it (t = u - q is exact, so t < 1, < 2,
-// < 3 select the same piece).
-__device__ __forceinline__ void terms_at(float x, float (&v)[kTerms]) {
-  v[0] = __fdividef(x, 1.f + __expf(-x));
-  const float u = (x - kLo) / kKnot + 3.f;  // a division, as the plain version
-  float p[4] = {0.f, 0.f, 0.f, 0.f};        // bases j-3, j-2, j-1, j
-  int lo = -8;                               // no basis of 0..7 when u is outside [0, 11)
-  if (u >= 0.f && u < 11.f) {
-    const int j = (int)floorf(u);
-    lo = j - 3;
-    p[0] = piece3(u - (float)(j - 3));
-    p[1] = piece2(u - (float)(j - 2));
-    p[2] = piece1(u - (float)(j - 1));
-    p[3] = piece0(u - (float)j);
-  }
-#pragma unroll
-  for (int q = 0; q < kBases; ++q) {
-    const int k = q - lo;
-    v[1 + q] = k == 0 ? p[0] : k == 1 ? p[1] : k == 2 ? p[2] : k == 3 ? p[3] : 0.f;
-  }
+// v split into bf16 hi = bf16(v) and lo = bf16(v - hi), stored at a + hi and
+// a + lo.
+__device__ __forceinline__ void store_split(unsigned char* a, int hi, int lo, float v) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  *reinterpret_cast<__nv_bfloat16*>(a + hi) = h;
+  *reinterpret_cast<__nv_bfloat16*>(a + lo) = __float2bfloat16_rn(v - __bfloat162float(h));
 }
 
 // The halo values of channels c0 .. c0+7 at the thread's staging items
 // (below), 0 outside xp and past C.
 template <typename T>
-__device__ __forceinline__ void load_x(float (&xv)[kRounds][2], const T* __restrict__ xb,
+__device__ __forceinline__ void load_x(float (&xv)[kRounds], const T* __restrict__ xb,
                                        const int (&x_off)[kRounds], const int (&s_off)[kRounds],
                                        int c0, int C, long long plane) {
 #pragma unroll
-  for (int r = 0; r < kRounds; ++r)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = c0 + ((s_off[r] >> 2) & 3) * 2 + e;
-      xv[r][e] = x_off[r] >= 0 && c < C ? to_f32(xb[c * plane + x_off[r]]) : 0.f;
-    }
+  for (int r = 0; r < kRounds; ++r) {
+    const int c = c0 + ((s_off[r] >> 1) & 7);
+    xv[r] = x_off[r] >= 0 && c < C ? to_f32(xb[c * plane + x_off[r]]) : 0.f;
+  }
 }
 
 // R output rows and NW output channels per warp; P weight parts (1: w_hi,
@@ -215,19 +200,19 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   const long long plane = (long long)Hp * Wp;
   const T* xb = xp + (long long)b * C * plane;
 
-  // The thread's staging items, (halo position, channel pair), pair fastest:
+  // The thread's staging items, (halo position, channel), channel fastest:
   // the offset of the position in a plane of xp (-1 outside it) and the byte
-  // offset of its hi pair in a term's rows (-1 past the items; the lo pair
-  // at ^ 16, the pair index in bits 2-3).
+  // offset of its hi part in a term's rows (-1 past the items; the lo part at
+  // ^ 16, the channel in bits 1-3).
   int x_off[kRounds], s_off[kRounds];
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    const int item = tid + r * kThreads, pos = item >> 2, pair = item & 3;
+    const int item = tid + r * kThreads, pos = item >> 3, ch = item & 7;
     const int row = pos / kHW, col = pos % kHW, gi = i0 + row, gj = j0 + col;
     x_off[r] = (item < kItems && gi < Hp && gj < Wp) ? gi * Wp + gj : -1;
-    s_off[r] = item < kItems ? pos * 32 + (((col >> 2) & 1) << 4) + pair * 4 : -1;
+    s_off[r] = item < kItems ? pos * 32 + (((col >> 2) & 1) << 4) + ch * 2 : -1;
   }
-  float xv[kRounds][2];
+  float xv[kRounds];
 
   // ldmatrix rows: lanes 8m .. 8m+7 address matrix m's rows, pixels
   // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half; per kw the byte
@@ -262,22 +247,23 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
           wk + ((((long long)k * kWRows + row) * fp8 + (ok ? n80 + n8l : 0)) * P + part) * 32 + q * 4;
       cp_async16(s_w + u * 4, src, ok);
     }
+    // The bases' rows are zero but where an item writes one of its 4.
+    for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
       if (s_off[r] < 0) continue;
-      float v0[kTerms], v1[kTerms];
-      terms_at(xv[r][0], v0);
-      terms_at(xv[r][1], v1);
-      unsigned char* a_hi = smem + s_off[r];
-      unsigned char* a_lo = smem + (s_off[r] ^ 16);
-#pragma unroll
-      for (int t = 0; t < kTerms; ++t) {
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0[t], v1[t]);
-        const __nv_bfloat162 lo =
-            __floats2bfloat162_rn(v0[t] - __low2float(hi), v1[t] - __high2float(hi));
-        *reinterpret_cast<__nv_bfloat162*>(a_hi + t * kTermBytes) = hi;
-        *reinterpret_cast<__nv_bfloat162*>(a_lo + t * kTermBytes) = lo;
-      }
+      float s, p[4];
+      const int j = terms_at(xv[r], s, p), hi = s_off[r], lo = s_off[r] ^ 16;
+      store_split(smem, hi, lo, s);
+      if (j < 0) continue;
+      const int o = (j - 2) * kTermBytes;  // the rows of term 1 + (j - 3)
+      if (j >= 3) store_split(smem, hi + o, lo + o, p[0]);
+      if (j >= 2 && j <= 9) store_split(smem, hi + o + kTermBytes, lo + o + kTermBytes, p[1]);
+      if (j >= 1 && j <= 8)
+        store_split(smem, hi + o + 2 * kTermBytes, lo + o + 2 * kTermBytes, p[2]);
+      if (j <= 7) store_split(smem, hi + o + 3 * kTermBytes, lo + o + 3 * kTermBytes, p[3]);
     }
     cp_async_wait_all();
     __syncthreads();

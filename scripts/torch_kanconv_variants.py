@@ -33,10 +33,13 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_basis": (False, [("      terms_at(xv[r][0], v0);\n      terms_at(xv[r][1], v1);\n",
-                          "      for (int t = 0; t < kTerms; ++t) v0[t] = xv[r][0], v1[t] = xv[r][1];\n")]),
     "no_products": (False, [("    for (int t = 0; t < kTerms; ++t) {\n      float part",
                              "    for (int t = 0; t < 0; ++t) {\n      float part")]),
+    "no_basis": (False, [("      if (j < 0) continue;\n", "      if (j > -8) continue;\n")]),
+    "no_loads": (False, [("    xv[r] = x_off[r] >= 0 && c < C ? to_f32(xb[c * plane + x_off[r]]) : 0.f;",
+                          "    xv[r] = (float)(x_off[r] + c) * 1e-4f;")]),
+    "no_zero_fill": (False, [("      reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);",
+                              "      ;")]),
     # Each kw's R + 2 A fragments loaded before its products.
     "preload": (True, [(
         "#pragma unroll\n        for (int hr = 0; hr < R + 2; ++hr) {\n          uint32_t a[4];\n"
@@ -45,25 +48,17 @@ VARIANTS = {
         "        for (int hr = 0; hr < R + 2; ++hr) ldsm_x4(a_all[hr], a_t + lane_off[kw] + hr * kHW * 32);\n"
         "#pragma unroll\n        for (int hr = 0; hr < R + 2; ++hr) {\n"
         "          const uint32_t (&a)[4] = a_all[hr];\n")]),
-    "ldsm_nonvolatile": (True, [('asm volatile("ldmatrix', 'asm("ldmatrix')]),
-    "three_blocks": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
-                             "__launch_bounds__(kThreads, 3) kanconv_kernel")]),
-    # u by one fma (not the plain version's division: a knot may take the
-    # neighbouring piece, whose value there is the same within rounding).
-    "fma_u": (True, [("(x - kLo) / kKnot + 3.f;", "fmaf(x, 1.f / kKnot, 3.f - kLo / kKnot);")]),
-    # The bases' select by the two bits of q - lo.
-    "select_bits": (True, [(
-        "    const int k = q - lo;\n"
-        "    v[1 + q] = k == 0 ? p[0] : k == 1 ? p[1] : k == 2 ? p[2] : k == 3 ? p[3] : 0.f;\n",
-        "    const unsigned k = q - lo;\n"
-        "    const float lo2 = k & 1 ? p[1] : p[0], hi2 = k & 1 ? p[3] : p[2];\n"
-        "    v[1 + q] = k < 4 ? (k & 2 ? hi2 : lo2) : 0.f;\n")]),
     # 16 x 16 pixels per block of 4 warps (R = 4 for F <= 16 and for fp32
     # weights, 8 for bf16 weights with F > 16): one block per SM.
     "tile16": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
                       ("launch<T, 2, 16, 2>", "launch<T, 4, 16, 2>"),
                       ("launch<T, 4, 16, 1>", "launch<T, 8, 16, 1>"),
                       ("launch<T, 2, 16, 1>", "launch<T, 4, 16, 1>")]),
+    "tile16_8warps_no_products": (False, [
+        ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
+        ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
+        ("    for (int t = 0; t < kTerms; ++t) {\n      float part",
+         "    for (int t = 0; t < 0; ++t) {\n      float part")]),
     # 16 x 16 pixels per block of 8 warps of the same R: one block per SM.
     "tile16_8warps": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
                              ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
