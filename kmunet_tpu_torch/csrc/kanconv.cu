@@ -166,16 +166,20 @@ __device__ __forceinline__ void store_split(unsigned char* a, int hi, int lo, fl
   *reinterpret_cast<__nv_bfloat16*>(a + lo) = __float2bfloat16_rn(v - __bfloat162float(h));
 }
 
-// The halo values of channels c0 .. c0+7 at the thread's staging items
-// (below), 0 outside xp and past C.
+// The halo values of channels c0 .. c0+7 of batch element b at the
+// thread's staging items (below) for the tile at (i0, j0), 0 outside xp and
+// past C.
 template <typename T>
-__device__ __forceinline__ void load_x(float (&xv)[kRounds], const T* __restrict__ xb,
-                                       const int (&x_off)[kRounds], const int (&s_off)[kRounds],
-                                       int c0, int C, long long plane) {
+__device__ __forceinline__ void load_x(float (&xv)[kRounds], const T* __restrict__ xp,
+                                       const int (&rc)[kRounds], const int (&s_off)[kRounds],
+                                       int b, int i0, int j0, int c0, int C, int Hp, int Wp) {
+  const long long plane = (long long)Hp * Wp;
+  const T* xb = xp + (long long)b * C * plane;
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    const int c = c0 + ((s_off[r] >> 1) & 7);
-    xv[r] = x_off[r] >= 0 && c < C ? to_f32(xb[c * plane + x_off[r]]) : 0.f;
+    const int c = c0 + ((s_off[r] >> 1) & 7), gi = i0 + (rc[r] >> 16), gj = j0 + (rc[r] & 0xffff);
+    xv[r] = s_off[r] >= 0 && c < C && gi < Hp && gj < Wp ? to_f32(xb[c * plane + gi * Wp + gj])
+                                                          : 0.f;
   }
 }
 
@@ -185,7 +189,7 @@ __device__ __forceinline__ void load_x(float (&xv)[kRounds], const T* __restrict
 template <typename T, int R, int NW, int P>
 __global__ void __launch_bounds__(kThreads) kanconv_kernel(
     const T* __restrict__ xp, const uint32_t* __restrict__ wk, T* __restrict__ out, int C, int F,
-    int H, int W, int tiles_w, int fp8) {
+    int H, int W, int tiles_w, int tiles, int groups, int works, int fp8) {
   constexpr int RG = kTH / R, NG = kWarps / RG, N8 = NW / 8, FB8 = NG * N8;
   static_assert(RG * NG == kWarps && NW % 8 == 0, "4 warps of R rows and NW channels");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -193,23 +197,18 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = warp % RG, ng = warp / RG;
-  const int i0 = (blockIdx.x / tiles_w) * kTH, j0 = (blockIdx.x % tiles_w) * kTW;
-  const int n80 = blockIdx.y * FB8;  // the block's first 8 output channels
-  const int b = blockIdx.z;
   const int Hp = H + 2, Wp = W + 2;
-  const long long plane = (long long)Hp * Wp;
-  const T* xb = xp + (long long)b * C * plane;
 
   // The thread's staging items, (halo position, channel), channel fastest:
-  // the offset of the position in a plane of xp (-1 outside it) and the byte
-  // offset of its hi part in a term's rows (-1 past the items; the lo part at
-  // ^ 16, the channel in bits 1-3).
-  int x_off[kRounds], s_off[kRounds];
+  // the position's row and column in the halo (row << 16 | column) and the
+  // byte offset of its hi part in a term's rows (-1 past the items; the lo
+  // part at ^ 16, the channel in bits 1-3).
+  int rc[kRounds], s_off[kRounds];
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
     const int item = tid + r * kThreads, pos = item >> 3, ch = item & 7;
-    const int row = pos / kHW, col = pos % kHW, gi = i0 + row, gj = j0 + col;
-    x_off[r] = (item < kItems && gi < Hp && gj < Wp) ? gi * Wp + gj : -1;
+    const int row = pos / kHW, col = pos % kHW;
+    rc[r] = row << 16 | col;
     s_off[r] = item < kItems ? pos * 32 + (((col >> 2) & 1) << 4) + ch * 2 : -1;
   }
   float xv[kRounds];
@@ -226,114 +225,140 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   }
   const unsigned a_warp = smem_addr(smem) + ((rg * R * kHW) << 5);
 
-  float acc[R][N8][4];
-#pragma unroll
-  for (int o = 0; o < R; ++o)
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[o][n][e] = 0.f;
-
+  // Persistent: the block walks the work items (batch element, tile, group
+  // of FB channels) w = blockIdx.x, + gridDim.x, ...; the halo values of each
+  // next chunk, or of the next item's first, are loaded into registers while
+  // the current chunk's products run.
   const int chunks = (C + kCC - 1) / kCC;
-  load_x(xv, xb, x_off, s_off, 0, C, plane);
+  auto origin = [&](int w, int& b, int& i0, int& j0, int& n80) {
+    const int tile = w / groups % tiles;
+    b = w / groups / tiles;
+    i0 = tile / tiles_w * kTH;
+    j0 = tile % tiles_w * kTW;
+    n80 = w % groups * FB8;  // the item's first 8 output channels
+  };
+  int b, i0, j0, n80;
+  if ((int)blockIdx.x < works) {
+    origin(blockIdx.x, b, i0, j0, n80);
+    load_x(xv, xp, rc, s_off, b, i0, j0, 0, C, Hp, Wp);
+  }
 #pragma unroll 1
-  for (int k = 0; k < chunks; ++k) {
-    // The chunk's weights, in flight while its terms are computed.
-    constexpr int kWUnits = kWRows * FB8 * P * 8;  // 16-byte units
-    for (int u = tid; u < kWUnits; u += kThreads) {
-      const int q = u & 7, part = (u >> 3) % P, n8l = (u >> 3) / P % FB8, row = (u >> 3) / P / FB8;
-      const bool ok = n80 + n8l < fp8;
-      const uint32_t* src =
-          wk + ((((long long)k * kWRows + row) * fp8 + (ok ? n80 + n8l : 0)) * P + part) * 32 + q * 4;
-      cp_async16(s_w + u * 4, src, ok);
-    }
-    // The bases' rows are zero but where an item writes one of its 4.
-    for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)
-      reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);
-    __syncthreads();
+  for (int w = blockIdx.x; w < works; w += gridDim.x) {
+    origin(w, b, i0, j0, n80);
+    float acc[R][N8][4];
 #pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      if (s_off[r] < 0) continue;
-      float s, p[4];
-      const int j = terms_at(xv[r], s, p), hi = s_off[r], lo = s_off[r] ^ 16;
-      store_split(smem, hi, lo, s);
-      if (j < 0) continue;
-      const int o = (j - 2) * kTermBytes;  // the rows of term 1 + (j - 3)
-      if (j >= 3) store_split(smem, hi + o, lo + o, p[0]);
-      if (j >= 2 && j <= 9) store_split(smem, hi + o + kTermBytes, lo + o + kTermBytes, p[1]);
-      if (j >= 1 && j <= 8)
-        store_split(smem, hi + o + 2 * kTermBytes, lo + o + 2 * kTermBytes, p[2]);
-      if (j <= 7) store_split(smem, hi + o + 3 * kTermBytes, lo + o + 3 * kTermBytes, p[3]);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    if (k + 1 < chunks)  // in flight over the products
-      load_x(xv, xb, x_off, s_off, (k + 1) * kCC, C, plane);
+    for (int o = 0; o < R; ++o)
+#pragma unroll
+      for (int n = 0; n < N8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[o][n][e] = 0.f;
 
 #pragma unroll 1
-    for (int t = 0; t < kTerms; ++t) {
-      float part[R][N8][4];
+    for (int k = 0; k < chunks; ++k) {
+      // The chunk's weights, in flight while its terms are computed.
+      constexpr int kWUnits = kWRows * FB8 * P * 8;  // 16-byte units
+      for (int u = tid; u < kWUnits; u += kThreads) {
+        const int q = u & 7, part = (u >> 3) % P, n8l = (u >> 3) / P % FB8;
+        const int row = (u >> 3) / P / FB8;
+        const bool ok = n80 + n8l < fp8;
+        const uint32_t* src =
+            wk + ((((long long)k * kWRows + row) * fp8 + (ok ? n80 + n8l : 0)) * P + part) * 32 +
+            q * 4;
+        cp_async16(s_w + u * 4, src, ok);
+      }
+      // The bases' rows are zero but where an item writes one of its 4.
+      for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)
+        reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);
+      __syncthreads();
 #pragma unroll
-      for (int o = 0; o < R; ++o)
+      for (int r = 0; r < kRounds; ++r) {
+        if (s_off[r] < 0) continue;
+        float s, p[4];
+        const int j = terms_at(xv[r], s, p), hi = s_off[r], lo = s_off[r] ^ 16;
+        store_split(smem, hi, lo, s);
+        if (j < 0) continue;
+        const int o = (j - 2) * kTermBytes;  // the rows of term 1 + (j - 3)
+        if (j >= 3) store_split(smem, hi + o, lo + o, p[0]);
+        if (j >= 2 && j <= 9) store_split(smem, hi + o + kTermBytes, lo + o + kTermBytes, p[1]);
+        if (j >= 1 && j <= 8)
+          store_split(smem, hi + o + 2 * kTermBytes, lo + o + 2 * kTermBytes, p[2]);
+        if (j <= 7) store_split(smem, hi + o + 3 * kTermBytes, lo + o + 3 * kTermBytes, p[3]);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (k + 1 < chunks) {  // in flight over the products
+        load_x(xv, xp, rc, s_off, b, i0, j0, (k + 1) * kCC, C, Hp, Wp);
+      } else if (w + gridDim.x < works) {
+        int b2, i2, j2, n2;
+        origin(w + gridDim.x, b2, i2, j2, n2);
+        load_x(xv, xp, rc, s_off, b2, i2, j2, 0, C, Hp, Wp);
+      }
+
+#pragma unroll 1
+      for (int t = 0; t < kTerms; ++t) {
+        float part[R][N8][4];
 #pragma unroll
-        for (int n = 0; n < N8; ++n)
+        for (int o = 0; o < R; ++o)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) part[o][n][e] = 0.f;
-      const unsigned a_t = a_warp + t * kTermBytes;
-      const uint32_t* w_t = s_w + (t * FB8 + ng * N8) * P * 32 + lane;
+          for (int n = 0; n < N8; ++n)
 #pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        uint32_t w_hi[3][N8], w_lo[3][N8];
+            for (int e = 0; e < 4; ++e) part[o][n][e] = 0.f;
+        const unsigned a_t = a_warp + t * kTermBytes;
+        const uint32_t* w_t = s_w + (t * FB8 + ng * N8) * P * 32 + lane;
 #pragma unroll
-        for (int kh = 0; kh < 3; ++kh)
+        for (int kw = 0; kw < 3; ++kw) {
+          uint32_t w_hi[3][N8], w_lo[3][N8];
 #pragma unroll
-          for (int n = 0; n < N8; ++n) {
-            const uint32_t* w = w_t + ((kh * 3 + kw) * kTerms * FB8 + n) * P * 32;
-            w_hi[kh][n] = w[0];
-            w_lo[kh][n] = P == 2 ? w[32] : 0u;
-          }
-#pragma unroll
-        for (int hr = 0; hr < R + 2; ++hr) {
-          uint32_t a[4];
-          ldsm_x4(a, a_t + lane_off[kw] + hr * kHW * 32);
-#pragma unroll
-          for (int kh = 0; kh < 3; ++kh) {
-            const int o = hr - kh;
-            if (o < 0 || o >= R) continue;
+          for (int kh = 0; kh < 3; ++kh)
 #pragma unroll
             for (int n = 0; n < N8; ++n) {
-              mma_k16(part[o][n], a, w_hi[kh][n]);
-              if (P == 2) mma_k8(part[o][n], a, w_lo[kh][n]);
+              const uint32_t* w = w_t + ((kh * 3 + kw) * kTerms * FB8 + n) * P * 32;
+              w_hi[kh][n] = w[0];
+              w_lo[kh][n] = P == 2 ? w[32] : 0u;
+            }
+#pragma unroll
+          for (int hr = 0; hr < R + 2; ++hr) {
+            uint32_t a[4];
+            ldsm_x4(a, a_t + lane_off[kw] + hr * kHW * 32);
+#pragma unroll
+            for (int kh = 0; kh < 3; ++kh) {
+              const int o = hr - kh;
+              if (o < 0 || o >= R) continue;
+#pragma unroll
+              for (int n = 0; n < N8; ++n) {
+                mma_k16(part[o][n], a, w_hi[kh][n]);
+                if (P == 2) mma_k8(part[o][n], a, w_lo[kh][n]);
+              }
             }
           }
         }
+#pragma unroll
+        for (int o = 0; o < R; ++o)
+#pragma unroll
+          for (int n = 0; n < N8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[o][n][e] += part[o][n][e];
       }
-#pragma unroll
-      for (int o = 0; o < R; ++o)
-#pragma unroll
-        for (int n = 0; n < N8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[o][n][e] += part[o][n][e];
+      __syncthreads();  // the terms and weights are rewritten by the next chunk
     }
-    __syncthreads();  // the terms and weights are rewritten by the next chunk
-  }
 
-  // Fragment element e of (o, n): pixel g (+ 8 for e >= 2), channel 2 tl (+ 1
-  // for odd e) of the warp's n-th 8 channels.
-  const int g = lane >> 2, tl = lane & 3;
+    // Fragment element e of (o, n): pixel g (+ 8 for e >= 2), channel 2 tl (+ 1
+    // for odd e) of the warp's n-th 8 channels.
+    const int g = lane >> 2, tl = lane & 3;
 #pragma unroll
-  for (int o = 0; o < R; ++o) {
-    const int i = i0 + rg * R + o;
-    if (i >= H) continue;
+    for (int o = 0; o < R; ++o) {
+      const int i = i0 + rg * R + o;
+      if (i >= H) continue;
 #pragma unroll
-    for (int n = 0; n < N8; ++n)
+      for (int n = 0; n < N8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + g + ((e >> 1) << 3);
-        const int f = (n80 + ng * N8 + n) * 8 + 2 * tl + (e & 1);
-        if (j < W && f < F)
-          out[(((long long)b * F + f) * H + i) * W + j] = from_f32<T>(acc[o][n][e]);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + g + ((e >> 1) << 3);
+          const int f = (n80 + ng * N8 + n) * 8 + 2 * tl + (e & 1);
+          if (j < W && f < F)
+            out[(((long long)b * F + f) * H + i) * W + j] = from_f32<T>(acc[o][n][e]);
+        }
+    }
   }
 }
 
@@ -345,14 +370,20 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
   const int fp8 = (F + 7) / 8;
   const int tiles_w = (W + kTW - 1) / kTW, tiles_h = (H + kTH - 1) / kTH;
   const int groups = (fp8 + FB8 - 1) / FB8;
-  if (groups > 65535 || (long long)tiles_h * tiles_w > 0x7fffffffLL) return -1;
-  const dim3 grid(tiles_h * tiles_w, groups, B);
-  int err = (int)cudaFuncSetAttribute(kanconv_kernel<T, R, NW, P>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const long long works = (long long)B * tiles_h * tiles_w * groups;
+  if (works > 0x7fffffffLL) return -1;
+  auto kernel = kanconv_kernel<T, R, NW, P>;
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == 0) err = (int)cudaGetDevice(&device);
+  if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmem);
   if (err != 0) return err;
-  kanconv_kernel<T, R, NW, P><<<grid, kThreads, kSmem, stream>>>(
+  const int grid = (int)(works < (long long)sms * per_sm ? works : (long long)sms * per_sm);
+  kernel<<<grid > 0 ? grid : 1, kThreads, kSmem, stream>>>(
       static_cast<const T*>(xp), static_cast<const uint32_t*>(wk), static_cast<T*>(out), C, F,
-      H, W, tiles_w, fp8);
+      H, W, tiles_w, tiles_h * tiles_w, groups, (int)works, fp8);
   return (int)cudaGetLastError();
 }
 

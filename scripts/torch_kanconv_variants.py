@@ -9,7 +9,8 @@ its text replaced (``VARIANTS``), compiled with the flags of
 each, all started together) and called through the same C entry with the
 wrapper's packed weights. A variant marked as computing K1 is first held to
 the plain version with ``chip_smoke.check_kanconv``'s tolerances in bf16 and
-fp32 on a ragged shape and SH's enc2 at B=2; the others (diagnostics that
+fp32 on a ragged shape, SH's enc2 at B=2 and its enc1 at B=8 (more tiles
+than blocks); the others (diagnostics that
 skip a phase) are only timed. Then every variant is timed in bf16 at
 ``chip_smoke.KAN_TIMING_SHAPES``'s enc1 and enc2, queued behind a spinning
 kernel (device µs per call, weights packed once beforehand), in turns over
@@ -33,21 +34,14 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_products": (False, [("    for (int t = 0; t < kTerms; ++t) {\n      float part",
-                             "    for (int t = 0; t < 0; ++t) {\n      float part")]),
-    "no_basis": (False, [("      if (j < 0) continue;\n", "      if (j > -8) continue;\n")]),
-    "no_loads": (False, [("    xv[r] = x_off[r] >= 0 && c < C ? to_f32(xb[c * plane + x_off[r]]) : 0.f;",
-                          "    xv[r] = (float)(x_off[r] + c) * 1e-4f;")]),
-    "no_zero_fill": (False, [("      reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);",
-                              "      ;")]),
-    # Each kw's R + 2 A fragments loaded before its products.
-    "preload": (True, [(
-        "#pragma unroll\n        for (int hr = 0; hr < R + 2; ++hr) {\n          uint32_t a[4];\n"
-        "          ldsm_x4(a, a_t + lane_off[kw] + hr * kHW * 32);\n",
-        "        uint32_t a_all[R + 2][4];\n#pragma unroll\n"
-        "        for (int hr = 0; hr < R + 2; ++hr) ldsm_x4(a_all[hr], a_t + lane_off[kw] + hr * kHW * 32);\n"
-        "#pragma unroll\n        for (int hr = 0; hr < R + 2; ++hr) {\n"
-        "          const uint32_t (&a)[4] = a_all[hr];\n")]),
+    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        float part",
+                             "for (int t = 0; t < 0; ++t) {\n        float part")]),
+    "no_basis": (False, [("if (j < 0) continue;", "if (j > -8) continue;")]),
+    "no_loads": (False, [("to_f32(xb[c * plane + gi * Wp + gj])", "(float)(gi * Wp + gj + c) * 1e-4f")]),
+    "two_blocks_per_sm": (True, [("(long long)sms * per_sm ? works : (long long)sms * per_sm",
+                                  "(long long)sms * 2 ? works : (long long)sms * 2")]),
+    "no_zero_fill": (False, [("reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);",
+                              ";")]),
     # 16 x 16 pixels per block of 4 warps (R = 4 for F <= 16 and for fp32
     # weights, 8 for bf16 weights with F > 16): one block per SM.
     "tile16": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
@@ -57,8 +51,8 @@ VARIANTS = {
     "tile16_8warps_no_products": (False, [
         ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
         ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
-        ("    for (int t = 0; t < kTerms; ++t) {\n      float part",
-         "    for (int t = 0; t < 0; ++t) {\n      float part")]),
+        ("for (int t = 0; t < kTerms; ++t) {\n        float part",
+         "for (int t = 0; t < 0; ++t) {\n        float part")]),
     # 16 x 16 pixels per block of 8 warps of the same R: one block per SM.
     "tile16_8warps": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
                              ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
@@ -142,7 +136,8 @@ def main() -> int:
         if not VARIANTS[name][0]:
             continue
         worst = 0.0
-        for shape in (chip_smoke.KAN_SHAPES["ragged"], chip_smoke.KAN_SHAPES["enc2"]):
+        for shape in (chip_smoke.KAN_SHAPES["ragged"], chip_smoke.KAN_SHAPES["enc2"],
+                      (8, 16, 16, 128, 128)):
             xp32, base32, spline32 = chip_smoke.kan_inputs(torch, rng, shape, "wide", "cuda")
             for dtype in (torch.float32, torch.bfloat16):
                 xp, base, spline = (t.to(dtype) for t in (xp32, base32, spline32))
