@@ -168,9 +168,10 @@ __device__ __forceinline__ void store_split(unsigned char* a, int hi, int lo, fl
 
 // The halo values of channels c0 .. c0+7 of batch element b at the
 // thread's staging items (below) for the tile at (i0, j0), 0 outside xp and
-// past C.
+// past C, as they are in memory: they are converted where they are used, so
+// that the loads stay in flight until then.
 template <typename T>
-__device__ __forceinline__ void load_x(float (&xv)[kRounds], const T* __restrict__ xp,
+__device__ __forceinline__ void load_x(T (&xv)[kRounds], const T* __restrict__ xp,
                                        const int (&rc)[kRounds], const int (&s_off)[kRounds],
                                        int b, int i0, int j0, int c0, int C, int Hp, int Wp) {
   const long long plane = (long long)Hp * Wp;
@@ -178,8 +179,8 @@ __device__ __forceinline__ void load_x(float (&xv)[kRounds], const T* __restrict
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
     const int c = c0 + ((s_off[r] >> 1) & 7), gi = i0 + (rc[r] >> 16), gj = j0 + (rc[r] & 0xffff);
-    xv[r] = s_off[r] >= 0 && c < C && gi < Hp && gj < Wp ? to_f32(xb[c * plane + gi * Wp + gj])
-                                                          : 0.f;
+    xv[r] = from_f32<T>(0.f);
+    if (s_off[r] >= 0 && c < C && gi < Hp && gj < Wp) xv[r] = xb[c * plane + gi * Wp + gj];
   }
 }
 
@@ -211,7 +212,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
     rc[r] = row << 16 | col;
     s_off[r] = item < kItems ? pos * 32 + (((col >> 2) & 1) << 4) + ch * 2 : -1;
   }
-  float xv[kRounds];
+  T xv[kRounds];
 
   // ldmatrix rows: lanes 8m .. 8m+7 address matrix m's rows, pixels
   // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half; per kw the byte
@@ -274,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
       for (int r = 0; r < kRounds; ++r) {
         if (s_off[r] < 0) continue;
         float s, p[4];
-        const int j = terms_at(xv[r], s, p), hi = s_off[r], lo = s_off[r] ^ 16;
+        const int j = terms_at(to_f32(xv[r]), s, p), hi = s_off[r], lo = s_off[r] ^ 16;
         store_split(smem, hi, lo, s);
         if (j < 0) continue;
         const int o = (j - 2) * kTermBytes;  // the rows of term 1 + (j - 3)

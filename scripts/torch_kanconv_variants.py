@@ -37,7 +37,8 @@ VARIANTS = {
     "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        float part",
                              "for (int t = 0; t < 0; ++t) {\n        float part")]),
     "no_basis": (False, [("if (j < 0) continue;", "if (j > -8) continue;")]),
-    "no_loads": (False, [("to_f32(xb[c * plane + gi * Wp + gj])", "(float)(gi * Wp + gj + c) * 1e-4f")]),
+    "no_loads": (False, [("xv[r] = xb[c * plane + gi * Wp + gj];",
+                          "xv[r] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
     "two_blocks_per_sm": (True, [("(long long)sms * per_sm ? works : (long long)sms * per_sm",
                                   "(long long)sms * 2 ? works : (long long)sms * 2")]),
     "no_zero_fill": (False, [("reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);",
