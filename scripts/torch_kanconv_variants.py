@@ -34,8 +34,8 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        float part",
-                             "for (int t = 0; t < 0; ++t) {\n        float part")]),
+    "no_products": (False, [("for (int pr = ks; pr < kTerms * 3; pr += KS) {",
+                             "for (int pr = ks; pr < 0; pr += KS) {")]),
     "no_basis": (False, [("if (j < 0) continue;", "if (j > -8) continue;")]),
     "no_loads": (False, [("xv[r] = xb[c * plane + gi * Wp + gj];",
                           "xv[r] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
@@ -43,17 +43,14 @@ VARIANTS = {
                                   "(long long)sms * 2 ? works : (long long)sms * 2")]),
     "no_zero_fill": (False, [("reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);",
                               ";")]),
-    # 16 x 16 pixels per block of 4 warps (R = 4 for F <= 16 and for fp32
-    # weights, 8 for bf16 weights with F > 16): one block per SM.
-    "tile16": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
-                      ("launch<T, 2, 16, 2>", "launch<T, 4, 16, 2>"),
-                      ("launch<T, 4, 16, 1>", "launch<T, 8, 16, 1>"),
-                      ("launch<T, 2, 16, 1>", "launch<T, 4, 16, 1>")]),
+    # 8 rows per warp, the pairs split over the 4 warps, for bf16 weights
+    # with F <= 16.
+    "r8_ks4": (True, [("launch<T, 4, 2, 1, 1>", "launch<T, 8, 2, 1, 1>")]),
     "tile16_8warps_no_products": (False, [
         ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
         ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
-        ("for (int t = 0; t < kTerms; ++t) {\n        float part",
-         "for (int t = 0; t < 0; ++t) {\n        float part")]),
+        ("for (int pr = ks; pr < kTerms * 3; pr += KS) {",
+         "for (int pr = ks; pr < 0; pr += KS) {")]),
     # 16 x 16 pixels per block of 8 warps of the same R: one block per SM.
     "tile16_8warps": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
                              ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
