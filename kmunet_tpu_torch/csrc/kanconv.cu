@@ -172,15 +172,16 @@ __device__ __forceinline__ void store_split(unsigned char* a, int hi, int lo, fl
 // that the loads stay in flight until then.
 template <typename T>
 __device__ __forceinline__ void load_x(T (&xv)[kRounds], const T* __restrict__ xp,
-                                       const int (&rc)[kRounds], const int (&s_off)[kRounds],
-                                       int b, int i0, int j0, int c0, int C, int Hp, int Wp) {
+                                       const int (&items)[kRounds], int b, int i0, int j0, int c0,
+                                       int C, int Hp, int Wp) {
   const long long plane = (long long)Hp * Wp;
   const T* xb = xp + (long long)b * C * plane;
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    const int c = c0 + ((s_off[r] >> 1) & 7), gi = i0 + (rc[r] >> 16), gj = j0 + (rc[r] & 0xffff);
+    const int c = c0 + ((items[r] >> 1) & 7), gi = i0 + (items[r] >> 26);
+    const int gj = j0 + ((items[r] >> 20) & 63);
     xv[r] = from_f32<T>(0.f);
-    if (s_off[r] >= 0 && c < C && gi < Hp && gj < Wp) xv[r] = xb[c * plane + gi * Wp + gj];
+    if (items[r] >= 0 && c < C && gi < Hp && gj < Wp) xv[r] = xb[c * plane + gi * Wp + gj];
   }
 }
 
@@ -201,17 +202,17 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   const int rg = warp % RG, ng = warp / RG % NG, ks = warp / (RG * NG);
   const int Hp = H + 2, Wp = W + 2;
 
-  // The thread's staging items, (halo position, channel), channel fastest:
-  // the position's row and column in the halo (row << 16 | column) and the
-  // byte offset of its hi part in a term's rows (-1 past the items; the lo
-  // part at ^ 16, the channel in bits 1-3).
-  int rc[kRounds], s_off[kRounds];
+  // The thread's staging items, (halo position, channel), channel fastest,
+  // each packed as the position's row and column in the halo (bits 26-29,
+  // 20-25) and the byte offset of its hi part in a term's rows (bits 0-12;
+  // the lo part at ^ 16, the channel in bits 1-3); -1 past the items.
+  int items[kRounds];
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
     const int item = tid + r * kThreads, pos = item >> 3, ch = item & 7;
     const int row = pos / kHW, col = pos % kHW;
-    rc[r] = row << 16 | col;
-    s_off[r] = item < kItems ? pos * 32 + (((col >> 2) & 1) << 4) + ch * 2 : -1;
+    items[r] = item < kItems ? row << 26 | col << 20 | (pos * 32 + (((col >> 2) & 1) << 4) + ch * 2)
+                             : -1;
   }
   T xv[kRounds];
 
@@ -235,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   int b, i0, j0, n80;
   if ((int)blockIdx.x < works) {
     origin(blockIdx.x, b, i0, j0, n80);
-    load_x(xv, xp, rc, s_off, b, i0, j0, 0, C, Hp, Wp);
+    load_x(xv, xp, items, b, i0, j0, 0, C, Hp, Wp);
   }
 #pragma unroll 1
   for (int w = blockIdx.x; w < works; w += gridDim.x) {
@@ -267,9 +268,9 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
       __syncthreads();
 #pragma unroll
       for (int r = 0; r < kRounds; ++r) {
-        if (s_off[r] < 0) continue;
+        if (items[r] < 0) continue;
         float s, p[4];
-        const int j = terms_at(to_f32(xv[r]), s, p), hi = s_off[r], lo = s_off[r] ^ 16;
+        const int j = terms_at(to_f32(xv[r]), s, p), hi = items[r] & 0xfffff, lo = hi ^ 16;
         store_split(smem, hi, lo, s);
         if (j < 0) continue;
         const int o = (j - 2) * kTermBytes;  // the rows of term 1 + (j - 3)
@@ -282,11 +283,11 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
       cp_async_wait_all();
       __syncthreads();
       if (k + 1 < chunks) {  // in flight over the products
-        load_x(xv, xp, rc, s_off, b, i0, j0, (k + 1) * kCC, C, Hp, Wp);
+        load_x(xv, xp, items, b, i0, j0, (k + 1) * kCC, C, Hp, Wp);
       } else if (w + gridDim.x < works) {
         int b2, i2, j2, n2;
         origin(w + gridDim.x, b2, i2, j2, n2);
-        load_x(xv, xp, rc, s_off, b2, i2, j2, 0, C, Hp, Wp);
+        load_x(xv, xp, items, b2, i2, j2, 0, C, Hp, Wp);
       }
 
       // The warp's (term, kw) pairs p = ks, ks + KS, ...: the weights of the

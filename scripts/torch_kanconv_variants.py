@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Variants of K1's source, built together and timed in turns on the card.
 
-    python3 scripts/torch_kanconv_variants.py [names...] [--rounds N]
+    python3 scripts/torch_kanconv_variants.py [names...] [--rounds N] [--source NAME=PATH ...]
 
 Each variant is a copy of ``kmunet_tpu_torch/csrc/kanconv.cu`` with some of
 its text replaced (``VARIANTS``), compiled with the flags of
@@ -14,7 +14,9 @@ than blocks); the others (diagnostics that
 skip a phase) are only timed. Then every variant is timed in bf16 at
 ``chip_smoke.KAN_TIMING_SHAPES``'s enc1 and enc2, queued behind a spinning
 kernel (device µs per call, weights packed once beforehand), in turns over
-``--rounds`` rounds. Prints JSON lines, the first the card's ``nvidia-smi``
+``--rounds`` rounds. ``--source NAME=PATH`` adds a whole other source of
+the same C entry as a variant that computes K1 (another commit's
+``csrc/kanconv.cu``, say). Prints JSON lines, the first the card's ``nvidia-smi``
 name and power limit, then each variant's ptxas registers and spills.
 """
 
@@ -46,6 +48,8 @@ VARIANTS = {
     # 8 rows per warp, the pairs split over the 4 warps, for bf16 weights
     # with F <= 16.
     "r8_ks4": (True, [("launch<T, 4, 2, 1, 1>", "launch<T, 8, 2, 1, 1>")]),
+    "three_blocks": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
+                             "__launch_bounds__(kThreads, 3) kanconv_kernel")]),
     "tile16_8warps_no_products": (False, [
         ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
         ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
@@ -81,6 +85,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("names", nargs="*", help="variants to run (default: all)")
     parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
     args = parser.parse_args()
 
     import numpy as np
@@ -100,7 +105,12 @@ def main() -> int:
     with open(os.path.join(REPO, "kmunet_tpu_torch", "csrc", kanconv.SOURCE)) as f:
         source = f.read()
     names = args.names or list(VARIANTS)
-    texts = {}
+    texts, computes = {}, {name: VARIANTS[name][0] for name in names}
+    for spec in args.source:
+        name, path = spec.split("=", 1)
+        with open(path) as f:
+            texts[name] = f.read()
+        computes[name] = True
     for name in names:
         text = source
         for old, new in VARIANTS[name][1]:
@@ -108,6 +118,7 @@ def main() -> int:
                 raise ValueError(f"variant {name}: text not found: {old!r}")
             text = text.replace(old, new)
         texts[name] = text
+    names = list(texts)
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(lambda n: build_variant(n, texts[n]), names)))
     fns = {}
@@ -131,7 +142,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     for name in names:
-        if not VARIANTS[name][0]:
+        if not computes[name]:
             continue
         worst = 0.0
         for shape in (chip_smoke.KAN_SHAPES["ragged"], chip_smoke.KAN_SHAPES["enc2"],
