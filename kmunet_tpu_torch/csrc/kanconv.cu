@@ -185,21 +185,20 @@ __device__ __forceinline__ void load_x(T (&xv)[kRounds], const T* __restrict__ x
   }
 }
 
-// R output rows and N8 x 8 output channels per warp; P weight parts (1:
-// w_hi, 2: w_hi and w_lo). The 4 warps are kTH / R row groups by NG channel
-// groups (FB = NG * N8 * 8 channels per block) by KS groups of the products'
-// (term, kw) pairs, whose sums meet in shared memory at the end of a tile.
-template <typename T, int R, int N8, int NG, int P>
+// R output rows and NW output channels per warp; P weight parts (1: w_hi,
+// 2: w_hi and w_lo). The 4 warps are kTH / R row groups by NG channel
+// groups: FB = NG * NW channels per block.
+template <typename T, int R, int NW, int P>
 __global__ void __launch_bounds__(kThreads) kanconv_kernel(
     const T* __restrict__ xp, const uint32_t* __restrict__ wk, T* __restrict__ out, int C, int F,
     int H, int W, int tiles_w, int tiles, int groups, int works, int fp8) {
-  constexpr int RG = kTH / R, KS = kWarps / (RG * NG), FB8 = NG * N8;
-  static_assert(RG * NG * KS == kWarps, "4 warps of R rows, N8 x 8 channels, 1/KS of K");
+  constexpr int RG = kTH / R, NG = kWarps / RG, N8 = NW / 8, FB8 = NG * N8;
+  static_assert(RG * NG == kWarps && NW % 8 == 0, "4 warps of R rows and NW channels");
   extern __shared__ __align__(128) unsigned char smem[];
   uint32_t* s_w = reinterpret_cast<uint32_t*>(smem + kABytes);  // [row][n8][part][lane]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rg = warp % RG, ng = warp / RG % NG, ks = warp / (RG * NG);
+  const int rg = warp % RG, ng = warp / RG;
   const int Hp = H + 2, Wp = W + 2;
 
   // The thread's staging items, (halo position, channel), channel fastest,
@@ -217,8 +216,15 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   T xv[kRounds];
 
   // ldmatrix rows: lanes 8m .. 8m+7 address matrix m's rows, pixels
-  // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half.
+  // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half; per kw the byte
+  // offset of that row in halo row 0.
   const int m = lane >> 3, px = ((m & 1) << 3) + (lane & 7), half = m >> 1;
+  unsigned lane_off[3];
+#pragma unroll
+  for (int kw = 0; kw < 3; ++kw) {
+    const int col = kw + px;
+    lane_off[kw] = (col << 5) + ((half ^ ((col >> 2) & 1)) << 4);
+  }
   const unsigned a_warp = smem_addr(smem) + ((rg * R * kHW) << 5);
 
   // Persistent: the block walks the work items (batch element, tile, group
@@ -290,89 +296,52 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
         load_x(xv, xp, items, b2, i2, j2, 0, C, Hp, Wp);
       }
 
-      // The warp's (term, kw) pairs p = ks, ks + KS, ...: the weights of the
-      // 3 kh, then per halo row its A fragment for the up to 3 output rows
-      // that use it. A pair's products go to zeroed fragments, added to the
-      // sums every 3 pairs.
-      float part[R][N8][4];
-#pragma unroll
-      for (int o = 0; o < R; ++o)
-#pragma unroll
-        for (int n = 0; n < N8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[o][n][e] = 0.f;
-      int pending = 0;
 #pragma unroll 1
-      for (int pr = ks; pr < kTerms * 3; pr += KS) {
-        const int t = pr / 3, kw = pr - 3 * t, col = kw + px;
-        const unsigned a_t = a_warp + t * kTermBytes + (col << 5) +
-                             ((half ^ ((col >> 2) & 1)) << 4);
-        const uint32_t* w_t = s_w + ((kw * kTerms + t) * FB8 + ng * N8) * P * 32 + lane;
-        uint32_t w_hi[3][N8], w_lo[3][N8];
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh)
-#pragma unroll
-          for (int n = 0; n < N8; ++n) {
-            const uint32_t* w = w_t + (kh * 3 * kTerms * FB8 + n) * P * 32;
-            w_hi[kh][n] = w[0];
-            w_lo[kh][n] = P == 2 ? w[32] : 0u;
-          }
-#pragma unroll
-        for (int hr = 0; hr < R + 2; ++hr) {
-          uint32_t a[4];
-          ldsm_x4(a, a_t + hr * kHW * 32);
-#pragma unroll
-          for (int kh = 0; kh < 3; ++kh) {
-            const int o = hr - kh;
-            if (o < 0 || o >= R) continue;
-#pragma unroll
-            for (int n = 0; n < N8; ++n) {
-              mma_k16(part[o][n], a, w_hi[kh][n]);
-              if (P == 2) mma_k8(part[o][n], a, w_lo[kh][n]);
-            }
-          }
-        }
-        if (++pending == 3 || pr + KS >= kTerms * 3) {
-          pending = 0;
-#pragma unroll
-          for (int o = 0; o < R; ++o)
-#pragma unroll
-            for (int n = 0; n < N8; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                acc[o][n][e] += part[o][n][e];
-                part[o][n][e] = 0.f;
-              }
-        }
-      }
-      __syncthreads();  // the terms and weights are rewritten by the next chunk
-    }
-
-    // The KS groups' sums meet in the terms' rows, free until the next item.
-    if (KS > 1) {
-      float* red = reinterpret_cast<float*>(smem) + ((ks - 1) * RG * NG + rg * NG + ng) * R * N8 * 128;
-      if (ks > 0) {
+      for (int t = 0; t < kTerms; ++t) {
+        float part[R][N8][4];
 #pragma unroll
         for (int o = 0; o < R; ++o)
 #pragma unroll
           for (int n = 0; n < N8; ++n)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) red[((o * N8 + n) * 4 + e) * 32 + lane] = acc[o][n][e];
-      }
-      __syncthreads();
-      if (ks == 0) {
-#pragma unroll 1
-        for (int k2 = 1; k2 < KS; ++k2) {
-          const float* other = reinterpret_cast<const float*>(smem) +
-                               ((k2 - 1) * RG * NG + rg * NG + ng) * R * N8 * 128;
+            for (int e = 0; e < 4; ++e) part[o][n][e] = 0.f;
+        const unsigned a_t = a_warp + t * kTermBytes;
+        const uint32_t* w_t = s_w + (t * FB8 + ng * N8) * P * 32 + lane;
 #pragma unroll
-          for (int o = 0; o < R; ++o)
+        for (int kw = 0; kw < 3; ++kw) {
+          uint32_t w_hi[3][N8], w_lo[3][N8];
 #pragma unroll
-            for (int n = 0; n < N8; ++n)
+          for (int kh = 0; kh < 3; ++kh)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[o][n][e] += other[((o * N8 + n) * 4 + e) * 32 + lane];
+            for (int n = 0; n < N8; ++n) {
+              const uint32_t* w = w_t + ((kh * 3 + kw) * kTerms * FB8 + n) * P * 32;
+              w_hi[kh][n] = w[0];
+              w_lo[kh][n] = P == 2 ? w[32] : 0u;
+            }
+#pragma unroll
+          for (int hr = 0; hr < R + 2; ++hr) {
+            uint32_t a[4];
+            ldsm_x4(a, a_t + lane_off[kw] + hr * kHW * 32);
+#pragma unroll
+            for (int kh = 0; kh < 3; ++kh) {
+              const int o = hr - kh;
+              if (o < 0 || o >= R) continue;
+#pragma unroll
+              for (int n = 0; n < N8; ++n) {
+                mma_k16(part[o][n], a, w_hi[kh][n]);
+                if (P == 2) mma_k8(part[o][n], a, w_lo[kh][n]);
+              }
+            }
+          }
         }
+#pragma unroll
+        for (int o = 0; o < R; ++o)
+#pragma unroll
+          for (int n = 0; n < N8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[o][n][e] += part[o][n][e];
       }
+      __syncthreads();  // the terms and weights are rewritten by the next chunk
     }
 
     // Fragment element e of (o, n): pixel g (+ 8 for e >= 2), channel 2 tl (+ 1
@@ -381,7 +350,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
 #pragma unroll
     for (int o = 0; o < R; ++o) {
       const int i = i0 + rg * R + o;
-      if (ks > 0 || i >= H) continue;
+      if (i >= H) continue;
 #pragma unroll
       for (int n = 0; n < N8; ++n)
 #pragma unroll
@@ -392,21 +361,20 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
             out[(((long long)b * F + f) * H + i) * W + j] = from_f32<T>(acc[o][n][e]);
         }
     }
-    if (KS > 1) __syncthreads();  // the next item's staging rewrites the sums' rows
   }
 }
 
-template <typename T, int R, int N8, int NG, int P>
+template <typename T, int R, int NW, int P>
 int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W,
            cudaStream_t stream) {
-  constexpr int FB8 = NG * N8;
+  constexpr int FB8 = kWarps / (kTH / R) * NW / 8;
   constexpr int kSmem = kABytes + kWRows * FB8 * P * 128;
   const int fp8 = (F + 7) / 8;
   const int tiles_w = (W + kTW - 1) / kTW, tiles_h = (H + kTH - 1) / kTH;
   const int groups = (fp8 + FB8 - 1) / FB8;
   const long long works = (long long)B * tiles_h * tiles_w * groups;
   if (works > 0x7fffffffLL) return -1;
-  auto kernel = kanconv_kernel<T, R, N8, NG, P>;
+  auto kernel = kanconv_kernel<T, R, NW, P>;
   int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   int device = 0, sms = 0, per_sm = 0;
   if (err == 0) err = (int)cudaGetDevice(&device);
@@ -421,16 +389,15 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
   return (int)cudaGetLastError();
 }
 
-// Per block 16 output channels with the products' pairs split over 2 warp
-// groups (4 rows per warp); bf16 weights with F > 16: 32 channels, 2 groups
-// of 16, which keeps the staged weights at 41 KB (as 16 channels with lo
-// parts).
+// bf16 weights with F > 16: 32 channels per block (2 row groups of 4 rows x
+// 2 channel groups of 16); else 16 (4 row groups of 2 rows), which keeps the
+// staged weights with lo parts at 41 KB.
 template <typename T>
 int run(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W, int parts,
         cudaStream_t stream) {
-  if (parts == 2) return launch<T, 4, 2, 1, 2>(xp, wk, out, B, C, F, H, W, stream);
-  if (F > 16) return launch<T, 4, 2, 2, 1>(xp, wk, out, B, C, F, H, W, stream);
-  return launch<T, 4, 2, 1, 1>(xp, wk, out, B, C, F, H, W, stream);
+  if (parts == 2) return launch<T, 2, 16, 2>(xp, wk, out, B, C, F, H, W, stream);
+  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
+  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
 }
 
 }  // namespace

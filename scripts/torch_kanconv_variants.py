@@ -36,8 +36,8 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_products": (False, [("for (int pr = ks; pr < kTerms * 3; pr += KS) {",
-                             "for (int pr = ks; pr < 0; pr += KS) {")]),
+    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        float part",
+                             "for (int t = 0; t < 0; ++t) {\n        float part")]),
     "no_basis": (False, [("if (j < 0) continue;", "if (j > -8) continue;")]),
     "no_loads": (False, [("xv[r] = xb[c * plane + gi * Wp + gj];",
                           "xv[r] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
@@ -45,16 +45,22 @@ VARIANTS = {
                                   "(long long)sms * 2 ? works : (long long)sms * 2")]),
     "no_zero_fill": (False, [("reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);",
                               ";")]),
-    # 8 rows per warp, the pairs split over the 4 warps, for bf16 weights
-    # with F <= 16.
-    "r8_ks4": (True, [("launch<T, 4, 2, 1, 1>", "launch<T, 8, 2, 1, 1>")]),
+    # The products alone: no terms staged (the rows hold what was there).
+    "no_staging": (False, [
+        ("for (int r = 0; r < kRounds; ++r) {\n        if (items[r] < 0) continue;",
+         "for (int r = 0; r < 0; ++r) {\n        if (items[r] < 0) continue;"),
+        ("for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)",
+         "for (int i = tid; i < 0; i += kThreads)")]),
+    # The products' term loop unrolled by 3 (one kw row of taps per term).
+    "unroll_terms": (True, [("#pragma unroll 1\n      for (int t = 0; t < kTerms; ++t) {",
+                             "#pragma unroll 3\n      for (int t = 0; t < kTerms; ++t) {")]),
     "three_blocks": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
                              "__launch_bounds__(kThreads, 3) kanconv_kernel")]),
     "tile16_8warps_no_products": (False, [
         ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
         ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
-        ("for (int pr = ks; pr < kTerms * 3; pr += KS) {",
-         "for (int pr = ks; pr < 0; pr += KS) {")]),
+        ("for (int t = 0; t < kTerms; ++t) {\n        float part",
+         "for (int t = 0; t < 0; ++t) {\n        float part")]),
     # 16 x 16 pixels per block of 8 warps of the same R: one block per SM.
     "tile16_8warps": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
                              ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
