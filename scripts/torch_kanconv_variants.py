@@ -36,8 +36,8 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        float part",
-                             "for (int t = 0; t < 0; ++t) {\n        float part")]),
+    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        uint32_t a[3]",
+                             "for (int t = 0; t < 0; ++t) {\n        uint32_t a[3]")]),
     "no_basis": (False, [("if (j < 0) continue;", "if (j > -8) continue;")]),
     "no_loads": (False, [("xv[r] = xb[c * plane + gi * Wp + gj];",
                           "xv[r] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
@@ -59,8 +59,8 @@ VARIANTS = {
     "tile16_8warps_no_products": (False, [
         ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
         ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
-        ("for (int t = 0; t < kTerms; ++t) {\n        float part",
-         "for (int t = 0; t < 0; ++t) {\n        float part")]),
+        ("for (int t = 0; t < kTerms; ++t) {\n        uint32_t a[3]",
+         "for (int t = 0; t < 0; ++t) {\n        uint32_t a[3]")]),
     # 16 x 16 pixels per block of 8 warps of the same R: one block per SM.
     "tile16_8warps": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
                              ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
