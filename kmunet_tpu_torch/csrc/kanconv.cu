@@ -79,6 +79,8 @@ constexpr int kTaps = 9;
 constexpr int kBases = 8;
 constexpr int kTerms = 1 + kBases;       // silu, then the 8 bases
 constexpr int kWRows = kTaps * kTerms;   // weight rows per chunk: tap * kTerms + term
+constexpr int kSteps = kTerms * 3;       // the products' (term, kw) steps per chunk
+constexpr int kFlush = 1;                // terms whose products meet the fp32 sums at once
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kItems = kHalo * kCC;      // (halo position, channel) per chunk
@@ -134,8 +136,12 @@ __device__ __forceinline__ uint64_t b_desc(unsigned addr, unsigned lbo, unsigned
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d (+)= a . B for the warpgroup's 64 rows (this warp's 16 in a, as an
@@ -241,15 +247,8 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   T xv[kRounds];
 
   // ldmatrix rows: lanes 8m .. 8m+7 address matrix m's rows, pixels
-  // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half; per kw the byte
-  // offset of that row in halo row 0.
+  // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half.
   const int m = lane >> 3, px = ((m & 1) << 3) + (lane & 7), half = m >> 1;
-  unsigned lane_off[3];
-#pragma unroll
-  for (int kw = 0; kw < 3; ++kw) {
-    const int col = kw + px;
-    lane_off[kw] = (col << 5) + ((half ^ ((col >> 2) & 1)) << 4);
-  }
   const unsigned a_warp = smem_addr(smem) + ((warp * R * kHW) << 5);
   const unsigned w_base = smem_addr(s_w);
 
@@ -321,22 +320,27 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
         load_x(xv, xp, items, b2, i2, j2, 0, C, Hp, Wp);
       }
 
-      // Per term: the warp's A fragments of its R + 2 halo rows at each kw,
-      // then per (kw, halo row, kh) one wgmma into the output row's sums of
-      // the term (the first at kw = kh = 0 overwrites them), all waited for
-      // at once; the term's sums are added to the fp32 sums.
+      // Per (term, kw) step: the warp's A fragments of its R + 2 halo rows,
+      // then per (halo row, kh) one wgmma into the output row's sums of the
+      // term (the first of a term at kw = kh = 0 overwrites them). The steps
+      // alternate between two sets of A registers, so that a step's loads run
+      // while the step before it multiplies; after each kFlush terms the
+      // terms' sums are waited for and added to the fp32 sums.
+      float part[R][FB8 * 4];
+      uint32_t a[2][R + 2][4];
 #pragma unroll 1
-      for (int t = 0; t < kTerms; ++t) {
-        uint32_t a[3][R + 2][4];
+      for (int s0 = 0; s0 < kSteps; s0 += 2)
 #pragma unroll
-        for (int kw = 0; kw < 3; ++kw)
+        for (int buf = 0; buf < 2; ++buf) {
+          const int s = s0 + buf, t = s / 3, kw = s - 3 * t, col = kw + px;
+          if (s >= kSteps) break;
+          wgmma_wait<1>();  // the step that read a[buf] is done
+          const unsigned a_s = a_warp + t * kTermBytes + (col << 5) +
+                               ((half ^ ((col >> 2) & 1)) << 4);
 #pragma unroll
-          for (int hr = 0; hr < R + 2; ++hr)
-            ldsm_x4(a[kw][hr], a_warp + t * kTermBytes + lane_off[kw] + hr * kHW * 32);
-        float part[R][FB8 * 4];
-        wgmma_fence();
-#pragma unroll
-        for (int kw = 0; kw < 3; ++kw)
+          for (int hr = 0; hr < R + 2; ++hr) ldsm_x4(a[buf][hr], a_s + hr * kHW * 32);
+          wgmma_fence();
+          const bool first = t % kFlush == 0 && kw == 0;
 #pragma unroll
           for (int hr = 0; hr < R + 2; ++hr)
 #pragma unroll
@@ -345,18 +349,21 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
               if (o < 0 || o >= R) continue;
               // weight row (tap, term), its hi part's n8 tiles at stride P x 128 bytes
               const unsigned w = w_base + ((kh * 3 + kw) * kTerms + t) * FB8 * P * 128;
-              wgmma<FB8>(part[o], a[kw][hr][0], a[kw][hr][1], a[kw][hr][2], a[kw][hr][3],
-                         b_desc(w, 0, P * 128), kw != 0 || kh != 0);
+              const uint32_t(&f)[4] = a[buf][hr];
+              wgmma<FB8>(part[o], f[0], f[1], f[2], f[3], b_desc(w, 0, P * 128),
+                         !(first && kh == 0));
               if (P == 2)  // a_hi . w_lo: the lo half of A zero
-                wgmma<FB8>(part[o], a[kw][hr][0], a[kw][hr][1], 0u, 0u,
-                           b_desc(w + 128, 0, P * 128), 1);
+                wgmma<FB8>(part[o], f[0], f[1], 0u, 0u, b_desc(w + 128, 0, P * 128), 1);
             }
-        wgmma_commit_and_wait();
+          wgmma_commit();
+          if (kw == 2 && (t % kFlush == kFlush - 1 || t == kTerms - 1)) {
+            wgmma_wait<0>();
 #pragma unroll
-        for (int o = 0; o < R; ++o)
+            for (int o = 0; o < R; ++o)
 #pragma unroll
-          for (int e = 0; e < FB8 * 4; ++e) acc[o][e] += part[o][e];
-      }
+              for (int e = 0; e < FB8 * 4; ++e) acc[o][e] += part[o][e];
+          }
+        }
       __syncthreads();  // the terms and weights are rewritten by the next chunk
     }
 

@@ -9,8 +9,8 @@ its text replaced (``VARIANTS``), compiled with the flags of
 each, all started together) and called through the same C entry with the
 wrapper's packed weights. A variant marked as computing K1 is first held to
 the plain version with ``chip_smoke.check_kanconv``'s tolerances in bf16 and
-fp32 on a ragged shape, SH's enc2 at B=2 and its enc1 at B=8 (more tiles
-than blocks); the others (diagnostics that
+fp32 on a ragged shape, SH's enc2 and dec1 (C=64: the longest sums) at
+B=2 and its enc1 at B=8 (more tiles than blocks); the others (diagnostics that
 skip a phase) are only timed. Then every variant is timed in bf16 at
 ``chip_smoke.KAN_TIMING_SHAPES``'s enc1 and enc2, queued behind a spinning
 kernel (device µs per call, weights packed once beforehand), in turns over
@@ -36,8 +36,8 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        uint32_t a[3]",
-                             "for (int t = 0; t < 0; ++t) {\n        uint32_t a[3]")]),
+    "no_products": (False, [("for (int s0 = 0; s0 < kSteps; s0 += 2)",
+                             "for (int s0 = 0; s0 < 0; s0 += 2)")]),
     "no_basis": (False, [("if (j < 0) continue;", "if (j > -8) continue;")]),
     "no_loads": (False, [("xv[r] = xb[c * plane + gi * Wp + gj];",
                           "xv[r] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
@@ -51,16 +51,17 @@ VARIANTS = {
          "for (int r = 0; r < 0; ++r) {\n        if (items[r] < 0) continue;"),
         ("for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)",
          "for (int i = tid; i < 0; i += kThreads)")]),
-    # The products' term loop unrolled by 3 (one kw row of taps per term).
-    "unroll_terms": (True, [("#pragma unroll 1\n      for (int t = 0; t < kTerms; ++t) {",
-                             "#pragma unroll 3\n      for (int t = 0; t < kTerms; ++t) {")]),
+    # The products' sums added to the fp32 sums every 3 terms, or once per
+    # chunk of 8 channels (longer chains of tensor-core accumulation).
+    "flush3": (True, [("constexpr int kFlush = 1;", "constexpr int kFlush = 3;")]),
+    "flush9": (True, [("constexpr int kFlush = 1;", "constexpr int kFlush = 9;")]),
     "three_blocks": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
                              "__launch_bounds__(kThreads, 3) kanconv_kernel")]),
     "tile16_8warps_no_products": (False, [
         ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
         ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
-        ("for (int t = 0; t < kTerms; ++t) {\n        uint32_t a[3]",
-         "for (int t = 0; t < 0; ++t) {\n        uint32_t a[3]")]),
+        ("for (int s0 = 0; s0 < kSteps; s0 += 2)",
+         "for (int s0 = 0; s0 < 0; s0 += 2)")]),
     # 16 x 16 pixels per block of 8 warps of the same R: one block per SM.
     "tile16_8warps": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
                              ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
@@ -152,7 +153,7 @@ def main() -> int:
             continue
         worst = 0.0
         for shape in (chip_smoke.KAN_SHAPES["ragged"], chip_smoke.KAN_SHAPES["enc2"],
-                      (8, 16, 16, 128, 128)):
+                      chip_smoke.KAN_SHAPES["dec1"], (8, 16, 16, 128, 128)):
             xp32, base32, spline32 = chip_smoke.kan_inputs(torch, rng, shape, "wide", "cuda")
             for dtype in (torch.float32, torch.bfloat16):
                 xp, base, spline = (t.to(dtype) for t in (xp32, base32, spline32))
