@@ -79,11 +79,9 @@ constexpr int kTaps = 9;
 constexpr int kBases = 8;
 constexpr int kTerms = 1 + kBases;       // silu, then the 8 bases
 constexpr int kWRows = kTaps * kTerms;   // weight rows per chunk: tap * kTerms + term
-constexpr int kSteps = kTerms * 3;       // the products' (term, kw) steps per chunk
-constexpr int kFlush = 1;                // terms whose products meet the fp32 sums at once
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kItems = kHalo * kCC;      // (halo position, channel) per chunk
+constexpr int kItems = kHalo * kCC / 2;  // (halo position, channel pair) per chunk
 constexpr int kRounds = (kItems + kThreads - 1) / kThreads;
 constexpr int kTermBytes = kHalo * 32;   // a term's rows: 8 hi + 8 lo bf16 per position
 constexpr int kABytes = kTerms * kTermBytes;
@@ -136,12 +134,8 @@ __device__ __forceinline__ uint64_t b_desc(unsigned addr, unsigned lbo, unsigned
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // d (+)= a . B for the warpgroup's 64 rows (this warp's 16 in a, as an
@@ -199,22 +193,37 @@ __device__ __forceinline__ void store_split(unsigned char* a, int hi, int lo, fl
   *reinterpret_cast<__nv_bfloat16*>(a + lo) = __float2bfloat16_rn(v - __bfloat162float(h));
 }
 
+// One channel's nonzero bases p of interval j (terms_at) into the rows of
+// terms 1 + (j - 3) .. 1 + j that are among the 8, at hi and lo of term 0's.
+__device__ __forceinline__ void store_bases(unsigned char* a, int hi, int lo, int j,
+                                            const float (&p)[4]) {
+  if (j < 0) return;
+  const int o = (j - 2) * kTermBytes;  // the rows of term 1 + (j - 3)
+  if (j >= 3) store_split(a, hi + o, lo + o, p[0]);
+  if (j >= 2 && j <= 9) store_split(a, hi + o + kTermBytes, lo + o + kTermBytes, p[1]);
+  if (j >= 1 && j <= 8) store_split(a, hi + o + 2 * kTermBytes, lo + o + 2 * kTermBytes, p[2]);
+  if (j <= 7) store_split(a, hi + o + 3 * kTermBytes, lo + o + 3 * kTermBytes, p[3]);
+}
+
 // The halo values of channels c0 .. c0+7 of batch element b at the
 // thread's staging items (below) for the tile at (i0, j0), 0 outside xp and
 // past C, as they are in memory: they are converted where they are used, so
 // that the loads stay in flight until then.
 template <typename T>
-__device__ __forceinline__ void load_x(T (&xv)[kRounds], const T* __restrict__ xp,
+__device__ __forceinline__ void load_x(T (&xv)[kRounds][2], const T* __restrict__ xp,
                                        const int (&items)[kRounds], int b, int i0, int j0, int c0,
                                        int C, int Hp, int Wp) {
   const long long plane = (long long)Hp * Wp;
   const T* xb = xp + (long long)b * C * plane;
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    const int c = c0 + ((items[r] >> 1) & 7), gi = i0 + (items[r] >> 26);
-    const int gj = j0 + ((items[r] >> 20) & 63);
-    xv[r] = from_f32<T>(0.f);
-    if (items[r] >= 0 && c < C && gi < Hp && gj < Wp) xv[r] = xb[c * plane + gi * Wp + gj];
+    const int gi = i0 + (items[r] >> 26), gj = j0 + ((items[r] >> 20) & 63);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + ((items[r] >> 2) & 3) * 2 + e;
+      xv[r][e] = from_f32<T>(0.f);
+      if (items[r] >= 0 && c < C && gi < Hp && gj < Wp) xv[r][e] = xb[c * plane + gi * Wp + gj];
+    }
   }
 }
 
@@ -232,23 +241,31 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Hp = H + 2, Wp = W + 2;
 
-  // The thread's staging items, (halo position, channel), channel fastest,
+  // The thread's staging items, (halo position, channel pair), pair fastest,
   // each packed as the position's row and column in the halo (bits 26-29,
-  // 20-25) and the byte offset of its hi part in a term's rows (bits 0-12;
-  // the lo part at ^ 16, the channel in bits 1-3); -1 past the items.
+  // 20-25) and the byte offset of its hi pair in a term's rows (bits 0-12;
+  // the lo pair at ^ 16, the pair in bits 2-3); -1 past the items.
   int items[kRounds];
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    const int item = tid + r * kThreads, pos = item >> 3, ch = item & 7;
+    const int item = tid + r * kThreads, pos = item >> 2, pair = item & 3;
     const int row = pos / kHW, col = pos % kHW;
-    items[r] = item < kItems ? row << 26 | col << 20 | (pos * 32 + (((col >> 2) & 1) << 4) + ch * 2)
-                             : -1;
+    items[r] = item < kItems
+                   ? row << 26 | col << 20 | (pos * 32 + (((col >> 2) & 1) << 4) + pair * 4)
+                   : -1;
   }
-  T xv[kRounds];
+  T xv[kRounds][2];
 
   // ldmatrix rows: lanes 8m .. 8m+7 address matrix m's rows, pixels
-  // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half.
+  // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half; per kw the byte
+  // offset of that row in halo row 0.
   const int m = lane >> 3, px = ((m & 1) << 3) + (lane & 7), half = m >> 1;
+  unsigned lane_off[3];
+#pragma unroll
+  for (int kw = 0; kw < 3; ++kw) {
+    const int col = kw + px;
+    lane_off[kw] = (col << 5) + ((half ^ ((col >> 2) & 1)) << 4);
+  }
   const unsigned a_warp = smem_addr(smem) + ((warp * R * kHW) << 5);
   const unsigned w_base = smem_addr(s_w);
 
@@ -298,16 +315,15 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
 #pragma unroll
       for (int r = 0; r < kRounds; ++r) {
         if (items[r] < 0) continue;
-        float s, p[4];
-        const int j = terms_at(to_f32(xv[r]), s, p), hi = items[r] & 0xfffff, lo = hi ^ 16;
-        store_split(smem, hi, lo, s);
-        if (j < 0) continue;
-        const int o = (j - 2) * kTermBytes;  // the rows of term 1 + (j - 3)
-        if (j >= 3) store_split(smem, hi + o, lo + o, p[0]);
-        if (j >= 2 && j <= 9) store_split(smem, hi + o + kTermBytes, lo + o + kTermBytes, p[1]);
-        if (j >= 1 && j <= 8)
-          store_split(smem, hi + o + 2 * kTermBytes, lo + o + 2 * kTermBytes, p[2]);
-        if (j <= 7) store_split(smem, hi + o + 3 * kTermBytes, lo + o + 3 * kTermBytes, p[3]);
+        float s0, s1, p0[4], p1[4];
+        const int j0 = terms_at(to_f32(xv[r][0]), s0, p0), j1 = terms_at(to_f32(xv[r][1]), s1, p1);
+        const int hi = items[r] & 0xfffff, lo = hi ^ 16;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(s0, s1);  // silu of both channels
+        *reinterpret_cast<__nv_bfloat162*>(smem + hi) = h;
+        *reinterpret_cast<__nv_bfloat162*>(smem + lo) =
+            __floats2bfloat162_rn(s0 - __low2float(h), s1 - __high2float(h));
+        store_bases(smem, hi, lo, j0, p0);
+        store_bases(smem, hi + 2, lo + 2, j1, p1);
       }
       cp_async_wait_all();
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
@@ -320,27 +336,22 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
         load_x(xv, xp, items, b2, i2, j2, 0, C, Hp, Wp);
       }
 
-      // Per (term, kw) step: the warp's A fragments of its R + 2 halo rows,
-      // then per (halo row, kh) one wgmma into the output row's sums of the
-      // term (the first of a term at kw = kh = 0 overwrites them). The steps
-      // alternate between two sets of A registers, so that a step's loads run
-      // while the step before it multiplies; after each kFlush terms the
-      // terms' sums are waited for and added to the fp32 sums.
-      float part[R][FB8 * 4];
-      uint32_t a[2][R + 2][4];
+      // Per term: the warp's A fragments of its R + 2 halo rows at each kw,
+      // then per (kw, halo row, kh) one wgmma into the output row's sums of
+      // the term (the first at kw = kh = 0 overwrites them), all waited for
+      // at once; the term's sums are added to the fp32 sums.
 #pragma unroll 1
-      for (int s0 = 0; s0 < kSteps; s0 += 2)
+      for (int t = 0; t < kTerms; ++t) {
+        uint32_t a[3][R + 2][4];
 #pragma unroll
-        for (int buf = 0; buf < 2; ++buf) {
-          const int s = s0 + buf, t = s / 3, kw = s - 3 * t, col = kw + px;
-          if (s >= kSteps) break;
-          wgmma_wait<1>();  // the step that read a[buf] is done
-          const unsigned a_s = a_warp + t * kTermBytes + (col << 5) +
-                               ((half ^ ((col >> 2) & 1)) << 4);
+        for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
-          for (int hr = 0; hr < R + 2; ++hr) ldsm_x4(a[buf][hr], a_s + hr * kHW * 32);
-          wgmma_fence();
-          const bool first = t % kFlush == 0 && kw == 0;
+          for (int hr = 0; hr < R + 2; ++hr)
+            ldsm_x4(a[kw][hr], a_warp + t * kTermBytes + lane_off[kw] + hr * kHW * 32);
+        float part[R][FB8 * 4];
+        wgmma_fence();
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
           for (int hr = 0; hr < R + 2; ++hr)
 #pragma unroll
@@ -349,21 +360,18 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
               if (o < 0 || o >= R) continue;
               // weight row (tap, term), its hi part's n8 tiles at stride P x 128 bytes
               const unsigned w = w_base + ((kh * 3 + kw) * kTerms + t) * FB8 * P * 128;
-              const uint32_t(&f)[4] = a[buf][hr];
-              wgmma<FB8>(part[o], f[0], f[1], f[2], f[3], b_desc(w, 0, P * 128),
-                         !(first && kh == 0));
+              wgmma<FB8>(part[o], a[kw][hr][0], a[kw][hr][1], a[kw][hr][2], a[kw][hr][3],
+                         b_desc(w, 0, P * 128), kw != 0 || kh != 0);
               if (P == 2)  // a_hi . w_lo: the lo half of A zero
-                wgmma<FB8>(part[o], f[0], f[1], 0u, 0u, b_desc(w + 128, 0, P * 128), 1);
+                wgmma<FB8>(part[o], a[kw][hr][0], a[kw][hr][1], 0u, 0u,
+                           b_desc(w + 128, 0, P * 128), 1);
             }
-          wgmma_commit();
-          if (kw == 2 && (t % kFlush == kFlush - 1 || t == kTerms - 1)) {
-            wgmma_wait<0>();
+        wgmma_commit_and_wait();
 #pragma unroll
-            for (int o = 0; o < R; ++o)
+        for (int o = 0; o < R; ++o)
 #pragma unroll
-              for (int e = 0; e < FB8 * 4; ++e) acc[o][e] += part[o][e];
-          }
-        }
+          for (int e = 0; e < FB8 * 4; ++e) acc[o][e] += part[o][e];
+      }
       __syncthreads();  // the terms and weights are rewritten by the next chunk
     }
 

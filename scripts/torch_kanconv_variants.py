@@ -36,11 +36,10 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_products": (False, [("for (int s0 = 0; s0 < kSteps; s0 += 2)",
-                             "for (int s0 = 0; s0 < 0; s0 += 2)")]),
-    "no_basis": (False, [("if (j < 0) continue;", "if (j > -8) continue;")]),
-    "no_loads": (False, [("xv[r] = xb[c * plane + gi * Wp + gj];",
-                          "xv[r] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
+    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        uint32_t a[3]",
+                             "for (int t = 0; t < 0; ++t) {\n        uint32_t a[3]")]),
+    "no_loads": (False, [("xv[r][e] = xb[c * plane + gi * Wp + gj];",
+                          "xv[r][e] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
     "two_blocks_per_sm": (True, [("(long long)sms * per_sm ? works : (long long)sms * per_sm",
                                   "(long long)sms * 2 ? works : (long long)sms * 2")]),
     "no_zero_fill": (False, [("reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);",
@@ -51,17 +50,13 @@ VARIANTS = {
          "for (int r = 0; r < 0; ++r) {\n        if (items[r] < 0) continue;"),
         ("for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)",
          "for (int i = tid; i < 0; i += kThreads)")]),
-    # The products' sums added to the fp32 sums every 3 terms, or once per
-    # chunk of 8 channels (longer chains of tensor-core accumulation).
-    "flush3": (True, [("constexpr int kFlush = 1;", "constexpr int kFlush = 3;")]),
-    "flush9": (True, [("constexpr int kFlush = 1;", "constexpr int kFlush = 9;")]),
     "three_blocks": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
                              "__launch_bounds__(kThreads, 3) kanconv_kernel")]),
     "tile16_8warps_no_products": (False, [
         ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
         ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
-        ("for (int s0 = 0; s0 < kSteps; s0 += 2)",
-         "for (int s0 = 0; s0 < 0; s0 += 2)")]),
+        ("for (int t = 0; t < kTerms; ++t) {\n        uint32_t a[3]",
+         "for (int t = 0; t < 0; ++t) {\n        uint32_t a[3]")]),
     # 16 x 16 pixels per block of 8 warps of the same R: one block per SM.
     "tile16_8warps": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
                              ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
