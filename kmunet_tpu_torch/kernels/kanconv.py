@@ -96,11 +96,13 @@ def packed_weights(base_weight, spline_flat, parts: int) -> torch.Tensor:
     w_lo; zeros past C and F (a zero weight, not a zero x, masks a padded
     channel: B_q(0) != 0)."""
     Fo, C = base_weight.shape[:2]
-    w = torch.cat([base_weight.float().reshape(Fo, C, 1, 9),
-                   spline_flat.float().reshape(Fo, C, N_BASIS, 9)], dim=2)
+    dtype = torch.promote_types(base_weight.dtype, spline_flat.dtype)
+    w = torch.cat([base_weight.to(dtype).reshape(Fo, C, 1, 9),
+                   spline_flat.to(dtype).reshape(Fo, C, N_BASIS, 9)], dim=2)
     w = F.pad(w.permute(1, 3, 2, 0), (0, -Fo % 8, 0, 0, 0, 0, 0, -C % CHUNK))  # (C, tap, term, F)
     hi = w.to(torch.bfloat16)
-    stacked = torch.stack([hi, (w - hi.float()).to(torch.bfloat16)][:parts])
+    stacked = (hi[None] if parts == 1
+               else torch.stack([hi, (w.float() - hi.float()).to(torch.bfloat16)]))
     c8, fp8 = w.shape[0] // CHUNK, w.shape[3] // 8
     stacked = stacked.view(parts, c8, 4, 2, 9, 9, fp8, 8).permute(1, 4, 5, 6, 0, 7, 2, 3)
     return stacked.contiguous().view(torch.int32).view(c8, 9, 9, fp8, parts, 8, 4)

@@ -11,8 +11,8 @@ take, channels padded to a multiple of 8 and F to a multiple of 8 with
 zeros): w_hi, and w_lo where the weights are not bf16 (``weight_parts``);
 the products a_hi w_hi + a_lo w_hi + a_hi w_lo summed exactly and rounded
 once to fp32, then to the dtype (the tensor cores' fp32 accumulation order
-is not modelled; the kernel adds each 3 (term, kw) pairs' products to its
-fp32 sums).
+is not modelled; the kernel adds each term's products, 9 or 18 wgmma
+k-steps, to its fp32 sums).
 
 Held, at small shapes with C=3 and F=5, C=5 and F=17, and KM_UNetV3-SH's
 channel counts (16 -> 16, 16 -> 32, 32 -> 64, 64 -> 32), in the three x
