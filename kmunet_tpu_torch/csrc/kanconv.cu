@@ -70,8 +70,8 @@
 
 namespace {
 
-constexpr int kTH = 8;                   // output rows per block
-constexpr int kTW = 16;                  // output columns per block: one A fragment's 16 rows
+constexpr int kTH = 16;                  // output rows per block
+constexpr int kTW = 32;                  // output columns per block: two A fragments' 16 rows
 constexpr int kHW = kTW + 2;             // halo width
 constexpr int kHalo = (kTH + 2) * kHW;   // halo positions
 constexpr int kCC = 8;                   // input channels per chunk
@@ -79,7 +79,7 @@ constexpr int kTaps = 9;
 constexpr int kBases = 8;
 constexpr int kTerms = 1 + kBases;       // silu, then the 8 bases
 constexpr int kWRows = kTaps * kTerms;   // weight rows per chunk: tap * kTerms + term
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kItems = kHalo * kCC / 2;  // (halo position, channel pair) per chunk
 constexpr int kRounds = (kItems + kThreads - 1) / kThreads;
@@ -123,47 +123,20 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
                : "r"(addr));
 }
 
-// The descriptor of a B operand in shared memory for wgmma: 8 x 8 core
-// matrices of 16-byte rows (n, k .. k+7), no swizzle; the next 8 k at +lbo
-// bytes (0 here: k 8-15 repeat the weights of k 0-7), the next 8 n at +sbo.
-__device__ __forceinline__ uint64_t b_desc(unsigned addr, unsigned lbo, unsigned sbo) {
-  return (uint64_t)((addr >> 4) & 0x3fff) | (uint64_t)((lbo >> 4) & 0x3fff) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3fff) << 32;
+// d += a . [b; b]: m16n8k16, bf16 operands, fp32 d, the B fragment's two
+// registers one (k 8-15 repeat the weights of k 0-7).
+__device__ __forceinline__ void mma_k16(float* d, const uint32_t (&a)[4], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(b));
 }
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (+)= a . B for the warpgroup's 64 rows (this warp's 16 in a, as an
-// mma.m16n8k16 A fragment) and N = 8 * N8 columns of B at desc: wgmma
-// m64nNk16, bf16 operands, fp32 d, d overwritten where scale_d is 0.
-template <int N8>
-__device__ __forceinline__ void wgmma(float (&d)[N8 * 4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                      uint32_t a3, uint64_t desc, int scale_d) {
-  static_assert(N8 == 2 || N8 == 4, "N = 16 or 32");
-  if constexpr (N8 == 2) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
-  }
+// d += a[k 0-7] . b: m16n8k8 on the fragment's hi half.
+__device__ __forceinline__ void mma_k8(float* d, const uint32_t (&a)[4], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // silu(x) into s and the 4 bases that may be nonzero at x, B_{j-3} .. B_j
@@ -227,18 +200,20 @@ __device__ __forceinline__ void load_x(T (&xv)[kRounds][2], const T* __restrict_
   }
 }
 
-// FB8 x 8 output channels per block (16 or 32); P weight parts (1: w_hi,
-// 2: w_hi and w_lo). The 4 warps are the warpgroup of every wgmma, warp w the
-// tile's output rows 2w and 2w + 1 (its A fragments and sums).
-template <typename T, int FB8, int P>
+// R output rows of 16 columns and NW output channels per warp; P weight
+// parts (1: w_hi, 2: w_hi and w_lo). The 8 warps are kTH / R row groups by 2
+// column halves by NG channel groups: FB = NG * NW channels per block.
+template <typename T, int R, int NW, int P>
 __global__ void __launch_bounds__(kThreads) kanconv_kernel(
     const T* __restrict__ xp, const uint32_t* __restrict__ wk, T* __restrict__ out, int C, int F,
     int H, int W, int tiles_w, int tiles, int groups, int works, int fp8) {
-  constexpr int R = kTH / kWarps;
+  constexpr int RG = kTH / R, CG = kTW / 16, NG = kWarps / (RG * CG), N8 = NW / 8, FB8 = NG * N8;
+  static_assert(RG * CG * NG == kWarps && NW % 8 == 0, "8 warps of R rows, 16 columns, NW channels");
   extern __shared__ __align__(128) unsigned char smem[];
   uint32_t* s_w = reinterpret_cast<uint32_t*>(smem + kABytes);  // [row][n8][part][lane]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp % RG, cg = warp / RG % CG, ng = warp / (RG * CG);
   const int Hp = H + 2, Wp = W + 2;
 
   // The thread's staging items, (halo position, channel pair), pair fastest,
@@ -266,8 +241,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
     const int col = kw + px;
     lane_off[kw] = (col << 5) + ((half ^ ((col >> 2) & 1)) << 4);
   }
-  const unsigned a_warp = smem_addr(smem) + ((warp * R * kHW) << 5);
-  const unsigned w_base = smem_addr(s_w);
+  const unsigned a_warp = smem_addr(smem) + ((rg * R * kHW + cg * 16) << 5);
 
   // Persistent: the block walks the work items (batch element, tile, group
   // of FB channels) w = blockIdx.x, + gridDim.x, ...; the halo values of each
@@ -289,11 +263,13 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
 #pragma unroll 1
   for (int w = blockIdx.x; w < works; w += gridDim.x) {
     origin(w, b, i0, j0, n80);
-    float acc[R][FB8 * 4];
+    float acc[R][N8][4];
 #pragma unroll
     for (int o = 0; o < R; ++o)
 #pragma unroll
-      for (int e = 0; e < FB8 * 4; ++e) acc[o][e] = 0.f;
+      for (int n = 0; n < N8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[o][n][e] = 0.f;
 
 #pragma unroll 1
     for (int k = 0; k < chunks; ++k) {
@@ -326,7 +302,6 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
         store_bases(smem, hi + 2, lo + 2, j1, p1);
       }
       cp_async_wait_all();
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
       __syncthreads();
       if (k + 1 < chunks) {  // in flight over the products
         load_x(xv, xp, items, b, i0, j0, (k + 1) * kCC, C, Hp, Wp);
@@ -336,73 +311,85 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
         load_x(xv, xp, items, b2, i2, j2, 0, C, Hp, Wp);
       }
 
-      // Per term: the warp's A fragments of its R + 2 halo rows at each kw,
-      // then per (kw, halo row, kh) one wgmma into the output row's sums of
-      // the term (the first at kw = kh = 0 overwrites them), all waited for
-      // at once; the term's sums are added to the fp32 sums.
 #pragma unroll 1
       for (int t = 0; t < kTerms; ++t) {
-        uint32_t a[3][R + 2][4];
+        float part[R][N8][4];
 #pragma unroll
-        for (int kw = 0; kw < 3; ++kw)
+        for (int o = 0; o < R; ++o)
 #pragma unroll
-          for (int hr = 0; hr < R + 2; ++hr)
-            ldsm_x4(a[kw][hr], a_warp + t * kTermBytes + lane_off[kw] + hr * kHW * 32);
-        float part[R][FB8 * 4];
-        wgmma_fence();
+          for (int n = 0; n < N8; ++n)
 #pragma unroll
-        for (int kw = 0; kw < 3; ++kw)
+            for (int e = 0; e < 4; ++e) part[o][n][e] = 0.f;
+        const unsigned a_t = a_warp + t * kTermBytes;
+        const uint32_t* w_t = s_w + (t * FB8 + ng * N8) * P * 32 + lane;
 #pragma unroll
-          for (int hr = 0; hr < R + 2; ++hr)
+        for (int kw = 0; kw < 3; ++kw) {
+          uint32_t w_hi[3][N8], w_lo[3][N8];
+#pragma unroll
+          for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+            for (int n = 0; n < N8; ++n) {
+              const uint32_t* w = w_t + ((kh * 3 + kw) * kTerms * FB8 + n) * P * 32;
+              w_hi[kh][n] = w[0];
+              w_lo[kh][n] = P == 2 ? w[32] : 0u;
+            }
+#pragma unroll
+          for (int hr = 0; hr < R + 2; ++hr) {
+            uint32_t a[4];
+            ldsm_x4(a, a_t + lane_off[kw] + hr * kHW * 32);
 #pragma unroll
             for (int kh = 0; kh < 3; ++kh) {
               const int o = hr - kh;
               if (o < 0 || o >= R) continue;
-              // weight row (tap, term), its hi part's n8 tiles at stride P x 128 bytes
-              const unsigned w = w_base + ((kh * 3 + kw) * kTerms + t) * FB8 * P * 128;
-              wgmma<FB8>(part[o], a[kw][hr][0], a[kw][hr][1], a[kw][hr][2], a[kw][hr][3],
-                         b_desc(w, 0, P * 128), kw != 0 || kh != 0);
-              if (P == 2)  // a_hi . w_lo: the lo half of A zero
-                wgmma<FB8>(part[o], a[kw][hr][0], a[kw][hr][1], 0u, 0u,
-                           b_desc(w + 128, 0, P * 128), 1);
+#pragma unroll
+              for (int n = 0; n < N8; ++n) {
+                mma_k16(part[o][n], a, w_hi[kh][n]);
+                if (P == 2) mma_k8(part[o][n], a, w_lo[kh][n]);
+              }
             }
-        wgmma_commit_and_wait();
+          }
+        }
 #pragma unroll
         for (int o = 0; o < R; ++o)
 #pragma unroll
-          for (int e = 0; e < FB8 * 4; ++e) acc[o][e] += part[o][e];
+          for (int n = 0; n < N8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[o][n][e] += part[o][n][e];
       }
       __syncthreads();  // the terms and weights are rewritten by the next chunk
     }
 
-    // Sum e of output row o: pixel g (+ 8 for e % 4 >= 2), channel
-    // 8 (e / 4) + 2 tl (+ 1 for odd e) of the block's.
+    // Fragment element e of (o, n): pixel g (+ 8 for e >= 2), channel 2 tl (+ 1
+    // for odd e) of the warp's n-th 8 channels.
     const int g = lane >> 2, tl = lane & 3;
 #pragma unroll
     for (int o = 0; o < R; ++o) {
-      const int i = i0 + warp * R + o;
+      const int i = i0 + rg * R + o;
       if (i >= H) continue;
 #pragma unroll
-      for (int e = 0; e < FB8 * 4; ++e) {
-        const int j = j0 + g + (((e >> 1) & 1) << 3);
-        const int f = (n80 + (e >> 2)) * 8 + 2 * tl + (e & 1);
-        if (j < W && f < F)
-          out[(((long long)b * F + f) * H + i) * W + j] = from_f32<T>(acc[o][e]);
-      }
+      for (int n = 0; n < N8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + cg * 16 + g + ((e >> 1) << 3);
+          const int f = (n80 + ng * N8 + n) * 8 + 2 * tl + (e & 1);
+          if (j < W && f < F)
+            out[(((long long)b * F + f) * H + i) * W + j] = from_f32<T>(acc[o][n][e]);
+        }
     }
   }
 }
 
-template <typename T, int FB8, int P>
+template <typename T, int R, int NW, int P>
 int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W,
            cudaStream_t stream) {
+  constexpr int FB8 = kWarps / (kTH / R * (kTW / 16)) * NW / 8;
   constexpr int kSmem = kABytes + kWRows * FB8 * P * 128;
   const int fp8 = (F + 7) / 8;
   const int tiles_w = (W + kTW - 1) / kTW, tiles_h = (H + kTH - 1) / kTH;
   const int groups = (fp8 + FB8 - 1) / FB8;
   const long long works = (long long)B * tiles_h * tiles_w * groups;
   if (works > 0x7fffffffLL) return -1;
-  auto kernel = kanconv_kernel<T, FB8, P>;
+  auto kernel = kanconv_kernel<T, R, NW, P>;
   int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   int device = 0, sms = 0, per_sm = 0;
   if (err == 0) err = (int)cudaGetDevice(&device);
@@ -417,14 +404,14 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
   return (int)cudaGetLastError();
 }
 
-// 16 output channels per block; bf16 weights with F > 16: 32, which keeps
-// the staged weights at 41 KB (as 16 channels with lo parts).
+// 16 output channels per block, 4 rows per warp; bf16 weights with F > 16:
+// 32, which keeps the staged weights at 41 KB (as 16 channels with lo parts).
 template <typename T>
 int run(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W, int parts,
         cudaStream_t stream) {
-  if (parts == 2) return launch<T, 2, 2>(xp, wk, out, B, C, F, H, W, stream);
-  if (F > 16) return launch<T, 4, 1>(xp, wk, out, B, C, F, H, W, stream);
-  return launch<T, 2, 1>(xp, wk, out, B, C, F, H, W, stream);
+  if (parts == 2) return launch<T, 4, 16, 2>(xp, wk, out, B, C, F, H, W, stream);
+  if (F > 16) return launch<T, 4, 32, 1>(xp, wk, out, B, C, F, H, W, stream);
+  return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
 }
 
 }  // namespace

@@ -36,8 +36,8 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        uint32_t a[3]",
-                             "for (int t = 0; t < 0; ++t) {\n        uint32_t a[3]")]),
+    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        float part",
+                             "for (int t = 0; t < 0; ++t) {\n        float part")]),
     "no_loads": (False, [("xv[r][e] = xb[c * plane + gi * Wp + gj];",
                           "xv[r][e] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
     "two_blocks_per_sm": (True, [("(long long)sms * per_sm ? works : (long long)sms * per_sm",
@@ -52,14 +52,12 @@ VARIANTS = {
          "for (int i = tid; i < 0; i += kThreads)")]),
     "three_blocks": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
                              "__launch_bounds__(kThreads, 3) kanconv_kernel")]),
-    "tile16_8warps_no_products": (False, [
-        ("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
-        ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
-        ("for (int t = 0; t < kTerms; ++t) {\n        uint32_t a[3]",
-         "for (int t = 0; t < 0; ++t) {\n        uint32_t a[3]")]),
-    # 16 x 16 pixels per block of 8 warps of the same R: one block per SM.
-    "tile16_8warps": (True, [("constexpr int kTH = 8;", "constexpr int kTH = 16;"),
-                             ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
+    # 16 x 16 pixels per block (one column half), 8 warps of 2 rows.
+    "tile16x16": (True, [("constexpr int kTW = 32;", "constexpr int kTW = 16;"),
+                         ("launch<T, 4, 16, 2>", "launch<T, 2, 16, 2>"),
+                         ("launch<T, 4, 32, 1>", "launch<T, 4, 16, 1>"),
+                         ("launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n}",
+                          "launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n}")]),
 }
 
 
