@@ -71,7 +71,7 @@
 namespace {
 
 constexpr int kTH = 16;                  // output rows per block
-constexpr int kTW = 32;                  // output columns per block: two A fragments' 16 rows
+constexpr int kTW = 16;                  // output columns per block: one A fragment's 16 rows
 constexpr int kHW = kTW + 2;             // halo width
 constexpr int kHalo = (kTH + 2) * kHW;   // halo positions
 constexpr int kCC = 8;                   // input channels per chunk
@@ -204,7 +204,7 @@ __device__ __forceinline__ void load_x(T (&xv)[kRounds][2], const T* __restrict_
 // parts (1: w_hi, 2: w_hi and w_lo). The 8 warps are kTH / R row groups by 2
 // column halves by NG channel groups: FB = NG * NW channels per block.
 template <typename T, int R, int NW, int P>
-__global__ void __launch_bounds__(kThreads) kanconv_kernel(
+__global__ void __launch_bounds__(kThreads, 2) kanconv_kernel(
     const T* __restrict__ xp, const uint32_t* __restrict__ wk, T* __restrict__ out, int C, int F,
     int H, int W, int tiles_w, int tiles, int groups, int works, int fp8) {
   constexpr int RG = kTH / R, CG = kTW / 16, NG = kWarps / (RG * CG), N8 = NW / 8, FB8 = NG * N8;
@@ -404,14 +404,13 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
   return (int)cudaGetLastError();
 }
 
-// 16 output channels per block, 4 rows per warp; bf16 weights with F > 16:
-// 32, which keeps the staged weights at 41 KB (as 16 channels with lo parts).
+// 16 output channels per block (more F in more groups of 16), 2 rows per
+// warp: 128 registers and 114 KB, two blocks per SM.
 template <typename T>
 int run(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W, int parts,
         cudaStream_t stream) {
-  if (parts == 2) return launch<T, 4, 16, 2>(xp, wk, out, B, C, F, H, W, stream);
-  if (F > 16) return launch<T, 4, 32, 1>(xp, wk, out, B, C, F, H, W, stream);
-  return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
+  if (parts == 2) return launch<T, 2, 16, 2>(xp, wk, out, B, C, F, H, W, stream);
+  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
 }
 
 }  // namespace

@@ -12,7 +12,7 @@ the plain version with ``chip_smoke.check_kanconv``'s tolerances in bf16 and
 fp32 on a ragged shape, SH's enc2 and dec1 (C=64: the longest sums) at
 B=2 and its enc1 at B=8 (more tiles than blocks); the others (diagnostics that
 skip a phase) are only timed. Then every variant is timed in bf16 at
-``chip_smoke.KAN_TIMING_SHAPES``'s enc1 and enc2, queued behind a spinning
+``chip_smoke.KAN_TIMING_SHAPES``'s enc1 and enc2 (or ``--shapes``), queued behind a spinning
 kernel (device µs per call, weights packed once beforehand), in turns over
 ``--rounds`` rounds. ``--source NAME=PATH`` adds a whole other source of
 the same C entry as a variant that computes K1 (another commit's
@@ -50,14 +50,16 @@ VARIANTS = {
          "for (int r = 0; r < 0; ++r) {\n        if (items[r] < 0) continue;"),
         ("for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)",
          "for (int i = tid; i < 0; i += kThreads)")]),
-    "three_blocks": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
-                             "__launch_bounds__(kThreads, 3) kanconv_kernel")]),
-    # 16 x 16 pixels per block (one column half), 8 warps of 2 rows.
-    "tile16x16": (True, [("constexpr int kTW = 32;", "constexpr int kTW = 16;"),
-                         ("launch<T, 4, 16, 2>", "launch<T, 2, 16, 2>"),
-                         ("launch<T, 4, 32, 1>", "launch<T, 4, 16, 1>"),
-                         ("launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n}",
-                          "launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n}")]),
+    # F > 16 (bf16 weights) as 32 channels per block: 4 rows of 16 columns by
+    # 2 channel groups per warp.
+    "fb32": (True, [("  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);",
+                     "  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n"
+                     "  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);")]),
+    "fb32_one_block": (True, [
+        ("  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);",
+         "  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n"
+         "  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);"),
+        ("__launch_bounds__(kThreads, 2) kanconv_kernel", "__launch_bounds__(kThreads) kanconv_kernel")]),
 }
 
 
@@ -86,6 +88,8 @@ def main() -> int:
     parser.add_argument("names", nargs="*", help="variants to run (default: all)")
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
+    parser.add_argument("--shapes", default="enc1,enc2",
+                        help="comma-separated keys of chip_smoke.KAN_TIMING_SHAPES to time")
     args = parser.parse_args()
 
     import numpy as np
@@ -161,7 +165,7 @@ def main() -> int:
         emit({"variant": name, "worst_error_over_tolerance": worst})
 
     cases = {}
-    for key in ("enc1", "enc2"):
+    for key in args.shapes.split(","):
         B, C, Fo, H, W = chip_smoke.KAN_TIMING_SHAPES[key]
         xp = F.pad(torch.randn(B, C, H, W, device="cuda"), (1, 1, 1, 1)).to(torch.bfloat16)
         base = (0.3 * torch.randn(Fo, C, 3, 3, device="cuda")).to(torch.bfloat16)
