@@ -55,6 +55,11 @@ VARIANTS = {
     "fb32": (True, [("  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);",
                      "  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n"
                      "  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);")]),
+    # 4 warps of 4 rows per 16 x 16 tile (half the weight loads per product).
+    "four_warps": (True, [("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
+                          ("launch<T, 2, 16, 2>", "launch<T, 4, 16, 2>"),
+                          ("  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);",
+                           "  return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);")]),
     "fb32_one_block": (True, [
         ("  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);",
          "  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n"
