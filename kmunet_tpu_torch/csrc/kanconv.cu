@@ -81,7 +81,8 @@ constexpr int kTerms = 1 + kBases;       // silu, then the 8 bases
 constexpr int kWRows = kTaps * kTerms;   // weight rows per chunk: tap * kTerms + term
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kItems = kHalo * kCC / 2;  // (halo position, channel pair) per chunk
+constexpr int kItemCh = 2;               // channels per staging item
+constexpr int kItems = kHalo * kCC / kItemCh;  // (halo position, channel group) per chunk
 constexpr int kRounds = (kItems + kThreads - 1) / kThreads;
 constexpr int kTermBytes = kHalo * 32;   // a term's rows: 8 hi + 8 lo bf16 per position
 constexpr int kABytes = kTerms * kTermBytes;
@@ -183,7 +184,7 @@ __device__ __forceinline__ void store_bases(unsigned char* a, int hi, int lo, in
 // past C, as they are in memory: they are converted where they are used, so
 // that the loads stay in flight until then.
 template <typename T>
-__device__ __forceinline__ void load_x(T (&xv)[kRounds][2], const T* __restrict__ xp,
+__device__ __forceinline__ void load_x(T (&xv)[kRounds][kItemCh], const T* __restrict__ xp,
                                        const int (&items)[kRounds], int b, int i0, int j0, int c0,
                                        int C, int Hp, int Wp) {
   const long long plane = (long long)Hp * Wp;
@@ -192,8 +193,8 @@ __device__ __forceinline__ void load_x(T (&xv)[kRounds][2], const T* __restrict_
   for (int r = 0; r < kRounds; ++r) {
     const int gi = i0 + (items[r] >> 26), gj = j0 + ((items[r] >> 20) & 63);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = c0 + ((items[r] >> 2) & 3) * 2 + e;
+    for (int e = 0; e < kItemCh; ++e) {
+      const int c = c0 + ((items[r] >> 1) & 7) + e;
       xv[r][e] = from_f32<T>(0.f);
       if (items[r] >= 0 && c < C && gi < Hp && gj < Wp) xv[r][e] = xb[c * plane + gi * Wp + gj];
     }
@@ -204,7 +205,7 @@ __device__ __forceinline__ void load_x(T (&xv)[kRounds][2], const T* __restrict_
 // parts (1: w_hi, 2: w_hi and w_lo). The 8 warps are kTH / R row groups by 2
 // column halves by NG channel groups: FB = NG * NW channels per block.
 template <typename T, int R, int NW, int P>
-__global__ void __launch_bounds__(kThreads, 2) kanconv_kernel(
+__global__ void __launch_bounds__(kThreads) kanconv_kernel(
     const T* __restrict__ xp, const uint32_t* __restrict__ wk, T* __restrict__ out, int C, int F,
     int H, int W, int tiles_w, int tiles, int groups, int works, int fp8) {
   constexpr int RG = kTH / R, CG = kTW / 16, NG = kWarps / (RG * CG), N8 = NW / 8, FB8 = NG * N8;
@@ -216,20 +217,21 @@ __global__ void __launch_bounds__(kThreads, 2) kanconv_kernel(
   const int rg = warp % RG, cg = warp / RG % CG, ng = warp / (RG * CG);
   const int Hp = H + 2, Wp = W + 2;
 
-  // The thread's staging items, (halo position, channel pair), pair fastest,
-  // each packed as the position's row and column in the halo (bits 26-29,
-  // 20-25) and the byte offset of its hi pair in a term's rows (bits 0-12;
-  // the lo pair at ^ 16, the pair in bits 2-3); -1 past the items.
+  // The thread's staging items, (halo position, group of kItemCh channels),
+  // group fastest, each packed as the position's row and column in the halo
+  // (bits 26-30, 20-25) and the byte offset of its first channel's hi part in
+  // a term's rows (bits 0-14; the lo parts at ^ 16, the channel in bits 1-3);
+  // -1 past the items.
   int items[kRounds];
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    const int item = tid + r * kThreads, pos = item >> 2, pair = item & 3;
-    const int row = pos / kHW, col = pos % kHW;
+    const int item = tid + r * kThreads, pos = item / (kCC / kItemCh);
+    const int ch = item % (kCC / kItemCh) * kItemCh, row = pos / kHW, col = pos % kHW;
     items[r] = item < kItems
-                   ? row << 26 | col << 20 | (pos * 32 + (((col >> 2) & 1) << 4) + pair * 4)
+                   ? row << 26 | col << 20 | (pos * 32 + (((col >> 2) & 1) << 4) + ch * 2)
                    : -1;
   }
-  T xv[kRounds][2];
+  T xv[kRounds][kItemCh];
 
   // ldmatrix rows: lanes 8m .. 8m+7 address matrix m's rows, pixels
   // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half; per kw the byte
@@ -291,15 +293,20 @@ __global__ void __launch_bounds__(kThreads, 2) kanconv_kernel(
 #pragma unroll
       for (int r = 0; r < kRounds; ++r) {
         if (items[r] < 0) continue;
-        float s0, s1, p0[4], p1[4];
-        const int j0 = terms_at(to_f32(xv[r][0]), s0, p0), j1 = terms_at(to_f32(xv[r][1]), s1, p1);
+        float sv[kItemCh], p[kItemCh][4];
+        int jv[kItemCh];
+#pragma unroll
+        for (int e = 0; e < kItemCh; ++e) jv[e] = terms_at(to_f32(xv[r][e]), sv[e], p[e]);
         const int hi = items[r] & 0xfffff, lo = hi ^ 16;
-        const __nv_bfloat162 h = __floats2bfloat162_rn(s0, s1);  // silu of both channels
-        *reinterpret_cast<__nv_bfloat162*>(smem + hi) = h;
-        *reinterpret_cast<__nv_bfloat162*>(smem + lo) =
-            __floats2bfloat162_rn(s0 - __low2float(h), s1 - __high2float(h));
-        store_bases(smem, hi, lo, j0, p0);
-        store_bases(smem, hi + 2, lo + 2, j1, p1);
+#pragma unroll
+        for (int e = 0; e < kItemCh; e += 2) {  // silu of two channels per word
+          const __nv_bfloat162 h = __floats2bfloat162_rn(sv[e], sv[e + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(smem + hi + 2 * e) = h;
+          *reinterpret_cast<__nv_bfloat162*>(smem + lo + 2 * e) =
+              __floats2bfloat162_rn(sv[e] - __low2float(h), sv[e + 1] - __high2float(h));
+        }
+#pragma unroll
+        for (int e = 0; e < kItemCh; ++e) store_bases(smem, hi + 2 * e, lo + 2 * e, jv[e], p[e]);
       }
       cp_async_wait_all();
       __syncthreads();
@@ -404,12 +411,15 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
   return (int)cudaGetLastError();
 }
 
-// 16 output channels per block (more F in more groups of 16), 2 rows per
-// warp: 128 registers and 114 KB, two blocks per SM.
+// 16 output channels per block, 2 rows per warp (125 registers and 114 KB:
+// two blocks per SM); bf16 weights with F > 16: 32 channels, 4 rows per warp
+// in 2 channel groups (one block per SM), which keeps the staged weights at
+// 41 KB (as 16 channels with lo parts).
 template <typename T>
 int run(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W, int parts,
         cudaStream_t stream) {
   if (parts == 2) return launch<T, 2, 16, 2>(xp, wk, out, B, C, F, H, W, stream);
+  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
   return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
 }
 

@@ -50,21 +50,11 @@ VARIANTS = {
          "for (int r = 0; r < 0; ++r) {\n        if (items[r] < 0) continue;"),
         ("for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)",
          "for (int i = tid; i < 0; i += kThreads)")]),
-    # F > 16 (bf16 weights) as 32 channels per block: 4 rows of 16 columns by
-    # 2 channel groups per warp.
-    "fb32": (True, [("  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);",
-                     "  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n"
-                     "  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);")]),
-    # 4 warps of 4 rows per 16 x 16 tile (half the weight loads per product).
-    "four_warps": (True, [("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
-                          ("launch<T, 2, 16, 2>", "launch<T, 4, 16, 2>"),
-                          ("  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);",
-                           "  return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);")]),
-    "fb32_one_block": (True, [
-        ("  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);",
-         "  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);\n"
-         "  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);"),
-        ("__launch_bounds__(kThreads, 2) kanconv_kernel", "__launch_bounds__(kThreads) kanconv_kernel")]),
+    # 4 channels per staging item (more independent work per thread).
+    "quad_items": (True, [("constexpr int kItemCh = 2;", "constexpr int kItemCh = 4;")]),
+    # Two blocks per SM asked of the compiler (128 registers) at every F.
+    "two_blocks_lb": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
+                              "__launch_bounds__(kThreads, 2) kanconv_kernel")]),
 }
 
 
