@@ -81,9 +81,10 @@ constexpr int kTerms = 1 + kBases;       // silu, then the 8 bases
 constexpr int kWRows = kTaps * kTerms;   // weight rows per chunk: tap * kTerms + term
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kItemCh = 2;               // channels per staging item
-constexpr int kItems = kHalo * kCC / kItemCh;  // (halo position, channel group) per chunk
-constexpr int kRounds = (kItems + kThreads - 1) / kThreads;
+// A thread stages CH channels of a halo position at a time (CH = 2 or 4):
+// the items and rounds per chunk.
+template <int CH> constexpr int kItems = kHalo * kCC / CH;
+template <int CH> constexpr int kRounds = (kItems<CH> + kThreads - 1) / kThreads;
 constexpr int kTermBytes = kHalo * 32;   // a term's rows: 8 hi + 8 lo bf16 per position
 constexpr int kABytes = kTerms * kTermBytes;
 constexpr float kLo = -1.f;
@@ -183,17 +184,17 @@ __device__ __forceinline__ void store_bases(unsigned char* a, int hi, int lo, in
 // thread's staging items (below) for the tile at (i0, j0), 0 outside xp and
 // past C, as they are in memory: they are converted where they are used, so
 // that the loads stay in flight until then.
-template <typename T>
-__device__ __forceinline__ void load_x(T (&xv)[kRounds][kItemCh], const T* __restrict__ xp,
-                                       const int (&items)[kRounds], int b, int i0, int j0, int c0,
+template <int CH, typename T>
+__device__ __forceinline__ void load_x(T (&xv)[kRounds<CH>][CH], const T* __restrict__ xp,
+                                       const int (&items)[kRounds<CH>], int b, int i0, int j0, int c0,
                                        int C, int Hp, int Wp) {
   const long long plane = (long long)Hp * Wp;
   const T* xb = xp + (long long)b * C * plane;
 #pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
+  for (int r = 0; r < kRounds<CH>; ++r) {
     const int gi = i0 + (items[r] >> 26), gj = j0 + ((items[r] >> 20) & 63);
 #pragma unroll
-    for (int e = 0; e < kItemCh; ++e) {
+    for (int e = 0; e < CH; ++e) {
       const int c = c0 + ((items[r] >> 1) & 7) + e;
       xv[r][e] = from_f32<T>(0.f);
       if (items[r] >= 0 && c < C && gi < Hp && gj < Wp) xv[r][e] = xb[c * plane + gi * Wp + gj];
@@ -202,9 +203,9 @@ __device__ __forceinline__ void load_x(T (&xv)[kRounds][kItemCh], const T* __res
 }
 
 // R output rows of 16 columns and NW output channels per warp; P weight
-// parts (1: w_hi, 2: w_hi and w_lo). The 8 warps are kTH / R row groups by 2
+// parts (1: w_hi, 2: w_hi and w_lo); CH channels per staging item. The 8 warps are kTH / R row groups by 2
 // column halves by NG channel groups: FB = NG * NW channels per block.
-template <typename T, int R, int NW, int P>
+template <typename T, int R, int NW, int P, int CH>
 __global__ void __launch_bounds__(kThreads) kanconv_kernel(
     const T* __restrict__ xp, const uint32_t* __restrict__ wk, T* __restrict__ out, int C, int F,
     int H, int W, int tiles_w, int tiles, int groups, int works, int fp8) {
@@ -217,21 +218,21 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   const int rg = warp % RG, cg = warp / RG % CG, ng = warp / (RG * CG);
   const int Hp = H + 2, Wp = W + 2;
 
-  // The thread's staging items, (halo position, group of kItemCh channels),
+  // The thread's staging items, (halo position, group of CH channels),
   // group fastest, each packed as the position's row and column in the halo
   // (bits 26-30, 20-25) and the byte offset of its first channel's hi part in
   // a term's rows (bits 0-14; the lo parts at ^ 16, the channel in bits 1-3);
   // -1 past the items.
-  int items[kRounds];
+  int items[kRounds<CH>];
 #pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    const int item = tid + r * kThreads, pos = item / (kCC / kItemCh);
-    const int ch = item % (kCC / kItemCh) * kItemCh, row = pos / kHW, col = pos % kHW;
-    items[r] = item < kItems
+  for (int r = 0; r < kRounds<CH>; ++r) {
+    const int item = tid + r * kThreads, pos = item / (kCC / CH);
+    const int ch = item % (kCC / CH) * CH, row = pos / kHW, col = pos % kHW;
+    items[r] = item < kItems<CH>
                    ? row << 26 | col << 20 | (pos * 32 + (((col >> 2) & 1) << 4) + ch * 2)
                    : -1;
   }
-  T xv[kRounds][kItemCh];
+  T xv[kRounds<CH>][CH];
 
   // ldmatrix rows: lanes 8m .. 8m+7 address matrix m's rows, pixels
   // (m & 1) * 8 + (lane & 7), the hi (m < 2) or lo half; per kw the byte
@@ -260,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   int b, i0, j0, n80;
   if ((int)blockIdx.x < works) {
     origin(blockIdx.x, b, i0, j0, n80);
-    load_x(xv, xp, items, b, i0, j0, 0, C, Hp, Wp);
+    load_x<CH>(xv, xp, items, b, i0, j0, 0, C, Hp, Wp);
   }
 #pragma unroll 1
   for (int w = blockIdx.x; w < works; w += gridDim.x) {
@@ -291,31 +292,31 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
         reinterpret_cast<uint4*>(smem + kTermBytes)[i] = make_uint4(0u, 0u, 0u, 0u);
       __syncthreads();
 #pragma unroll
-      for (int r = 0; r < kRounds; ++r) {
+      for (int r = 0; r < kRounds<CH>; ++r) {
         if (items[r] < 0) continue;
-        float sv[kItemCh], p[kItemCh][4];
-        int jv[kItemCh];
+        float sv[CH], p[CH][4];
+        int jv[CH];
 #pragma unroll
-        for (int e = 0; e < kItemCh; ++e) jv[e] = terms_at(to_f32(xv[r][e]), sv[e], p[e]);
+        for (int e = 0; e < CH; ++e) jv[e] = terms_at(to_f32(xv[r][e]), sv[e], p[e]);
         const int hi = items[r] & 0xfffff, lo = hi ^ 16;
 #pragma unroll
-        for (int e = 0; e < kItemCh; e += 2) {  // silu of two channels per word
+        for (int e = 0; e < CH; e += 2) {  // silu of two channels per word
           const __nv_bfloat162 h = __floats2bfloat162_rn(sv[e], sv[e + 1]);
           *reinterpret_cast<__nv_bfloat162*>(smem + hi + 2 * e) = h;
           *reinterpret_cast<__nv_bfloat162*>(smem + lo + 2 * e) =
               __floats2bfloat162_rn(sv[e] - __low2float(h), sv[e + 1] - __high2float(h));
         }
 #pragma unroll
-        for (int e = 0; e < kItemCh; ++e) store_bases(smem, hi + 2 * e, lo + 2 * e, jv[e], p[e]);
+        for (int e = 0; e < CH; ++e) store_bases(smem, hi + 2 * e, lo + 2 * e, jv[e], p[e]);
       }
       cp_async_wait_all();
       __syncthreads();
       if (k + 1 < chunks) {  // in flight over the products
-        load_x(xv, xp, items, b, i0, j0, (k + 1) * kCC, C, Hp, Wp);
+        load_x<CH>(xv, xp, items, b, i0, j0, (k + 1) * kCC, C, Hp, Wp);
       } else if (w + gridDim.x < works) {
         int b2, i2, j2, n2;
         origin(w + gridDim.x, b2, i2, j2, n2);
-        load_x(xv, xp, items, b2, i2, j2, 0, C, Hp, Wp);
+        load_x<CH>(xv, xp, items, b2, i2, j2, 0, C, Hp, Wp);
       }
 
 #pragma unroll 1
@@ -386,7 +387,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
   }
 }
 
-template <typename T, int R, int NW, int P>
+template <typename T, int R, int NW, int P, int CH>
 int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W,
            cudaStream_t stream) {
   constexpr int FB8 = kWarps / (kTH / R * (kTW / 16)) * NW / 8;
@@ -396,7 +397,7 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
   const int groups = (fp8 + FB8 - 1) / FB8;
   const long long works = (long long)B * tiles_h * tiles_w * groups;
   if (works > 0x7fffffffLL) return -1;
-  auto kernel = kanconv_kernel<T, R, NW, P>;
+  auto kernel = kanconv_kernel<T, R, NW, P, CH>;
   int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   int device = 0, sms = 0, per_sm = 0;
   if (err == 0) err = (int)cudaGetDevice(&device);
@@ -411,16 +412,17 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
   return (int)cudaGetLastError();
 }
 
-// 16 output channels per block, 2 rows per warp (125 registers and 114 KB:
-// two blocks per SM); bf16 weights with F > 16: 32 channels, 4 rows per warp
-// in 2 channel groups (one block per SM), which keeps the staged weights at
+// 16 output channels per block, 2 rows per warp, pairs of channels staged
+// per thread (125 registers and 114 KB: two blocks per SM); bf16 weights
+// with F > 16: 32 channels, 4 rows per warp in 2 channel groups, 4 channels
+// staged per thread (one block per SM), which keeps the staged weights at
 // 41 KB (as 16 channels with lo parts).
 template <typename T>
 int run(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W, int parts,
         cudaStream_t stream) {
-  if (parts == 2) return launch<T, 2, 16, 2>(xp, wk, out, B, C, F, H, W, stream);
-  if (F > 16) return launch<T, 4, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
-  return launch<T, 2, 16, 1>(xp, wk, out, B, C, F, H, W, stream);
+  if (parts == 2) return launch<T, 2, 16, 2, 2>(xp, wk, out, B, C, F, H, W, stream);
+  if (F > 16) return launch<T, 4, 16, 1, 4>(xp, wk, out, B, C, F, H, W, stream);
+  return launch<T, 2, 16, 1, 2>(xp, wk, out, B, C, F, H, W, stream);
 }
 
 }  // namespace

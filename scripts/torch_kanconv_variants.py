@@ -50,8 +50,6 @@ VARIANTS = {
          "for (int r = 0; r < 0; ++r) {\n        if (items[r] < 0) continue;"),
         ("for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)",
          "for (int i = tid; i < 0; i += kThreads)")]),
-    # 4 channels per staging item (more independent work per thread).
-    "quad_items": (True, [("constexpr int kItemCh = 2;", "constexpr int kItemCh = 4;")]),
     # Two blocks per SM asked of the compiler (128 registers) at every F.
     "two_blocks_lb": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
                               "__launch_bounds__(kThreads, 2) kanconv_kernel")]),
