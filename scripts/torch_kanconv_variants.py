@@ -46,7 +46,7 @@ VARIANTS = {
                               ";")]),
     # The products alone: no terms staged (the rows hold what was there).
     "no_staging": (False, [
-        ("for (int r = 0; r < kRounds; ++r) {\n        if (items[r] < 0) continue;",
+        ("for (int r = 0; r < kRounds<CH>; ++r) {\n        if (items[r] < 0) continue;",
          "for (int r = 0; r < 0; ++r) {\n        if (items[r] < 0) continue;"),
         ("for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)",
          "for (int i = tid; i < 0; i += kThreads)")]),
