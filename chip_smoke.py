@@ -79,6 +79,11 @@ Phases, each printing one JSON line with its seconds:
               != N and one tile (``ABLATE_SHAPES``, ``check_ablate``):
               within one bf16 ulp of the output's scale of the plain
               version on the same inputs.
+   k1_float64_distance -- K1 at enc1 in the three x cases, dec1 "wide"
+              and LAPS's enc1 "unit" (``KAN_FLOAT64_CASES``): per dtype
+              (fp32, bf16) the kernel's and the plain version's largest
+              distance from the plain version in float64 on the same
+              rounded inputs (``kan_float64_distance``).
 4. slice   -- the serving path: KM_UNetV3-SH at full width (embed_dims
               16/32/64, 128^2, 5 -> 20 frames), seeded weights, eval mode,
               built and served through ``kmunet_tpu_torch.serve`` on the card
@@ -228,6 +233,13 @@ Phases, each printing one JSON line with its seconds:
               the forward at B=1 and B=32 bf16 at 256^2 (B=32 has as many
               pixels as SH's B=128 at 128^2) on the plain and the K1 + K3
               path, and the bf16 ``laps_km_unet()`` step at B=1 on both.
+7. kan_timing -- K1 in bf16 at SH's four KAN convs at B=128 (enc1 16 -> 16
+              at 128^2, enc2 16 -> 32 at 64^2, enc3 32 -> 64 and dec1 64 ->
+              32 at 32^2) and LAPS's enc1 at B=32 (``KAN_TIMING_SHAPES``):
+              ms, queued ms, the profiler's device ms, device launches per
+              call and device ms by kernel (the weight packing beside K1),
+              beside ``kan_bound`` and the dense products' time on the
+              tensor cores (``kan_timing``).
 Then the kernels line, and last ``{"ok": true, "device": {...}}``. Any failed
 phase raises: the run exits non-zero and prints no result, also when no CUDA
 device is present. A hard deadline ends a run that hangs.

@@ -22,35 +22,42 @@
 // 9 taps x C channels x 9 terms (silu(x) and the 8 bases), each term split in
 // two bf16 parts: hi = bf16(v), lo = bf16(v - hi) (the rest at most 2^-17
 // |v|). One rounding of the basis to bf16 (2^-9 |v|) summed over C x 9 taps
-// x 4 nonzero bases lands far outside the check's 1e-5 of the largest
+// x 4 nonzero bases lands 20-200x outside the check's 1e-5 of the largest
 // output; tests/test_torch_k1_tiles.py models both.
-//   A block of 4 warps owns 8 x 16 output pixels and FB output channels
-// (16, or 32 for bf16 weights with F > 16). Per chunk of 8 input channels it
-// evaluates the terms once per value of the tile's 10 x 18 halo (the same
-// piece of M4 as the plain version picks, so x on a knot gives its bits) and
-// stores them in shared memory as 32-byte rows per (term, halo position):
-// the 8 channels' hi parts, then their lo parts, the two 16-byte halves
-// swapped where bit 2 of the column is set, so that the 8 rows an ldmatrix
-// reads (8 neighbouring columns) fall in distinct banks. A row is one k = 16
-// slice of A: its k 0-7 the hi parts and k 8-15 the lo parts of the same 8
-// channels, so that one mma.m16n8k16 against the weight rows duplicated
-// (k 0-7 and 8-15 both w_hi: the B fragment's two registers are one) adds
-// a_hi w_hi + a_lo w_hi. Where the weights are not exact in bf16 (fp32 and
-// fp16 models) an mma.m16n8k8 on the hi half adds a_hi w_lo too, so one loop
-// serves every dtype. The taps read shifted rows: tap (kh, kw) of output row
-// o is the A fragment of halo row o + kh at column offset kw (ldmatrix takes
-// one address per row, so the shift costs nothing), and a warp that owns R
-// output rows loads each halo row's fragment once per (term, kw) for the up
+//   Blocks of 8 warps are persistent: each walks work items (batch element,
+// 16 x 16 output pixels, FB output channels), FB = 16 (two blocks per SM),
+// or 32 for bf16 weights with F > 16 (one). Per chunk of 8 input channels it
+// evaluates the terms once per value of the item's 18 x 18 halo: u by one
+// fma, the 4 bases that may be nonzero from the fraction of u by the uniform
+// cubic B-spline's pieces (the plain version's values within rounding), the
+// other 4 zero, and stores them in shared memory as 32-byte rows per (term,
+// halo position): the 8 channels' hi parts, then their lo parts, the two
+// 16-byte halves swapped where bit 2 of the column is set, so that the 8
+// rows an ldmatrix reads (8 neighbouring columns) fall in distinct banks. The
+// bases' rows are zeroed first (16-byte stores) and each value written once
+// where it is nonzero; a thread stages 2 (FB = 32: 4) channels of a
+// position, so that the silu terms go out in pairs and no two lanes of a
+// store share a 32-bit word. A row is one k = 16 slice of A: its k 0-7 the
+// hi parts and k 8-15 the lo parts of the same 8 channels, so that one
+// mma.m16n8k16 against the weight rows duplicated (k 0-7 and 8-15 both w_hi:
+// the B fragment's two registers are one) adds a_hi w_hi + a_lo w_hi. Where
+// the weights are not exact in bf16 (fp32 and fp16 models) an mma.m16n8k8 on
+// the hi half adds a_hi w_lo too, so one loop serves every dtype. The taps
+// read shifted rows: tap (kh, kw) of output row o is the A fragment of halo
+// row o + kh at column offset kw (ldmatrix takes one address per row, so the
+// shift costs nothing), and a warp that owns R output rows (2; FB = 32: 4 of
+// 16 channels) loads each halo row's fragment once per (term, kw) for the up
 // to 3 output rows that use it: (R + 2) / (3R) of the loads. The weights of
 // a chunk (81 rows x FB / 8 x 128 bytes, twice with lo parts) are staged by
 // cp.async in fragment order, one 32-bit load per (row, n8) per lane.
 //   Each term's products go to zeroed fragments (a chain of at most 18 mma)
 // and are added to the fp32 sums once per term, so that no long chain of
 // tensor-core accumulations carries its rounding. While a chunk's products
-// run, the next chunk's halo values are already loaded into registers: the
-// rows of xp are W + 2 elements, so their 18-element segments are not
-// 16-byte aligned for cp.async, and the kernel is not bound by its bytes.
-// Each block owns its outputs: no atomics, and two calls give the same bits.
+// run, the next chunk's halo values (or the next item's first) are already
+// loaded into registers and stay unconverted until the staging uses them:
+// the rows of xp are W + 2 elements, so their segments are not 16-byte
+// aligned for cp.async. Each block owns its outputs: no atomics, and two
+// calls give the same bits.
 //
 // Bound. At KM_UNetV3-SH's enc1 (B = 128, 16 -> 16 channels at 128^2, bf16)
 // xp is 69.2 MB and the output 67.1 MB: 136 MB, 40.7 us at 3.35 TB/s. The
@@ -58,9 +65,15 @@
 // 48.3 GFLOP, 48.9 us on the tensor cores (the dense one, (8 + 1) MACs, 87.0
 // GFLOP, 88 us). So operations bound it. This kernel does the dense count
 // twice over (hi and lo): 174 GFLOP, 176 us at the tensor cores' 989
-// TFLOP/s. At F = 16 each 512-byte A fragment feeds 2 mma, so its loads
-// (128 bytes per clock per SM) take longer than the products: the halo rows'
-// reuse over kh and a second block per SM are what the design does about it.
+// TFLOP/s. Measured on an H100 (PERF.md), the staging alone takes about half
+// the time and the products alone about two thirds: the basis (about 60
+// instructions per halo value, 1.27 halo values per pixel) and the shared
+// memory the products read (each 512-byte A fragment feeds 2 mma at F = 16,
+// plus the weights) set the pace, not the tensor cores; the halo rows' reuse
+// over kh, the larger tile and two blocks per SM are what the design does
+// about it. A wgmma version (A from registers, the staged weights as B, the
+// k 8-15 half of B repeating k 0-7 by a zero leading-byte offset) computed the
+// same sums no faster at F = 16.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -186,8 +199,8 @@ __device__ __forceinline__ void store_bases(unsigned char* a, int hi, int lo, in
 // that the loads stay in flight until then.
 template <int CH, typename T>
 __device__ __forceinline__ void load_x(T (&xv)[kRounds<CH>][CH], const T* __restrict__ xp,
-                                       const int (&items)[kRounds<CH>], int b, int i0, int j0, int c0,
-                                       int C, int Hp, int Wp) {
+                                       const int (&items)[kRounds<CH>], int b, int i0, int j0,
+                                       int c0, int C, int Hp, int Wp) {
   const long long plane = (long long)Hp * Wp;
   const T* xb = xp + (long long)b * C * plane;
 #pragma unroll
@@ -203,19 +216,20 @@ __device__ __forceinline__ void load_x(T (&xv)[kRounds<CH>][CH], const T* __rest
 }
 
 // R output rows of 16 columns and NW output channels per warp; P weight
-// parts (1: w_hi, 2: w_hi and w_lo); CH channels per staging item. The 8 warps are kTH / R row groups by 2
-// column halves by NG channel groups: FB = NG * NW channels per block.
+// parts (1: w_hi, 2: w_hi and w_lo); CH channels per staging item. The 8
+// warps are kTH / R row groups by NG channel groups: FB = NG * NW channels
+// per block.
 template <typename T, int R, int NW, int P, int CH>
 __global__ void __launch_bounds__(kThreads) kanconv_kernel(
     const T* __restrict__ xp, const uint32_t* __restrict__ wk, T* __restrict__ out, int C, int F,
     int H, int W, int tiles_w, int tiles, int groups, int works, int fp8) {
-  constexpr int RG = kTH / R, CG = kTW / 16, NG = kWarps / (RG * CG), N8 = NW / 8, FB8 = NG * N8;
-  static_assert(RG * CG * NG == kWarps && NW % 8 == 0, "8 warps of R rows, 16 columns, NW channels");
+  constexpr int RG = kTH / R, NG = kWarps / RG, N8 = NW / 8, FB8 = NG * N8;
+  static_assert(RG * NG == kWarps && NW % 8 == 0, "8 warps of R rows and NW channels");
   extern __shared__ __align__(128) unsigned char smem[];
   uint32_t* s_w = reinterpret_cast<uint32_t*>(smem + kABytes);  // [row][n8][part][lane]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rg = warp % RG, cg = warp / RG % CG, ng = warp / (RG * CG);
+  const int rg = warp % RG, ng = warp / RG;
   const int Hp = H + 2, Wp = W + 2;
 
   // The thread's staging items, (halo position, group of CH channels),
@@ -244,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
     const int col = kw + px;
     lane_off[kw] = (col << 5) + ((half ^ ((col >> 2) & 1)) << 4);
   }
-  const unsigned a_warp = smem_addr(smem) + ((rg * R * kHW + cg * 16) << 5);
+  const unsigned a_warp = smem_addr(smem) + ((rg * R * kHW) << 5);
 
   // Persistent: the block walks the work items (batch element, tile, group
   // of FB channels) w = blockIdx.x, + gridDim.x, ...; the halo values of each
@@ -378,7 +392,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
       for (int n = 0; n < N8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = j0 + cg * 16 + g + ((e >> 1) << 3);
+          const int j = j0 + g + ((e >> 1) << 3);
           const int f = (n80 + ng * N8 + n) * 8 + 2 * tl + (e & 1);
           if (j < W && f < F)
             out[(((long long)b * F + f) * H + i) * W + j] = from_f32<T>(acc[o][n][e]);
@@ -390,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
 template <typename T, int R, int NW, int P, int CH>
 int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H, int W,
            cudaStream_t stream) {
-  constexpr int FB8 = kWarps / (kTH / R * (kTW / 16)) * NW / 8;
+  constexpr int FB8 = kWarps / (kTH / R) * NW / 8;
   constexpr int kSmem = kABytes + kWRows * FB8 * P * 128;
   const int fp8 = (F + 7) / 8;
   const int tiles_w = (W + kTW - 1) / kTW, tiles_h = (H + kTH - 1) / kTH;
