@@ -92,7 +92,6 @@ constexpr int kTaps = 9;
 constexpr int kBases = 8;
 constexpr int kTerms = 1 + kBases;       // silu, then the 8 bases
 constexpr int kWRows = kTaps * kTerms;   // weight rows per chunk: tap * kTerms + term
-constexpr int kFlush = 1;                // terms whose products meet the fp32 sums at once
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 // A thread stages CH channels of a halo position at a time (CH = 2 or 4):
@@ -334,17 +333,15 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
         load_x<CH>(xv, xp, items, b2, i2, j2, 0, C, Hp, Wp);
       }
 
-      float part[R][N8][4];
 #pragma unroll 1
       for (int t = 0; t < kTerms; ++t) {
-        if (t % kFlush == 0) {
+        float part[R][N8][4];
 #pragma unroll
-          for (int o = 0; o < R; ++o)
+        for (int o = 0; o < R; ++o)
 #pragma unroll
-            for (int n = 0; n < N8; ++n)
+          for (int n = 0; n < N8; ++n)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) part[o][n][e] = 0.f;
-        }
+            for (int e = 0; e < 4; ++e) part[o][n][e] = 0.f;
         const unsigned a_t = a_warp + t * kTermBytes;
         const uint32_t* w_t = s_w + (t * FB8 + ng * N8) * P * 32 + lane;
 #pragma unroll
@@ -374,14 +371,12 @@ __global__ void __launch_bounds__(kThreads) kanconv_kernel(
             }
           }
         }
-        if (t % kFlush == kFlush - 1 || t == kTerms - 1) {
 #pragma unroll
-          for (int o = 0; o < R; ++o)
+        for (int o = 0; o < R; ++o)
 #pragma unroll
-            for (int n = 0; n < N8; ++n)
+          for (int n = 0; n < N8; ++n)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[o][n][e] += part[o][n][e];
-        }
+            for (int e = 0; e < 4; ++e) acc[o][n][e] += part[o][n][e];
       }
       __syncthreads();  // the terms and weights are rewritten by the next chunk
     }

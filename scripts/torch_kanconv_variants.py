@@ -36,8 +36,8 @@ sys.path.insert(0, REPO)
 # name: (computes K1?, [(text, replacement), ...]) applied to csrc/kanconv.cu.
 VARIANTS = {
     "base": (True, []),
-    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        if (t % kFlush",
-                             "for (int t = 0; t < 0; ++t) {\n        if (t % kFlush")]),
+    "no_products": (False, [("for (int t = 0; t < kTerms; ++t) {\n        float part",
+                             "for (int t = 0; t < 0; ++t) {\n        float part")]),
     "no_loads": (False, [("xv[r][e] = xb[c * plane + gi * Wp + gj];",
                           "xv[r][e] = from_f32<T>((float)(gi * Wp + gj + c) * 1e-4f);")]),
     "two_blocks_per_sm": (True, [("(long long)sms * per_sm ? works : (long long)sms * per_sm",
@@ -50,9 +50,6 @@ VARIANTS = {
          "for (int r = 0; r < 0; ++r) {\n        if (items[r] < 0) continue;"),
         ("for (int i = tid; i < kBases * kTermBytes / 16; i += kThreads)",
          "for (int i = tid; i < 0; i += kThreads)")]),
-    # The products' sums added to the fp32 sums every 3 terms (chains of up
-    # to 27 or 54 mma).
-    "flush3": (True, [("constexpr int kFlush = 1;", "constexpr int kFlush = 3;")]),
     # Two blocks per SM asked of the compiler (128 registers) at every F.
     "two_blocks_lb": (True, [("__launch_bounds__(kThreads) kanconv_kernel",
                               "__launch_bounds__(kThreads, 2) kanconv_kernel")]),
