@@ -8,7 +8,10 @@ the cubic B-spline basis (8 functions per channel, grid 5 on [-1, 1]) and
 input channel ``c``), as ``KANConv2d`` makes it from ``spline_weight *
 spline_scaler``. The port's counterpart of ``kmunet_tpu/kernels/
 kanconv_pallas.py::fused_kanconv``; the CUDA kernel is in ``csrc/kanconv.cu``,
-whose source note says what bounds it and how it is laid out.
+an implicit GEMM on the tensor cores over a basis split into bf16 hi + lo
+parts, whose source note says what bounds it and how it is laid out. The
+wrapper packs the weights per call into the order and lanes its mma
+fragments read (``packed_weights``).
 
 ``fused_kanconv`` is what callers use: on a CPU tensor it runs the plain
 version (autograd differentiates it); on a CUDA tensor it applies
