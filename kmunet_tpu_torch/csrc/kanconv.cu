@@ -23,7 +23,12 @@
 // two bf16 parts: hi = bf16(v), lo = bf16(v - hi) (the rest at most 2^-17
 // |v|). One rounding of the basis to bf16 (2^-9 |v|) summed over C x 9 taps
 // x 4 nonzero bases lands 20-200x outside the check's 1e-5 of the largest
-// output; tests/test_torch_k1_tiles.py models both.
+// output; tests/test_torch_k1_tiles.py models both. So every dtype, fp32
+// included, is computed to about 16 significant bits per product (silu by
+// __expf and __fdividef, the weights of fp32 and fp16 models split the same
+// way, a_lo w_lo dropped), summed in fp32: fp32 results lie 3-12x farther
+// from float64 than the plain fp32 version's (PERF.md), at 0.4-0.6 of the
+// fp32 check's tolerance in the model up to C = 128.
 //   Blocks of 8 warps are persistent: each walks work items (batch element,
 // 16 x 16 output pixels, FB output channels), FB = 16 (two blocks per SM),
 // or 32 for bf16 weights with F > 16 (one). Per chunk of 8 input channels it
@@ -81,6 +86,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kTH = 16;                  // output rows per block
@@ -103,6 +110,7 @@ constexpr int kABytes = kTerms * kTermBytes;
 constexpr float kLo = -1.f;
 constexpr float kKnot = 0.4f;            // (1 - (-1)) / 5
 constexpr float kSixth = 1.f / 6.f;
+constexpr int kMaxDevices = 64;          // devices whose launch geometry is kept
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -412,14 +420,26 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
   const long long works = (long long)B * tiles_h * tiles_w * groups;
   if (works > 0x7fffffffLL) return -1;
   auto kernel = kanconv_kernel<T, R, NW, P, CH>;
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == 0) err = (int)cudaGetDevice(&device);
-  if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == 0)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmem);
+  // The blocks resident on the device at once (SMs x blocks per SM), found
+  // at the instantiation's first launch on each device, where its shared
+  // memory limit is raised, and kept: later calls go straight to the launch.
+  static std::atomic<int> resident[kMaxDevices];
+  int device = 0;
+  int err = (int)cudaGetDevice(&device);
   if (err != 0) return err;
-  const int grid = (int)(works < (long long)sms * per_sm ? works : (long long)sms * per_sm);
+  if (device >= kMaxDevices) return -1;
+  int blocks = resident[device].load(std::memory_order_relaxed);
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == 0)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmem);
+    if (err != 0) return err;
+    blocks = sms * per_sm;
+    resident[device].store(blocks, std::memory_order_relaxed);
+  }
+  const int grid = (int)(works < blocks ? works : blocks);
   kernel<<<grid > 0 ? grid : 1, kThreads, kSmem, stream>>>(
       static_cast<const T*>(xp), static_cast<const uint32_t*>(wk), static_cast<T*>(out), C, F,
       H, W, tiles_w, tiles_h * tiles_w, groups, (int)works, fp8);
@@ -427,7 +447,7 @@ int launch(const void* xp, const void* wk, void* out, int B, int C, int F, int H
 }
 
 // 16 output channels per block, 2 rows per warp, pairs of channels staged
-// per thread (125 registers and 114 KB: two blocks per SM); bf16 weights
+// per thread (124 registers and 114 KB: two blocks per SM); bf16 weights
 // with F > 16: 32 channels, 4 rows per warp in 2 channel groups, 4 channels
 // staged per thread (one block per SM), which keeps the staged weights at
 // 41 KB (as 16 channels with lo parts).

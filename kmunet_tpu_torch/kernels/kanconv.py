@@ -114,8 +114,12 @@ def packed_weights(base_weight, spline_flat, parts: int) -> torch.Tensor:
 def kanconv_forward(xp, base_weight, spline_flat) -> torch.Tensor:
     """K1 on CUDA tensors: (B, F, Hp-2, Wp-2) in xp's dtype (fp32, bf16 or
     fp16); the weights of any float dtype, packed here once per call (at most
-    a few hundred KB). Raises on what the kernel does not take. Counts its
-    launches on ``fused_kanconv.launches``."""
+    a few hundred KB). Every dtype is computed to about 16 significant bits:
+    the terms, and the weights where they are not bf16, go into the tensor
+    cores as bf16 hi + lo parts, and the products are summed in fp32, so an
+    fp32 result lies a few times farther from float64 than the plain fp32
+    version's. Raises on what the kernel does not take. Counts its launches
+    on ``fused_kanconv.launches``."""
     _check(xp, base_weight, spline_flat)
     Bsz, C, Hp, Wp = xp.shape
     Fo = base_weight.shape[0]
@@ -149,7 +153,8 @@ class FusedKANConv(torch.autograd.Function):
 
 def fused_kanconv(xp, base_weight, spline_flat) -> torch.Tensor:
     """The KAN conv over the padded ``xp`` with its gradient: the plain
-    version on a CPU ``xp``, K1 on a CUDA ``xp``."""
+    version on a CPU ``xp``, K1 on a CUDA ``xp`` (to about 16 significant
+    bits in every dtype; see ``kanconv_forward``)."""
     if xp.device.type == "cpu":
         return kanconv_plain(xp, base_weight, spline_flat)
     return FusedKANConv.apply(xp.contiguous(), base_weight, spline_flat)

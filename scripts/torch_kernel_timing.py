@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
-"""K2 and K3, the HSM-SSD mixer kernels, timed by pass on the card.
+"""The port's redesigned kernels timed on the card, one CUDA source at a time.
 
-    python3 scripts/torch_mixer_timing.py [--root DIR] [--sass] [--repeat N]
+    python3 scripts/torch_kernel_timing.py {kanconv,hsmssd} [--root DIR] [--sass]
 
-Times ``hsmssd_compress_forward`` (K2) and ``hsmssd_mix_forward`` (K3) of
-the port found under ``--root`` (a checkout of this repository; by default
-the one this script is in), in bf16 at ``chip_smoke.MIXER_TIMING_SHAPES``
-(SH's three mixer shapes at B=128, LAPS's enc1 at B=32), with
-``chip_smoke.mixer_timing``: ms over back-to-back calls, queued ms (device
-time, no host gap), the profiler's device ms, device launches per call and
-device ms per call by kernel, beside the bound. ``--repeat`` runs the
-whole timing N times (the spread between runs). With ``--sass`` it also
-counts, per kernel of the built ``csrc/hsmssd.cu`` library, the tensor-core
-instructions (HMMA) in its SASS (``cuobjdump -sass``). Prints JSON lines,
-the first the card's ``nvidia-smi`` name and power limit. Needs an NVIDIA
-GPU; two checkouts are compared by running it on each, in turns, in one
-call.
+Builds the named source of the port found under ``--root`` (a checkout of
+this repository; by default the one this script is in) and times its
+kernels in bf16 with ``chip_smoke.py``'s timing function for them:
+
+- ``kanconv``: ``kanconv_forward`` (K1) at ``chip_smoke.KAN_TIMING_SHAPES``
+  (SH's four KAN convs at B=128, LAPS's enc1 at B=32), ``kan_timing``;
+- ``hsmssd``: ``hsmssd_compress_forward`` (K2) and ``hsmssd_mix_forward``
+  (K3) at ``chip_smoke.MIXER_TIMING_SHAPES`` (SH's three mixer shapes at
+  B=128, LAPS's enc1 at B=32), ``mixer_timing`` by pass.
+
+Each gives ms over back-to-back calls, queued ms (device time, no host
+gap), the profiler's device ms, device launches per call and device ms per
+call by kernel, beside the bound. With ``--sass`` it also counts, per
+kernel of the built library, the tensor-core instructions (HMMA) in its
+SASS (``cuobjdump -sass``). Prints JSON lines, the first the card's
+``nvidia-smi`` name and power limit. Needs an NVIDIA GPU; two checkouts
+are compared by running it on each, in turns, in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
@@ -30,6 +35,10 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# source name -> (the port's module that builds and launches it, the
+# chip_smoke function that times it)
+KERNELS = {"kanconv": ("kanconv", "kan_timing"), "hsmssd": ("ssd", "mixer_timing")}
 
 
 def emit(obj) -> None:
@@ -54,19 +63,21 @@ def sass_tensor_core_counts(library: str) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("source", choices=sorted(KERNELS), help="the CUDA source whose kernels are timed")
     parser.add_argument("--root", default=REPO, help="checkout whose kmunet_tpu_torch is timed")
     parser.add_argument("--sass", action="store_true", help="count HMMA per kernel")
-    parser.add_argument("--repeat", type=int, default=1)
     args = parser.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
-        print("torch_mixer_timing: needs an NVIDIA GPU", file=sys.stderr)
+        print("torch_kernel_timing: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from kmunet_tpu_torch.kernels import build, ssd
+    module_name, timing_name = KERNELS[args.source]
+    module = importlib.import_module(f"kmunet_tpu_torch.kernels.{module_name}")
+    from kmunet_tpu_torch.kernels import build
 
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
@@ -76,13 +87,12 @@ def main() -> int:
                           capture_output=True, text=True, timeout=30,
                           check=True).stdout.strip().splitlines()[0]
     emit({"card": card, "root": os.path.relpath(root, REPO), "torch": torch.__version__})
-    built = build.build(ssd.SOURCE)
+    built = build.build(module.SOURCE)
     emit({"nvcc_seconds": built.seconds,
           "ptxas": list(chip_smoke.ptxas_summary(built.compiler_output))})
     if args.sass:
         emit({"hmma_per_kernel": sass_tensor_core_counts(str(built.path))})
-    for i in range(args.repeat):
-        emit({"run": i, "mixer_timing": chip_smoke.mixer_timing(torch, ssd)})
+    emit({timing_name: getattr(chip_smoke, timing_name)(torch, module)})
     return 0
 
 

@@ -641,7 +641,7 @@ def test_cuda_mamba_train_step_matches_cpu(cuda_device, monkeypatch):
 
 # K1's shapes (B, C, F, H, W): the four SH KAN convs at 32^2 input, LAPS's
 # enc1 at 256^2 and B=1 (its grid's largest), and ragged ones; H and W past
-# the kernel's 8 x 16 tiles, C of 24 and of 20 (no whole chunk of 8
+# the kernel's 16 x 16 tiles, C of 24 and of 20 (no whole chunk of 8
 # channels at the end), and F = 64 at a ragged H and W.
 KAN_GPU_SHAPES = {
     "enc1": (2, 16, 16, 32, 32),

@@ -11,12 +11,14 @@ take, channels padded to a multiple of 8 and F to a multiple of 8 with
 zeros): w_hi, and w_lo where the weights are not bf16 (``weight_parts``);
 the products a_hi w_hi + a_lo w_hi + a_hi w_lo summed exactly and rounded
 once to fp32, then to the dtype (the tensor cores' fp32 accumulation order
-is not modelled; the kernel adds each term's products, 9 or 18 wgmma
-k-steps, to its fp32 sums).
+is not modelled; the kernel adds each term's products, a chain of 9 or 18
+mma.sync instructions, to its fp32 sums).
 
-Held, at small shapes with C=3 and F=5, C=5 and F=17, and KM_UNetV3-SH's
-channel counts (16 -> 16, 16 -> 32, 32 -> 64, 64 -> 32), in the three x
-cases of ``chip_smoke.KAN_X_CASES``:
+Held, at small shapes with C=3 and F=5, C=5 and F=17, KM_UNetV3-SH's
+channel counts (16 -> 16, 16 -> 32, 32 -> 64, 64 -> 32) and C=128 (wider
+than any model's KAN conv: where the split's margin under the fp32
+tolerance would run out first), in the three x cases of
+``chip_smoke.KAN_X_CASES``:
 - in fp32, to ``fused_kanconv`` (the Pallas kernel, interpreted off the TPU)
   and ``kanconv_reference`` within 1e-4 abs (tests/test_torch_kanconv.py's
   bound) plus 1e-5 of the largest |value| (check_kanconv's relative part):
@@ -47,7 +49,7 @@ from kmunet_tpu_torch.kernels import kanconv
 
 ATOL = 1e-4
 # (B, C, F, H, W): a ragged C=3 -> F=5, C=5 -> F=17 (a third tile of 8
-# output channels), and SH's four KAN convs' channel counts.
+# output channels), SH's four KAN convs' channel counts, and C=128.
 SHAPES = {
     "c3_f5": (2, 3, 5, 7, 9),
     "c5_f17": (1, 5, 17, 6, 10),
@@ -55,6 +57,7 @@ SHAPES = {
     "enc2": (1, 16, 32, 6, 6),
     "enc3": (1, 32, 64, 5, 5),
     "dec1": (1, 64, 32, 5, 5),
+    "c128": (1, 128, 16, 4, 4),
 }
 JAX_KERNEL_SHAPES = ("c3_f5", "c5_f17", "enc2")  # the interpreted kernel is slow to trace
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
