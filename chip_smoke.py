@@ -6,8 +6,9 @@
 Phases, each printing one JSON line with its seconds:
 
 1. device  -- the card's name; ``nvidia-smi``'s name and power limit line.
-2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K5, K4 and K7,
-              the gather and its grouped and multiview forms),
+2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K5 and K4, the
+              gather and its grouped form), ``csrc/multiview_gather.cu``
+              (K7, its multiview form),
               ``csrc/bilinear_gather_backward.cu`` (K6, the backward of all
               three), ``csrc/selective_scan.cu`` (K8, the selective scan,
               and its backward), ``csrc/kanconv.cu`` (K1, the fused KAN
@@ -37,11 +38,14 @@ Phases, each printing one JSON line with its seconds:
               B=2, C=64, G=4), a ragged shape of Cg=6, one of Cg=3, G=1, G=8
               and 16^2 -> 160^2, each group on its own draw of the
               coordinate cases. Then K7 and K6's shared-source entry the
-              same way, with the same bounds, at TrajGRU's three RNN shapes
-              (32^2 C=64 G=13, 8^2 C=192 G=13, 4^2 C=192 G=9, at B=2), C=6
-              and C=3 (one channel per thread in fp32 and bf16), G=1, G=16
-              and 16^2 -> 160^2, each view on its own draw of the coordinate
-              cases; and a layout case: at integer coordinates x = j - dx_l,
+              same way, with the same bounds, at TrajGRU's five K7 shapes
+              (32^2 C=64 G=13 and G=9, 8^2 C=192 G=13, 4^2 C=192 G=9 and
+              G=13, at B=2), the deformable conv's 9 taps at the bridge
+              (16^2, C=64, G=9), C=6 and C=3 (one channel per thread in fp32
+              and bf16), G=1, G=16 and 16^2 -> 160^2, each view on its own
+              draw of the coordinate cases (the spread ones overflow K7's
+              staged rows at 32^2 x 64: their far taps come from global
+              memory); and a layout case: at integer coordinates x = j - dx_l,
               y = i - dy_l, K7's channel block l must equal the source shifted by
               (dy_l, dx_l), zeros outside, exactly. Then K8 and its backward
               (y and the six gradients) at Mamba-UNet's scan shapes at B=2
@@ -88,20 +92,22 @@ Phases, each printing one JSON line with its seconds:
               16/32/64, 128^2, 5 -> 20 frames), seeded weights, eval mode,
               built and served through ``kmunet_tpu_torch.serve`` on the card
               for a few requests of B=2 in fp32 with TF32 off. Every kernel's
-              launch count is set to 0 just before and read just after; K5
-              must launch 9 times per forward and K4 never. Each answer must
+              launch count is set to 0 just before and read just after; K7
+              must launch once per forward (DAGEM's deformable conv, its 9
+              taps as the views) and K4 never. Each answer must
               have the shape (2, 128, 128, 20), be finite and match the same
               weights on the CPU (plain gathers) within 1e-4 abs. Then
               ``serve_exact``: the same with ``dysample_window=False``, each
               DySample's offset conv scaled so that its largest offset on
               the first request is 2 px (the seeded init gives about 1e-3
-              px); K4 must launch 3 times per forward and K5 9 times.
+              px); K4 must launch 3 times per forward and K7 once.
 5. train   -- the training path, through ``kmunet_tpu_torch.train.engine``:
               the SH recipe (hybrid loss, AdamW, per-epoch cosine) at full
               width, 128^2, seq_len 25, B=16, bf16 compute, takes 3 steps on
               ``SyntheticNowcastDataset`` items from a seed, with the launch
-              counts set to 0 just before and read just after: K5 and K6 must
-              launch 9 times per step and K4 never, every loss must be
+              counts set to 0 just before and read just after: K7 and K6's
+              shared-source entry must launch once per step and K4 never,
+              every loss must be
               finite and the parameters must move. Then one fp32 step at B=2
               with TF32 off on the card against the same step on the CPU:
               loss within 1e-5 relative, grad norm within 5e-5 relative, and
@@ -110,20 +116,28 @@ Phases, each printing one JSON line with its seconds:
               abs (the floor of the leaves whose exact gradient is 0, where
               both sides hold rounding noise). ``train_exact`` repeats both
               with ``dysample_window=False``: K4 and K6's grouped entry must
-              launch 3 times per step, K5 and K6 9 times. No SH path may
-              launch K7, K8 or their backwards. No phase above launches
-              K1, K2 or K3.
+              launch 3 times per step, K7 and K6 shared once. Every SH path
+              launches K7 once per forward at G=9 and no SH path K5, K6
+              (G=1), K8 or its backward. No phase above launches K1, K2 or
+              K3.
    serve_fused -- the serving path with ``kan_fused=True,
               ssd_mixer="fused"``: K1 must launch 4 times per forward (the
-              four KAN convs), K3 15 times (the 15 HSM-SSD mixers), K5 9
-              times and no other kernel; each answer within 1e-4 abs of the
+              four KAN convs), K3 15 times (the 15 HSM-SSD mixers), K7 once
+              and no other kernel; each answer within 1e-4 abs of the
               same weights on the CPU (the plain versions).
    serve_compress -- the same with ``ssd_mixer="compress"``: K2 15 times
-              per forward, K5 9 times, no other kernel.
+              per forward, K7 once, no other kernel.
    train_fused -- one fp32 SH step at B=2 (no stochastic depth) through K1
               and K3 (their backward the plain versions' autograd) on the
               card, TF32 off, against the same step on the CPU through
-              ``compare_steps``: K1 4, K3 15, K5 and K6 9 launches.
+              ``compare_steps``: K1 4, K3 15, K7 and K6 shared 1 launch.
+   grid_sample -- the port's ``F.grid_sample``-style op
+              (``ops.sample.grid_sample_bilinear``, zeros, at the bridge's
+              16^2 x 64, B=2), forward and backward on the card for a few
+              calls: K5 and K6 (the single-set entries, on no model path)
+              must launch once per call each and no other kernel; the
+              output and the gradients to the image and the grid within
+              1e-5 abs + 1e-5 relative of the same calls on the CPU.
    serve_trajgru -- TrajGRU_EF at full width (encoder RNNs 64/192/192
               channels with 13/13/9 flow fields, forecaster 192/192/64 with
               13/13/9), 128^2, 5 -> 20 frames, seeded weights, built and
@@ -240,6 +254,15 @@ Phases, each printing one JSON line with its seconds:
               call and device ms by kernel (the weight packing beside K1),
               beside ``kan_bound`` and the dense products' time on the
               tensor cores (``kan_timing``).
+8. multiview_timing -- K7 in bf16 at TrajGRU's five K7 shapes at B=16 and
+              the deformable conv's (B=128, 16^2, C=64, G=9)
+              (``MULTIVIEW_TIMING_SHAPES``, with each one's K7 launches per
+              forward): ms, queued ms, the profiler's device ms and device
+              launches per call, beside ``gather_bound`` and
+              ``F.grid_sample``'s numbers on the source broadcast into the
+              batch; at the bridge also the nine K5 calls and ``torch.cat``
+              that K7 replaced there; and K4 at DySample's dec3
+              (``multiview_timing``).
 Then the kernels line, and last ``{"ok": true, "device": {...}}``. Any failed
 phase raises: the run exits non-zero and prints no result, also when no CUDA
 device is present. A hard deadline ends a run that hangs.
@@ -262,7 +285,7 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 REQUESTS = 3
 REQUEST_BATCH = 2
-BRIDGE = (128, 16, 16, 64)  # K5's shape on the main path at B=128 (B, H, W, C)
+BRIDGE = (128, 16, 16, 64)  # DAGEM's deformable conv input at B=128 (B, H, W, C)
 RAGGED = (3, 7, 9, 24)
 ODD = (2, 5, 6, 3)  # C of no 16-byte vector: one channel per thread
 K5_SOURCE = "kmunet_tpu_torch/csrc/bilinear_gather.cu"
@@ -303,18 +326,28 @@ STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_NORM_RTOL = 5e-5
 STEP_LEAF_RTOL = 1e-3
 STEP_LEAF_ATOL = 1e-6  # the leaves whose exact gradient is 0 hold rounding noise
-TAPS = 9  # DeformConv2d 3x3: one K5 launch per tap, one K6 launch per tap's backward
-K7_SOURCE = K5_SOURCE  # the same kernel with a shared-source flag
+# DeformConv2d 3x3 (DAGEM's bridge): its 9 taps are the views of one K7
+# launch per forward, one K6 shared-source launch per backward.
+TAPS = 9
+DEFORM_CONVS = 1
+K7_SOURCE = "kmunet_tpu_torch/csrc/multiview_gather.cu"
 K7_REPLACES = K4_REPLACES  # _forward_grouped's pallas_call, shared=True
 K6S_SOURCE = K6_SOURCE
 K6S_REPLACES = K6_REPLACES  # _backward_impl, shared=True
-# K7's shapes (B, H, W, C, G, Ho, Wo): TrajGRU's three RNN levels at 128^2
-# input and B=2, C of 6 and 3 (no 16-byte vector in fp32), G=1 and G=16, and
-# K6's unstaged segments as in GROUPED_SHAPES.
+# K7's shapes (B, H, W, C, G, Ho, Wo): TrajGRU's five K7 shapes at 128^2
+# input and B=2 (rnn1 enc_rnn1, fore_rnn1 its G=9, rnn2 enc_rnn2 and
+# fore_rnn2, rnn3 enc_rnn3, fore_rnn3 its G=13), the deformable conv's 9 taps
+# at DAGEM's bridge, C of 6 and 3 (no 16-byte vector in fp32), G=1 and G=16,
+# and K6's unstaged segments as in GROUPED_SHAPES. The "spread" coordinates
+# overflow K7's staged rows at 32^2 x 64 (the taps past them are read from
+# global memory).
 MULTIVIEW_SHAPES = {
     "rnn1": (2, 32, 32, 64, 13, 32, 32),
+    "fore_rnn1": (2, 32, 32, 64, 9, 32, 32),
     "rnn2": (2, 8, 8, 192, 13, 8, 8),
     "rnn3": (2, 4, 4, 192, 9, 4, 4),
+    "fore_rnn3": (2, 4, 4, 192, 13, 4, 4),
+    "bridge": (2, 16, 16, 64, TAPS, 16, 16),
     "c6": (2, 7, 9, 6, 3, 8, 7),
     "c3": (2, 5, 6, 3, 9, 4, 8),
     "g1": (2, 7, 9, 24, 1, 8, 7),
@@ -322,6 +355,17 @@ MULTIVIEW_SHAPES = {
     "unstaged": (1, 16, 16, 8, 2, 160, 160),
 }
 RNN1 = (16, 32, 32, 64, 13, 32, 32)  # K7's timing shape: enc_rnn1 at B=16
+# K7's shapes on the model paths, bf16, timed by ``multiview_timing``:
+# TrajGRU's five at B=16 and the deformable conv at the bridge at B=128
+# (the SH forward's batch), with the K7 launches of one forward of each.
+MULTIVIEW_TIMING_SHAPES = {
+    "enc_rnn1": (RNN1, 5),
+    "fore_rnn1": ((16, 32, 32, 64, 9, 32, 32), 20),
+    "rnn2": ((16, 8, 8, 192, 13, 8, 8), 25),
+    "enc_rnn3": ((16, 4, 4, 192, 9, 4, 4), 5),
+    "fore_rnn3": ((16, 4, 4, 192, 13, 4, 4), 20),
+    "bridge": ((*BRIDGE, TAPS, *BRIDGE[1:3]), DEFORM_CONVS),
+}
 # TrajGRU cell steps per forward: 5 input frames through 3 encoder RNNs, 20
 # output frames through 3 forecaster RNNs; one K7 launch each, one K6
 # shared-source launch each in the backward.
@@ -942,6 +986,71 @@ def kan_timing(torch, kanconv, shapes=None, iters: int = 20):
     return out
 
 
+def multiview_timing(torch, bilinear, shapes=None, iters: int = 50, library: bool = True):
+    """K7 (``bilinear``'s multiview launcher) in bf16, zeros mode, at each
+    (shape, launches per forward) of ``shapes`` (MULTIVIEW_TIMING_SHAPES by
+    default), the source N(0, 1) and the coordinates the output grid plus
+    N(0, 1) px (TrajGRU's flows; at the bridge plus the 3x3 taps'
+    displacements): ms by CUDA events over back-to-back calls, queued ms
+    (device time, no host gap), the profiler's device ms and device
+    launches per call, beside the bound and, with ``library``,
+    ``F.grid_sample``'s on the source broadcast into the batch (a copy made
+    before timing). At the bridge also the nine K5 calls and the
+    ``torch.cat`` that the deformable conv ran before K7 took its taps;
+    and K4 at DySample's dec3 (``DEC3``, border), which K7's redesign
+    leaves as it was."""
+    import torch.nn.functional as tF
+
+    def numbers(fn, prefix=""):
+        device, launches, _ = device_ms(torch, fn, iters)
+        return {prefix + "ms": cuda_ms(torch, fn, 2 * iters, 10),
+                prefix + "queued_ms": queued_ms(torch, fn, iters)[0],
+                prefix + "device_ms": device, prefix + "device_launches_per_call": launches}
+
+    out = {}
+    for name, (shape, per_forward) in (shapes or MULTIVIEW_TIMING_SHAPES).items():
+        B, H, W, C, G, Ho, Wo = shape
+        img = torch.randn(B, H, W, C, device="cuda").to(torch.bfloat16)
+        ii = torch.arange(Ho, device="cuda", dtype=torch.float32).view(1, 1, Ho, 1)
+        jj = torch.arange(Wo, device="cuda", dtype=torch.float32).view(1, 1, 1, Wo)
+        if name == "bridge":
+            tap = torch.arange(G, device="cuda")
+            ii = ii + (tap // 3 - 1).view(1, G, 1, 1)
+            jj = jj + (tap % 3 - 1).view(1, G, 1, 1)
+        y = (ii + torch.randn(B, G, Ho, Wo, device="cuda")).contiguous()
+        x = (jj + torch.randn(B, G, Ho, Wo, device="cuda")).contiguous()
+        bound, bound_by, _, _ = gather_bound(torch, img, x, B * Ho * Wo * G * C, False)
+        fn = lambda: bilinear.bilinear_gather_multiview_forward(img, x, y, "zeros")  # noqa: E731
+        out[name] = {"shape": list(shape), "launches_per_forward": per_forward, **numbers(fn),
+                     "bound_ms": bound, "bound_by": bound_by}
+        if library:
+            img_lib = img.permute(0, 3, 1, 2)[:, None].expand(B, G, C, H, W).reshape(
+                B * G, C, H, W)
+            grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], dim=-1).reshape(
+                B * G, Ho, Wo, 2).to(img.dtype)
+            out[name].update(numbers(lambda: tF.grid_sample(
+                img_lib, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+                "library_"))
+            del img_lib, grid
+        if name == "bridge":
+            planes = [(x[:, t].contiguous(), y[:, t].contiguous()) for t in range(G)]
+            out[name].update(numbers(lambda: torch.cat(
+                [bilinear.bilinear_gather_forward(img, a, b, "zeros") for a, b in planes],
+                dim=-1), "nine_k5_cat_"))
+            del planes
+        del img, x, y
+    B, H, W, C, G, Ho, Wo = DEC3
+    img = torch.randn(B, H, W, C, device="cuda").to(torch.bfloat16)
+    sub_y = ((torch.arange(Ho, device="cuda") + 0.5) / 2 - 0.5).view(1, 1, Ho, 1)
+    sub_x = ((torch.arange(Wo, device="cuda") + 0.5) / 2 - 0.5).view(1, 1, 1, Wo)
+    y = (sub_y + 0.5 * torch.randn(B, G, Ho, Wo, device="cuda")).contiguous()
+    x = (sub_x + 0.5 * torch.randn(B, G, Ho, Wo, device="cuda")).contiguous()
+    bound, bound_by, _, _ = gather_bound(torch, img, x, B * Ho * Wo * C, False)
+    out["k4_dec3"] = {"shape": list(DEC3), "bound_ms": bound, "bound_by": bound_by, **numbers(
+        lambda: bilinear.bilinear_gather_grouped_forward(img, x, y, "border"))}
+    return out
+
+
 def check_mixer(torch, key, args32, errors_k2, errors_k3):
     """Holds K2 and K3 in fp32, bf16 and fp16 (x and bcdt in the dtype, dt,
     B and C the strided slices of bcdt; A, the weights and D fp32) to the
@@ -1292,8 +1401,8 @@ def main() -> int:
     print(card, flush=True)
 
     with Phase("build") as f:
-        sources = (bilinear.SOURCE, bilinear.BACKWARD_SOURCE, scan.SOURCE, kanconv.SOURCE,
-                   ssd.SOURCE, ablate_mix.SOURCE)
+        sources = (bilinear.SOURCE, bilinear.MULTIVIEW_SOURCE, bilinear.BACKWARD_SOURCE,
+                   scan.SOURCE, kanconv.SOURCE, ssd.SOURCE, ablate_mix.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, started together
             builds = list(pool.map(build.build, sources))
         for entry in (bilinear.forward_kernel, bilinear.backward_kernel,
@@ -1302,7 +1411,8 @@ def main() -> int:
                       scan.forward_kernel, scan.backward_kernel, kanconv.kernel,
                       ssd.compress_kernel, ssd.mix_kernel, ablate_mix.kernel):
             entry()
-        f.update(sources=[K5_SOURCE, K6_SOURCE, K8_SOURCE, K1_SOURCE, K2_SOURCE, K3A_SOURCE],
+        f.update(sources=[K5_SOURCE, K7_SOURCE, K6_SOURCE, K8_SOURCE, K1_SOURCE, K2_SOURCE,
+                          K3A_SOURCE],
                  libraries=[os.path.relpath(b.path, REPO) for b in builds],
                  nvcc_seconds=[round(b.seconds, 3) for b in builds])
     for source, built in zip(sources, builds):
@@ -1491,7 +1601,7 @@ def main() -> int:
         answers = [serve.predict(model, frames) for frames in requests]
         launches = path_launches[path] = read_counts()
         expect_launches(path, launches, launches_per(
-            k5=TAPS * REQUESTS, k4=0 if window else DYSAMPLES * REQUESTS,
+            k7=DEFORM_CONVS * REQUESTS, k4=0 if window else DYSAMPLES * REQUESTS,
             k1=KAN_CONVS * REQUESTS if kan_fused else 0,
             k2=SSD_MIXERS * REQUESTS if ssd_mixer == "compress" else 0,
             k3=SSD_MIXERS * REQUESTS if ssd_mixer == "fused" else 0))
@@ -1525,7 +1635,8 @@ def main() -> int:
         launches = path_launches[path] = read_counts()
         grouped = 0 if window else DYSAMPLES * TRAIN_STEPS
         expect_launches(path, launches, launches_per(
-            k5=TAPS * TRAIN_STEPS, k6=TAPS * TRAIN_STEPS, k4=grouped, k6g=grouped))
+            k7=DEFORM_CONVS * TRAIN_STEPS, k6s=DEFORM_CONVS * TRAIN_STEPS, k4=grouped,
+            k6g=grouped))
         losses = [float(m["loss"]) for m in metrics]
         grad_norms = [float(m["grad_norm"]) for m in metrics]
         if not np.isfinite(losses + grad_norms).all():
@@ -1578,10 +1689,43 @@ def main() -> int:
         card = step_gradients(cfg, "cuda", batch, **options)
         launches = path_launches["train_fused"] = read_counts()
         expect_launches("train_fused", launches, launches_per(
-            k5=TAPS, k6=TAPS, k1=KAN_CONVS, k3=SSD_MIXERS))
+            k7=DEFORM_CONVS, k6s=DEFORM_CONVS, k1=KAN_CONVS, k3=SSD_MIXERS))
         check = compare_steps(card, step_gradients(cfg, "cpu", batch, **options))
         f.update(batch=CHECK_BATCH, compute="float32", launches=launches, check=check,
                  tf32=False, **options)
+
+    with Phase("grid_sample") as f:
+        # The port's F.grid_sample-style op on the card, forward and
+        # backward: K5 and K6, the single-set entries, which no model path
+        # runs since the deformable conv's taps are K7's views; each call
+        # held to the same call on the CPU.
+        from kmunet_tpu_torch.ops import sample
+
+        B, H, W, C = REQUEST_BATCH, *BRIDGE[1:]
+        calls = []
+        for _ in range(REQUESTS):
+            img = rng.normal(size=(B, H, W, C)).astype(np.float32)
+            grid = rng.uniform(-1.1, 1.1, size=(B, H, W, 2)).astype(np.float32)
+            g = rng.normal(size=(B, H, W, C)).astype(np.float32)
+            calls.append((img, grid, g))
+
+        def grid_sample(device, img, grid, g):
+            img, grid = (torch.from_numpy(a).to(device).requires_grad_() for a in (img, grid))
+            out = sample.grid_sample_bilinear(img, grid, padding_mode="zeros")
+            out.backward(torch.from_numpy(g).to(device))
+            return [t.detach().cpu() for t in (out, img.grad, grid.grad)]
+
+        reset_counts()
+        card = [grid_sample(dev, *call) for call in calls]
+        launches = path_launches["grid_sample"] = read_counts()
+        expect_launches("grid_sample", launches, launches_per(k5=REQUESTS, k6=REQUESTS))
+        err = 0.0
+        for got, call in zip(card, calls):
+            for a, b in zip(got, grid_sample(torch.device("cpu"), *call)):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+                err = max(err, float((a - b).abs().max()))
+        f.update(calls=REQUESTS, shape=[B, H, W, C], padding_mode="zeros", launches=launches,
+                 max_abs_err_vs_cpu=err)
 
     with Phase("serve_trajgru") as f:
         # REQUESTS fp32 requests of B=2 on the card, TF32 off, held to the
@@ -2098,6 +2242,9 @@ def main() -> int:
 
     with Phase("kan_timing") as f:
         f.update(kan_timing(torch, kanconv))
+
+    with Phase("multiview_timing") as f:
+        f.update(multiview_timing(torch, bilinear))
 
     def by_path(name):
         return {path: counts[name] for path, counts in path_launches.items()}

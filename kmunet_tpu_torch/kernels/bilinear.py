@@ -9,10 +9,13 @@ in ``_forward``), ``gather_bilinear_grouped`` and ``gather_bilinear_multiview``
 (the ``pl.pallas_call`` in ``_forward_grouped``, ``shared=False`` and
 ``shared=True``) and of their custom VJP's backward ``_backward_impl`` (the
 ``pl.pallas_call`` of ``_kernel_bwd``, ``shared=False`` and ``shared=True``).
-The CUDA kernels are ``csrc/bilinear_gather.cu`` (K5, K4 and K7, one kernel
-with a group count and a shared-source flag) and
-``csrc/bilinear_gather_backward.cu`` (K6 for all three); their source notes
-say what bounds them and how they are laid out.
+The CUDA kernels are ``csrc/bilinear_gather.cu`` (K5 and K4, one kernel with
+a group count), ``csrc/multiview_gather.cu`` (K7: blocks of output pixels
+across the views, the source rows they read staged in shared memory, each
+(pixel, view) reckoned once; its launch geometry is
+``multiview_geometry``'s) and ``csrc/bilinear_gather_backward.cu`` (K6 for
+all three); their source notes say what bounds them and how they are laid
+out.
 
 ``bilinear_gather``, ``bilinear_gather_grouped`` and
 ``bilinear_gather_multiview`` are what callers use: autograd functions
@@ -37,7 +40,15 @@ import torch
 from kmunet_tpu_torch.kernels import build
 
 SOURCE = "bilinear_gather.cu"
+MULTIVIEW_SOURCE = "multiview_gather.cu"
 BACKWARD_SOURCE = "bilinear_gather_backward.cu"
+# K7's launch geometry (``multiview_geometry``): blocks per SM the grid aims
+# at, (pixel, view) entries per block (32 bytes each in shared memory) and
+# the bytes of source rows a block may stage (with the entries, two blocks
+# fit on an SM).
+MULTIVIEW_BLOCKS_PER_SM = 2
+MULTIVIEW_ENTRIES = 1024
+MULTIVIEW_STAGED_BYTES = 64 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MODES = ("border", "zeros")
 
@@ -317,8 +328,35 @@ def grouped_backward_kernel() -> ctypes._CFuncPtr:
 
 
 def multiview_kernel() -> ctypes._CFuncPtr:
-    """K7's entry point, built on first use (from K5's source)."""
-    return _kernel(SOURCE, "kmunet_bilinear_gather_multiview", 4, 10)
+    """K7's entry point, built on first use."""
+    return _kernel(MULTIVIEW_SOURCE, "kmunet_bilinear_gather_multiview", 4, 13)
+
+
+def multiview_geometry(B: int, H: int, W: int, C: int, G: int, Ho: int, Wo: int,
+                       itemsize: int, sms: int) -> tuple[int, int, int]:
+    """K7's launch geometry on a card of ``sms`` SMs: (P output pixels per
+    block, VG views per block, the most source rows a block stages).
+
+    A block takes all G views (up to ``MULTIVIEW_ENTRIES``) of P
+    consecutive output pixels of one image; P splits each image into as
+    many tiles as the grid can give it at ``MULTIVIEW_BLOCKS_PER_SM``
+    blocks per SM, evened out, and keeps a block's entries within
+    ``MULTIVIEW_ENTRIES``. The staged rows are capped at
+    ``MULTIVIEW_STAGED_BYTES`` (0 rows where one row is larger)."""
+    views = min(G, MULTIVIEW_ENTRIES)
+    groups = -(-G // views)
+    pixels = max(Ho * Wo, 1)
+    tiles = max(1, MULTIVIEW_BLOCKS_PER_SM * sms // max(B * groups, 1))
+    P = -(-pixels // tiles)
+    most = MULTIVIEW_ENTRIES // views
+    if P > most:
+        P = -(-pixels // -(-pixels // most))
+    return P, views, min(H, MULTIVIEW_STAGED_BYTES // (W * C * itemsize))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def multiview_backward_kernel() -> ctypes._CFuncPtr:
@@ -569,9 +607,11 @@ def bilinear_gather_multiview_forward(
     B, H, W, C = img.shape
     G, Ho, Wo = x.shape[1:]
     out = torch.empty((B, Ho, Wo, G * C), dtype=img.dtype, device=img.device)
+    geometry = multiview_geometry(B, H, W, C, G, Ho, Wo, img.element_size(),
+                                  _sm_count(img.device.index))
     _launch(multiview_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
             B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
-            _vec(img))
+            _vec(img), *geometry)
     bilinear_gather_multiview.launches += 1
     return out
 

@@ -2,8 +2,8 @@
 
 DySample runs the dense window formulation (``ops/sample.py``), the JAX
 package's default, or with ``window=False`` the exact path through the K4
-grouped gather; the deformable conv samples its 9 taps through the K5
-bilinear gather.
+grouped gather; the deformable conv samples its 9 taps in one call of the
+K7 multiview gather (the taps as its views).
 """
 
 from __future__ import annotations
@@ -14,8 +14,8 @@ from torch import nn
 
 from kmunet_tpu_torch.nn.init import kaiming_uniform_, normal_
 from kmunet_tpu_torch.ops.sample import (
-    bilinear_gather,
     bilinear_gather_grouped,
+    bilinear_gather_multiview,
     dysample_window_upsample,
 )
 
@@ -130,7 +130,9 @@ class DeformConv2d(nn.Module):
     order of additions, and cast to fp32 only for the gather: a bf16 or fp16
     value is exact in fp32, so the gather sees the JAX package's
     coordinates, and their gradient flows back through the cast in their
-    own dtype.
+    own dtype. The k*k taps are the views of one multiview gather, whose
+    (B, H, W, k*k*C) output is the JAX package's tap-major concatenation of
+    k*k single gathers.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -152,16 +154,15 @@ class DeformConv2d(nn.Module):
         if offset.shape[-1] != 2 * k * k:
             raise ValueError(f"offset needs {2 * k * k} channels, got {offset.shape[-1]}")
         x = x.contiguous()
-        ii = torch.arange(H, dtype=x.dtype, device=x.device).view(1, H, 1)
-        jj = torch.arange(W, dtype=x.dtype, device=x.device).view(1, 1, W)
-        taps = []
-        for kh in range(k):
-            for kw in range(k):
-                t = kh * k + kw
-                sy = (ii + (kh - p)) + offset[..., 2 * t]
-                sx = (jj + (kw - p)) + offset[..., 2 * t + 1]
-                taps.append(bilinear_gather(x, sx.float().contiguous(), sy.float().contiguous(),
-                                            padding_mode="zeros"))
-        gathered = torch.cat(taps, dim=-1)  # (B, H, W, k*k*C), tap-major
+        ii = torch.arange(H, dtype=x.dtype, device=x.device).view(1, 1, H, 1)
+        jj = torch.arange(W, dtype=x.dtype, device=x.device).view(1, 1, 1, W)
+        tap = torch.arange(k * k, device=x.device)
+        dy = (tap // k - p).to(x.dtype).view(1, k * k, 1, 1)  # kh - p of tap kh * k + kw
+        dx = (tap % k - p).to(x.dtype).view(1, k * k, 1, 1)  # kw - p
+        off = offset.permute(0, 3, 1, 2)  # (B, k*k*[dy, dx], H, W)
+        sy = (ii + dy) + off[:, 0::2]  # (B, k*k, H, W)
+        sx = (jj + dx) + off[:, 1::2]
+        gathered = bilinear_gather_multiview(x, sx.float().contiguous(), sy.float().contiguous(),
+                                             padding_mode="zeros")  # (B, H, W, k*k*C), tap-major
         w = self.weight.permute(2, 3, 1, 0).reshape(k * k * C, -1)
         return gathered @ w + self.bias

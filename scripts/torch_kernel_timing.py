@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """The port's redesigned kernels timed on the card, one CUDA source at a time.
 
-    python3 scripts/torch_kernel_timing.py {kanconv,hsmssd} [--root DIR] [--sass]
+    python3 scripts/torch_kernel_timing.py {gather,kanconv,hsmssd} [--root DIR] [--sass]
 
 Builds the named source of the port found under ``--root`` (a checkout of
 this repository; by default the one this script is in) and times its
 kernels in bf16 with ``chip_smoke.py``'s timing function for them:
 
+- ``gather``: ``bilinear_gather_multiview_forward`` (K7) at
+  ``chip_smoke.MULTIVIEW_TIMING_SHAPES`` (TrajGRU's five K7 shapes at B=16,
+  the deformable conv's nine taps at B=128) beside ``F.grid_sample`` and,
+  at the bridge, nine ``bilinear_gather_forward`` (K5) calls and
+  ``torch.cat``; and ``bilinear_gather_grouped_forward`` (K4) at DySample's
+  dec3, ``multiview_timing``;
 - ``kanconv``: ``kanconv_forward`` (K1) at ``chip_smoke.KAN_TIMING_SHAPES``
   (SH's four KAN convs at B=128, LAPS's enc1 at B=32), ``kan_timing``;
 - ``hsmssd``: ``hsmssd_compress_forward`` (K2) and ``hsmssd_mix_forward``
@@ -38,7 +44,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # source name -> (the port's module that builds and launches it, the
 # chip_smoke function that times it)
-KERNELS = {"kanconv": ("kanconv", "kan_timing"), "hsmssd": ("ssd", "mixer_timing")}
+KERNELS = {"gather": ("bilinear", "multiview_timing"), "kanconv": ("kanconv", "kan_timing"),
+           "hsmssd": ("ssd", "mixer_timing")}
+# the module attributes that name the CUDA sources a module builds
+SOURCES = ("SOURCE", "MULTIVIEW_SOURCE")
 
 
 def emit(obj) -> None:
@@ -87,11 +96,12 @@ def main() -> int:
                           capture_output=True, text=True, timeout=30,
                           check=True).stdout.strip().splitlines()[0]
     emit({"card": card, "root": os.path.relpath(root, REPO), "torch": torch.__version__})
-    built = build.build(module.SOURCE)
-    emit({"nvcc_seconds": built.seconds,
-          "ptxas": list(chip_smoke.ptxas_summary(built.compiler_output))})
-    if args.sass:
-        emit({"hmma_per_kernel": sass_tensor_core_counts(str(built.path))})
+    for source in (getattr(module, name) for name in SOURCES if hasattr(module, name)):
+        built = build.build(source)
+        emit({"source": source, "nvcc_seconds": built.seconds,
+              "ptxas": list(chip_smoke.ptxas_summary(built.compiler_output))})
+        if args.sass:
+            emit({"hmma_per_kernel": sass_tensor_core_counts(str(built.path))})
     emit({timing_name: getattr(chip_smoke, timing_name)(torch, module)})
     return 0
 

@@ -77,15 +77,17 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
 
 def test_cuda_forward_matches_cpu_plain_path(cuda_device, monkeypatch):
     """The card's forward, through the CUDA gather, against the CPU's, with
-    TF32 off; 9 gather launches (DAGEM's deformable conv) per forward."""
+    TF32 off; one K7 launch (DAGEM's deformable conv, its 9 taps as the
+    views) and no K5 launch per forward."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     model_cpu = serve.build_km_unet_v3_sh(device="cpu", seed=2)
     model_gpu = serve.build_km_unet_v3_sh(device=cuda_device, seed=2)
     frames = np.random.default_rng(2).uniform(size=(2, 32, 32, 5)).astype(np.float32)
-    before = bilinear.bilinear_gather.launches
+    counters = (bilinear.bilinear_gather, bilinear.bilinear_gather_multiview)
+    before = [c.launches for c in counters]
     got = serve.predict(model_gpu, frames).cpu().numpy()
-    assert bilinear.bilinear_gather.launches == before + 9
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, chip_smoke.DEFORM_CONVS]
     want = serve.predict(model_cpu, frames).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
@@ -160,7 +162,8 @@ def test_cuda_backward_kernel_rejects_what_it_does_not_take(cuda_device):
 def test_cuda_train_step_matches_cpu(cuda_device, monkeypatch):
     """One fp32 SH train step (32^2, B2, seq 9 -> 4 outputs, no stochastic
     depth) on the card, TF32 off, against the same step on the CPU, with
-    chip_smoke.py's helpers and bounds: 9 K5 and 9 K6 launches; the loss,
+    chip_smoke.py's helpers and bounds: 1 K7 and 1 K6 shared-source launch
+    (the deformable conv), no K5 or K6 (G=1); the loss,
     the grad norm and every parameter's gradient (the ones the optimizer
     applied) within ``chip_smoke.compare_steps``'s stated tolerances."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -168,13 +171,14 @@ def test_cuda_train_step_matches_cpu(cuda_device, monkeypatch):
     cfg = chip_smoke.sh_config(2, "float32", drop_path=0.0, img_size=32, seq_len=9,
                                out_frames=4)
     batch = np.random.default_rng(7).random((2, 9, 32, 32), dtype=np.float32)
+    counters = (bilinear.bilinear_gather, bilinear.bilinear_gather_backward,
+                bilinear.bilinear_gather_multiview, bilinear.bilinear_gather_multiview_backward)
     runs = {}
     for device in (cuda_device, torch.device("cpu")):
-        before = (bilinear.bilinear_gather.launches, bilinear.bilinear_gather_backward.launches)
+        before = [c.launches for c in counters]
         runs[device.type] = chip_smoke.step_gradients(cfg, device, batch, seed=1)
-        launched = (bilinear.bilinear_gather.launches - before[0],
-                    bilinear.bilinear_gather_backward.launches - before[1])
-        assert launched == ((9, 9) if device.type == "cuda" else (0, 0))
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([0, 0, 1, 1] if device.type == "cuda" else [0, 0, 0, 0])
     chip_smoke.compare_steps(runs["cuda"], runs["cpu"])
 
 
@@ -263,7 +267,7 @@ def test_cuda_grouped_kernels_reject_what_they_do_not_take(cuda_device):
 def test_cuda_exact_path_forward_matches_cpu(cuda_device, monkeypatch):
     """``dysample_window=False`` on the card against the CPU, TF32 off, with
     each DySample's offsets scaled to reach 2 px (chip_smoke.reach_offsets):
-    9 K5 and 3 K4 launches per forward, within 1e-4 abs."""
+    1 K7 and 3 K4 launches per forward, within 1e-4 abs."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     frames = np.random.default_rng(2).uniform(size=(2, 32, 32, 5)).astype(np.float32)
@@ -273,23 +277,26 @@ def test_cuda_exact_path_forward_matches_cpu(cuda_device, monkeypatch):
     assert max(reach) > 1.0
     model_cpu = serve.build_km_unet_v3_sh(device="cpu", seed=2, dysample_window=False)
     model_cpu.load_state_dict(model_gpu.state_dict())
-    before = (bilinear.bilinear_gather.launches, bilinear.bilinear_gather_grouped.launches)
+    counters = (bilinear.bilinear_gather, bilinear.bilinear_gather_multiview,
+                bilinear.bilinear_gather_grouped)
+    before = [c.launches for c in counters]
     got = serve.predict(model_gpu, frames).cpu().numpy()
-    assert (bilinear.bilinear_gather.launches - before[0],
-            bilinear.bilinear_gather_grouped.launches - before[1]) == (9, 3)
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 1, 3]
     want = serve.predict(model_cpu, frames).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
 def test_cuda_exact_path_train_step_matches_cpu(cuda_device, monkeypatch):
-    """``test_cuda_train_step_matches_cpu`` on DySample's exact path: 9 K5,
-    9 K6, 3 K4 and 3 grouped K6 launches, within ``chip_smoke.compare_steps``."""
+    """``test_cuda_train_step_matches_cpu`` on DySample's exact path: 1 K7,
+    1 K6 shared-source, 3 K4 and 3 grouped K6 launches (no K5 or K6 of
+    G=1), within ``chip_smoke.compare_steps``."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = chip_smoke.sh_config(2, "float32", drop_path=0.0, img_size=32, seq_len=9,
                                out_frames=4)
     batch = np.random.default_rng(7).random((2, 9, 32, 32), dtype=np.float32)
     counters = (bilinear.bilinear_gather, bilinear.bilinear_gather_backward,
+                bilinear.bilinear_gather_multiview, bilinear.bilinear_gather_multiview_backward,
                 bilinear.bilinear_gather_grouped, bilinear.bilinear_gather_grouped_backward)
     runs = {}
     for device in (cuda_device, torch.device("cpu")):
@@ -297,7 +304,7 @@ def test_cuda_exact_path_train_step_matches_cpu(cuda_device, monkeypatch):
         runs[device.type] = chip_smoke.step_gradients(cfg, device, batch, seed=1,
                                                       dysample_window=False)
         launched = [c.launches - b for c, b in zip(counters, before)]
-        assert launched == ([9, 9, 3, 3] if device.type == "cuda" else [0, 0, 0, 0])
+        assert launched == ([0, 0, 1, 1, 3, 3] if device.type == "cuda" else [0] * 6)
     chip_smoke.compare_steps(runs["cuda"], runs["cpu"])
 
 
@@ -454,6 +461,112 @@ def test_cuda_multiview_kernels_reject_what_they_do_not_take(cuda_device):
         bilinear.bilinear_gather_multiview_backward(img, x, x, g.half())
     with pytest.raises(ValueError):
         bilinear.bilinear_gather_multiview_backward(img, x, x, g.transpose(1, 2))
+
+
+def _model_shape_inputs(shape, case, device, dtype, seed=0, reach=1.0):
+    """K7's inputs at a model shape: the source N(0, 1) and either flows
+    (the output grid plus ``reach`` * N(0, 1) px) or a coordinate case of
+    tests/torch_cases.py drawn for every view."""
+    B, H, W, C, G, Ho, Wo = shape
+    rng = np.random.default_rng(seed)
+    img = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    if case == "flow":
+        y = np.arange(Ho, dtype=np.float32)[:, None] + reach * rng.normal(size=(B, G, Ho, Wo))
+        x = np.arange(Wo, dtype=np.float32) + reach * rng.normal(size=(B, G, Ho, Wo))
+    else:
+        x, y = (a.reshape(B, G, Ho, Wo) for a in coordinate_cases(rng, B * G, H, W, Ho, Wo)[case])
+    img_t = torch.from_numpy(img).to(device, dtype)
+    x_t, y_t = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in (x, y))
+    return img_t, x_t, y_t
+
+
+def _assert_k7_matches_plain(img, x, y, mode):
+    """fp32 within 1e-5 abs of the plain version; bf16 and fp16 within one
+    ulp (at least fp16's subnormal spacing) of the kernel's fp32 result on
+    the same rounded image."""
+    got = bilinear.bilinear_gather_multiview_forward(img, x, y, mode).float()
+    if img.dtype == torch.float32:
+        want = bilinear.bilinear_gather_multiview_plain(img, x, y, mode)
+        tol = torch.full_like(want, 1e-5)
+    else:
+        want = bilinear.bilinear_gather_multiview_forward(img.float(), x, y, mode)
+        tol = chip_smoke.ulp_tolerance(torch, want, img.dtype)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+# K7's shapes on the model paths: TrajGRU's five at B=16, the deformable
+# conv's 9 taps at the bridge at B=128.
+K7_MODEL_SHAPES = {name: shape for name, (shape, _) in chip_smoke.MULTIVIEW_TIMING_SHAPES.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["flow", "spread", "far_outside"])
+@pytest.mark.parametrize("shape", list(K7_MODEL_SHAPES))
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_cuda_multiview_kernel_matches_plain_at_model_shapes(cuda_device, mode, shape, case,
+                                                             dtype):
+    """K7 at TrajGRU's five shapes (B=16) and the bridge's (B=128, G=9) with
+    the bounds above, on flows of about 1 px, coordinates spread over the
+    image (past the staged rows at 32^2 x 64) and far outside it."""
+    _assert_k7_matches_plain(*_model_shape_inputs(K7_MODEL_SHAPES[shape], case, cuda_device,
+                                                  dtype), mode)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_cuda_multiview_kernel_reads_taps_past_the_staged_rows(cuda_device, mode, dtype):
+    """At enc_rnn1 (B=16, 32^2, C=64, G=13) flows of 12 px span more source
+    rows than a block stages (8 in fp32, 16 in bf16 and fp16, by
+    ``multiview_geometry``): the taps past them are read from global memory,
+    with the bounds above."""
+    shape = K7_MODEL_SHAPES["enc_rnn1"]
+    cap = bilinear.multiview_geometry(*shape, torch.finfo(dtype).bits // 8, 132)[2]
+    assert cap < shape[1]
+    _assert_k7_matches_plain(*_model_shape_inputs(shape, "flow", cuda_device, dtype, seed=1,
+                                                  reach=12.0), mode)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", list(K7_MODEL_SHAPES))
+def test_cuda_multiview_kernel_repeats_bitwise(cuda_device, shape, dtype):
+    """Two calls on the same inputs give the same bits."""
+    img, x, y = _model_shape_inputs(K7_MODEL_SHAPES[shape], "spread", cuda_device, dtype, seed=2)
+    first = bilinear.bilinear_gather_multiview_forward(img, x, y, "zeros")
+    assert torch.equal(first, bilinear.bilinear_gather_multiview_forward(img, x, y, "zeros"))
+
+
+def test_cuda_deform_conv_matches_cpu(cuda_device, monkeypatch):
+    """DAGEM's DeformConv2d (C=64 -> 64 at 16^2, B=2, offsets N(0, 1.5) px)
+    in fp32 on the card, TF32 off, against the CPU: one K7 and one K6
+    shared-source launch, the output within 1e-4 abs (the model forward's
+    bound) and each gradient within ``chip_smoke``'s step bound of its
+    largest |value|."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from kmunet_tpu_torch.nn import resample
+
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, 16, 16, 64)).astype(np.float32)
+    offset = (1.5 * rng.normal(size=(2, 16, 16, 18))).astype(np.float32)
+    g = rng.normal(size=(2, 16, 16, 64)).astype(np.float32)
+    module = resample.DeformConv2d(64, 64)
+    module.init_weights_(torch.Generator().manual_seed(12))
+    counters = (bilinear.bilinear_gather, bilinear.bilinear_gather_backward,
+                bilinear.bilinear_gather_multiview, bilinear.bilinear_gather_multiview_backward)
+    runs = {}
+    for device in (cuda_device, torch.device("cpu")):
+        m = module.to(device)
+        a, o = (torch.from_numpy(t).to(device).requires_grad_() for t in (x, offset))
+        before = [c.launches for c in counters]
+        out = m(a, o)
+        out.backward(torch.from_numpy(g).to(device))
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([0, 0, 1, 1] if device.type == "cuda" else [0, 0, 0, 0])
+        runs[device.type] = [t.detach().cpu() for t in (out, a.grad, o.grad, m.weight.grad)]
+        m.zero_grad()
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], rtol=0, atol=1e-4)
+    for got, want in zip(runs["cuda"][1:], runs["cpu"][1:]):
+        tol = chip_smoke.STEP_LEAF_RTOL * float(want.abs().max()) + chip_smoke.STEP_LEAF_ATOL
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
 def test_cuda_trajgru_forward_matches_cpu(cuda_device, monkeypatch):
@@ -790,20 +903,20 @@ def test_cuda_kanconv_and_mixer_reject_what_they_do_not_take(cuda_device):
 def test_cuda_kernel_paths_forward_matches_cpu(cuda_device, kan_fused, ssd_mixer, monkeypatch):
     """KM_UNetV3-SH at 32^2, B=2, with ``kan_fused`` and ``ssd_mixer`` on
     the card against the CPU, TF32 off, within 1e-4 abs: per forward 4 K1
-    launches (or none), 15 of K3 or K2, 9 of K5."""
+    launches (or none), 15 of K3 or K2, 1 of K7 (the deformable conv)."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     options = dict(kan_fused=kan_fused, ssd_mixer=ssd_mixer)
     frames = np.random.default_rng(5).uniform(size=(2, 32, 32, 5)).astype(np.float32)
     model_gpu = serve.build_km_unet_v3_sh(device=cuda_device, seed=6, **options)
     model_cpu = serve.build_km_unet_v3_sh(device="cpu", seed=6, **options)
-    counters = (bilinear.bilinear_gather, kanconv.fused_kanconv, ssd.hsmssd_compress,
+    counters = (bilinear.bilinear_gather_multiview, kanconv.fused_kanconv, ssd.hsmssd_compress,
                 ssd.hsmssd_mix)
     before = [c.launches for c in counters]
     got = serve.predict(model_gpu, frames).cpu().numpy()
     mixers = chip_smoke.SSD_MIXERS
     assert [c.launches - b for c, b in zip(counters, before)] == [
-        chip_smoke.TAPS, chip_smoke.KAN_CONVS if kan_fused else 0,
+        chip_smoke.DEFORM_CONVS, chip_smoke.KAN_CONVS if kan_fused else 0,
         mixers if ssd_mixer == "compress" else 0, mixers if ssd_mixer == "fused" else 0]
     np.testing.assert_allclose(got, serve.predict(model_cpu, frames).numpy(), rtol=0, atol=1e-4)
 
@@ -811,18 +924,19 @@ def test_cuda_kernel_paths_forward_matches_cpu(cuda_device, kan_fused, ssd_mixer
 def test_cuda_fused_path_train_step_matches_cpu(cuda_device, monkeypatch):
     """One fp32 SH step (32^2, B2, seq 9 -> 4 outputs, no stochastic depth)
     through K1 and K3 on the card against the same step on the CPU within
-    ``chip_smoke.compare_steps``: 4 K1, 15 K3, 9 K5 and 9 K6 launches."""
+    ``chip_smoke.compare_steps``: 4 K1, 15 K3, 1 K7 and 1 K6 shared-source
+    launch."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = chip_smoke.sh_config(2, "float32", drop_path=0.0, img_size=32, seq_len=9,
                                out_frames=4)
     batch = np.random.default_rng(9).random((2, 9, 32, 32), dtype=np.float32)
     options = dict(kan_fused=True, ssd_mixer="fused")
-    counters = (kanconv.fused_kanconv, ssd.hsmssd_mix, bilinear.bilinear_gather,
-                bilinear.bilinear_gather_backward)
+    counters = (kanconv.fused_kanconv, ssd.hsmssd_mix, bilinear.bilinear_gather_multiview,
+                bilinear.bilinear_gather_multiview_backward)
     before = [c.launches for c in counters]
     card = chip_smoke.step_gradients(cfg, cuda_device, batch, seed=1, **options)
-    assert [c.launches - b for c, b in zip(counters, before)] == [4, 15, 9, 9]
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 15, 1, 1]
     chip_smoke.compare_steps(card, chip_smoke.step_gradients(cfg, "cpu", batch, seed=1, **options))
 
 

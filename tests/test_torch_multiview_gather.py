@@ -15,8 +15,13 @@ terms and d_x, d_y a view's channels in another order than JAX. View l must
 land in channel block l. ``BilinearGatherMultiview`` on the CPU routes to
 the plain versions with no kernel launch and passes
 ``torch.autograd.gradcheck`` in float64. The CUDA kernels are held to the
-plain versions on the card in tests/test_torch_gpu.py.
+plain versions on the card in tests/test_torch_gpu.py. The JAX references
+(the Pallas forward, the XLA reference and the VJP of each) are jitted once
+per mode and reused across cases: unjitted, the interpreted Pallas kernel
+runs op by op in every case.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -37,13 +42,38 @@ FWD_TOL = dict(rtol=0, atol=1e-5)
 BWD_TOL = dict(rtol=0, atol=1e-4)
 
 
-def _pallas(mode):
+def _pallas_fn(mode):
     return lambda i, a, b: gather_bilinear_multiview(i, a, b, zeros=mode == "zeros",
                                                      interpret=True)
 
 
-def _xla(mode):
+def _xla_fn(mode):
     return lambda i, a, b: bilinear_gather_multiview_xla(i, a, b, mode)
+
+
+_FORWARDS = {"pallas": _pallas_fn, "xla": _xla_fn}
+
+
+@functools.cache
+def _forward(entry, mode):
+    """The jitted JAX forward ``entry`` ("pallas" or "xla") in ``mode``."""
+    return jax.jit(_FORWARDS[entry](mode))
+
+
+@functools.cache
+def _vjp(entry, mode):
+    """The jitted cotangents (d_img, d_x, d_y) of ``entry`` in ``mode`` for
+    an upstream gradient g."""
+    fn = _FORWARDS[entry](mode)
+    return jax.jit(lambda i, a, b, g: jax.vjp(fn, i, a, b)[1](g))
+
+
+def _pallas(mode):
+    return _forward("pallas", mode)
+
+
+def _xla(mode):
+    return _forward("xla", mode)
 
 
 def _plain(img, x, y, mode):
@@ -57,9 +87,8 @@ def _plain_backward(img, x, y, g, mode):
     return [t.numpy() for t in grads]
 
 
-def _jax_vjp(fn, img, x, y, g):
-    _, vjp = jax.vjp(fn, jnp.asarray(img), jnp.asarray(x), jnp.asarray(y))
-    return [np.asarray(a) for a in vjp(jnp.asarray(g))]
+def _jax_vjp(entry, mode, img, x, y, g):
+    return [np.asarray(a) for a in _vjp(entry, mode)(*(jnp.asarray(t) for t in (img, x, y, g)))]
 
 
 def _assert_grads(got, want):
@@ -77,7 +106,7 @@ def test_plain_matches_xla(mode, shape, case):
     got = _plain(img, x, y, mode)
     assert got.shape == want.shape == (x.shape[0], *x.shape[2:], x.shape[1] * img.shape[-1])
     np.testing.assert_allclose(got, want, **FWD_TOL)
-    _assert_grads(_plain_backward(img, x, y, g, mode), _jax_vjp(_xla(mode), img, x, y, g))
+    _assert_grads(_plain_backward(img, x, y, g, mode), _jax_vjp("xla", mode, img, x, y, g))
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -87,7 +116,7 @@ def test_plain_matches_pallas_interpret(mode, shape, case):
     img, x, y, g = multiview_inputs(SHAPES[shape], case, seed=1)
     want = np.asarray(_pallas(mode)(jnp.asarray(img), jnp.asarray(x), jnp.asarray(y)))
     np.testing.assert_allclose(_plain(img, x, y, mode), want, **FWD_TOL)
-    _assert_grads(_plain_backward(img, x, y, g, mode), _jax_vjp(_pallas(mode), img, x, y, g))
+    _assert_grads(_plain_backward(img, x, y, g, mode), _jax_vjp("pallas", mode, img, x, y, g))
 
 
 def test_view_l_lands_in_channel_block_l():
