@@ -43,9 +43,7 @@ Phases, each printing one JSON line with its seconds:
               G=13, at B=2), the deformable conv's 9 taps at the bridge
               (16^2, C=64, G=9), C=6 and C=3 (one channel per thread in fp32
               and bf16), G=1, G=16 and 16^2 -> 160^2, each view on its own
-              draw of the coordinate cases (the spread ones overflow K7's
-              staged rows at 32^2 x 64: their far taps come from global
-              memory); and a layout case: at integer coordinates x = j - dx_l,
+              draw of the coordinate cases; and a layout case: at integer coordinates x = j - dx_l,
               y = i - dy_l, K7's channel block l must equal the source shifted by
               (dy_l, dx_l), zeros outside, exactly. Then K8 and its backward
               (y and the six gradients) at Mamba-UNet's scan shapes at B=2
@@ -136,8 +134,10 @@ Phases, each printing one JSON line with its seconds:
               16^2 x 64, B=2), forward and backward on the card for a few
               calls: K5 and K6 (the single-set entries, on no model path)
               must launch once per call each and no other kernel; the
-              output and the gradients to the image and the grid within
-              1e-5 abs + 1e-5 relative of the same calls on the CPU.
+              output and the image's gradient within 1e-5 abs + 1e-5
+              relative of the same calls on the CPU, the grid's within
+              1e-5 relative and 1e-5 x 8 abs (K6's coordinate gradient
+              chained through d(pixel)/d(grid) = 16/2).
    serve_trajgru -- TrajGRU_EF at full width (encoder RNNs 64/192/192
               channels with 13/13/9 flow fields, forecaster 192/192/64 with
               13/13/9), 128^2, 5 -> 20 frames, seeded weights, built and
@@ -338,9 +338,7 @@ K6S_REPLACES = K6_REPLACES  # _backward_impl, shared=True
 # input and B=2 (rnn1 enc_rnn1, fore_rnn1 its G=9, rnn2 enc_rnn2 and
 # fore_rnn2, rnn3 enc_rnn3, fore_rnn3 its G=13), the deformable conv's 9 taps
 # at DAGEM's bridge, C of 6 and 3 (no 16-byte vector in fp32), G=1 and G=16,
-# and K6's unstaged segments as in GROUPED_SHAPES. The "spread" coordinates
-# overflow K7's staged rows at 32^2 x 64 (the taps past them are read from
-# global memory).
+# and K6's unstaged segments as in GROUPED_SHAPES.
 MULTIVIEW_SHAPES = {
     "rnn1": (2, 32, 32, 64, 13, 32, 32),
     "fore_rnn1": (2, 32, 32, 64, 9, 32, 32),
@@ -1719,10 +1717,13 @@ def main() -> int:
         card = [grid_sample(dev, *call) for call in calls]
         launches = path_launches["grid_sample"] = read_counts()
         expect_launches("grid_sample", launches, launches_per(k5=REQUESTS, k6=REQUESTS))
+        # d_grid is K6's coordinate gradient times d(pixel)/d(grid) = W/2
+        # or H/2 (align_corners=False): its bound scales with it.
+        scales = (1.0, 1.0, max(H, W) / 2)
         err = 0.0
         for got, call in zip(card, calls):
-            for a, b in zip(got, grid_sample(torch.device("cpu"), *call)):
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            for a, b, scale in zip(got, grid_sample(torch.device("cpu"), *call), scales):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
                 err = max(err, float((a - b).abs().max()))
         f.update(calls=REQUESTS, shape=[B, H, W, C], padding_mode="zeros", launches=launches,
                  max_abs_err_vs_cpu=err)

@@ -21,397 +21,237 @@
 // fp32 coordinates and 27.3 MB of output, 31.1 MB or 9.3 us at 3.35 TB/s;
 // the blend's ~9 fp32 operations per output element are far below the
 // card's rate. The output sets the bound. The first port (one thread per
-// output pixel, view and 16-byte channel vector, taps read from L2) moved
-// 4 taps x 16 bytes per 16 bytes written from L2 to the SMs, about 109 MB
-// at enc_rnn1, redid each view's coordinate arithmetic in every channel
-// lane, and found its pixel, view and lane by five runtime divisions per
-// thread: 24.5 us there.
+// output pixel, view and 16-byte channel vector) read 4 taps x 16 bytes
+// per 16 bytes written from L2, about 109 MB at enc_rnn1, redid each
+// view's coordinate arithmetic in every channel lane, and found its pixel,
+// view and lane by five runtime divisions per thread: 24.5 us there.
 //
-// Design. A block owns one batch element and a tile of P output pixels
-// (whole rows where the shapes allow) across VG views, and works in three
-// phases:
-//   1. each (pixel, view) is reckoned once: its coordinates are loaded
-//      (coalesced along the pixels of a view), clamped and floored, and
-//      its fractions, output offset and integer taps go into a table in
-//      shared memory; the block takes the min and max row of the taps that
-//      are read (warp reductions, then one shared-memory atomic per warp);
-//   2. those rows of img[b], a contiguous span in NHWC, are staged in
-//      shared memory with 16-byte cp.async, capped at cap_rows rows (the
-//      wrapper sizes the cap to keep two blocks on an SM); past the cap the
-//      block keeps the cap_rows rows around its own output rows. While the
-//      copies fly, each (pixel, view) turns its four taps into codes: an
-//      offset into the staged rows, an offset of a zero pixel kept after
-//      them for a masked tap, or (the complement of) an offset into img[b]
-//      in global memory for a tap outside the staged rows -- far or
-//      invalid coordinates and flows of any size stay right;
-//   3. the block's lanes blend: C / VEC lanes per (pixel, view), each on a
-//      16-byte channel vector (VEC = 4 fp32 or 8 bf16/fp16; one channel
-//      where C is not a multiple of VEC), read the table entry once (a
-//      shared-memory broadcast), load the 4 taps from shared memory (global
-//      for the rare far tap) and write 16 contiguous bytes; consecutive
-//      lanes, then consecutive entries, write consecutive output bytes.
-// Per element there is no integer division: a thread's lane and first
-// entry are fixed once, and it steps by whole entries.
+// Design. Warps work alone, on chunks of K consecutive (output pixel,
+// view) entries in output order (K = 32 where the entries fill the card
+// with warps, fewer where they do not: kernels/bilinear.py::
+// multiview_chunk):
+//   1. each entry is reckoned once, by one lane: its view, pixel and batch
+//      element from its index, its coordinates clamped and floored, the
+//      weights of its four taps (the products of the fractions) and the
+//      taps' element offsets in img (-1 for a masked tap), kept in the
+//      warp's slice of shared memory;
+//   2. the warp's lanes then blend the chunk's (entry, 16-byte channel
+//      vector) pairs, 32 consecutive pairs a round (VEC = 4 fp32 or 8
+//      bf16/fp16 channels a lane; one channel where C is not a multiple of
+//      VEC): a lane reads its entry from shared memory (a broadcast), the 4
+//      taps through the read-only path, where neighbouring outputs' taps
+//      meet in L1, blends them with one fp32 multiply and three fused
+//      multiply-adds a channel, rounds once to the dtype, and writes 16
+//      contiguous bytes with a streaming store; a round writes 512
+//      contiguous bytes. A lane's first pair and its step are fixed, with
+//      no division per pair.
+// No block-wide barrier: one warp's reckoning overlaps other warps' blends
+// and stores. Where a chunk would hold a single entry (TrajGRU's 4x4
+// levels: a few thousand entries, latency-bound), K = 0 takes one (entry,
+// vector) pair a thread instead, each thread reckoning its entry.
+// Tried and dropped on the card (PERF.md, PR 15): staging a block's source
+// rows in shared memory (a block's min and max tap row, a cp.async or TMA
+// band, tap codes into it), which serialised a block's phases and bought
+// nothing against L1; the lerps of lerps per channel in place of the
+// weights (6 operations a channel, not 4).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-#include <atomic>
-#include <climits>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxDevices = 64;
-constexpr bool kBulkCopy = false;     // stage through one TMA bulk copy, not cp.async
-constexpr bool kStreamStores = false;  // write the output with st.global.cs
-constexpr int kUnroll = 2;  // entries a thread blends per step
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr bool kStreamStores = true;  // write the output with st.global.cs (evict first)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half(v);
-}
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
-// One (output pixel, view) of a block: its fractions, its element offset in
-// out, and its taps (y0, x0), (y0, x1), (y1, x0), (y1, x1) as codes: >= 0 an
-// element offset into the staged rows (the zero pixel after them for a
-// masked tap), < 0 the complement of an element offset into img[b]. Phase 1
-// keeps x0 and y0 in tap[0] and tap[1] until phase 2 writes the codes.
-struct alignas(16) Entry {
-  float wx, wy;
-  int out;
-  int pad;
-  int tap[4];
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Channels c0 .. c0+VEC of the tap with this code.
+// Channels c0 .. c0+VEC of the tap at element offset `tap` of img, as fp32,
+// by the read-only data path (the taps of neighbouring outputs meet in L1);
+// zeros for a masked tap (tap < 0).
 template <typename T, int VEC>
-__device__ __forceinline__ Vec<T, VEC> load_tap(const T* staged, const T* __restrict__ src,
-                                                int code, int c0) {
-  if (code >= 0) return *reinterpret_cast<const Vec<T, VEC>*>(staged + code + c0);
-  return *reinterpret_cast<const Vec<T, VEC>*>(src + ~code + c0);
+__device__ __forceinline__ void load_tap(const T* __restrict__ img, int tap, int c0,
+                                         float (&a)[VEC]) {
+  if constexpr (sizeof(Vec<T, VEC>) == 16) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (tap >= 0) u = __ldg(reinterpret_cast<const uint4*>(img + tap + c0));
+    const Vec<T, VEC> t = *reinterpret_cast<const Vec<T, VEC>*>(&u);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) a[i] = to_f32(t.v[i]);
+  } else {
+    a[0] = tap >= 0 ? to_f32(__ldg(img + tap + c0)) : 0.f;
+  }
 }
 
-// Dynamic shared memory: the table of P * VG entries, cap_rows rows of
-// W * C elements, one zero pixel of C elements.
-template <typename T>
-size_t smem_bytes(int W, int C, int P, int VG, int cap_rows) {
-  const size_t bytes = (size_t)P * VG * sizeof(Entry) +
-                       ((size_t)cap_rows * W * C + C) * sizeof(T);
-  return (bytes + 15) / 16 * 16;
+// r rounded once to T, two channels per conversion where T is 16-bit.
+template <typename T, int VEC>
+__device__ __forceinline__ Vec<T, VEC> round_to(const float (&r)[VEC]) {
+  Vec<T, VEC> o;
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o.v[i] = r[i];
+  } else if constexpr (VEC == 1) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      o.v[0] = __float2bfloat16(r[0]);
+    else
+      o.v[0] = __float2half(r[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 2) {
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        *reinterpret_cast<__nv_bfloat162*>(&o.v[i]) = __floats2bfloat162_rn(r[i], r[i + 1]);
+      else
+        *reinterpret_cast<__half2*>(&o.v[i]) = __floats2half2_rn(r[i], r[i + 1]);
+    }
+  }
+  return o;
+}
+
+// Entry `entry` (b, output pixel, view in output order) reckoned: the
+// weights of its taps (y0, x0), (y0, x1), (y1, x0), (y1, x1), the products
+// of the fractions (1 - wx)(1 - wy), wx(1 - wy), (1 - wx)wy, wx wy, and the
+// taps' element offsets in img, -1 for a masked tap.
+template <bool ZEROS>
+__device__ __forceinline__ void reckon(const float* __restrict__ xs, const float* __restrict__ ys,
+                                       int entry, int H, int W, int C, int G, int HoWo,
+                                       float4& weight, int4& tap) {
+  const int bp = entry / G;
+  const int g = entry - bp * G;
+  const int b = bp / HoWo;
+  const int q = (b * G + g) * HoWo + (bp - b * HoWo);  // [b, g, pixel]
+  float x = xs[q];
+  float y = ys[q];
+  if (ZEROS) {
+    x = fminf(fmaxf(x, -2.f), (float)W + 1.f);
+    y = fminf(fmaxf(y, -2.f), (float)H + 1.f);
+  } else {
+    x = fminf(fmaxf(x, 0.f), (float)(W - 1));
+    y = fminf(fmaxf(y, 0.f), (float)(H - 1));
+  }
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const float wx = x - x0f, wy = y - y0f;
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  int x1 = x0 + 1, y1 = y0 + 1;
+  bool vx0 = true, vx1 = true, vy0 = true, vy1 = true;
+  if (ZEROS) {
+    vx0 = x0 >= 0 && x0 <= W - 1;
+    vx1 = x1 >= 0 && x1 <= W - 1;
+    vy0 = y0 >= 0 && y0 <= H - 1;
+    vy1 = y1 >= 0 && y1 <= H - 1;
+  } else {
+    // Border: x0, y0 already lie in range; the far tap duplicates the edge.
+    x1 = min(x1, W - 1);
+    y1 = min(y1, H - 1);
+  }
+  const int row0 = (b * H + y0) * W, row1 = (b * H + y1) * W;
+  weight = make_float4((1.f - wx) * (1.f - wy), wx * (1.f - wy), (1.f - wx) * wy, wx * wy);
+  tap = make_int4(vy0 && vx0 ? (row0 + x0) * C : -1, vy0 && vx1 ? (row0 + x1) * C : -1,
+                  vy1 && vx0 ? (row1 + x0) * C : -1, vy1 && vx1 ? (row1 + x1) * C : -1);
+}
+
+// Writes channels c0 .. c0+VEC of an entry's output from its weights and taps.
+template <typename T, int VEC>
+__device__ __forceinline__ void blend(const T* __restrict__ img, const float4& w, const int4& tap,
+                                      int c0, T* __restrict__ dst) {
+  float a[4][VEC];  // the taps as fp32, 0 where masked
+  load_tap<T, VEC>(img, tap.x, c0, a[0]);
+  load_tap<T, VEC>(img, tap.y, c0, a[1]);
+  load_tap<T, VEC>(img, tap.z, c0, a[2]);
+  load_tap<T, VEC>(img, tap.w, c0, a[3]);
+  float r[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) r[i] = a[0][i] * w.x + a[1][i] * w.y + a[2][i] * w.z + a[3][i] * w.w;
+  const Vec<T, VEC> res = round_to<T, VEC>(r);
+  if (kStreamStores && sizeof(res) == 16)
+    __stcs(reinterpret_cast<int4*>(dst), *reinterpret_cast<const int4*>(&res));
+  else
+    *reinterpret_cast<Vec<T, VEC>*>(dst) = res;
 }
 
 template <typename T, int VEC, bool ZEROS>
 __global__ void __launch_bounds__(kThreads)
 multiview_kernel(const T* __restrict__ img, const float* __restrict__ xs,
                  const float* __restrict__ ys, T* __restrict__ out, int H, int W, int C, int G,
-                 int Ho, int Wo, int P, int VG, int tiles, int groups, int cap_rows) {
-  extern __shared__ uint4 smem[];
-  __shared__ int s_lo, s_hi;
-  __shared__ uint64_t bar;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int HoWo = Ho * Wo;
+                 int HoWo, int entries, int K, int chunks) {
   // 32-bit indices: the entry point takes fewer than 2^30 elements per tensor.
-  const int per_image = tiles * groups;
-  const int b = blockIdx.x / per_image;
-  const int r = blockIdx.x - b * per_image;
-  const int tile = r / groups;
-  const int g0 = (r - tile * groups) * VG;
-  const int pix0 = tile * P;
-  const int np = min(P, HoWo - pix0);  // this block's pixels and views
-  const int nv = min(VG, G - g0);
-  Entry* table = reinterpret_cast<Entry*>(smem);
-  T* staged = reinterpret_cast<T*>(table + P * VG);
-  const int zero = cap_rows * W * C;  // the zero pixel's offset
-  const T* src = img + (size_t)b * H * W * C;
-
-  if (tid == 0) {
-    s_lo = INT_MAX;
-    s_hi = INT_MIN;
-    if (kBulkCopy && VEC > 1) {
-      asm volatile("mbarrier.init.shared.b64 [%0], 1;\n" ::"r"(smem_addr(&bar)) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
+  const int nvec = C / VEC;  // channel vectors of an entry
+  if (K == 0) {  // one (entry, vector) pair a thread, its entry reckoned by each of its lanes
+    const int pair = blockIdx.x * kThreads + threadIdx.x;
+    if (pair >= entries * nvec) return;
+    const int entry = pair / nvec, c0 = (pair - entry * nvec) * VEC;
+    float4 w;
+    int4 tap;
+    reckon<ZEROS>(xs, ys, entry, H, W, C, G, HoWo, w, tap);
+    blend<T, VEC>(img, w, tap, c0, out + entry * C + c0);
+    return;
   }
-  for (int c = tid; c < C; c += nthreads) staged[zero + c] = from_f32<T>(0.f);
-  __syncthreads();
-
-  // Phase 1: entry (p, v) of view g0 + v, pixel pix0 + p, in output order
-  // (pixel-major). A thread walks (v, p) in steps of nthreads, p fastest,
-  // so that the coordinate loads are coalesced.
-  const int step_v = nthreads / np, step_p = nthreads - step_v * np;
-  int lo = INT_MAX, hi = INT_MIN;  // rows of the taps read
-  {
-    int v = tid / np, p = tid - v * np;
-    while (v < nv) {
-      const int q = (b * G + g0 + v) * HoWo + pix0 + p;
-      float x = xs[q];
-      float y = ys[q];
-      if (ZEROS) {
-        x = fminf(fmaxf(x, -2.f), (float)W + 1.f);
-        y = fminf(fmaxf(y, -2.f), (float)H + 1.f);
-      } else {
-        x = fminf(fmaxf(x, 0.f), (float)(W - 1));
-        y = fminf(fmaxf(y, 0.f), (float)(H - 1));
-      }
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const int x0 = (int)x0f, y0 = (int)y0f;
-      Entry& e = table[p * nv + v];
-      e.wx = x - x0f;
-      e.wy = y - y0f;
-      e.out = ((b * HoWo + pix0 + p) * G + g0 + v) * C;
-      e.tap[0] = x0;
-      e.tap[1] = y0;
-      if (ZEROS) {
-        if (x0 >= -1 && x0 <= W - 1) {  // x0 or x0 + 1 is inside
-          if (y0 >= 0 && y0 <= H - 1) {
-            lo = min(lo, y0);
-            hi = max(hi, y0);
-          }
-          if (y0 >= -1 && y0 <= H - 2) {
-            lo = min(lo, y0 + 1);
-            hi = max(hi, y0 + 1);
-          }
-        }
-      } else {
-        lo = min(lo, y0);
-        hi = max(hi, min(y0 + 1, H - 1));
-      }
-      p += step_p;
-      v += step_v;
-      if (p >= np) {
-        p -= np;
-        ++v;
+  // A chunk's entries, each reckoned once by one lane.
+  __shared__ float4 s_weight[kWarps][32];
+  __shared__ int4 s_tap[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int pairs = K * nvec;  // (entry, vector) pairs of a chunk, 32 a round
+  const int e0 = lane / nvec, v0 = lane - e0 * nvec;  // this lane's first pair
+  const int de = 32 / nvec, dv = 32 - de * nvec;      // and its step
+  for (int chunk = blockIdx.x * kWarps + warp; chunk < chunks; chunk += gridDim.x * kWarps) {
+    const int first = chunk * K;  // entry index (b, output pixel, view), output order
+    const int n = min(K, entries - first);
+    if (lane < n)
+      reckon<ZEROS>(xs, ys, first + lane, H, W, C, G, HoWo, s_weight[warp][lane],
+                    s_tap[warp][lane]);
+    __syncwarp();
+    int e = e0, v = v0;
+#pragma unroll 1  // a round at a time: two unrolled ran slower on the card
+    for (int p = lane; p < pairs; p += 32) {
+      if (e < n)
+        blend<T, VEC>(img, s_weight[warp][e], s_tap[warp][e], v * VEC,
+                      out + (first + e) * C + v * VEC);
+      e += de;
+      v += dv;
+      if (v >= nvec) {
+        v -= nvec;
+        ++e;
       }
     }
-  }
-  {
-    const int warp_base = tid & ~31;
-    const int in_warp = min(32, nthreads - warp_base);
-    const unsigned mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
-    lo = __reduce_min_sync(mask, lo);
-    hi = __reduce_max_sync(mask, hi);
-    if ((tid & 31) == 0) {
-      atomicMin(&s_lo, lo);
-      atomicMax(&s_hi, hi);
-    }
-  }
-  __syncthreads();
-
-  // Phase 2: stage rows lo .. lo + rows - 1 of img[b].
-  lo = s_lo;
-  hi = s_hi;
-  if (lo > hi) {  // no tap of the block is read
-    lo = 0;
-    hi = -1;
-  } else if (hi - lo + 1 > cap_rows) {
-    // The cap_rows rows around the block's output rows, mapped to the
-    // source's, inside [lo, hi].
-    const int oy_a = pix0 / Wo, oy_b = (pix0 + np - 1) / Wo;
-    const int centre = (int)((long long)(oy_a + oy_b + 1) * H / (2LL * Ho));
-    lo = max(lo, min(centre - cap_rows / 2, hi - cap_rows + 1));
-    hi = lo + cap_rows - 1;
-  }
-  const int rows = hi - lo + 1;
-  {
-    const T* band = src + (size_t)lo * W * C;
-    const int n = rows * W * C;
-    if (kBulkCopy && VEC > 1) {
-      if (tid == 0 && n > 0) {
-        asm volatile("mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;\n"
-                     ::"r"(smem_addr(&bar)), "r"((unsigned)(n * sizeof(T)))
-                     : "memory");
-        const int row = W * C;
-        for (int i = 0; i < n; i += row)
-          bulk_copy(staged + i, band + i, (unsigned)(row * sizeof(T)), &bar);
-      }
-    } else if (VEC > 1) {  // 16-byte aligned: img is, and so is a row of C * sizeof(T) % 16 == 0
-      for (int i = tid * VEC; i < n; i += nthreads * VEC) cp_async16(staged + i, band + i);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-    } else {
-      for (int i = tid; i < n; i += nthreads) staged[i] = band[i];
-    }
-  }
-  {
-    int v = tid / np, p = tid - v * np;
-    while (v < nv) {
-      Entry& e = table[p * nv + v];
-      const int x0 = e.tap[0], y0 = e.tap[1];
-      int x1 = x0 + 1, y1 = y0 + 1;
-      bool vx0 = true, vx1 = true, vy0 = true, vy1 = true;
-      if (ZEROS) {
-        vx0 = x0 >= 0 && x0 <= W - 1;
-        vx1 = x1 >= 0 && x1 <= W - 1;
-        vy0 = y0 >= 0 && y0 <= H - 1;
-        vy1 = y1 >= 0 && y1 <= H - 1;
-      } else {
-        // Border: x0, y0 already lie in range; the far tap duplicates the edge.
-        x1 = min(x1, W - 1);
-        y1 = min(y1, H - 1);
-      }
-      const int ys2[2] = {y0, y1}, xs2[2] = {x0, x1};
-      const bool vys[2] = {vy0, vy1}, vxs[2] = {vx0, vx1};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int ry = ys2[t >> 1], cx = xs2[t & 1];
-        int code = zero;
-        if (vys[t >> 1] && vxs[t & 1])
-          code = (unsigned)(ry - lo) < (unsigned)rows ? ((ry - lo) * W + cx) * C
-                                                       : ~((ry * W + cx) * C);
-        e.tap[t] = code;
-      }
-      p += step_p;
-      v += step_v;
-      if (p >= np) {
-        p -= np;
-        ++v;
-      }
-    }
-  }
-  if (kBulkCopy && VEC > 1) {
-    if (rows > 0) {
-      unsigned done = 0;
-      while (!done)
-        asm volatile(
-            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared.b64 p, [%1], 0;\n"
-            " selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(smem_addr(&bar))
-            : "memory");
-    }
-  } else if (VEC > 1) {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  // Phase 3: the blend, lanes of VEC channels per entry.
-  const int nvec = C / VEC;
-  const int lanes = nvec < nthreads ? nvec : nthreads;
-  const int per_round = nthreads / lanes;
-  const int k0 = tid / lanes, v0 = tid - k0 * lanes;
-  if (k0 >= per_round) return;
-  const int items = np * nv;
-  // kUnroll entries a step: their taps are all loaded before the first blend.
-  for (int v = v0; v < nvec; v += lanes) {
-    const int c0 = v * VEC;
-    for (int k = k0; k < items; k += kUnroll * per_round) {
-      Entry e[kUnroll];
-      Vec<T, VEC> t[kUnroll][4];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (k + u * per_round < items) {
-          e[u] = table[k + u * per_round];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) t[u][q] = load_tap<T, VEC>(staged, src, e[u].tap[q], c0);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (k + u * per_round < items) {
-          const float wx = e[u].wx, wy = e[u].wy;
-          Vec<T, VEC> res;
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) {
-            const float top = to_f32(t[u][0].v[i]) * (1.f - wx) + to_f32(t[u][1].v[i]) * wx;
-            const float bot = to_f32(t[u][2].v[i]) * (1.f - wx) + to_f32(t[u][3].v[i]) * wx;
-            res.v[i] = from_f32<T>(top * (1.f - wy) + bot * wy);
-          }
-          T* dst = out + e[u].out + c0;
-          if (kStreamStores && VEC > 1)
-            __stcs(reinterpret_cast<int4*>(dst), *reinterpret_cast<const int4*>(&res));
-          else
-            *reinterpret_cast<Vec<T, VEC>*>(dst) = res;
-        }
-      }
-    }
+    __syncwarp();
   }
 }
 
 template <typename T, int VEC>
 int launch(const void* img, const void* x, const void* y, void* out, int B, int H, int W,
-           int C, int G, int Ho, int Wo, int zeros, int P, int VG, int cap_rows,
-           cudaStream_t stream) {
-  const int HoWo = Ho * Wo;
-  if (B == 0 || HoWo == 0) return 0;
-  const int tiles = (HoWo + P - 1) / P;
-  const int groups = (G + VG - 1) / VG;
-  const long long blocks = (long long)B * tiles * groups;
-  if (blocks > INT_MAX) return -1;
-  const int nvec = C / VEC;
-  const int lanes = nvec < kThreads ? nvec : kThreads;
-  const int threads = lanes * (kThreads / lanes);
-  const size_t smem = smem_bytes<T>(W, C, P, VG, cap_rows);
+           int C, int G, int Ho, int Wo, int zeros, int K, cudaStream_t stream) {
+  const long long entries = (long long)B * Ho * Wo * G;
+  if (entries == 0) return 0;
+  // K = 0: a thread a pair; else a warp a chunk of K entries.
+  const long long chunks = K == 0 ? 0 : (entries + K - 1) / K;
+  const long long blocks = K == 0 ? (entries * (C / VEC) + kThreads - 1) / kThreads
+                                  : (chunks + kWarps - 1) / kWarps;
   auto kernel = zeros ? multiview_kernel<T, VEC, true> : multiview_kernel<T, VEC, false>;
-  // The dynamic shared memory an instantiation may take, raised to the
-  // device's limit at its first launch on each device and kept.
-  static std::atomic<int> limit[2][kMaxDevices];
-  int device = 0;
-  int err = (int)cudaGetDevice(&device);
-  if (err != 0) return err;
-  if (device >= kMaxDevices) return -1;
-  std::atomic<int>& most = limit[zeros ? 1 : 0][device];
-  int allowed = most.load(std::memory_order_relaxed);
-  if (allowed == 0) {
-    int optin = 0;
-    cudaFuncAttributes attr;
-    err = (int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == 0) err = (int)cudaFuncGetAttributes(&attr, kernel);
-    if (err != 0) return err;
-    allowed = optin - (int)attr.sharedSizeBytes;
-    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, allowed);
-    if (err != 0) return err;
-    most.store(allowed, std::memory_order_relaxed);
-  }
-  if (smem > (size_t)allowed) return -1;
-  kernel<<<(int)blocks, threads, smem, stream>>>(
+  kernel<<<(int)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(img), static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<T*>(out), H, W, C, G, Ho, Wo, P, VG, tiles, groups, cap_rows);
+      static_cast<T*>(out), H, W, C, G, Ho * Wo, (int)entries, K, (int)chunks);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_vec(int vec, const void* img, const void* x, const void* y, void* out, int B,
-                 int H, int W, int C, int G, int Ho, int Wo, int zeros, int P, int VG,
-                 int cap_rows, cudaStream_t stream) {
+                 int H, int W, int C, int G, int Ho, int Wo, int zeros, int K,
+                 cudaStream_t stream) {
   constexpr int kWide = 16 / sizeof(T);
   if (vec == kWide)
-    return launch<T, kWide>(img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, P, VG, cap_rows,
-                            stream);
-  if (vec == 1)
-    return launch<T, 1>(img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, P, VG, cap_rows, stream);
+    return launch<T, kWide>(img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, K, stream);
+  if (vec == 1) return launch<T, 1>(img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, K, stream);
   return -1;
 }
 
@@ -420,33 +260,29 @@ int dispatch_vec(int vec, const void* img, const void* x, const void* y, void* o
 // img (B, H, W, C) NHWC, x, y (B, G, Ho, Wo) fp32, out (B, Ho, Wo, G * C),
 // channel block g sampled at x[:, g], y[:, g] from all C channels of img.
 // dtype: 0 = fp32, 1 = bf16, 2 = fp16. vec: channels per lane, either
-// 16 / sizeof(dtype) (C divisible by it, img 16-byte aligned) or 1. The
-// launch geometry: P output pixels and VG views per block, at most
-// cap_rows staged source rows (kernels/bilinear.py::multiview_geometry).
+// 16 / sizeof(dtype) (C divisible by it, img 16-byte aligned) or 1. K: the
+// (output pixel, view) entries a warp reckons and blends at a time, 1 to 32
+// (kernels/bilinear.py::multiview_chunk).
 // Returns cudaGetLastError() after the launch, or -1 for an argument the
 // kernel does not take.
 extern "C" int kmunet_bilinear_gather_multiview(const void* img, const void* x, const void* y,
                                                 void* out, int B, int H, int W, int C, int G,
                                                 int Ho, int Wo, int dtype, int zeros, int vec,
-                                                int P, int VG, int cap_rows, void* stream) {
+                                                int K, void* stream) {
   if (vec < 1 || G < 1 || B < 0 || H < 1 || W < 1 || C < 1 || Ho < 0 || Wo < 0 ||
-      C % vec != 0 || P < 1 || VG < 1 || VG > G || cap_rows < 0 || cap_rows > H)
+      C % vec != 0 || K < 0 || K > 32)
     return -1;
   const long long limit = 1LL << 30;  // keeps every index in int
-  if ((long long)B * H * W * C >= limit || (long long)B * Ho * Wo * G * C >= limit ||
-      (long long)P * VG * 8 >= limit)
-    return -1;
+  if ((long long)B * H * W * C >= limit || (long long)B * Ho * Wo * G * C >= limit) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_vec<float>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, P, VG,
-                                 cap_rows, s);
+      return dispatch_vec<float>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, K, s);
     case 1:
-      return dispatch_vec<__nv_bfloat16>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, P,
-                                         VG, cap_rows, s);
+      return dispatch_vec<__nv_bfloat16>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, K,
+                                         s);
     case 2:
-      return dispatch_vec<__half>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, P, VG,
-                                  cap_rows, s);
+      return dispatch_vec<__half>(vec, img, x, y, out, B, H, W, C, G, Ho, Wo, zeros, K, s);
     default: return -1;
   }
 }

@@ -10,10 +10,9 @@ in ``_forward``), ``gather_bilinear_grouped`` and ``gather_bilinear_multiview``
 ``shared=True``) and of their custom VJP's backward ``_backward_impl`` (the
 ``pl.pallas_call`` of ``_kernel_bwd``, ``shared=False`` and ``shared=True``).
 The CUDA kernels are ``csrc/bilinear_gather.cu`` (K5 and K4, one kernel with
-a group count), ``csrc/multiview_gather.cu`` (K7: blocks of output pixels
-across the views, the source rows they read staged in shared memory, each
-(pixel, view) reckoned once; its launch geometry is
-``multiview_geometry``'s) and ``csrc/bilinear_gather_backward.cu`` (K6 for
+a group count), ``csrc/multiview_gather.cu`` (K7: each warp reckons a chunk
+of (output pixel, view) entries once, then blends them with a lane per
+16-byte channel vector; its chunk is ``multiview_chunk``'s) and ``csrc/bilinear_gather_backward.cu`` (K6 for
 all three); their source notes say what bounds them and how they are laid
 out.
 
@@ -42,13 +41,9 @@ from kmunet_tpu_torch.kernels import build
 SOURCE = "bilinear_gather.cu"
 MULTIVIEW_SOURCE = "multiview_gather.cu"
 BACKWARD_SOURCE = "bilinear_gather_backward.cu"
-# K7's launch geometry (``multiview_geometry``): blocks per SM the grid aims
-# at, (pixel, view) entries per block (32 bytes each in shared memory) and
-# the bytes of source rows a block may stage (with the entries, two blocks
-# fit on an SM).
-MULTIVIEW_BLOCKS_PER_SM = 2
-MULTIVIEW_ENTRIES = 1024
-MULTIVIEW_STAGED_BYTES = 64 * 1024
+# The warps per SM that K7's chunks of (output pixel, view) entries aim to
+# keep busy (``multiview_chunk``).
+MULTIVIEW_WARPS_PER_SM = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MODES = ("border", "zeros")
 
@@ -329,29 +324,19 @@ def grouped_backward_kernel() -> ctypes._CFuncPtr:
 
 def multiview_kernel() -> ctypes._CFuncPtr:
     """K7's entry point, built on first use."""
-    return _kernel(MULTIVIEW_SOURCE, "kmunet_bilinear_gather_multiview", 4, 13)
+    return _kernel(MULTIVIEW_SOURCE, "kmunet_bilinear_gather_multiview", 4, 11)
 
 
-def multiview_geometry(B: int, H: int, W: int, C: int, G: int, Ho: int, Wo: int,
-                       itemsize: int, sms: int) -> tuple[int, int, int]:
-    """K7's launch geometry on a card of ``sms`` SMs: (P output pixels per
-    block, VG views per block, the most source rows a block stages).
-
-    A block takes all G views (up to ``MULTIVIEW_ENTRIES``) of P
-    consecutive output pixels of one image; P splits each image into as
-    many tiles as the grid can give it at ``MULTIVIEW_BLOCKS_PER_SM``
-    blocks per SM, evened out, and keeps a block's entries within
-    ``MULTIVIEW_ENTRIES``. The staged rows are capped at
-    ``MULTIVIEW_STAGED_BYTES`` (0 rows where one row is larger)."""
-    views = min(G, MULTIVIEW_ENTRIES)
-    groups = -(-G // views)
-    pixels = max(Ho * Wo, 1)
-    tiles = max(1, MULTIVIEW_BLOCKS_PER_SM * sms // max(B * groups, 1))
-    P = -(-pixels // tiles)
-    most = MULTIVIEW_ENTRIES // views
-    if P > most:
-        P = -(-pixels // -(-pixels // most))
-    return P, views, min(H, MULTIVIEW_STAGED_BYTES // (W * C * itemsize))
+def multiview_chunk(B: int, G: int, Ho: int, Wo: int, sms: int) -> int:
+    """K7's chunk on a card of ``sms`` SMs: the (output pixel, view) entries
+    that a warp reckons and then blends at a time, as many as leave
+    ``MULTIVIEW_WARPS_PER_SM`` warps per SM a chunk each, up to 32 (a lane
+    per entry): 32 at TrajGRU's 32^2 levels and the bridge. 0 where that
+    leaves a chunk one entry: the kernel then takes one (entry, channel
+    vector) pair a thread, each reckoning its entry, as at TrajGRU's 4^2
+    levels, where latency and not arithmetic sets the time."""
+    chunk = min(32, B * G * Ho * Wo // (MULTIVIEW_WARPS_PER_SM * sms))
+    return chunk if chunk >= 2 else 0
 
 
 @functools.cache
@@ -607,11 +592,9 @@ def bilinear_gather_multiview_forward(
     B, H, W, C = img.shape
     G, Ho, Wo = x.shape[1:]
     out = torch.empty((B, Ho, Wo, G * C), dtype=img.dtype, device=img.device)
-    geometry = multiview_geometry(B, H, W, C, G, Ho, Wo, img.element_size(),
-                                  _sm_count(img.device.index))
     _launch(multiview_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
             B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
-            _vec(img), *geometry)
+            _vec(img), multiview_chunk(B, G, Ho, Wo, _sm_count(img.device.index)))
     bilinear_gather_multiview.launches += 1
     return out
 

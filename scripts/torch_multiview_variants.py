@@ -7,18 +7,22 @@ Times ``bilinear_gather_multiview_forward`` (K7) in bf16, zeros mode, at
 ``chip_smoke.MULTIVIEW_TIMING_SHAPES`` (queued us per call, the inputs of
 ``chip_smoke.multiview_timing``) for each variant, the variants in turns:
 
-- launch geometries, by ``kernels/bilinear.py``'s constants: blocks per SM
-  the grid aims at (1, 2, 4, 8), staged bytes per block (32, 64, 96 KB, and
-  0: every tap from L2), and half the views per block;
+- chunk sizes, by ``kernels/bilinear.py``'s ``MULTIVIEW_WARPS_PER_SM``
+  (the warps per SM the chunks aim at: 8, 16, 32), and chunk rules: never
+  a thread per (entry, vector) pair, or always;
 - compile-time choices, by edited copies of ``csrc/multiview_gather.cu``
-  built with ``kernels/build.py``'s flags: a TMA bulk copy in place of
-  cp.async (``kBulkCopy``), streaming stores (``kStreamStores``), 128 and
-  512 threads a block (``kThreads``); with and without streaming stores also
-  K7 followed by TrajGRU's ``ret`` (``F.linear`` of 3 * 64 outputs, the next
-  reader of the output) at enc_rnn1 and fore_rnn1.
+  built with ``kernels/build.py``'s flags: 256 threads a block (128 by
+  default), plain stores (streaming by default), two rounds unrolled (one
+  by default), at least 12 or 16 blocks an SM (``__launch_bounds__``: 40
+  or 32 registers), and two probes that are not K7: the blend with every tap
+  read from one pixel (always in L1), and the entries reckoned with no
+  blend; with and without streaming stores also K7 followed by TrajGRU's
+  ``ret`` (``F.linear`` to 3 * 64 outputs, the next reader of the output)
+  at enc_rnn1 and fore_rnn1; and beside them ``zero_`` and ``copy_`` of a
+  tensor of the output's size, the card's own rate of writing it.
 
-Every variant's output must equal the default's bit for bit: a tap reads
-the same value from the staged rows or from global memory. Prints JSON
+Every variant's output but the probes' must equal the default's bit for
+bit. Prints JSON
 lines, the first the card's ``nvidia-smi`` name and power limit. Needs an
 NVIDIA GPU.
 """
@@ -38,27 +42,20 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 
-GEOMETRIES = {  # name -> (blocks per SM, staged bytes, views per block: all or half)
-    "default": (2, 64 * 1024, "all"),
-    "bps1": (1, 64 * 1024, "all"),
-    "bps4": (4, 64 * 1024, "all"),
-    "staged32k": (2, 32 * 1024, "all"),
-    "unstaged": (2, 0, "all"),
-    "half_views": (2, 64 * 1024, "half"),
-}
+GEOMETRIES = {"default": 16, "warps8": 8, "warps32": 32}  # warps per SM
+CHUNKS = {"no_lanes": lambda k: max(k, 1), "all_lanes": lambda k: 0}  # chunk rules
 BUILDS = {  # name -> source edits
-    "bulk": [("constexpr bool kBulkCopy = false;", "constexpr bool kBulkCopy = true;")],
-    "stream": [("constexpr bool kStreamStores = false;", "constexpr bool kStreamStores = true;")],
-    "unroll1": [("constexpr int kUnroll = 2;", "constexpr int kUnroll = 1;")],
-    "unroll4": [("constexpr int kUnroll = 2;", "constexpr int kUnroll = 4;")],
-    "threads512": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
-    "threads1024": [("constexpr int kThreads = 256;", "constexpr int kThreads = 1024;")],
-    # probes, not K7: the blend without its tap loads; the phases before the blend alone
-    "store_only": [("t[u][q] = load_tap<T, VEC>(staged, src, e[u].tap[q], c0);",
-                    "t[u][q] = Vec<T, VEC>{};")],
-    "phases12_only": [("const int items = np * nv;", "const int items = 0;")],
+    "threads256": [("constexpr int kThreads = 128;", "constexpr int kThreads = 256;")],
+    "no_stream": [("constexpr bool kStreamStores = true;", "constexpr bool kStreamStores = false;")],
+    "unroll2": [("#pragma unroll 1  // a round", "#pragma unroll 2  // a round")],
+    "minblocks12": [("__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 12)")],
+    "minblocks16": [("__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 16)")],
+    # probes, not K7: every tap from one pixel (L1-hot); the entries alone
+    "taps_l1_hot": [("u = __ldg(reinterpret_cast<const uint4*>(img + tap + c0));",
+                     "u = __ldg(reinterpret_cast<const uint4*>(img + c0));")],
+    "entries_only": [("const int pairs = K * nvec;", "const int pairs = 0;")],
 }
-PROBES = ("store_only", "phases12_only")
+PROBES = ("taps_l1_hot", "entries_only")
 RET_SHAPES = ("enc_rnn1", "fore_rnn1")
 
 
@@ -82,7 +79,7 @@ def build_variant(build, name, edits):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
     fn = ctypes.CDLL(str(lib)).kmunet_bilinear_gather_multiview
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, list(chip_smoke.ptxas_summary(proc.stdout + proc.stderr))
 
@@ -108,24 +105,16 @@ def main() -> int:
     with ThreadPoolExecutor(len(BUILDS)) as pool:
         built = dict(zip(BUILDS, pool.map(lambda kv: build_variant(build, *kv), BUILDS.items())))
     emit({"ptxas": {name: b[1] for name, b in built.items()}})
-    geometry = bilinear.multiview_geometry
+
+    chunk = bilinear.multiview_chunk
 
     def use(name):
         """Sets the wrapper to variant ``name``."""
-        bps, staged, views = GEOMETRIES.get(name, GEOMETRIES["default"])
-        bilinear.MULTIVIEW_BLOCKS_PER_SM, bilinear.MULTIVIEW_STAGED_BYTES = bps, staged
+        bilinear.MULTIVIEW_WARPS_PER_SM = GEOMETRIES.get(name, GEOMETRIES["default"])
+        rule = CHUNKS.get(name, lambda k: k)
+        bilinear.multiview_chunk = lambda *args: rule(chunk(*args))
         bilinear.multiview_kernel = (lambda: built[name][0]) if name in built else (
             lambda: default_kernel)
-
-        def halved(B, H, W, C, G, Ho, Wo, itemsize, sms):
-            P, VG, cap = geometry(B, H, W, C, G, Ho, Wo, itemsize, sms)
-            if views == "all" or G == 1:
-                return P, VG, cap
-            VG = -(-G // 2)
-            tiles = max(1, bps * sms // (B * 2))
-            return -(-(Ho * Wo) // tiles), VG, cap
-
-        bilinear.multiview_geometry = halved
 
     inputs = {}
     for shape_name, (shape, _) in chip_smoke.MULTIVIEW_TIMING_SHAPES.items():
@@ -138,7 +127,7 @@ def main() -> int:
         inputs[shape_name] = (img, x, y)
     ret = {name: (0.05 * torch.randn(3 * 64, inputs[name][0].shape[-1] * inputs[name][1].shape[1],
                                      device="cuda")).to(torch.bfloat16) for name in RET_SHAPES}
-    names = list(GEOMETRIES) + list(BUILDS)
+    names = list(GEOMETRIES) + list(CHUNKS) + list(BUILDS)
     refs = {}
     for shape_name, (img, x, y) in inputs.items():
         out = torch.empty(*img.shape[:1], *x.shape[2:], x.shape[1] * img.shape[-1],
@@ -159,7 +148,7 @@ def main() -> int:
                 if name not in PROBES and not torch.equal(fn(), want[shape_name]):
                     raise AssertionError(f"{name} at {shape_name} differs from the default")
                 times[shape_name] = chip_smoke.queued_ms(torch, fn, 50)[0] * 1e3
-            if name in ("default", "stream"):
+            if name in ("default", "no_stream"):
                 for shape_name in RET_SHAPES:
                     img, x, y = inputs[shape_name]
                     w = ret[shape_name]

@@ -507,23 +507,32 @@ def test_cuda_multiview_kernel_matches_plain_at_model_shapes(cuda_device, mode, 
                                                              dtype):
     """K7 at TrajGRU's five shapes (B=16) and the bridge's (B=128, G=9) with
     the bounds above, on flows of about 1 px, coordinates spread over the
-    image (past the staged rows at 32^2 x 64) and far outside it."""
+    image and far outside it."""
     _assert_k7_matches_plain(*_model_shape_inputs(K7_MODEL_SHAPES[shape], case, cuda_device,
                                                   dtype), mode)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("mode", ["zeros", "border"])
-def test_cuda_multiview_kernel_reads_taps_past_the_staged_rows(cuda_device, mode, dtype):
-    """At enc_rnn1 (B=16, 32^2, C=64, G=13) flows of 12 px span more source
-    rows than a block stages (8 in fp32, 16 in bf16 and fp16, by
-    ``multiview_geometry``): the taps past them are read from global memory,
-    with the bounds above."""
-    shape = K7_MODEL_SHAPES["enc_rnn1"]
-    cap = bilinear.multiview_geometry(*shape, torch.finfo(dtype).bits // 8, 132)[2]
-    assert cap < shape[1]
-    _assert_k7_matches_plain(*_model_shape_inputs(shape, "flow", cuda_device, dtype, seed=1,
-                                                  reach=12.0), mode)
+def test_cuda_multiview_kernel_at_large_flows(cuda_device, mode, dtype):
+    """At enc_rnn1 (B=16, 32^2, C=64, G=13) flows of 12 px, with the bounds
+    above."""
+    _assert_k7_matches_plain(*_model_shape_inputs(K7_MODEL_SHAPES["enc_rnn1"], "flow",
+                                                  cuda_device, dtype, seed=1, reach=12.0), mode)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["fore_rnn1", "rnn2", "bridge"])
+def test_cuda_multiview_kernel_gives_the_same_bits_at_every_chunk(cuda_device, shape, dtype,
+                                                                  monkeypatch):
+    """A warp's chunk of 1 to 32 (output pixel, view) entries, or a thread
+    per (entry, channel vector) pair (chunk 0), changes which lane blends an
+    output, not its bits."""
+    img, x, y = _model_shape_inputs(K7_MODEL_SHAPES[shape], "spread", cuda_device, dtype, seed=3)
+    want = bilinear.bilinear_gather_multiview_forward(img, x, y, "zeros")
+    for chunk in (0, 1, 3, 32):
+        monkeypatch.setattr(bilinear, "multiview_chunk", lambda *args, chunk=chunk: chunk)
+        assert torch.equal(bilinear.bilinear_gather_multiview_forward(img, x, y, "zeros"), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])

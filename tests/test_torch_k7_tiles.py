@@ -1,25 +1,29 @@
 """A model of the CUDA K7's decomposition (``csrc/multiview_gather.cu``) in
-torch on the CPU, held bit for bit in fp32 to the plain version
-``bilinear_gather_multiview_plain`` in both padding modes, and at TrajGRU's
-and the bridge's shapes within 1e-5 abs to the JAX package's
-``bilinear_gather_multiview_xla`` (the plain version is held to it at the
-other shapes in tests/test_torch_multiview_gather.py; a jitted JAX function
-compiles once per shape, which sets this file's time).
+torch on the CPU, held to the plain version ``bilinear_gather_multiview_plain``
+in both padding modes, and at TrajGRU's and the bridge's shapes within 1e-5
+abs to the JAX package's ``bilinear_gather_multiview_xla`` (the plain
+version is held to it at the other shapes in
+tests/test_torch_multiview_gather.py; a jitted JAX function compiles once
+per shape, which sets this file's time).
 
-The model follows the kernel's phases with the launch geometry of
-``bilinear.multiview_geometry`` (or one given): blocks by (batch element,
-tile of P output pixels, group of VG views); each (pixel, view) reckoned
-once (clamp, floor, fractions, integer taps); the block's staged rows from
-the min and max row of its taps that are read, capped at the geometry's
-rows around the block's output rows; each tap coded as an offset into the
-staged rows, into the zero pixel after them (a masked tap) or into the
-source (a tap outside the staged rows); then the blend of the four taps
-with the entry's fractions, shared by all channels. Staged slots that no
-row fills hold NaN, so a code that points at one shows. The inputs: every
-``MULTIVIEW_SHAPES`` entry and TrajGRU's five K7 shapes and the deformable
-conv's nine taps at B=2, on every coordinate case of tests/torch_cases.py
-(``spread`` spans more rows than the cap at 32^2 x 64: its taps past the
-staged rows are read from the source), and caps of 1 and 0 rows.
+The model follows the kernel: the (output pixel, view) entries in output
+order, each reckoned once by one lane of its warp's chunk (the entry's
+view, pixel and batch element from its index, its coordinates clamped and
+floored, its fractions and its four taps' element offsets in the source, or
+-1 for a masked tap); then every channel of the entry blended from those,
+the entry's numbers shared by all of them. Blended with the plain version's
+lerps (``blend="lerp"``) the model equals it bit for bit in fp32: the
+entries, the taps, the masks and the output's layout are exact. The kernel
+blends with one weight per tap, the products of the fractions reckoned with
+the entry (``blend="weights"``), which rounds otherwise: that model is held
+within 1e-5 abs, the card tests' bound of the kernel (and its fused
+multiply-adds) against the plain version. The lanes' walk over a chunk's
+(entry, channel vector) pairs, a fixed first pair and a fixed step with no
+division, is simulated for every chunk size and lane count the kernel can
+get: each pair once, 32 consecutive pairs a round (chunk 0, a thread per
+pair, maps thread i to pair i). The inputs: every ``MULTIVIEW_SHAPES``
+entry and TrajGRU's five K7 shapes and the deformable conv's nine taps at
+B=2, on every coordinate case of tests/torch_cases.py.
 """
 
 import functools
@@ -35,9 +39,7 @@ from tests.torch_cases import GATHER_CASES as CASES
 from tests.torch_cases import MULTIVIEW_SHAPES, multiview_inputs
 
 MODES = ("zeros", "border")
-SMS = 132  # the H100's SMs, which the geometry fills
-ENTRY_BYTES = 32  # the kernel's table entry: wx, wy, out, pad, 4 tap codes
-SMEM_PER_SM = 232448  # the most a block can take on an H100 (227 KB)
+SMS = 132  # the H100's SMs
 # TrajGRU's K7 shapes (B, H, W, C, G, Ho, Wo) at B=2 (128^2 input), and the
 # deformable conv at DAGEM's bridge (16^2, C=64, 9 taps).
 K7_SHAPES = {
@@ -51,25 +53,20 @@ K7_SHAPES = {
 SHAPES = {**MULTIVIEW_SHAPES, **K7_SHAPES}
 
 
-def k7_model(img, x, y, mode, geometry=None):
+def k7_model(img, x, y, mode, blend="weights"):
     """The CUDA K7's output on ``img`` (B, H, W, C) at ``x``, ``y``
-    (B, G, Ho, Wo), and the count of taps read from the staged rows and from
-    the source."""
+    (B, G, Ho, Wo), blended as the kernel does (``"weights"``) or as the
+    plain version does (``"lerp"``)."""
     B, H, W, C = img.shape
     G, Ho, Wo = x.shape[1:]
-    P, VG, cap = geometry or bilinear.multiview_geometry(B, H, W, C, G, Ho, Wo,
-                                                         img.element_size(), SMS)
-    zeros = mode == "zeros"
     HoWo = Ho * Wo
-    tiles, groups = -(-HoWo // P), -(-G // VG)
-    n_blocks = B * tiles * groups
-    # Phase 1: each (pixel, view), entry [b, g, pixel], reckoned once.
-    bb = torch.arange(B).view(B, 1, 1).expand(B, G, HoWo)
-    gg = torch.arange(G).view(1, G, 1).expand(B, G, HoWo)
-    pix = torch.arange(HoWo).view(1, 1, HoWo).expand(B, G, HoWo)
-    block = (bb * tiles + pix // P) * groups + gg // VG
-    xs, ys = x.reshape(B, G, HoWo), y.reshape(B, G, HoWo)
-    if zeros:
+    # Each entry reckoned once: entry = (b * HoWo + pixel) * G + view.
+    entry = torch.arange(B * HoWo * G)
+    bp, g = entry // G, entry % G
+    b, pixel = bp // HoWo, bp % HoWo
+    q = (b * G + g) * HoWo + pixel  # its coordinates' index in x, y
+    xs, ys = x.reshape(-1)[q], y.reshape(-1)[q]
+    if mode == "zeros":
         xs, ys = xs.clamp(-2.0, W + 1.0), ys.clamp(-2.0, H + 1.0)
     else:
         xs, ys = xs.clamp(0.0, W - 1), ys.clamp(0.0, H - 1)
@@ -77,63 +74,44 @@ def k7_model(img, x, y, mode, geometry=None):
     wx, wy = xs - x0f, ys - y0f
     x0, y0 = x0f.long(), y0f.long()
     x1, y1 = x0 + 1, y0 + 1
-    if zeros:
-        cols = (x0 >= -1) & (x0 <= W - 1)
-        rows_read = [(y0, cols & (y0 >= 0) & (y0 <= H - 1)),
-                     (y1, cols & (y1 >= 0) & (y1 <= H - 1))]
-        vx = (x0 >= 0) & (x0 <= W - 1), (x1 >= 0) & (x1 <= W - 1)
-        vy = (y0 >= 0) & (y0 <= H - 1), (y1 >= 0) & (y1 <= H - 1)
+    if mode == "zeros":
+        vx = ((x0 >= 0) & (x0 <= W - 1), (x1 >= 0) & (x1 <= W - 1))
+        vy = ((y0 >= 0) & (y0 <= H - 1), (y1 >= 0) & (y1 <= H - 1))
     else:
         x1, y1 = x1.clamp(max=W - 1), y1.clamp(max=H - 1)
-        every = torch.ones_like(x0, dtype=torch.bool)
-        rows_read = [(y0, every), (y1, every)]
-        vx = vy = (every, every)
-    # The block's min and max row read, then the cap.
-    lo = torch.full((n_blocks,), 2**31 - 1, dtype=torch.long)
-    hi = torch.full((n_blocks,), -2**31, dtype=torch.long)
-    for r, read in rows_read:
-        lo.scatter_reduce_(0, block[read], r[read], "amin")
-        hi.scatter_reduce_(0, block[read], r[read], "amax")
-    pix0 = torch.arange(n_blocks) // groups % tiles * P
-    last = pix0 + (HoWo - pix0).clamp(max=P) - 1  # the block's last output pixel
-    centre = (pix0 // Wo + last // Wo + 1) * H // (2 * Ho)
-    capped = torch.maximum(lo, torch.minimum(centre - cap // 2, hi - cap + 1))
-    none, over = lo > hi, hi - lo + 1 > cap
-    lo = torch.where(none, 0, torch.where(over, capped, lo))
-    hi = torch.where(none, -1, torch.where(over, capped + cap - 1, hi))
-    rows = hi - lo + 1
-    # Phase 2: each block's staged rows, NaN past them, then the zero pixel.
-    flat = img.reshape(B, H * W, C)
-    slot = torch.arange(cap * W)
-    block_b = torch.arange(n_blocks) // (tiles * groups)
-    filled = slot.view(1, -1) < (rows * W).view(-1, 1)
-    source = (lo * W).view(-1, 1) + slot.view(1, -1)
-    staged = torch.full((n_blocks, cap * W + 1, C), float("nan"), dtype=img.dtype)
-    staged[:, :-1][filled] = flat[block_b.view(-1, 1).expand_as(source)[filled], source[filled]]
-    staged[:, -1] = 0.0
-    # Each tap's code: staged slot (the zero pixel for a masked tap) or source.
-    counts = {"staged": 0, "source": 0}
-    taps = []
-    for ry, ok_y in ((y0, vy[0]), (y1, vy[1])):
-        for cx, ok_x in ((x0, vx[0]), (x1, vx[1])):
-            valid = ok_y & ok_x
-            blo = lo[block]
-            in_band = valid & (ry - blo >= 0) & (ry - blo < rows[block])
-            from_source = valid & ~in_band
-            code = torch.where(valid, (ry - blo) * W + cx, cap * W)
-            code = torch.where(from_source, 0, code)
-            v = staged[block, code]
-            idx = torch.where(from_source, ry * W + cx, 0)
-            v = torch.where(from_source[..., None], flat[bb, idx], v)
-            counts["staged"] += int(in_band.sum())
-            counts["source"] += int(from_source.sum())
-            taps.append(v)
-    # Phase 3: the blend, one entry's fractions for all its channels.
-    wx, wy = wx[..., None], wy[..., None]
-    top = taps[0] * (1.0 - wx) + taps[1] * wx
-    bot = taps[2] * (1.0 - wx) + taps[3] * wx
-    out = top * (1.0 - wy) + bot * wy  # (B, G, HoWo, C)
-    return out.permute(0, 2, 1, 3).reshape(B, Ho, Wo, G * C), counts
+        vx = vy = (torch.ones_like(x0, dtype=torch.bool),) * 2
+    taps = [torch.where(vy[i] & vx[j], ((b * H + ry) * W + cx) * C, -1)
+            for i, ry in enumerate((y0, y1)) for j, cx in enumerate((x0, x1))]
+    # Every channel of an entry from its taps and fractions.
+    flat = img.reshape(-1, C)
+    a = [torch.where((t >= 0)[:, None], flat[t.clamp(min=0) // C], 0.0) for t in taps]
+    if blend == "weights":
+        w = [(1.0 - wx) * (1.0 - wy), wx * (1.0 - wy), (1.0 - wx) * wy, wx * wy]
+        out = a[0] * w[0][:, None] + a[1] * w[1][:, None] + a[2] * w[2][:, None] \
+            + a[3] * w[3][:, None]
+    else:
+        wx, wy = wx[:, None], wy[:, None]
+        top = a[0] * (1.0 - wx) + a[1] * wx
+        bot = a[2] * (1.0 - wx) + a[3] * wx
+        out = top * (1.0 - wy) + bot * wy
+    return out.reshape(B, Ho, Wo, G * C)
+
+
+def lane_walk(K, nvec):
+    """The (entry, vector) pairs each lane of a warp blends in a chunk of K
+    entries with nvec channel vectors each, round by round, as the kernel
+    steps them: the first pair (lane / nvec, lane % nvec), then 32 pairs on
+    by (32 / nvec, 32 % nvec) and a carry."""
+    e, v = np.divmod(np.arange(32), nvec)
+    de, dv = divmod(32, nvec)
+    rounds = []
+    for p in range(0, K * nvec, 32):
+        live = np.arange(p, p + 32) < K * nvec
+        rounds.append([(int(a), int(c)) for a, c, ok in zip(e, v, live) if ok])
+        e, v = e + de, v + dv
+        carry = v >= nvec
+        e, v = e + carry, v - nvec * carry
+    return rounds
 
 
 @functools.cache
@@ -141,60 +119,43 @@ def _xla(mode):
     return jax.jit(lambda i, a, b: bilinear_gather_multiview_xla(i, a, b, mode))
 
 
-def _check(img, x, y, mode, geometry=None, xla=False):
-    img_t, x_t, y_t = (torch.from_numpy(a) for a in (img, x, y))
-    got, counts = k7_model(img_t, x_t, y_t, mode, geometry)
-    want = bilinear.bilinear_gather_multiview_plain(img_t, x_t, y_t, mode)
-    assert not bool(torch.isnan(got).any())
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    if xla:
-        np.testing.assert_allclose(got.numpy(), np.asarray(_xla(mode)(img, x, y)), rtol=0,
-                                   atol=1e-5)
-    return counts
-
-
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("mode", MODES)
 def test_model_matches_plain_and_xla(mode, shape, case):
-    _check(*multiview_inputs(SHAPES[shape], case)[:3], mode, xla=shape in K7_SHAPES)
+    img, x, y, _ = multiview_inputs(SHAPES[shape], case)
+    args = [torch.from_numpy(a) for a in (img, x, y)]
+    want = bilinear.bilinear_gather_multiview_plain(*args, mode)
+    torch.testing.assert_close(k7_model(*args, mode, blend="lerp"), want, rtol=0, atol=0)
+    got = k7_model(*args, mode)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if shape in K7_SHAPES:
+        np.testing.assert_allclose(got.numpy(), np.asarray(_xla(mode)(img, x, y)), rtol=0,
+                                   atol=1e-5)
 
 
-@pytest.mark.parametrize("cap", [0, 1])
-@pytest.mark.parametrize("mode", MODES)
-def test_model_reads_the_source_past_the_cap(mode, cap):
-    """Taps past a cap of one staged row, or of none, come from the source,
-    with the same bits."""
-    shape = SHAPES["g13_c16"]
-    img, x, y, _ = multiview_inputs(shape, "spread", seed=3)
-    P, VG, _ = bilinear.multiview_geometry(*shape, 4, SMS)
-    counts = _check(img, x, y, mode, (P, VG, cap))
-    assert counts["source"] > 0
-    assert counts["staged"] > 0 if cap else counts["staged"] == 0
+# Channel vectors per entry: C = 3 and 6 (one channel a lane), 64 in bf16
+# (8) and fp32 (16), 192 in bf16 (24) and fp32 (48), 16 in fp32 (4).
+@pytest.mark.parametrize("nvec", [1, 3, 4, 6, 8, 16, 24, 48])
+@pytest.mark.parametrize("K", [1, 2, 3, 7, 32])
+def test_lanes_blend_each_pair_once_in_output_order(K, nvec):
+    """Every (entry, vector) pair of a chunk once, and each round 32
+    consecutive pairs (the output is written in consecutive 16-byte
+    vectors), whatever the chunk and the lanes an entry takes."""
+    rounds = lane_walk(K, nvec)
+    pairs = [pair for r in rounds for pair in r]
+    assert pairs == [(e, v) for e in range(K) for v in range(nvec)]
+    assert all(len(r) == 32 for r in rounds[:-1])
 
 
-def test_spread_coordinates_overflow_the_staged_rows():
-    """fp32 at enc_rnn1: a row is 8 KB, so 8 rows are staged of the 32 that
-    coordinates spread over the image touch; the rest come from the source.
-    At grid coordinates every tap lies in the staged rows."""
-    shape = K7_SHAPES["enc_rnn1"]
-    assert bilinear.multiview_geometry(*shape, 4, SMS)[2] == 8
-    spread = _check(*multiview_inputs(shape, "spread")[:3], "zeros")
-    grid = _check(*multiview_inputs(shape, "grid")[:3], "zeros")
-    assert spread["source"] > 0 and grid["source"] == 0
-
-
-@pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("shape", list(SHAPES))
-def test_geometry_fits_the_card(shape, itemsize):
-    """The launch geometry keeps a block's entries and staged rows in the
-    shared memory of an H100 block, and at TrajGRU's and the bridge's shapes
-    (at B=2, and at the B=16 and 128 that they are timed at) two blocks to
-    an SM."""
-    B, H, W, C, G, Ho, Wo = SHAPES[shape]
-    for batch in (B, 128 if shape == "bridge" else 16):
-        P, VG, cap = bilinear.multiview_geometry(batch, H, W, C, G, Ho, Wo, itemsize, SMS)
-        assert 1 <= P <= Ho * Wo and 1 <= VG <= G and 0 <= cap <= H
-        assert P * VG <= bilinear.MULTIVIEW_ENTRIES
-        smem = P * VG * ENTRY_BYTES + (cap * W * C + C) * itemsize
-        assert (2 if shape in K7_SHAPES else 1) * smem <= SMEM_PER_SM
+def test_chunks_fill_the_card():
+    """32 entries a warp at TrajGRU's 32^2 levels (B=16) and the bridge
+    (B=128); fewer at its 8^2 levels, where 32 would leave most warps of the
+    card idle; a thread per pair (0) at its 4^2 levels; 0 or 2 to 32."""
+    for shape, want in (("enc_rnn1", 32), ("fore_rnn1", 32), ("bridge", 32), ("rnn2", 6),
+                        ("enc_rnn3", 0), ("fore_rnn3", 0)):
+        B = 128 if shape == "bridge" else 16
+        _, _, _, _, G, Ho, Wo = K7_SHAPES[shape]
+        assert bilinear.multiview_chunk(B, G, Ho, Wo, SMS) == want
+    assert bilinear.multiview_chunk(1, 1, 1, 1, SMS) == 0
+    assert bilinear.multiview_chunk(4096, 16, 64, 64, SMS) == 32
