@@ -19,8 +19,9 @@
 // Bound. Each input read once and the output written once: at TrajGRU's
 // enc_rnn1 (B=16, 32x32, C=64, G=13, bf16) 2.1 MB of source, 1.7 MB of
 // fp32 coordinates and 27.3 MB of output, 31.1 MB or 9.3 us at 3.35 TB/s;
-// the blend's ~9 fp32 operations per output element are far below the
-// card's rate. The output sets the bound. The first port (one thread per
+// the blend's few fp32 operations per output element are far below the
+// card's rate. The output sets the bound: on an H100 writing those 27.3 MB
+// alone (torch's zero_) takes 10.0 us. The first port (one thread per
 // output pixel, view and 16-byte channel vector) read 4 taps x 16 bytes
 // per 16 bytes written from L2, about 109 MB at enc_rnn1, redid each
 // view's coordinate arithmetic in every channel lane, and found its pixel,
@@ -66,7 +67,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr bool kStreamStores = true;  // write the output with st.global.cs (evict first)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -174,7 +174,7 @@ __device__ __forceinline__ void blend(const T* __restrict__ img, const float4& w
 #pragma unroll
   for (int i = 0; i < VEC; ++i) r[i] = a[0][i] * w.x + a[1][i] * w.y + a[2][i] * w.z + a[3][i] * w.w;
   const Vec<T, VEC> res = round_to<T, VEC>(r);
-  if (kStreamStores && sizeof(res) == 16)
+  if constexpr (sizeof(res) == 16)  // a streaming store: the output is read once, later
     __stcs(reinterpret_cast<int4*>(dst), *reinterpret_cast<const int4*>(&res));
   else
     *reinterpret_cast<Vec<T, VEC>*>(dst) = res;

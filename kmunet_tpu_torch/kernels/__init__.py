@@ -12,3 +12,14 @@
 | K3 fused HSM-SSD mixer | ``ssd`` | ``csrc/hsmssd.cu`` | ``kmunet_tpu/kernels/ssd_mix_pallas.py::hsmssd_mix`` |
 | K3a HSM-SSD mixer ablation (five modes) | ``ablate_mix`` | ``csrc/hsmssd_ablate.cu`` | ``scripts/ablate_mix_kernel.py::run`` (``make_kernel``) |
 """
+
+import functools
+
+import torch
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, which the kernels' launch
+    geometries fill."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from kmunet_tpu_torch.kernels import build
+from kmunet_tpu_torch.kernels import build, sm_count
 
 SOURCE = "hsmssd_ablate.cu"
 MODES = ("full", "bf16_e", "no_max", "no_exp", "dma_only")
@@ -128,11 +128,6 @@ def kernel() -> ctypes._CFuncPtr:
     return fn
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check(xt, dt, Bm, Cm, tile) -> None:
     """What the kernel takes: contiguous CUDA tensors on one device, N a
     power of two in STATE_SIZES, 1 <= C <= MAX_C, tiles of whole KTILE-token
@@ -172,7 +167,7 @@ def ablate_mix_forward(mode, xt, dt, Bm, Cm, A, tile) -> torch.Tensor:
     Bsz, C, L = xt.shape
     N = dt.shape[2]
     n_tiles = L // tile
-    spt, tps = _slices(Bsz, L, tile, _sm_count(xt.device.index))
+    spt, tps = _slices(Bsz, L, tile, sm_count(xt.device.index))
     S = n_tiles * spt
     if 4 * (S * N + N) > MAX_MERGE_SMEM:
         raise ValueError(f"{S} slices of {N} states: the merge pass's weights exceed "

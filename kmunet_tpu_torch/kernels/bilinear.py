@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from kmunet_tpu_torch.kernels import build
+from kmunet_tpu_torch.kernels import build, sm_count
 
 SOURCE = "bilinear_gather.cu"
 MULTIVIEW_SOURCE = "multiview_gather.cu"
@@ -339,11 +339,6 @@ def multiview_chunk(B: int, G: int, Ho: int, Wo: int, sms: int) -> int:
     return chunk if chunk >= 2 else 0
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def multiview_backward_kernel() -> ctypes._CFuncPtr:
     """K6's shared-source entry point, built on first use (from K6's source)."""
     return _kernel(BACKWARD_SOURCE, "kmunet_bilinear_gather_multiview_backward", 8, 10)
@@ -594,7 +589,7 @@ def bilinear_gather_multiview_forward(
     out = torch.empty((B, Ho, Wo, G * C), dtype=img.dtype, device=img.device)
     _launch(multiview_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
             B, H, W, C, G, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
-            _vec(img), multiview_chunk(B, G, Ho, Wo, _sm_count(img.device.index)))
+            _vec(img), multiview_chunk(B, G, Ho, Wo, sm_count(img.device.index)))
     bilinear_gather_multiview.launches += 1
     return out
 

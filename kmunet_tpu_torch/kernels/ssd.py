@@ -34,7 +34,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from kmunet_tpu_torch.kernels import build
+from kmunet_tpu_torch.kernels import build, sm_count
 
 SOURCE = "hsmssd.cu"
 TILE = 64  # tokens per tile of the compress and scatter passes (csrc's kT)
@@ -120,11 +120,6 @@ def mix_kernel() -> ctypes._CFuncPtr:
     return _kernel("kmunet_hsmssd_mix", 13, 7, 3)
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check(x, dt, Bm, Cm=None) -> None:
     """What the kernels take: CUDA tensors of one dtype, x contiguous, dt,
     B and C with contiguous tokens and rows of L (any batch stride)."""
@@ -157,7 +152,7 @@ def _slices(x) -> tuple[int, int]:
     slices of tps tiles (the module's BLOCKS_PER_SM and MIN_TILES)."""
     Bsz, _, L = x.shape
     tiles = -(-L // TILE)
-    want = max(1, -(-BLOCKS_PER_SM * _sm_count(x.device.index) // Bsz))
+    want = max(1, -(-BLOCKS_PER_SM * sm_count(x.device.index) // Bsz))
     tps = max(MIN_TILES, -(-tiles // want))
     return -(-tiles // tps), tps
 

@@ -2,9 +2,9 @@
 torch on the CPU, held to the plain version ``bilinear_gather_multiview_plain``
 in both padding modes, and at TrajGRU's and the bridge's shapes within 1e-5
 abs to the JAX package's ``bilinear_gather_multiview_xla`` (the plain
-version is held to it at the other shapes in
+version is held to it at every shape in
 tests/test_torch_multiview_gather.py; a jitted JAX function compiles once
-per shape, which sets this file's time).
+per shape and mode, which sets this file's time).
 
 The model follows the kernel: the (output pixel, view) entries in output
 order, each reckoned once by one lane of its warp's chunk (the entry's
@@ -12,18 +12,17 @@ view, pixel and batch element from its index, its coordinates clamped and
 floored, its fractions and its four taps' element offsets in the source, or
 -1 for a masked tap); then every channel of the entry blended from those,
 the entry's numbers shared by all of them. Blended with the plain version's
-lerps (``blend="lerp"``) the model equals it bit for bit in fp32: the
-entries, the taps, the masks and the output's layout are exact. The kernel
-blends with one weight per tap, the products of the fractions reckoned with
-the entry (``blend="weights"``), which rounds otherwise: that model is held
-within 1e-5 abs, the card tests' bound of the kernel (and its fused
-multiply-adds) against the plain version. The lanes' walk over a chunk's
+lerps the model equals it bit for bit in fp32: the entries, the taps, the
+masks and the output's layout are exact. The kernel blends with one weight
+per tap, the products of the fractions reckoned with the entry, which
+rounds otherwise: that blend is held within 1e-5 abs, the card tests' bound
+of the kernel (and its fused multiply-adds) against the plain version. The lanes' walk over a chunk's
 (entry, channel vector) pairs, a fixed first pair and a fixed step with no
 division, is simulated for every chunk size and lane count the kernel can
 get: each pair once, 32 consecutive pairs a round (chunk 0, a thread per
 pair, maps thread i to pair i). The inputs: every ``MULTIVIEW_SHAPES``
 entry and TrajGRU's five K7 shapes and the deformable conv's nine taps at
-B=2, on every coordinate case of tests/torch_cases.py.
+B=1, on every coordinate case of tests/torch_cases.py.
 """
 
 import functools
@@ -40,23 +39,25 @@ from tests.torch_cases import MULTIVIEW_SHAPES, multiview_inputs
 
 MODES = ("zeros", "border")
 SMS = 132  # the H100's SMs
-# TrajGRU's K7 shapes (B, H, W, C, G, Ho, Wo) at B=2 (128^2 input), and the
+# TrajGRU's K7 shapes (B, H, W, C, G, Ho, Wo) at B=1 (128^2 input), and the
 # deformable conv at DAGEM's bridge (16^2, C=64, 9 taps).
 K7_SHAPES = {
-    "enc_rnn1": (2, 32, 32, 64, 13, 32, 32),
-    "fore_rnn1": (2, 32, 32, 64, 9, 32, 32),
-    "rnn2": (2, 8, 8, 192, 13, 8, 8),
-    "enc_rnn3": (2, 4, 4, 192, 9, 4, 4),
-    "fore_rnn3": (2, 4, 4, 192, 13, 4, 4),
-    "bridge": (2, 16, 16, 64, 9, 16, 16),
+    "enc_rnn1": (1, 32, 32, 64, 13, 32, 32),
+    "fore_rnn1": (1, 32, 32, 64, 9, 32, 32),
+    "rnn2": (1, 8, 8, 192, 13, 8, 8),
+    "enc_rnn3": (1, 4, 4, 192, 9, 4, 4),
+    "fore_rnn3": (1, 4, 4, 192, 13, 4, 4),
+    "bridge": (1, 16, 16, 64, 9, 16, 16),
 }
 SHAPES = {**MULTIVIEW_SHAPES, **K7_SHAPES}
+# The shapes also held to JAX: C=64 at 32^2, C=192 at 8^2, 9 taps at 16^2.
+XLA_SHAPES = ("enc_rnn1", "rnn2", "bridge")
 
 
-def k7_model(img, x, y, mode, blend="weights"):
+def k7_model(img, x, y, mode):
     """The CUDA K7's output on ``img`` (B, H, W, C) at ``x``, ``y``
-    (B, G, Ho, Wo), blended as the kernel does (``"weights"``) or as the
-    plain version does (``"lerp"``)."""
+    (B, G, Ho, Wo), blended as the kernel does (one weight per tap) and as
+    the plain version does (lerps of lerps)."""
     B, H, W, C = img.shape
     G, Ho, Wo = x.shape[1:]
     HoWo = Ho * Wo
@@ -85,16 +86,14 @@ def k7_model(img, x, y, mode, blend="weights"):
     # Every channel of an entry from its taps and fractions.
     flat = img.reshape(-1, C)
     a = [torch.where((t >= 0)[:, None], flat[t.clamp(min=0) // C], 0.0) for t in taps]
-    if blend == "weights":
-        w = [(1.0 - wx) * (1.0 - wy), wx * (1.0 - wy), (1.0 - wx) * wy, wx * wy]
-        out = a[0] * w[0][:, None] + a[1] * w[1][:, None] + a[2] * w[2][:, None] \
-            + a[3] * w[3][:, None]
-    else:
-        wx, wy = wx[:, None], wy[:, None]
-        top = a[0] * (1.0 - wx) + a[1] * wx
-        bot = a[2] * (1.0 - wx) + a[3] * wx
-        out = top * (1.0 - wy) + bot * wy
-    return out.reshape(B, Ho, Wo, G * C)
+    w = [((1.0 - wx) * (1.0 - wy))[:, None], (wx * (1.0 - wy))[:, None],
+         ((1.0 - wx) * wy)[:, None], (wx * wy)[:, None]]
+    weights = a[0] * w[0] + a[1] * w[1] + a[2] * w[2] + a[3] * w[3]
+    wx, wy = wx[:, None], wy[:, None]
+    top = a[0] * (1.0 - wx) + a[1] * wx
+    bot = a[2] * (1.0 - wx) + a[3] * wx
+    lerps = top * (1.0 - wy) + bot * wy
+    return weights.reshape(B, Ho, Wo, G * C), lerps.reshape(B, Ho, Wo, G * C)
 
 
 def lane_walk(K, nvec):
@@ -126,10 +125,10 @@ def test_model_matches_plain_and_xla(mode, shape, case):
     img, x, y, _ = multiview_inputs(SHAPES[shape], case)
     args = [torch.from_numpy(a) for a in (img, x, y)]
     want = bilinear.bilinear_gather_multiview_plain(*args, mode)
-    torch.testing.assert_close(k7_model(*args, mode, blend="lerp"), want, rtol=0, atol=0)
-    got = k7_model(*args, mode)
+    got, lerps = k7_model(*args, mode)
+    torch.testing.assert_close(lerps, want, rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    if shape in K7_SHAPES:
+    if shape in XLA_SHAPES:
         np.testing.assert_allclose(got.numpy(), np.asarray(_xla(mode)(img, x, y)), rtol=0,
                                    atol=1e-5)
 
