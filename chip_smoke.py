@@ -43,9 +43,10 @@ Phases, each printing one JSON line with its seconds:
               G=13, at B=2), the deformable conv's 9 taps at the bridge
               (16^2, C=64, G=9), C=6 and C=3 (one channel per thread in fp32
               and bf16), G=1, G=16 and 16^2 -> 160^2, each view on its own
-              draw of the coordinate cases; and a layout case: at integer coordinates x = j - dx_l,
-              y = i - dy_l, K7's channel block l must equal the source shifted by
-              (dy_l, dx_l), zeros outside, exactly. Then K8 and its backward
+              draw of the coordinate cases; and a layout case: at integer
+              coordinates x = j - dx_l, y = i - dy_l, K7's channel block l
+              must equal the source shifted by (dy_l, dx_l), zeros outside,
+              exactly. Then K8 and its backward
               (y and the six gradients) at Mamba-UNet's scan shapes at B=2
               (the refine layers at L=16384 with D=16/32/48, encoder4 at
               L=256, the L=64 and L=16 levels with D=64-128), a ragged L of
