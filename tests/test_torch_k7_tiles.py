@@ -113,6 +113,16 @@ def lane_walk(K, nvec):
     return rounds
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The model's tensors are small: one intra-op thread runs it as fast
+    alone and does not contend with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.cache
 def _xla(mode):
     return jax.jit(lambda i, a, b: bilinear_gather_multiview_xla(i, a, b, mode))
