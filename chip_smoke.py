@@ -42,7 +42,9 @@ Phases, each printing one JSON line with its seconds:
               (32^2 C=64 G=13 and G=9, 8^2 C=192 G=13, 4^2 C=192 G=9 and
               G=13, at B=2), the deformable conv's 9 taps at the bridge
               (16^2, C=64, G=9), C=6 and C=3 (one channel per thread in fp32
-              and bf16), G=1, G=16 and 16^2 -> 160^2, each view on its own
+              and bf16), G=1, G=16 and 16^2 -> 160^2, and at the main
+              paths' batches, whose chunks B=2 does not give (enc_rnn1 and
+              rnn2 at B=16, the bridge at B=128), each view on its own
               draw of the coordinate cases; and a layout case: at integer
               coordinates x = j - dx_l, y = i - dy_l, K7's channel block l
               must equal the source shifted by (dy_l, dx_l), zeros outside,
@@ -258,8 +260,9 @@ Phases, each printing one JSON line with its seconds:
 8. multiview_timing -- K7 in bf16 at TrajGRU's five K7 shapes at B=16 and
               the deformable conv's (B=128, 16^2, C=64, G=9)
               (``MULTIVIEW_TIMING_SHAPES``, with each one's K7 launches per
-              forward): ms, queued ms, the profiler's device ms and device
-              launches per call, beside ``gather_bound`` and
+              forward), each output first held to the plain version (fp32,
+              1e-5 abs + one bf16 ulp): ms, queued ms, the profiler's device
+              ms and device launches per call, beside ``gather_bound`` and
               ``F.grid_sample``'s numbers on the source broadcast into the
               batch; at the bridge also the nine K5 calls and ``torch.cat``
               that K7 replaced there; and K4 at DySample's dec3
@@ -339,7 +342,10 @@ K6S_REPLACES = K6_REPLACES  # _backward_impl, shared=True
 # input and B=2 (rnn1 enc_rnn1, fore_rnn1 its G=9, rnn2 enc_rnn2 and
 # fore_rnn2, rnn3 enc_rnn3, fore_rnn3 its G=13), the deformable conv's 9 taps
 # at DAGEM's bridge, C of 6 and 3 (no 16-byte vector in fp32), G=1 and G=16,
-# and K6's unstaged segments as in GROUPED_SHAPES.
+# and K6's unstaged segments as in GROUPED_SHAPES. K7 takes its chunk from
+# the batch (kernels/bilinear.py::multiview_chunk): at B=2 these give 0, 2,
+# 8, 12 and 24; the last three are the main paths' own batches, whose chunks
+# differ: 32 at enc_rnn1 (B=16) and at the bridge (B=128), 6 at rnn2 (B=16).
 MULTIVIEW_SHAPES = {
     "rnn1": (2, 32, 32, 64, 13, 32, 32),
     "fore_rnn1": (2, 32, 32, 64, 9, 32, 32),
@@ -352,6 +358,9 @@ MULTIVIEW_SHAPES = {
     "g1": (2, 7, 9, 24, 1, 8, 7),
     "g16": (2, 9, 7, 16, 16, 10, 12),
     "unstaged": (1, 16, 16, 8, 2, 160, 160),
+    "rnn1_b16": (16, 32, 32, 64, 13, 32, 32),
+    "rnn2_b16": (16, 8, 8, 192, 13, 8, 8),
+    "bridge_b128": (*BRIDGE, TAPS, *BRIDGE[1:3]),
 }
 RNN1 = (16, 32, 32, 64, 13, 32, 32)  # K7's timing shape: enc_rnn1 at B=16
 # K7's shapes on the model paths, bf16, timed by ``multiview_timing``:
@@ -994,7 +1003,9 @@ def multiview_timing(torch, bilinear, shapes=None, iters: int = 50, library: boo
     (device time, no host gap), the profiler's device ms and device
     launches per call, beside the bound and, with ``library``,
     ``F.grid_sample``'s on the source broadcast into the batch (a copy made
-    before timing). At the bridge also the nine K5 calls and the
+    before timing). Each shape's output is first held to the plain version
+    on the same inputs in fp32, within 1e-5 abs + one bf16 ulp (the timed
+    launches' chunks are the main paths' own); raises where it is not. At the bridge also the nine K5 calls and the
     ``torch.cat`` that the deformable conv ran before K7 took its taps;
     and K4 at DySample's dec3 (``DEC3``, border), which K7's redesign
     leaves as it was."""
@@ -1020,8 +1031,12 @@ def multiview_timing(torch, bilinear, shapes=None, iters: int = 50, library: boo
         x = (jj + torch.randn(B, G, Ho, Wo, device="cuda")).contiguous()
         bound, bound_by, _, _ = gather_bound(torch, img, x, B * Ho * Wo * G * C, False)
         fn = lambda: bilinear.bilinear_gather_multiview_forward(img, x, y, "zeros")  # noqa: E731
+        want = bilinear.bilinear_gather_multiview_plain(img.float(), x, y, "zeros")
+        err = check_close(f"K7 {name} bfloat16", fn(), want,
+                          1e-5 + ulp_tolerance(torch, want, torch.bfloat16))
+        del want
         out[name] = {"shape": list(shape), "launches_per_forward": per_forward, **numbers(fn),
-                     "bound_ms": bound, "bound_by": bound_by}
+                     "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
         if library:
             img_lib = img.permute(0, 3, 1, 2)[:, None].expand(B, G, C, H, W).reshape(
                 B * G, C, H, W)

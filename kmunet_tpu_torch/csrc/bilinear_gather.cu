@@ -50,25 +50,9 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "gather_taps.cuh"  // to_f32, from_f32, Vec, taps: shared with K7 and K6
+
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half(v);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Vec {
-  T v[VEC];
-};
 
 // Loads img[pix, c0:c0+VEC] as fp32 into v, or zeros for a masked tap.
 template <typename T, int VEC>
@@ -100,45 +84,20 @@ bilinear_gather_kernel(const T* __restrict__ img, const float* __restrict__ xs,
     const int p = i / cv;  // b * HoWo + output pixel
     const int b = p / HoWo;
     const int q = (b * G + j / cvg) * HoWo + (p - b * HoWo);  // [b, group, pixel]
-    float x = xs[q];
-    float y = ys[q];
-    if (ZEROS) {
-      x = fminf(fmaxf(x, -2.f), (float)W + 1.f);
-      y = fminf(fmaxf(y, -2.f), (float)H + 1.f);
-    } else {
-      x = fminf(fmaxf(x, 0.f), (float)(W - 1));
-      y = fminf(fmaxf(y, 0.f), (float)(H - 1));
-    }
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
-    const float wx = x - x0f;
-    const float wy = y - y0f;
-    int x0 = (int)x0f, y0 = (int)y0f;
-    int x1 = x0 + 1, y1 = y0 + 1;
-    bool vx0 = true, vx1 = true, vy0 = true, vy1 = true;
-    if (ZEROS) {
-      vx0 = x0 >= 0 && x0 <= W - 1;
-      vx1 = x1 >= 0 && x1 <= W - 1;
-      vy0 = y0 >= 0 && y0 <= H - 1;
-      vy1 = y1 >= 0 && y1 <= H - 1;
-    } else {
-      // Border: x0, y0 already lie in range; the far tap duplicates the edge.
-      x1 = min(x1, W - 1);
-      y1 = min(y1, H - 1);
-    }
-    const int row0 = b * H + y0;
-    const int row1 = b * H + y1;
+    const Taps t = taps<ZEROS>(xs[q], ys[q], H, W);
+    const int row0 = b * H + t.y0;
+    const int row1 = b * H + t.y1;
     float v00[VEC], v01[VEC], v10[VEC], v11[VEC];
-    load_tap<T, VEC>(img, row0 * W + x0, C, c0, vy0 && vx0, v00);
-    load_tap<T, VEC>(img, row0 * W + x1, C, c0, vy0 && vx1, v01);
-    load_tap<T, VEC>(img, row1 * W + x0, C, c0, vy1 && vx0, v10);
-    load_tap<T, VEC>(img, row1 * W + x1, C, c0, vy1 && vx1, v11);
+    load_tap<T, VEC>(img, row0 * W + t.x0, C, c0, t.vy0 && t.vx0, v00);
+    load_tap<T, VEC>(img, row0 * W + t.x1, C, c0, t.vy0 && t.vx1, v01);
+    load_tap<T, VEC>(img, row1 * W + t.x0, C, c0, t.vy1 && t.vx0, v10);
+    load_tap<T, VEC>(img, row1 * W + t.x1, C, c0, t.vy1 && t.vx1, v11);
     Vec<T, VEC> r;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      const float top = v00[k] * (1.f - wx) + v01[k] * wx;
-      const float bot = v10[k] * (1.f - wx) + v11[k] * wx;
-      r.v[k] = from_f32<T>(top * (1.f - wy) + bot * wy);
+      const float top = v00[k] * (1.f - t.wx) + v01[k] * t.wx;
+      const float bot = v10[k] * (1.f - t.wx) + v11[k] * t.wx;
+      r.v[k] = from_f32<T>(top * (1.f - t.wy) + bot * t.wy);
     }
     *reinterpret_cast<Vec<T, VEC>*>(out + p * C + j * VEC) = r;
   }

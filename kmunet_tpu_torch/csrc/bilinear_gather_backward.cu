@@ -110,25 +110,12 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+// to_f32, from_f32, Vec and taps, shared with K5, K4 and K7. The unit and
+// the bin pass both take a unit's taps from taps(), so the owner pass's
+// weights are the unit pass's, bit for bit.
+#include "gather_taps.cuh"
+
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half(v);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Vec {
-  T v[VEC];
-};
 
 // Loads p[0:VEC] as fp32 into v, or zeros where valid is false.
 template <typename T, int VEC>
@@ -148,38 +135,6 @@ __device__ __forceinline__ float clip_vjp(float v, float lo, float hi) {
   float f = v > lo ? 1.f : (v == lo ? 0.5f : 0.f);
   const float m = fmaxf(v, lo);
   return f * (m < hi ? 1.f : (m == hi ? 0.5f : 0.f));
-}
-
-// The taps of one coordinate pair as the forward takes them: clamped,
-// floored, with the fractions; x1 = x0 + 1 (zeros mode, may lie outside)
-// or min(x0 + 1, W - 1) (border mode). The unit and the bin pass both take
-// them from here, so the owner pass's weights are the unit pass's, bit for
-// bit.
-struct Taps {
-  int x0, y0, x1, y1;
-  float wx, wy;
-};
-
-template <bool ZEROS>
-__device__ __forceinline__ Taps taps(float xr, float yr, int H, int W) {
-  float x, y;
-  if (ZEROS) {
-    x = fminf(fmaxf(xr, -2.f), (float)W + 1.f);
-    y = fminf(fmaxf(yr, -2.f), (float)H + 1.f);
-  } else {
-    x = fminf(fmaxf(xr, 0.f), (float)(W - 1));
-    y = fminf(fmaxf(yr, 0.f), (float)(H - 1));
-  }
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  Taps t;
-  t.wx = x - x0f;
-  t.wy = y - y0f;
-  t.x0 = (int)x0f;
-  t.y0 = (int)y0f;
-  t.x1 = ZEROS ? t.x0 + 1 : min(t.x0 + 1, W - 1);
-  t.y1 = ZEROS ? t.y0 + 1 : min(t.y0 + 1, H - 1);
-  return t;
 }
 
 // The unit's bin in its segment's (H + 1) x (W + 1) cell grid (anchor
@@ -228,14 +183,8 @@ unit_kernel(const T* __restrict__ img, const float* __restrict__ xs,
       const Taps t = taps<ZEROS>(xr, yr, H, W);
       cell = anchor_cell(t, H, W);
       const float wx = t.wx, wy = t.wy;
-      bool vx0 = true, vx1 = true, vy0 = true, vy1 = true;
-      if (ZEROS) {
-        vx0 = t.x0 >= 0 && t.x0 <= W - 1;
-        vx1 = t.x1 >= 0 && t.x1 <= W - 1;
-        vy0 = t.y0 >= 0 && t.y0 <= H - 1;
-        vy1 = t.y1 >= 0 && t.y1 <= H - 1;
-      }
-      const bool v00 = vy0 && vx0, v01 = vy0 && vx1, v10 = vy1 && vx0, v11 = vy1 && vx1;
+      const bool v00 = t.vy0 && t.vx0, v01 = t.vy0 && t.vx1, v10 = t.vy1 && t.vx0,
+                 v11 = t.vy1 && t.vx1;
       // Masked taps never form an address: their pixel index may be out of range.
       const int pix00 = v00 ? (b * H + t.y0) * W + t.x0 : 0;
       const int pix01 = v01 ? (b * H + t.y0) * W + t.x1 : 0;

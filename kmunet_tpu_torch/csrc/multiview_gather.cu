@@ -63,19 +63,12 @@
 
 #include <type_traits>
 
+#include "gather_taps.cuh"  // to_f32, Vec, taps: shared with K5, K4 and K6
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Vec {
-  T v[VEC];
-};
 
 // Channels c0 .. c0+VEC of the tap at element offset `tap` of img, as fp32,
 // by the read-only data path (the taps of neighbouring outputs meet in L1);
@@ -130,35 +123,14 @@ __device__ __forceinline__ void reckon(const float* __restrict__ xs, const float
   const int g = entry - bp * G;
   const int b = bp / HoWo;
   const int q = (b * G + g) * HoWo + (bp - b * HoWo);  // [b, g, pixel]
-  float x = xs[q];
-  float y = ys[q];
-  if (ZEROS) {
-    x = fminf(fmaxf(x, -2.f), (float)W + 1.f);
-    y = fminf(fmaxf(y, -2.f), (float)H + 1.f);
-  } else {
-    x = fminf(fmaxf(x, 0.f), (float)(W - 1));
-    y = fminf(fmaxf(y, 0.f), (float)(H - 1));
-  }
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float wx = x - x0f, wy = y - y0f;
-  const int x0 = (int)x0f, y0 = (int)y0f;
-  int x1 = x0 + 1, y1 = y0 + 1;
-  bool vx0 = true, vx1 = true, vy0 = true, vy1 = true;
-  if (ZEROS) {
-    vx0 = x0 >= 0 && x0 <= W - 1;
-    vx1 = x1 >= 0 && x1 <= W - 1;
-    vy0 = y0 >= 0 && y0 <= H - 1;
-    vy1 = y1 >= 0 && y1 <= H - 1;
-  } else {
-    // Border: x0, y0 already lie in range; the far tap duplicates the edge.
-    x1 = min(x1, W - 1);
-    y1 = min(y1, H - 1);
-  }
-  const int row0 = (b * H + y0) * W, row1 = (b * H + y1) * W;
+  const Taps t = taps<ZEROS>(xs[q], ys[q], H, W);
+  const float wx = t.wx, wy = t.wy;
+  const int row0 = (b * H + t.y0) * W, row1 = (b * H + t.y1) * W;
   weight = make_float4((1.f - wx) * (1.f - wy), wx * (1.f - wy), (1.f - wx) * wy, wx * wy);
-  tap = make_int4(vy0 && vx0 ? (row0 + x0) * C : -1, vy0 && vx1 ? (row0 + x1) * C : -1,
-                  vy1 && vx0 ? (row1 + x0) * C : -1, vy1 && vx1 ? (row1 + x1) * C : -1);
+  tap = make_int4(t.vy0 && t.vx0 ? (row0 + t.x0) * C : -1,
+                  t.vy0 && t.vx1 ? (row0 + t.x1) * C : -1,
+                  t.vy1 && t.vx0 ? (row1 + t.x0) * C : -1,
+                  t.vy1 && t.vx1 ? (row1 + t.x1) * C : -1);
 }
 
 // Writes channels c0 .. c0+VEC of an entry's output from its weights and taps.

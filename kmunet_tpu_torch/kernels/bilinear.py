@@ -13,8 +13,9 @@ The CUDA kernels are ``csrc/bilinear_gather.cu`` (K5 and K4, one kernel with
 a group count), ``csrc/multiview_gather.cu`` (K7: each warp reckons a chunk
 of (output pixel, view) entries once, then blends them with a lane per
 16-byte channel vector; its chunk is ``multiview_chunk``'s) and
-``csrc/bilinear_gather_backward.cu`` (K6 for all three); their source notes
-say what bounds them and how they are laid out.
+``csrc/bilinear_gather_backward.cu`` (K6 for all three), which take their
+padding rules and dtype conversions from ``csrc/gather_taps.cuh``; their
+source notes say what bounds them and how they are laid out.
 
 ``bilinear_gather``, ``bilinear_gather_grouped`` and
 ``bilinear_gather_multiview`` are what callers use: autograd functions

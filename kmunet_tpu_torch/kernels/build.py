@@ -3,7 +3,8 @@
 Each kernel source in ``kmunet_tpu_torch/csrc`` has a plain C interface and
 is compiled by one ``nvcc`` call into ``kmunet_tpu_torch/_build/`` at first
 use; the caller loads it with ``ctypes``. The library's file name carries a
-hash of the source and the flags, so a changed source is rebuilt. The compiler
+hash of the source, the headers beside it (``csrc/*.cuh``, which a source
+includes by name) and the flags, so a changed source or header is rebuilt. The compiler
 writes to a temporary name that is renamed into place, under an ``fcntl``
 lock of that source with a deadline, so parallel processes cannot race on one
 build while two sources can build at once, and ``nvcc`` itself runs under a
@@ -53,7 +54,9 @@ def build(source_name: str) -> Built:
     """Compile ``csrc/<source_name>`` unless a library of the same source and
     flags is already built; return where it is."""
     source = CSRC_DIR / source_name
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     target = BUILD_DIR / f"{source.stem}_{digest[:16]}.so"
     BUILD_DIR.mkdir(exist_ok=True)
     lock_path = BUILD_DIR / f".{source.stem}.lock"

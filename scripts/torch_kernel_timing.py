@@ -11,8 +11,9 @@ kernels in bf16 with ``chip_smoke.py``'s timing function for them:
   ``chip_smoke.MULTIVIEW_TIMING_SHAPES`` (TrajGRU's five K7 shapes at B=16,
   the deformable conv's nine taps at B=128) beside ``F.grid_sample`` and,
   at the bridge, nine ``bilinear_gather_forward`` (K5) calls and
-  ``torch.cat``; and ``bilinear_gather_grouped_forward`` (K4) at DySample's
-  dec3, ``multiview_timing``;
+  ``torch.cat``, each K7 output first held to the plain version; and
+  ``bilinear_gather_grouped_forward`` (K4) at DySample's dec3,
+  ``multiview_timing``;
 - ``kanconv``: ``kanconv_forward`` (K1) at ``chip_smoke.KAN_TIMING_SHAPES``
   (SH's four KAN convs at B=128, LAPS's enc1 at B=32), ``kan_timing``;
 - ``hsmssd``: ``hsmssd_compress_forward`` (K2) and ``hsmssd_mix_forward``

@@ -1,6 +1,6 @@
 """The port's kernel build (kmunet_tpu_torch/kernels/build.py), with a stand-in
-for nvcc: hash-named libraries, rebuilt when the source changes, reused
-otherwise, written under a temporary name, and a clear error without nvcc."""
+for nvcc: hash-named libraries, rebuilt when the source or a header beside it
+changes, reused otherwise, written under a temporary name, and a clear error without nvcc."""
 
 import subprocess
 
@@ -45,6 +45,16 @@ def test_build_names_by_hash_and_reuses(tree):
     assert not list(build.BUILD_DIR.glob("*.tmp*"))
     flags = calls[0]
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+
+
+def test_changed_header_rebuilds(tree):
+    """A source includes the headers beside it by name: changing one rebuilds."""
+    csrc, calls = tree
+    (csrc / "h.cuh").write_text("// v1\n")
+    first = build.build("k.cu")
+    assert build.build("k.cu").path == first.path and len(calls) == 1
+    (csrc / "h.cuh").write_text("// v2\n")
+    assert build.build("k.cu").path != first.path and len(calls) == 2
 
 
 def test_failed_compile_raises_and_leaves_nothing(tree, monkeypatch):

@@ -11,12 +11,15 @@ order, each reckoned once by one lane of its warp's chunk (the entry's
 view, pixel and batch element from its index, its coordinates clamped and
 floored, its fractions and its four taps' element offsets in the source, or
 -1 for a masked tap); then every channel of the entry blended from those,
-the entry's numbers shared by all of them. Blended with the plain version's
-lerps the model equals it bit for bit in fp32: the entries, the taps, the
-masks and the output's layout are exact. The kernel blends with one weight
-per tap, the products of the fractions reckoned with the entry, which
-rounds otherwise: that blend is held within 1e-5 abs, the card tests' bound
-of the kernel (and its fused multiply-adds) against the plain version. The lanes' walk over a chunk's
+the entry's numbers shared by all of them. Two checks come of it. The
+check on the entries, the taps, the masks and the output's layout: those
+blended with the plain version's lerps equal the plain version bit for bit
+in fp32. The model of the kernel's output: the kernel blends with one
+weight per tap, the products of the fractions reckoned with the entry,
+which rounds otherwise than the lerps, so that blend is held within 1e-5
+abs, the card tests' bound of the kernel (and its fused multiply-adds)
+against the plain version; the kernel's output is not the plain version's
+bit for bit in fp32. The lanes' walk over a chunk's
 (entry, channel vector) pairs, a fixed first pair and a fixed step with no
 division, is simulated for every chunk size and lane count the kernel can
 get: each pair once, 32 consecutive pairs a round (chunk 0, a thread per
@@ -55,9 +58,10 @@ XLA_SHAPES = ("enc_rnn1", "rnn2", "bridge")
 
 
 def k7_model(img, x, y, mode):
-    """The CUDA K7's output on ``img`` (B, H, W, C) at ``x``, ``y``
-    (B, G, Ho, Wo), blended as the kernel does (one weight per tap) and as
-    the plain version does (lerps of lerps)."""
+    """(the CUDA K7's output on ``img`` (B, H, W, C) at ``x``, ``y``
+    (B, G, Ho, Wo), blended as the kernel does, with one weight per tap;
+    the same entries, taps and masks blended as the plain version does,
+    lerps of lerps: the check on those)."""
     B, H, W, C = img.shape
     G, Ho, Wo = x.shape[1:]
     HoWo = Ho * Wo
@@ -135,8 +139,10 @@ def test_model_matches_plain_and_xla(mode, shape, case):
     img, x, y, _ = multiview_inputs(SHAPES[shape], case)
     args = [torch.from_numpy(a) for a in (img, x, y)]
     want = bilinear.bilinear_gather_multiview_plain(*args, mode)
-    got, lerps = k7_model(*args, mode)
-    torch.testing.assert_close(lerps, want, rtol=0, atol=0)
+    got, entries_check = k7_model(*args, mode)
+    # The entries, taps, masks and layout: bit for bit.
+    torch.testing.assert_close(entries_check, want, rtol=0, atol=0)
+    # The kernel's blend: within the card tests' bound.
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     if shape in XLA_SHAPES:
         np.testing.assert_allclose(got.numpy(), np.asarray(_xla(mode)(img, x, y)), rtol=0,
