@@ -6,9 +6,9 @@
 Phases, each printing one JSON line with its seconds:
 
 1. device  -- the card's name; ``nvidia-smi``'s name and power limit line.
-2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K5 and K4, the
-              gather and its grouped form), ``csrc/multiview_gather.cu``
-              (K7, its multiview form),
+2. build   -- ``kmunet_tpu_torch/csrc/bilinear_gather.cu`` (K4, the
+              grouped gather), ``csrc/multiview_gather.cu`` (K7, the
+              multiview gather, and K5, the gather, as its kernel at G=1),
               ``csrc/bilinear_gather_backward.cu`` (K6, the backward of all
               three), ``csrc/selective_scan.cu`` (K8, the selective scan,
               and its backward), ``csrc/kanconv.cu`` (K1, the fused KAN
@@ -246,7 +246,9 @@ Phases, each printing one JSON line with its seconds:
               LAPS's enc1 at B=32 (``mixer_timing``: ms, queued ms, device
               ms, device launches per call and device ms by kernel, beside
               the bound). K3a in each mode at the TPU script's shape beside
-              its byte bound and its plain version (library null). KM_UNetV3-LAPS:
+              its bound (bytes; the products on the tensor cores), its
+              plain version (library null) and its device ms by pass (tile
+              max, compress, merge, scatter). KM_UNetV3-LAPS:
               the forward at B=1 and B=32 bf16 at 256^2 (B=32 has as many
               pixels as SH's B=128 at 128^2) on the plain and the K1 + K3
               path, and the bf16 ``laps_km_unet()`` step at B=1 on both.
@@ -265,7 +267,8 @@ Phases, each printing one JSON line with its seconds:
               ms and device launches per call, beside ``gather_bound`` and
               ``F.grid_sample``'s numbers on the source broadcast into the
               batch; at the bridge also the nine K5 calls and ``torch.cat``
-              that K7 replaced there; and K4 at DySample's dec3
+              that K7 replaced there; K5 alone at the bridge shape, beside
+              ``zero_`` of its output; and K4 at DySample's dec3
               (``multiview_timing``).
 Then the kernels line, and last ``{"ok": true, "device": {...}}``. Any failed
 phase raises: the run exits non-zero and prints no result, also when no CUDA
@@ -292,11 +295,11 @@ REQUEST_BATCH = 2
 BRIDGE = (128, 16, 16, 64)  # DAGEM's deformable conv input at B=128 (B, H, W, C)
 RAGGED = (3, 7, 9, 24)
 ODD = (2, 5, 6, 3)  # C of no 16-byte vector: one channel per thread
-K5_SOURCE = "kmunet_tpu_torch/csrc/bilinear_gather.cu"
+K5_SOURCE = "kmunet_tpu_torch/csrc/multiview_gather.cu"  # K7's kernel at G=1
 K5_REPLACES = "kmunet_tpu/kernels/bilinear_pallas.py:646"
 K6_SOURCE = "kmunet_tpu_torch/csrc/bilinear_gather_backward.cu"
 K6_REPLACES = "kmunet_tpu/kernels/bilinear_pallas.py:414"
-K4_SOURCE = K5_SOURCE  # one kernel with a group count
+K4_SOURCE = "kmunet_tpu_torch/csrc/bilinear_gather.cu"
 K4_REPLACES = "kmunet_tpu/kernels/bilinear_pallas.py:747"
 K6G_SOURCE = K6_SOURCE
 K6G_REPLACES = K6_REPLACES  # _backward_impl, shared=False, G > 1
@@ -418,7 +421,7 @@ SCAN_TIMING_SHAPES = {"refine1": (16, 16384, 16, 16), "encoder4": (16, 256, 48, 
 MAMBA_SCANS = 20  # 10 DMFM layers, one MambaBlock each on two token views
 MAMBA_BATCH = 16  # bench.py's zoo batch, timed in bf16
 
-H100_BF16_FLOPS = 989e12  # dense bf16/fp16 on the tensor cores: K1-K3's products
+H100_BF16_FLOPS = 989e12  # dense bf16/fp16 on the tensor cores: K1-K3's and K3a's products
 K1_SOURCE = "kmunet_tpu_torch/csrc/kanconv.cu"
 K1_REPLACES = "kmunet_tpu/kernels/kanconv_pallas.py:151"
 K2_SOURCE = "kmunet_tpu_torch/csrc/hsmssd.cu"
@@ -1007,8 +1010,10 @@ def multiview_timing(torch, bilinear, shapes=None, iters: int = 50, library: boo
     on the same inputs in fp32, within 1e-5 abs + one bf16 ulp (the timed
     launches' chunks are the main paths' own); raises where it is not. At the bridge also the nine K5 calls and the
     ``torch.cat`` that the deformable conv ran before K7 took its taps;
-    and K4 at DySample's dec3 (``DEC3``, border), which K7's redesign
-    leaves as it was."""
+    K5 alone at the bridge shape (``BRIDGE``, zeros), held to the plain
+    version the same way, beside ``zero_`` of its output; and K4 at
+    DySample's dec3 (``DEC3``, border), which K7's redesign leaves as it
+    was."""
     import torch.nn.functional as tF
 
     def numbers(fn, prefix=""):
@@ -1053,6 +1058,25 @@ def multiview_timing(torch, bilinear, shapes=None, iters: int = 50, library: boo
                 dim=-1), "nine_k5_cat_"))
             del planes
         del img, x, y
+    # K5 alone at the bridge shape (a deformable tap's coordinates, grid +
+    # N(0, 1) px), held to the plain version first, beside writing its
+    # output alone (``zero_``), the floor of a kernel that writes it once.
+    B, H, W, C = BRIDGE
+    img = torch.randn(B, H, W, C, device="cuda").to(torch.bfloat16)
+    y = (torch.arange(H, device="cuda", dtype=torch.float32).view(1, H, 1)
+         + torch.randn(B, H, W, device="cuda")).contiguous()
+    x = (torch.arange(W, device="cuda", dtype=torch.float32).view(1, 1, W)
+         + torch.randn(B, H, W, device="cuda")).contiguous()
+    fn = lambda: bilinear.bilinear_gather_forward(img, x, y, "zeros")  # noqa: E731
+    want = bilinear.bilinear_gather_plain(img.float(), x, y, "zeros")
+    err = check_close("K5 bridge bfloat16", fn(), want,
+                      1e-5 + ulp_tolerance(torch, want, torch.bfloat16))
+    bound, bound_by, _, _ = gather_bound(torch, img, x, B * H * W * C, False)
+    out_k5 = torch.empty_like(img)
+    out["k5_bridge"] = {"shape": list(BRIDGE), **numbers(fn), "bound_ms": bound,
+                        "bound_by": bound_by, "max_abs_err": err,
+                        **numbers(out_k5.zero_, "zero_")}
+    del img, x, y, want, out_k5
     B, H, W, C, G, Ho, Wo = DEC3
     img = torch.randn(B, H, W, C, device="cuda").to(torch.bfloat16)
     sub_y = ((torch.arange(Ho, device="cuda") + 0.5) / 2 - 0.5).view(1, 1, Ho, 1)
@@ -1174,6 +1198,30 @@ def ablate_inputs(torch, shape, seed, device):
     return [t.to(torch.bfloat16) for t in (*normal, A)]
 
 
+def ablate_timing(torch, ablate_mix, shape=None, iters: int = 20):
+    """K3a (``ablate_mix``'s launcher) in each mode at ``shape`` (the TPU
+    script's, ``ABLATE_SHAPES["script"]``, by default), each mode's output
+    first held to the plain version (``check_ablate``): ms by CUDA events
+    over back-to-back calls, queued ms (device time, no host gap), the
+    profiler's device ms, device launches per call and device ms per call
+    by kernel (the passes: tile max, compress, merge, scatter), beside
+    ``ablate_bound``."""
+    shape = shape or ABLATE_SHAPES["script"]
+    args = ablate_inputs(torch, shape, len(ABLATE_SHAPES), "cuda")
+    errors = {}
+    check_ablate(torch, "script", args, shape[4], errors)
+    out = {"shape": list(shape)}
+    for mode in ablate_mix.MODES:
+        fn = lambda mode=mode: ablate_mix.ablate_mix_forward(mode, *args, shape[4])  # noqa: E731
+        bound, bound_by, _, _ = ablate_bound(shape, mode)
+        device, launches, by_kernel = device_ms(torch, fn, iters)
+        out[mode] = {"ms": cuda_ms(torch, fn, iters, 5), "queued_ms": queued_ms(torch, fn, iters)[0],
+                     "device_ms": device, "device_launches_per_call": launches,
+                     "device_ms_by_kernel": by_kernel, "bound_ms": bound, "bound_by": bound_by,
+                     "max_abs_err": errors[f"script/{mode}/bfloat16"]}
+    return out
+
+
 def check_ablate(torch, key, args, tile, errors):
     """Holds K3a in each mode to its plain version on the same bf16 inputs,
     within one bf16 ulp of the output's scale (2^(floor(log2 max|y|) - 7):
@@ -1195,14 +1243,20 @@ def check_ablate(torch, key, args, tile, errors):
 def ablate_bound(shape, mode):
     """(bound_ms, bound_by, bytes, ops) of K3a at (B, C, L, N, tile), bf16:
     xt, dt, Bm, Cm read once and y written once over the HBM rate, against
-    the products (2 operations per (b, l, n, c) each for h and y; dma_only
-    one addition per value it loads) over the fp32 rate of the CUDA cores
-    that run them."""
+    the products (2 operations per (b, l, n, c) each for h and y) over the
+    bf16 rate of the tensor cores that run them; dma_only's one addition
+    per value it loads over the fp32 rate. The second read of dt by full's
+    and bf16_e's tile-max pass is work of the kernel's, not of the
+    function's: it belongs to the gap to the bound, not to the bound."""
     B, C, L, N, _ = shape
     moved = (2 * B * C * L + 3 * B * L * N) * 2 + N * 4
-    ops = (B * C * L + 3 * B * L * N) if mode == "dma_only" else 4 * B * L * N * C
+    if mode == "dma_only":
+        ops = B * C * L + 3 * B * L * N
+        ops_ms = ops / H100_FP32_FLOPS * 1e3
+    else:
+        ops = 4 * B * L * N * C
+        ops_ms = ops / H100_BF16_FLOPS * 1e3
     bytes_ms = moved / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / H100_FP32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved, ops
 
 
@@ -1419,13 +1473,13 @@ def main() -> int:
                    scan.SOURCE, kanconv.SOURCE, ssd.SOURCE, ablate_mix.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, started together
             builds = list(pool.map(build.build, sources))
-        for entry in (bilinear.forward_kernel, bilinear.backward_kernel,
+        for entry in (bilinear.backward_kernel,
                       bilinear.grouped_kernel, bilinear.grouped_backward_kernel,
                       bilinear.multiview_kernel, bilinear.multiview_backward_kernel,
                       scan.forward_kernel, scan.backward_kernel, kanconv.kernel,
                       ssd.compress_kernel, ssd.mix_kernel, ablate_mix.kernel):
             entry()
-        f.update(sources=[K5_SOURCE, K7_SOURCE, K6_SOURCE, K8_SOURCE, K1_SOURCE, K2_SOURCE,
+        f.update(sources=[K4_SOURCE, K7_SOURCE, K6_SOURCE, K8_SOURCE, K1_SOURCE, K2_SOURCE,
                           K3A_SOURCE],
                  libraries=[os.path.relpath(b.path, REPO) for b in builds],
                  nvcc_seconds=[round(b.seconds, 3) for b in builds])
@@ -2298,7 +2352,8 @@ def main() -> int:
                      "device_launches_per_call": t["device_launches_per_call"],
                      "library_queued_ms": t["library_queued_ms"]})
     line[-1]["modes"] = {mode: {k: t[k] for k in ("ms", "queued_ms", "device_ms", "chained_ms",
-                                                  "plain_ms", "bound_ms", "bound_by")}
+                                                  "plain_ms", "bound_ms", "bound_by",
+                                                  "device_ms_by_kernel")}
                          for mode, t in timed["ablate_mix"]["modes"].items()}
     emit({"kernels": line})
     faulthandler.cancel_dump_traceback_later()

@@ -1,18 +1,14 @@
-// Bilinear gather at pixel coordinates, NHWC, border or zeros padding: one
-// coordinate set per image (K5) or one per channel group (K4). K7, one
-// source sampled at G coordinate sets, is csrc/multiview_gather.cu.
+// K4: the bilinear gather at pixel coordinates, NHWC, border or zeros
+// padding, one coordinate set per channel group. K7, one source sampled at G
+// coordinate sets, is csrc/multiview_gather.cu; K5, one coordinate set per
+// image, is K7's kernel at G = 1 (below).
 //
-// Replaces two TPU kernels of the JAX package,
-// kmunet_tpu/kernels/bilinear_pallas.py:
-//   K5  gather_bilinear_zeros / gather_bilinear_border (pl.pallas_call in
-//       _forward), what ops/sample.py::bilinear_gather_xla computes:
-//         out[b, o, c] = bilinear sample of img[b, :, :, c] at (x[b, o], y[b, o]);
-//   K4  gather_bilinear_grouped (pl.pallas_call in _forward_grouped), what
-//       ops/sample.py::bilinear_gather_grouped_xla computes: channel block g
-//       (C / G channels) is sampled at its own coordinates,
-//         out[b, o, c] = bilinear sample of img[b, :, :, c] at
-//                        (x[b, c / Cg, o], y[b, c / Cg, o]),  Cg = C / G.
-//       K5 is K4 with G = 1, and both entry points below run one kernel.
+// Replaces the TPU kernel kmunet_tpu/kernels/bilinear_pallas.py::
+// gather_bilinear_grouped (pl.pallas_call in _forward_grouped), what
+// ops/sample.py::bilinear_gather_grouped_xla computes: channel block g
+// (C / G channels) is sampled at its own coordinates,
+//   out[b, o, c] = bilinear sample of img[b, :, :, c] at
+//                  (x[b, c / Cg, o], y[b, c / Cg, o]),  Cg = C / G.
 // x runs along W and y along H, integer coordinates on pixel centres.
 //   border: x, y clamped to [0, W-1] x [0, H-1] first; a tap one past the
 //           last pixel reads the last pixel (its weight is 0 there anyway).
@@ -21,7 +17,7 @@
 //           the TPU kernel does: beyond that both taps of an axis are out
 //           of range, so the clamp changes nothing but cannot overflow.
 //
-// Design. The TPU kernels write the gather as MXU matmuls against 0/1 tap
+// Design. The TPU kernel writes the gather as MXU matmuls against 0/1 tap
 // rows, because a TPU cannot gather rows fast. Hopper can, so this is a
 // direct gather: one thread per (output pixel, vector of VEC channels),
 // reading 16 bytes along C per tap (VEC = 4 fp32 or 8 bf16/fp16), with
@@ -34,16 +30,22 @@
 //
 // Bound. Bytes: each output element reads 4 taps that mostly hit L2/L1
 // (neighbouring outputs share taps), so the least traffic is img read once,
-// the coordinates read once and out written once. K5 at the DAGEM bridge
-// shape (B=128, 16x16, C=64, bf16): 4.19 MB + 0.26 MB + 4.19 MB, about
-// 8.6 MB, or about 2.6 us at 3.35 TB/s. K4 at DySample's dec3 shape (B=128,
-// 64x64 -> 128x128, C=64, G=4, bf16): 67 MB + 67 MB of fp32 coordinates +
-// 268 MB, about 120 us. The ops (about 8 per output element) are far below
-// the card's rate. At B <= 8 the launch overhead (a few us) dominates, and
-// one call at a time from Python the wrapper's host time exceeds the
-// kernel's device time at the small shapes (chip_smoke.py reports both).
-// The deformable conv's 9 taps, which were 9 launches of K5, are one
-// launch of K7 (G = 9 views of one source).
+// the coordinates read once and out written once. At DySample's dec3 shape
+// (B=128, 64x64 -> 128x128, C=64, G=4, bf16): 67 MB + 67 MB of fp32
+// coordinates + 268 MB, about 120 us at 3.35 TB/s; the ops (about 8 per
+// output element) are far below the card's rate.
+//
+// K5. This kernel was K5's too, at G = 1, until K7's warp-chunk kernel
+// replaced it there (kernels/bilinear.py::bilinear_gather_forward launches
+// kmunet_bilinear_gather_multiview with one view): at DAGEM's bridge shape
+// (B=128, 16x16, C=64, bf16, zeros; bound 2.58 us) K7's kernel takes
+// 5.27-5.33 us of device time queued behind a spin (4.23-4.30 by the
+// profiler) against this kernel's 5.72-5.73 (4.77-4.82), and writing its
+// output alone (zero_) 3.26-3.28, on an NVIDIA H100 80GB HBM3 at a 700.00 W
+// power limit (scripts/torch_kernel_timing.py gather, in turns). K7's chunk
+// rule gives 15 entries a warp there, the fastest of 0, 2, 4, 8, 15 and
+// 32 (5.28 at 15, 5.73-5.78 at 0, 6.46 at 32: scripts/
+// torch_ablate_variants.py --k5-chunks).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -162,14 +164,6 @@ int gather(const void* img, const void* x, const void* y, void* out, int B, int 
 // 16 / sizeof(dtype) (C / G divisible by it, img 16-byte aligned) or 1.
 // Returns cudaGetLastError() after the launch, or -1 for an argument the
 // kernel does not take.
-
-// K5: x, y (B, Ho, Wo) fp32.
-extern "C" int kmunet_bilinear_gather(const void* img, const void* x, const void* y,
-                                      void* out, int B, int H, int W, int C, int Ho,
-                                      int Wo, int dtype, int zeros, int vec,
-                                      void* stream) {
-  return gather(img, x, y, out, B, H, W, C, 1, Ho, Wo, dtype, zeros, vec, stream);
-}
 
 // K4: x, y (B, G, Ho, Wo) fp32; channel block g of img and out takes x[:, g], y[:, g].
 extern "C" int kmunet_bilinear_gather_grouped(const void* img, const void* x, const void* y,

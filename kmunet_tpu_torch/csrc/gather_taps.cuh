@@ -1,5 +1,5 @@
-// Device helpers of the bilinear gathers, included by bilinear_gather.cu (K5
-// and K4), multiview_gather.cu (K7) and bilinear_gather_backward.cu (K6): the
+// Device helpers of the bilinear gathers, included by bilinear_gather.cu
+// (K4), multiview_gather.cu (K7 and K5) and bilinear_gather_backward.cu (K6): the
 // dtype conversions, the vector type of a 16-byte channel load and one
 // coordinate pair's taps, so that the forwards and the backward take the
 // same padding rules and the same fractions, bit for bit.

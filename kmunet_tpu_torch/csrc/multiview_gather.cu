@@ -15,6 +15,9 @@
 //           of range, so the clamp changes nothing but cannot overflow.
 // The weights and the blend are fp32; the output is rounded once to img's
 // dtype (fp32, bf16 or fp16).
+// At G = 1 it is K5 and replaces kmunet_tpu/kernels/bilinear_pallas.py::
+// gather_bilinear_zeros / gather_bilinear_border too (the pl.pallas_call in
+// _forward; kernels/bilinear.py::bilinear_gather_forward launches it so).
 //
 // Bound. Each input read once and the output written once: at TrajGRU's
 // enc_rnn1 (B=16, 32x32, C=64, G=13, bf16) 2.1 MB of source, 1.7 MB of
@@ -63,7 +66,7 @@
 
 #include <type_traits>
 
-#include "gather_taps.cuh"  // to_f32, Vec, taps: shared with K5, K4 and K6
+#include "gather_taps.cuh"  // to_f32, Vec, taps: shared with K4 and K6
 
 namespace {
 

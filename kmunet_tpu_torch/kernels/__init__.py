@@ -2,7 +2,7 @@
 
 | Kernel | Module | Source | Replaces |
 | --- | --- | --- | --- |
-| K5 bilinear gather (``grid_sample_bilinear``) | ``bilinear`` | ``csrc/bilinear_gather.cu`` | ``kmunet_tpu/kernels/bilinear_pallas.py::gather_bilinear_{zeros,border}`` |
+| K5 bilinear gather (``grid_sample_bilinear``): K7's kernel at G = 1 | ``bilinear`` | ``csrc/multiview_gather.cu`` | ``kmunet_tpu/kernels/bilinear_pallas.py::gather_bilinear_{zeros,border}`` |
 | K4 grouped bilinear gather | ``bilinear`` | ``csrc/bilinear_gather.cu`` | ``kmunet_tpu/kernels/bilinear_pallas.py::gather_bilinear_grouped`` |
 | K7 multiview bilinear gather (TrajGRU's warp; the deformable conv's 9 taps) | ``bilinear`` | ``csrc/multiview_gather.cu`` | ``kmunet_tpu/kernels/bilinear_pallas.py::gather_bilinear_multiview`` |
 | K6 the backward of K5, K4 (``shared=False``) and K7 (``shared=True``) | ``bilinear`` | ``csrc/bilinear_gather_backward.cu`` | ``kmunet_tpu/kernels/bilinear_pallas.py::_backward_impl`` |

@@ -26,10 +26,12 @@ them tile by tile over ``tile`` tokens, every sum in fp32:
 ``ablate_mix`` is what callers use: on CPU tensors it runs the plain version
 (``ablate_mix_plain``); on CUDA tensors it launches the CUDA kernel
 (``csrc/hsmssd_ablate.cu``, whose source note says what bounds it and how it
-is laid out) through ``ablate_mix_forward``, which raises on what the kernel
-does not take and counts its calls on ``ablate_mix.launches``. A call is
-three or four device launches (two for ``dma_only``). Both refuse ``L %
-tile != 0``: the TPU kernel leaves those outputs unwritten.
+is laid out: a tensor-core compress and scatter over a cp.async ring, as
+K2's and K3's) through ``ablate_mix_forward``, which raises on what the
+kernel does not take and counts its calls on ``ablate_mix.launches``. A
+call is three device launches (compress, merge, scatter), four for ``full``
+and ``bf16_e`` (a tile-max pass first), two for ``dma_only``. Both refuse
+``L % tile != 0``: the TPU kernel leaves those outputs unwritten.
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ from kmunet_tpu_torch.kernels import build, sm_count
 
 SOURCE = "hsmssd_ablate.cu"
 MODES = ("full", "bf16_e", "no_max", "no_exp", "dma_only")
-KTILE = 64  # tokens per tile of the kernel's compress pass (csrc's kTile)
+KTILE = 64  # tokens per tile of the kernel's passes (csrc's kT)
 MAX_C = 64
-STATE_SIZES = (8, 16, 32, 64)  # N: rows of 16-byte vectors, a divisor of the block
+STATE_SIZES = (8, 16, 32, 64)  # N: 16-byte vectors a token; 16 states a warp, 8 padded
 DMA_TOKENS = 8  # dma_only: the tokens of each tile whose Cm it sums
 # As K2's and K3's compress pass (kernels/ssd.py): each TPU tile's kernel
 # tiles are split into slices, one block each, until B * tiles * slices
@@ -121,25 +123,29 @@ def ablate_mix_plain(mode, xt, dt, Bm, Cm, A, tile) -> torch.Tensor:
 @functools.cache
 def kernel() -> ctypes._CFuncPtr:
     """K3a's entry point, built from ``csrc/hsmssd_ablate.cu`` on first use:
-    the mode, 12 pointers, 7 ints, then the stream."""
+    the mode, 11 pointers, 7 ints, then the stream."""
     fn = ctypes.CDLL(str(build.build(SOURCE).path)).kmunet_hsmssd_ablate
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(xt, dt, Bm, Cm, tile) -> None:
-    """What the kernel takes: contiguous CUDA tensors on one device, N a
-    power of two in STATE_SIZES, 1 <= C <= MAX_C, tiles of whole KTILE-token
-    kernel tiles."""
+def _check(xt, dt, Bm, Cm, A, tile) -> None:
+    """What the kernel takes: CUDA tensors on one device, xt, dt, Bm and Cm
+    contiguous and 16-byte aligned (its tiles move by 16-byte copies), N a
+    power of two in STATE_SIZES, 1 <= C <= MAX_C, tiles of whole
+    KTILE-token kernel tiles."""
     Bsz, C, L = xt.shape
     N = dt.shape[2]
-    for name, t in (("xt", xt), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
+    for name, t in (("xt", xt), ("dt", dt), ("Bm", Bm), ("Cm", Cm), ("A", A)):
         if not t.is_cuda or t.device != xt.device:
             raise ValueError(f"the CUDA K3a kernel needs CUDA tensors on one device; "
                              f"{name} is on {t.device}")
+    for name, t in (("xt", xt), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if N not in STATE_SIZES:
         raise ValueError(f"the kernel takes a state size N in {STATE_SIZES}, got {N}")
     if not 1 <= C <= MAX_C:
@@ -163,7 +169,7 @@ def ablate_mix_forward(mode, xt, dt, Bm, Cm, A, tile) -> torch.Tensor:
     """K3a on CUDA tensors: yt (B, C, L) bf16. Raises on what the kernel
     does not take. Counts one call on ``ablate_mix.launches``."""
     _check_shapes(mode, xt, dt, Bm, Cm, A, tile)
-    _check(xt, dt, Bm, Cm, tile)
+    _check(xt, dt, Bm, Cm, A, tile)
     Bsz, C, L = xt.shape
     N = dt.shape[2]
     n_tiles = L // tile
@@ -173,20 +179,23 @@ def ablate_mix_forward(mode, xt, dt, Bm, Cm, A, tile) -> torch.Tensor:
         raise ValueError(f"{S} slices of {N} states: the merge pass's weights exceed "
                          f"{MAX_MERGE_SMEM} bytes of shared memory; take a larger tile")
     f32 = dict(dtype=torch.float32, device=xt.device)
-    A32 = A.reshape(N).float().contiguous()
-    # full's and bf16_e's per-tile maxima, max(0, .), gathered by atomics from 0.
-    tmax = torch.zeros(Bsz, n_tiles, N, **f32) if mode in ("full", "bf16_e") else None
-    part_m, part_d = torch.empty(Bsz, S, N, **f32), torch.empty(Bsz, S, N, **f32)
-    part_h = torch.empty(Bsz, S, N, C, **f32)
-    hn = torch.empty(Bsz, N, C, **f32)
-    sink = torch.empty(Bsz, L // KTILE, **f32)  # dma_only's checksums of what it loads
+    CP = 8
+    while CP < C:  # the compress's channels: C padded to 8, 16, 32 or 64
+        CP *= 2
+    # full's and bf16_e's slice maxima, max(0, .); the slices' den and h;
+    # hn = bf16(h / (den + 1)); dma_only's checksums of what it loads.
+    smax = torch.empty(Bsz, S, N, **f32) if mode in ("full", "bf16_e") else None
+    part_d, part_h = torch.empty(Bsz, S, N, **f32), torch.empty(Bsz, S, N, CP, **f32)
+    hn = torch.empty(Bsz, N, C, dtype=torch.bfloat16, device=xt.device)
+    sink = torch.empty(Bsz, S, **f32)
     yt = torch.empty_like(xt)
+    A_n = A.reshape(N).contiguous()
     with torch.cuda.device(xt.device):
         stream = torch.cuda.current_stream(xt.device).cuda_stream
         err = kernel()(MODES.index(mode), xt.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
-                       Cm.data_ptr(), A32.data_ptr(), None if tmax is None else tmax.data_ptr(),
-                       part_m.data_ptr(), part_d.data_ptr(), part_h.data_ptr(), hn.data_ptr(),
-                       sink.data_ptr(), yt.data_ptr(), Bsz, C, L, N, tile, spt, tps, stream)
+                       Cm.data_ptr(), A_n.data_ptr(), None if smax is None else smax.data_ptr(),
+                       part_d.data_ptr(), part_h.data_ptr(), hn.data_ptr(), sink.data_ptr(),
+                       yt.data_ptr(), Bsz, C, L, N, tile, spt, tps, stream)
     if err != 0:
         raise RuntimeError(f"kmunet_hsmssd_ablate ({mode}) launch failed: error {err}")
     ablate_mix.launches += 1

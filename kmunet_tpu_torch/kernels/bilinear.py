@@ -9,10 +9,11 @@ in ``_forward``), ``gather_bilinear_grouped`` and ``gather_bilinear_multiview``
 (the ``pl.pallas_call`` in ``_forward_grouped``, ``shared=False`` and
 ``shared=True``) and of their custom VJP's backward ``_backward_impl`` (the
 ``pl.pallas_call`` of ``_kernel_bwd``, ``shared=False`` and ``shared=True``).
-The CUDA kernels are ``csrc/bilinear_gather.cu`` (K5 and K4, one kernel with
-a group count), ``csrc/multiview_gather.cu`` (K7: each warp reckons a chunk
-of (output pixel, view) entries once, then blends them with a lane per
-16-byte channel vector; its chunk is ``multiview_chunk``'s) and
+The CUDA kernels are ``csrc/bilinear_gather.cu`` (K4, a thread per output
+pixel and channel vector), ``csrc/multiview_gather.cu`` (K7: each warp
+reckons a chunk of (output pixel, view) entries once, then blends them with
+a lane per 16-byte channel vector; its chunk is ``multiview_chunk``'s; K5
+is K7's kernel at G = 1) and
 ``csrc/bilinear_gather_backward.cu`` (K6 for all three), which take their
 padding rules and dtype conversions from ``csrc/gather_taps.cuh``; their
 source notes say what bounds them and how they are laid out.
@@ -303,18 +304,13 @@ def workspace_kernel() -> ctypes._CFuncPtr:
     return fn
 
 
-def forward_kernel() -> ctypes._CFuncPtr:
-    """K5's entry point, built on first use."""
-    return _kernel(SOURCE, "kmunet_bilinear_gather", 4, 9)
-
-
 def backward_kernel() -> ctypes._CFuncPtr:
     """K6's entry point, built on first use."""
     return _kernel(BACKWARD_SOURCE, "kmunet_bilinear_gather_backward", 8, 9)
 
 
 def grouped_kernel() -> ctypes._CFuncPtr:
-    """K4's entry point, built on first use (from K5's source)."""
+    """K4's entry point, built on first use."""
     return _kernel(SOURCE, "kmunet_bilinear_gather_grouped", 4, 10)
 
 
@@ -324,7 +320,7 @@ def grouped_backward_kernel() -> ctypes._CFuncPtr:
 
 
 def multiview_kernel() -> ctypes._CFuncPtr:
-    """K7's entry point, built on first use."""
+    """K7's entry point, built on first use; K5 is this kernel at G = 1."""
     return _kernel(MULTIVIEW_SOURCE, "kmunet_bilinear_gather_multiview", 4, 11)
 
 
@@ -415,7 +411,8 @@ def bilinear_gather_forward(
 ) -> torch.Tensor:
     """The gather without its gradient: (B, Ho, Wo, C) in ``img``'s dtype. A
     CPU ``img`` takes the plain version; a CUDA ``img`` launches K5, which
-    takes fp32, bf16 and fp16 images with fp32 coordinates. Its launches
+    takes fp32, bf16 and fp16 images with fp32 coordinates: K7's kernel with
+    one view (x, y (B, Ho, Wo) are (B, 1, Ho, Wo) in memory). Its launches
     count on ``bilinear_gather.launches``."""
     if img.device.type == "cpu":
         return bilinear_gather_plain(img, x, y, padding_mode)
@@ -423,9 +420,9 @@ def bilinear_gather_forward(
     B, H, W, C = img.shape
     Ho, Wo = x.shape[1:3]
     out = torch.empty((B, Ho, Wo, C), dtype=img.dtype, device=img.device)
-    _launch(forward_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            B, H, W, C, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
-            _vec(img))
+    _launch(multiview_kernel(), img, img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            B, H, W, C, 1, Ho, Wo, _DTYPE_CODES[img.dtype], int(padding_mode == "zeros"),
+            _vec(img), multiview_chunk(B, 1, Ho, Wo, sm_count(img.device.index)))
     bilinear_gather.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's redesigned kernels timed on the card, one CUDA source at a time.
 
-    python3 scripts/torch_kernel_timing.py {gather,kanconv,hsmssd} [--root DIR] [--sass]
+    python3 scripts/torch_kernel_timing.py {gather,kanconv,hsmssd,ablate} [--root DIR] [--sass]
 
 Builds the named source of the port found under ``--root`` (a checkout of
 this repository; by default the one this script is in) and times its
@@ -11,14 +11,19 @@ kernels in bf16 with ``chip_smoke.py``'s timing function for them:
   ``chip_smoke.MULTIVIEW_TIMING_SHAPES`` (TrajGRU's five K7 shapes at B=16,
   the deformable conv's nine taps at B=128) beside ``F.grid_sample`` and,
   at the bridge, nine ``bilinear_gather_forward`` (K5) calls and
-  ``torch.cat``, each K7 output first held to the plain version; and
-  ``bilinear_gather_grouped_forward`` (K4) at DySample's dec3,
-  ``multiview_timing``;
+  ``torch.cat``, each K7 output first held to the plain version;
+  ``bilinear_gather_forward`` (K5) alone at the bridge shape beside
+  ``zero_`` of its output; and ``bilinear_gather_grouped_forward`` (K4) at
+  DySample's dec3, ``multiview_timing``;
 - ``kanconv``: ``kanconv_forward`` (K1) at ``chip_smoke.KAN_TIMING_SHAPES``
   (SH's four KAN convs at B=128, LAPS's enc1 at B=32), ``kan_timing``;
 - ``hsmssd``: ``hsmssd_compress_forward`` (K2) and ``hsmssd_mix_forward``
   (K3) at ``chip_smoke.MIXER_TIMING_SHAPES`` (SH's three mixer shapes at
-  B=128, LAPS's enc1 at B=32), ``mixer_timing`` by pass.
+  B=128, LAPS's enc1 at B=32), ``mixer_timing`` by pass;
+- ``ablate``: ``ablate_mix_forward`` (K3a) in its five modes at the TPU
+  script's shape (B=64, C=16, L=128^2, N=64, tiles of 4096), each output
+  first held to the plain version, ``ablate_timing`` by pass (tile max,
+  compress, merge, scatter).
 
 Each gives ms over back-to-back calls, queued ms (device time, no host
 gap), the profiler's device ms, device launches per call and device ms per
@@ -46,7 +51,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # source name -> (the port's module that builds and launches it, the
 # chip_smoke function that times it)
 KERNELS = {"gather": ("bilinear", "multiview_timing"), "kanconv": ("kanconv", "kan_timing"),
-           "hsmssd": ("ssd", "mixer_timing")}
+           "hsmssd": ("ssd", "mixer_timing"), "ablate": ("ablate_mix", "ablate_timing")}
 # the module attributes that name the CUDA sources a module builds
 SOURCES = ("SOURCE", "MULTIVIEW_SOURCE")
 

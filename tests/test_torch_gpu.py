@@ -62,6 +62,42 @@ def test_cuda_kernel_matches_plain(cuda_device, mode, shape, case, dtype):
     assert bool(((got - want).abs() <= tol).all())
 
 
+# K5 runs K7's kernel at G=1: a warp chunk of entries at the bridge's B=128
+# (multiview_chunk 15), a thread per (entry, vector) pair at B=2 (chunk 0).
+K5_SHAPES = {"bridge_b128": (128, 16, 16, 64), "ragged": GATHER_SHAPES["ragged"]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", list(K5_SHAPES))
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_cuda_k5_runs_on_the_multiview_kernel(cuda_device, mode, shape, dtype):
+    """K5 through K7's kernel at G=1, on every coordinate case: fp32 within
+    1e-5 abs of the plain version, bf16 and fp16 within one ulp of the
+    kernel's fp32 result on the same rounded image; one launch counted on
+    ``bilinear_gather.launches`` a call, none on K7's counter."""
+    B, H, W, C = K5_SHAPES[shape]
+    chunk = bilinear.multiview_chunk(B, 1, H + 1, W - 2,
+                                     torch.cuda.get_device_properties(0).multi_processor_count)
+    assert (chunk > 0) == (shape == "bridge_b128")
+    for case in GATHER_CASES:
+        img, x, y = gather_inputs(K5_SHAPES[shape], case)
+        img_t = torch.from_numpy(img).to(cuda_device)
+        x_t, y_t = torch.from_numpy(x).to(cuda_device), torch.from_numpy(y).to(cuda_device)
+        before = (bilinear.bilinear_gather.launches, bilinear.bilinear_gather_multiview.launches)
+        got = bilinear.bilinear_gather_forward(img_t.to(dtype), x_t, y_t, mode)
+        torch.cuda.synchronize()
+        assert (bilinear.bilinear_gather.launches,
+                bilinear.bilinear_gather_multiview.launches) == (before[0] + 1, before[1])
+        assert got.dtype == dtype and got.shape == (B, H + 1, W - 2, C)
+        if dtype == torch.float32:
+            want = bilinear.bilinear_gather_plain(img_t, x_t, y_t, mode)
+            tol = torch.full_like(want, 1e-5)
+        else:
+            want = bilinear.bilinear_gather_forward(img_t.to(dtype).float(), x_t, y_t, mode)
+            tol = chip_smoke.ulp_tolerance(torch, want, dtype)
+        chip_smoke.check_close(f"K5 {shape} {case} {mode} {dtype}", got, want, tol)
+
+
 def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
     img = torch.zeros(1, 4, 4, 8, device=cuda_device)
     x = torch.zeros(1, 2, 2, device=cuda_device)
@@ -956,6 +992,33 @@ ABLATE_GPU_SHAPES = {
     "one_tile": (2, 24, 512, 16, 512),
     "c5_n8": (1, 5, 256, 8, 128),
 }
+
+
+# K3a where a slice holds fewer 64-token tiles than the kernel's 4-stage
+# ring (2 and 3 tiles a TPU tile) with C not a multiple of 8 (13, 20), and C
+# = 40 (padded to 64 channels) over slices of 8 tiles.
+ABLATE_RING_SHAPES = {
+    "ring2_c13_n32": (2, 13, 2048, 32, 128),
+    "ring3_c20_n16": (3, 20, 768, 16, 192),
+    "c40_n64": (1, 40, 8192, 64, 4096),
+}
+
+
+@pytest.mark.parametrize("shape", list(ABLATE_RING_SHAPES))
+def test_cuda_ablate_mix_short_slices_and_ragged_channels(cuda_device, shape):
+    """K3a in its five modes against the plain version within
+    ``chip_smoke.check_ablate``'s tolerance, at slices shorter than the
+    ring and channels that pad to the products' width; one launch a mode."""
+    name, shape = shape, ABLATE_RING_SHAPES[shape]
+    B, C, L, _, tile = shape
+    _, tps = ablate_mix._slices(B, L, tile,
+                                torch.cuda.get_device_properties(0).multi_processor_count)
+    assert tps < 4 if name.startswith("ring") else tps >= 4  # the ring's 4 stages
+    args = chip_smoke.ablate_inputs(torch, shape, 9, cuda_device)
+    before = ablate_mix.ablate_mix.launches
+    chip_smoke.check_ablate(torch, "gpu", args, tile, {})
+    torch.cuda.synchronize()
+    assert ablate_mix.ablate_mix.launches - before == len(ablate_mix.MODES)
 
 
 @pytest.mark.parametrize("shape", list(ABLATE_GPU_SHAPES))

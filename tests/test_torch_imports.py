@@ -15,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kmunet_tpu")
 # imports JAX on purpose, behind --jax, and stays out.
 SCRIPTS = [REPO / "scripts" / "torch_ablate_mix_kernel.py",
            REPO / "scripts" / "profile_torch_forward.py",
-           REPO / "scripts" / "torch_kernel_timing.py"]
+           REPO / "scripts" / "torch_kernel_timing.py",
+           REPO / "scripts" / "torch_ablate_variants.py"]
 SOURCES = sorted((REPO / "kmunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
 
