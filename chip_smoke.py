@@ -132,6 +132,27 @@ Phases, each printing one JSON line with its seconds:
               and K3 (their backward the plain versions' autograd) on the
               card, TF32 off, against the same step on the CPU through
               ``compare_steps``: K1 4, K3 15, K7 and K6 shared 1 launch.
+   train_options -- the same SH step through K1 and K3 with every option
+              that changes the step's function (``options_config``:
+              kan_reg_weight 1e-5, grad_clip 1.0, wd_mask_norms) and drop
+              path 0.1 from a CUDA generator: in fp32 at B=2, TF32 off, the
+              step with remat against the step without it from the same
+              weights, batch and generator state (``compare_steps``, and the
+              parameters and BatchNorm running buffers after it within the
+              same leaf gate, a parameter also within what the two
+              gradients make of AdamW's first update, ``compare_states``;
+              the generator must end in the same state): K1 8, K3 30 and K7
+              2 launches with remat (the recompute runs the forward's
+              again), K6 shared 1; then the
+              remat step without stochastic depth against the CPU's
+              (``compare_steps``). The bf16 step at B=16 and B=32 with remat
+              off and on: ms by CUDA events after 2 warm-up steps and
+              ``torch.cuda.max_memory_allocated``. Each optimizer of the
+              factory, SGD with nesterov and two of build_optimizer's chains
+              (the clip, the masked decay, the plateau's scale at 0.1):
+              three updates of seeded parameters on the card against the
+              CPU's, within 1e-6 of each leaf's largest |value|, rprop bit
+              for bit (``optimizer_cases``).
    grid_sample -- the port's ``F.grid_sample``-style op
               (``ops.sample.grid_sample_bilinear``, zeros, at the bridge's
               16^2 x 64, B=2), forward and backward on the card for a few
@@ -333,6 +354,11 @@ STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_NORM_RTOL = 5e-5
 STEP_LEAF_RTOL = 1e-3
 STEP_LEAF_ATOL = 1e-6  # the leaves whose exact gradient is 0 hold rounding noise
+OPTIONS_KAN_REG = 1e-5  # train_options: kan_reg_weight
+OPTIONS_GRAD_CLIP = 1.0  # train_options: grad_clip
+OPTIONS_BATCHES = (16, 32)  # train_options: the bench's bf16 steps, timed with remat off and on
+OPTIMIZER_SHAPES = ((64, 32, 3, 3), (16, 16, 8, 3, 3), (4096,), (64,), ())
+OPTIMIZER_RTOL = 1e-6  # card vs CPU, of each leaf's largest |value|
 # DeformConv2d 3x3 (DAGEM's bridge): its 9 taps are the views of one K7
 # launch per forward, one K6 shared-source launch per backward.
 TAPS = 9
@@ -795,20 +821,30 @@ def train_setup(cfg, device, seed=0, dysample_window=True, flow_scale=1.0, kan_f
     return model, state, engine.make_train_step(model, engine.build_loss(cfg), tx, cfg), tx
 
 
-def step_gradients(cfg, device, batch, seed=0, dysample_window=True, flow_scale=1.0,
-                   kan_fused=False, ssd_mixer="einsum"):
+def step_readings(cfg, device, batch, seed=0, dysample_window=True, flow_scale=1.0,
+                  kan_fused=False, ssd_mixer="einsum", generator=None):
     """One train step of ``cfg`` on ``device`` from weights made from
-    ``seed``: (loss, grad norm, {name: gradient}), the gradients read on the
-    CPU where the optimizer takes them, so they are the ones the step
-    applied."""
-    _, state, step, tx = train_setup(cfg, device, seed, dysample_window, flow_scale, kan_fused,
-                                     ssd_mixer)
+    ``seed``, DropPath drawing from ``generator``: ((loss, grad norm, {name:
+    gradient}), the model's state_dict after the step), all on the CPU; the
+    gradients are read where the optimizer takes them, so they are the ones
+    the step applied."""
+    model, state, step, tx = train_setup(cfg, device, seed, dysample_window, flow_scale,
+                                         kan_fused, ssd_mixer)
     seen = []
     update = tx.update
     tx.update = lambda grads, st, params: seen.append([g.cpu() for g in grads]) or update(
         grads, st, params)
-    _, m = step(state, batch)
-    return float(m["loss"]), float(m["grad_norm"]), dict(zip(state.params, seen[0]))
+    _, m = step(state, batch, generator)
+    after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return (float(m["loss"]), float(m["grad_norm"]), dict(zip(state.params, seen[0]))), after
+
+
+def step_gradients(cfg, device, batch, seed=0, dysample_window=True, flow_scale=1.0,
+                   kan_fused=False, ssd_mixer="einsum"):
+    """(loss, grad norm, {name: gradient}) of ``step_readings`` with no
+    stochastic depth's generator."""
+    return step_readings(cfg, device, batch, seed, dysample_window, flow_scale, kan_fused,
+                         ssd_mixer)[0]
 
 
 def float64_gradients(cfg, batch, seed=0, flow_scale=1.0):
@@ -851,6 +887,92 @@ def compare_steps(card, cpu):
     if loss_rel > STEP_LOSS_RTOL or gn_rel > STEP_GRAD_NORM_RTOL or leaf_ratio > 1.0:
         raise AssertionError(f"card vs CPU fp32 step: {readings}")
     return readings
+
+
+def adamw_first_update(g, grad_norm, clip):
+    """AdamW's first update direction for the gradient ``g`` (moments from
+    0, bias-corrected: g / (|g| + eps)) after the global-norm clip, in
+    float64: what one step makes of a gradient, but for lr and the decay."""
+    g = g.double() * min(1.0, clip / grad_norm)
+    return g / (g.abs() + 1e-8)
+
+
+def compare_states(got, want, lr, clip):
+    """Holds the state_dicts after two AdamW steps, ``got`` and ``want``
+    ((readings, state) of ``step_readings``), to the step gate: every
+    parameter and BatchNorm running buffer within STEP_LEAF_RTOL of its
+    largest |value| in ``want`` plus STEP_LEAF_ATOL, a parameter also
+    within what the two steps' gradients (held by ``compare_steps``) make of
+    the update at ``lr`` (``adamw_first_update``): AdamW's first update is
+    about lr whatever |g|, so a gradient of rounding noise (the leaves whose
+    exact gradient is 0) moves its parameter by lr with either sign.
+    Raises if not; returns the worst share of the tolerance and its key."""
+    ((_, gn_got, g_got), s_got), ((_, gn_want, g_want), s_want) = got, want
+    ratio, worst = 0.0, ""
+    for k, w in s_want.items():
+        if not w.is_floating_point():
+            continue
+        tol = STEP_LEAF_RTOL * float(w.abs().max()) + STEP_LEAF_ATOL
+        err = (s_got[k] - w).abs().double()
+        if k in g_want:
+            err = err - lr * (adamw_first_update(g_got[k], gn_got, clip)
+                              - adamw_first_update(g_want[k], gn_want, clip)).abs()
+        r = float(err.max()) / tol
+        if r > ratio:
+            ratio, worst = r, k
+    if ratio > 1.0:
+        raise AssertionError(f"states differ at {worst}: {ratio} of the tolerance")
+    return {"worst_state": worst, "worst_state_share_of_tol": ratio}
+
+
+def options_config(B, dtype, remat, drop_path=0.1):
+    """``sh_config`` with every option of the train step that changes its
+    function on: the KAN regularizer (1e-5), the global-norm clip (1.0) and
+    the decay on the tensors of 2 or more dims only; ``remat`` on or off."""
+    cfg = sh_config(B, dtype, drop_path=drop_path)
+    cfg.train.kan_reg_weight = OPTIONS_KAN_REG
+    cfg.train.grad_clip = OPTIONS_GRAD_CLIP
+    cfg.train.wd_mask_norms = True
+    cfg.train.remat = remat
+    return cfg
+
+
+def optimizer_cases():
+    """{name: a fresh optimizer}: the nine of ``make_optimizer`` (decay 1e-2,
+    a MultiStepLR halving the lr at each update; rprop its constant lr),
+    SGD with nesterov, and two of build_optimizer's chains: AdamW with its
+    decay on the tensors of 2 or more dims, the clip and the plateau's
+    scale (set to 0.1), and SGD behind the clip and the masked coupled
+    decay."""
+    from kmunet_tpu_torch.train import optimizers as opt
+    from kmunet_tpu_torch.train.schedule import make_schedule
+
+    lr = make_schedule("MultiStepLR", 1e-2, 1, milestones=(1, 2), gamma=0.5)
+    cases = {name: (lambda name=name: opt.make_optimizer(
+        name, 1e-2 if name == "rprop" else lr, weight_decay=1e-2))
+        for name in ("adadelta", "adagrad", "adam", "adamw", "adamax", "asgd", "rmsprop",
+                     "rprop", "sgd")}
+    cases["sgd_nesterov"] = lambda: opt.make_optimizer("sgd", lr, weight_decay=1e-2,
+                                                       nesterov=True)
+    cases["adamw_plateau"] = lambda: opt.Chain(opt.AdamW(lr, 0.05, mask_norms=True),
+                                               grad_clip=1.0, plateau=True)
+    cases["sgd_chain"] = lambda: opt.Chain(opt.make_optimizer("sgd", lr), grad_clip=1.0,
+                                           masked_decay=1e-2)
+    return cases
+
+
+def run_optimizer(torch, make, params, grads, device):
+    """Three updates of ``make()`` on ``params`` (numpy) with ``grads`` on
+    ``device``; the plateau's scale set to 0.1. Returns the parameters on
+    the CPU."""
+    p = [torch.from_numpy(a.copy()).to(device) for a in params]
+    tx = make()
+    state = tx.init(p)
+    if getattr(state, "scale", None) is not None:
+        state.scale = 0.1
+    for g in grads:
+        state = tx.update([torch.from_numpy(a).to(device) for a in g], state, p)
+    return [t.cpu() for t in p]
 
 
 def scan_inputs(np, rng, shape, dt_case):
@@ -1761,6 +1883,82 @@ def main() -> int:
         check = compare_steps(card, step_gradients(cfg, "cpu", batch, **options))
         f.update(batch=CHECK_BATCH, compute="float32", launches=launches, check=check,
                  tf32=False, **options)
+
+    with Phase("train_options") as f:
+        # The SH step through K1 and K3 with every option that changes its
+        # function: the KAN regularizer, the clip, the masked decay, and
+        # remat, with stochastic depth from the caller's generator. fp32,
+        # TF32 off: the remat step against the step without remat from the
+        # same weights, batch and generator state; then the remat step
+        # without stochastic depth against the CPU's (the two devices'
+        # generators draw differently).
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        fused = dict(kan_fused=True, ssd_mixer="fused")
+        batch = synthetic_batch(np, CHECK_BATCH, seed=8)
+        runs, gens = {}, {}
+        for remat in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(5)
+            reset_counts()
+            runs[remat] = step_readings(options_config(CHECK_BATCH, "float32", remat), "cuda",
+                                        batch, generator=gen, **fused)
+            launches = read_counts()
+            gens[remat] = gen.get_state()
+            if remat:  # the recompute runs every forward kernel again
+                path_launches["train_options"] = launches
+            expect_launches(f"train_options remat={remat}", launches, launches_per(
+                k7=DEFORM_CONVS * (1 + remat), k6s=DEFORM_CONVS, k1=KAN_CONVS * (1 + remat),
+                k3=SSD_MIXERS * (1 + remat)))
+        if not torch.equal(gens[True], gens[False]):
+            raise AssertionError("train_options: the remat step left the generator elsewhere")
+        remat_check = compare_steps(runs[True][0], runs[False][0])
+        lr = float(options_config(CHECK_BATCH, "float32", True).train.lr)  # cosine at epoch 0
+        remat_check.update(compare_states(runs[True], runs[False], lr, OPTIONS_GRAD_CLIP))
+        remat_check["grads_bit_equal"] = all(
+            torch.equal(g, runs[False][0][2][k]) for k, g in runs[True][0][2].items())
+        cfg = options_config(CHECK_BATCH, "float32", True, drop_path=0.0)
+        cpu_check = compare_steps(step_gradients(cfg, "cuda", batch, **fused),
+                                  step_gradients(cfg, "cpu", batch, **fused))
+
+        # The bench's bf16 step (B=16 and B=32) with the same options, remat
+        # off and on, PyTorch's default TF32 settings as in the timing phase.
+        torch.backends.cudnn.allow_tf32 = True
+        timed = {}
+        for B in OPTIONS_BATCHES:
+            for remat in (False, True):
+                _, state, step, _ = train_setup(options_config(B, "bfloat16", remat), "cuda",
+                                                **fused)
+                frames = torch.rand(B, 25, 128, 128, device=dev)
+                gen = torch.Generator(device=dev).manual_seed(1)
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(torch, lambda: step(state, frames, gen), 5)
+                timed[f"B{B}_bfloat16" + ("_remat" if remat else "")] = {
+                    "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                del state, step, frames
+
+        # The optimizers: three updates of seeded parameters on the card and
+        # on the CPU.
+        rng = np.random.default_rng(9)
+        params = [rng.normal(size=s).astype(np.float32) for s in OPTIMIZER_SHAPES]
+        grads = [[np.asarray(rng.normal(size=s), np.float32) for s in OPTIMIZER_SHAPES]
+                 for _ in range(3)]
+        optimizer_errors = {}
+        for name, make in optimizer_cases().items():
+            got = run_optimizer(torch, make, params, grads, dev)
+            want = run_optimizer(torch, make, params, grads, "cpu")
+            if name == "rprop":
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError("rprop: the card's updates differ from the CPU's")
+            share = max(float((a - b).abs().max()) / (OPTIMIZER_RTOL * float(b.abs().max()))
+                        for a, b in zip(got, want))
+            if share > 1.0:
+                raise AssertionError(f"{name}: card vs CPU {share} of the tolerance")
+            optimizer_errors[name] = share
+        f.update(batch=CHECK_BATCH, compute="float32", tf32=False, drop_path=0.1,
+                 kan_reg_weight=OPTIONS_KAN_REG, grad_clip=OPTIONS_GRAD_CLIP, wd_mask_norms=True,
+                 launches=path_launches["train_options"], remat_vs_plain=remat_check,
+                 remat_vs_cpu=cpu_check, step_timing=timed,
+                 optimizer_share_of_tol=optimizer_errors, **fused)
 
     with Phase("grid_sample") as f:
         # The port's F.grid_sample-style op on the card, forward and

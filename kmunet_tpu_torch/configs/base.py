@@ -51,12 +51,15 @@ class TrainConfig:
     optimizer: str = "adamw"
     lr: float = 1e-3
     weight_decay: float = 0.05
-    momentum: float = 0.9             # sgd only
+    momentum: float = 0.9             # sgd/rmsprop only
     schedule: str = "cosine_epoch"    # CosineAnnealingLR stepped per epoch
     cosine_t_max: int = 200
     eta_min: float = 5e-4
     milestones: Sequence[int] = (15000, 30000)  # MultiStepLR, epoch units
-    gamma: float = 0.1                # MultiStepLR decay factor
+    gamma: float = 0.1                # MultiStepLR/StepLR decay factor
+    plateau_factor: float = 0.1       # schedule="plateau" (ReduceLROnPlateau)
+    plateau_patience: int = 10        # epochs without val improvement
+    epochs: int = 120                 # WP_CosineLR's horizon
     loss: str = "hybrid"
     loss_alpha: float = 0.7
     kan_reg_weight: float = 0.0       # 0 = off

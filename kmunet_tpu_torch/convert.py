@@ -13,6 +13,8 @@ changes are:
 - KANConv2d's ``base_kernel`` (k, k, C, F) -> ``base_weight`` (F, C, k, k),
   ``spline_kernel`` (k, k, C, n, F) -> ``spline_weight`` (F, C, n, k, k) and
   ``spline_scaler`` (k, k, C, F) -> (F, C, k, k);
+- KANLinear's ``base_weight`` (in, out) -> (out, in), ``spline_weight``
+  (in, n, out) -> (out, in, n) and ``spline_scaler`` (in, out) -> (out, in);
 - HSMSSD's ``BCdt_proj_kernel`` (C, 3N) -> ``BCdt_proj`` (3N, C) and
   ``dw_kernel`` (3, 3, 1, 3N) -> ``dw_weight`` (3N, 1, 3, 3);
 - ConvLSTM's per-channel peepholes ``Wci``, ``Wcf``, ``Wco`` keep their names;
@@ -65,6 +67,8 @@ _RENAMES = {
     "alpha3": ("alpha3", None),
     "beta": ("beta", None),
 }
+# KANLinear's leaves (its 2-D spline_scaler; KANConv2d's is 4-D, above).
+_KAN_LINEAR = {"base_weight": (1, 0), "spline_weight": (2, 0, 1), "spline_scaler": (1, 0)}
 # Torch bookkeeping with no flax counterpart; set to 0, never read in eval.
 _TORCH_ONLY = "num_batches_tracked"
 
@@ -82,6 +86,8 @@ def _convert_leaf(path, value):
     if leaf == "kernel":
         perm = _OIHW if value.ndim == 4 else (1, 0)
         name = "weight"
+    elif leaf in _KAN_LINEAR and value.ndim == len(_KAN_LINEAR[leaf]):
+        name, perm = leaf, _KAN_LINEAR[leaf]
     elif leaf in _RENAMES:
         name, perm = _RENAMES[leaf]
     else:

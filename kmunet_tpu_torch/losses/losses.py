@@ -1,9 +1,9 @@
 """Nowcasting losses (port of ``kmunet_tpu/losses/losses.py``).
 
 ``hybrid_loss`` (the SH training loss), ``weighted_mse_mae`` (the ConvLSTM
-and TrajGRU recipes'), ``rainfall_loss`` (Mamba-UNet's) and ``rain_loss``
-(the other zoo recipes') are ported; ``en_rainfall_loss`` waits for ROADMAP
-Queue 1 item 5.
+and TrajGRU recipes'), ``rainfall_loss`` (Mamba-UNet's), ``rain_loss`` (the
+other zoo recipes') and ``en_rainfall_loss`` (no recipe's; the reference's
+``enRainfallLoss``).
 """
 
 from __future__ import annotations
@@ -52,6 +52,24 @@ def rainfall_loss(pred: torch.Tensor, target: torch.Tensor, omega_t: float = 0.5
              + torch.sum(lt * heavy * omega_t * wi * err))
     n = pred.numel()
     return base / n + quant / n
+
+
+def en_rainfall_loss(pred: torch.Tensor, target: torch.Tensor, omega_t: float = 0.57,
+                     alpha: float = 0.25, gamma: float = 0.1) -> torch.Tensor:
+    """``rainfall_loss`` with omega_t in its base term too, plus an
+    exponential penalty on under-predicting heavy rain (target >= 0.7):
+    ``gamma * (exp(alpha * (target - pred)) - 1)``; the three sums divided by
+    the number of elements."""
+    err = (pred - target).abs()
+    ge = (pred >= target).to(pred.dtype)
+    lt = 1.0 - ge
+    heavy = (target >= 0.7).to(pred.dtype)
+    wi = alpha * torch.exp(target)
+    base = torch.sum(ge * (1 - omega_t) * err) + torch.sum(lt * omega_t * err)
+    quant = (torch.sum(ge * heavy * (1 - omega_t) * wi * err)
+             + torch.sum(lt * heavy * omega_t * wi * err))
+    fn_penalty = torch.sum(heavy * lt * gamma * (torch.exp(alpha * (target - pred)) - 1.0))
+    return (base + quant + fn_penalty) / pred.numel()
 
 
 def rain_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

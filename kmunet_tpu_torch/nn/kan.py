@@ -1,12 +1,14 @@
-"""KAN convolution (port of ``kmunet_tpu/nn/kan.py::KANConv2d``).
+"""KAN layers (port of ``kmunet_tpu/nn/kan.py``).
 
+    KANLinear(x) = silu(x) @ base + B(x) @ (spline * scaler)
     KANConv2d(x) = conv(silu(xp), base) + conv(B(xp), spline * scaler)
 
-with ``xp`` the zero-padded input and ``B`` the cubic B-spline basis (8
-functions per channel on a uniform grid over [-1, 1]). The input is padded
-*before* the basis is evaluated, because basis(0) != 0. The function is
+with ``B`` the B-spline basis (8 cubic functions per feature on a uniform
+grid over [-1, 1]) and ``xp`` the zero-padded input: the conv pads *before*
+the basis is evaluated, because basis(0) != 0. The conv's function is
 ``kernels/kanconv.py``'s: its plain version by default, ``fused_kanconv``
-(K1 on the card) with ``fused=True``.
+(K1 on the card) with ``fused=True``. Both layers keep the basis axis of
+``spline_weight`` at dim 2, which ``kan_regularization_loss`` reduces.
 """
 
 from __future__ import annotations
@@ -17,7 +19,82 @@ from torch import nn
 
 from kmunet_tpu_torch.kernels.kanconv import fused_kanconv, kanconv_plain
 from kmunet_tpu_torch.nn.init import kaiming_uniform_
-from kmunet_tpu_torch.ops.spline import bspline_basis, knots
+from kmunet_tpu_torch.ops.spline import bspline_basis, knots, pinv
+
+
+def spline_noise_coeff(generator: torch.Generator, n_feat: int, out: int, grid_size: int,
+                       spline_order: int, scale_noise: float) -> torch.Tensor:
+    """The JAX package's curve2coeff-style init (``_spline_noise_init``):
+    the spline coefficients, (n_feat, grid_size + order, out), that fit
+    small uniform noise at the interior grid points by min-norm least
+    squares."""
+    kn = knots(grid_size, spline_order)
+    interior = kn[spline_order:-spline_order]
+    basis = bspline_basis(interior[:, None], kn[None, :], spline_order)[:, 0, :]
+    noise = (torch.rand(grid_size + 1, n_feat, out, generator=generator) - 0.5) * (
+        scale_noise / grid_size)
+    return torch.einsum("bg,gfo->fbo", pinv(basis), noise)
+
+
+class KANLinear(nn.Module):
+    """Spline-KAN dense layer over the trailing feature axis.
+
+    Parameters, in PyTorch layout: ``base_weight`` (out, in),
+    ``spline_weight`` (out, in, n) and ``spline_scaler`` (out, in), with
+    ``n = grid_size + spline_order`` bases per input feature; the JAX
+    package's are (in, out), (in, n, out) and (in, out). The base branch is
+    silu and the grid spans [-1, 1], the JAX layer's defaults.
+    """
+
+    def __init__(self, in_features: int, features: int, grid_size: int = 5,
+                 spline_order: int = 3, scale_noise: float = 0.1):
+        super().__init__()
+        self.grid_size = grid_size
+        self.spline_order = spline_order
+        self.scale_noise = scale_noise
+        n_basis = grid_size + spline_order
+        self.base_weight = nn.Parameter(torch.empty(features, in_features))
+        self.spline_weight = nn.Parameter(torch.empty(features, in_features, n_basis))
+        self.spline_scaler = nn.Parameter(torch.empty(features, in_features))
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator) -> None:
+        kaiming_uniform_(self.base_weight, generator)
+        out, n_in, _ = self.spline_weight.shape
+        coeff = spline_noise_coeff(generator, n_in, out, self.grid_size, self.spline_order,
+                                   self.scale_noise)
+        self.spline_weight.copy_(coeff.permute(2, 0, 1))
+        kaiming_uniform_(self.spline_scaler, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out, n_in, n_basis = self.spline_weight.shape
+        kn = knots(self.grid_size, self.spline_order).to(x.device, x.dtype)
+        base = F.linear(F.silu(x), self.base_weight)
+        basis = bspline_basis(x, kn[None, :], self.spline_order)  # (..., in, n)
+        scaled = (self.spline_weight * self.spline_scaler[..., None]).reshape(out, n_in * n_basis)
+        return base + F.linear(basis.flatten(-2), scaled)
+
+
+def kan_regularization_loss(params: dict) -> torch.Tensor:
+    """Spline L1 + entropy regularizer, summed over every KAN layer, as the
+    JAX package's ``kan_regularization_loss`` with its weights of 1 (the
+    reference's ``KANLinear.regularization_loss``): per ``spline_weight``
+    (KANLinear's and KANConv2d's, basis axis 2 in both), ``l1 =
+    |w|.mean(basis axis)``, the activation term ``l1.sum()`` plus the
+    entropy term ``-sum(p log p)`` with ``p = l1 / l1.sum()``, on the raw
+    spline weight in fp32 (the scaler is left out, as in the reference).
+    ``params``: tensors by state_dict name; the others are ignored. 0 when
+    none is a spline weight."""
+    total = None
+    for name, w in params.items():
+        if name.rsplit(".", 1)[-1] != "spline_weight":
+            continue
+        l1 = w.float().abs().mean(dim=2)
+        act = l1.sum()
+        p = l1 / act
+        term = act - (p * torch.log(p)).sum()
+        total = term if total is None else total + term
+    return torch.zeros(()) if total is None else total
 
 
 class KANConv2d(nn.Module):
@@ -52,17 +129,10 @@ class KANConv2d(nn.Module):
     def init_weights_(self, generator: torch.Generator) -> None:
         kaiming_uniform_(self.base_weight, generator)
         kaiming_uniform_(self.spline_scaler, generator)
-        # Fit the spline to small uniform noise at the interior grid points
-        # (min-norm least squares), as the JAX package's _spline_noise_init.
         F_, C, n_basis, k, _ = self.spline_weight.shape
-        g = self.grid_size
-        kn = knots(g, self.spline_order)
-        interior = kn[self.spline_order:-self.spline_order]
-        basis = bspline_basis(interior[:, None], kn[None, :], self.spline_order)[:, 0, :]
-        noise = (torch.rand(g + 1, k * k * C, F_, generator=generator) - 0.5) * (self.scale_noise / g)
-        coeff = torch.einsum("bg,gfo->fbo", torch.linalg.pinv(basis), noise)  # (kkC, n, F)
-        coeff = coeff.reshape(k, k, C, n_basis, F_).permute(4, 2, 3, 0, 1)
-        self.spline_weight.copy_(coeff)
+        coeff = spline_noise_coeff(generator, k * k * C, F_, self.grid_size, self.spline_order,
+                                   self.scale_noise)  # (kkC, n, F), JAX's feature order
+        self.spline_weight.copy_(coeff.reshape(k, k, C, n_basis, F_).permute(4, 2, 3, 0, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.padding

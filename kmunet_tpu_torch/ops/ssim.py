@@ -71,3 +71,12 @@ def ssim_valid(
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
     )
     return ssim_map.mean(dim=(-2, -1)).reshape(lead)
+
+
+def ssim_torchmetrics(pred: torch.Tensor, true: torch.Tensor,
+                      data_range: float = 1.0) -> torch.Tensor:
+    """Scalar SSIM of a batch as torchmetrics' StructuralSimilarityIndexMeasure
+    (HybridLoss's in the reference) averages it: the mean of
+    ``ssim_valid`` over every image, the two trailing axes being the image
+    (pass (B, T, H, W) or a single (T, H, W))."""
+    return torch.mean(ssim_valid(pred, true, data_range=data_range))

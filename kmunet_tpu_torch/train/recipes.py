@@ -86,8 +86,7 @@ RECIPES: dict[tuple[str, str], Recipe] = {
 def apply_recipe(cfg: ExperimentConfig, model: str, recipe: str) -> ExperimentConfig:
     """Overwrites ``cfg.train`` with the (model, recipe) settings and sets
     ``cfg.model.name``; the data config stays as it is (``shanghai_km_unet()``
-    for "pic"). The port's config has no ``epochs`` (no epoch loop yet):
-    that stays in the table."""
+    for "pic")."""
     key = (model, recipe)
     if key not in RECIPES:
         available = sorted(k for k in RECIPES if k[1] == recipe)
@@ -100,6 +99,7 @@ def apply_recipe(cfg: ExperimentConfig, model: str, recipe: str) -> ExperimentCo
     t.momentum = r.momentum
     t.loss = r.loss
     t.schedule = r.schedule
+    t.epochs = r.epochs
     t.eta_min = r.eta_min
     if r.t_max:
         t.cosine_t_max = r.t_max

@@ -224,8 +224,8 @@ def test_multistep_schedule_matches_jax():
     np.testing.assert_allclose([port_s(s) for s in steps], [float(ref(s)) for s in steps],
                                rtol=1e-6)
     assert port_s(1) == 1e-3 and port_s(2) == 5e-4  # per epoch of 2 steps
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_schedule("StepLR", 1e-3, 2)
+    with pytest.raises(ValueError, match="unsupported scheduler"):
+        make_schedule("OneCycleLR", 1e-3, 2)
 
 
 @pytest.mark.parametrize("weight_decay", [0.0, 1e-2])
