@@ -218,6 +218,32 @@ Phases, each printing one JSON line with its seconds:
               stochastic depth, through K1 and K3 on the card (4 and 15
               launches, no other kernel) against the same step on the CPU
               through ``compare_steps``.
+   trainer -- the port's whole loop, ``engine.train_and_evaluate``, as a
+              user runs it: the SH recipe (``sh_config``: 128^2, 5 -> 20,
+              B=16, bf16, AdamW, drop path 0.1 from the loop's CUDA
+              generator) on synthetic data of TRAINER_LENGTH items, 4 train
+              steps, one val batch and one test batch an epoch, for
+              TRAINER_EPOCHS epochs, with best-val checkpoints and
+              results.json in a temporary directory and no PNG strips. The
+              launch counts are set to 0 just before and read just after:
+              K7 once per forward (8 train steps, 2 val batches, 1 test
+              batch: 11), K6's shared-source entry once per step (8), no
+              other kernel. The losses and results.json's CSI, POD, HSS,
+              FAR, RMSE and SSIM must be finite, and
+              ``evaluate_checkpoint(which="best")`` (the last epoch's
+              checkpoint, which must be the best) must reproduce the loop's
+              test results bit for bit: both test passes run with
+              ``cudnn.deterministic`` (the same convolution algorithms on
+              the same weights and batch), TF32 convolutions as PyTorch's
+              default. Printed: seconds per epoch (the epoch CSV), per test
+              pass and per checkpoint save, the loop's wall seconds and the
+              peak ``max_memory_allocated``. Then ``Evaluator`` on the card
+              and on the CPU on the same seeded (16, 20, 128, 128)
+              prediction and target (values on the bins' edges among
+              them): the same contingency counts, RMSE and SSIM within 1e-6
+              relative. Then the LAPS recipe (``laps_config``: 256^2, 5 -> 3,
+              B=1, fp32, ``scatter_eval``) for one epoch of 2 steps: no
+              kernel, a finite ``scatter`` block.
 6. timing  -- CUDA events after warm-up, PyTorch's default TF32 settings:
               the forward at B=128 bf16 on the window and the exact path and
               at B=8 fp32 (ms, frames/s = B*20/s); the train step at B=16 and
@@ -528,6 +554,10 @@ LAPS_SIZE = 256  # laps_km_unet()'s img_size
 LAPS_FRAMES = 3
 LAPS_SEQ = 8
 LAPS_BATCHES = (1, 32)  # the recipe's batch, and SH's B=128 at 128^2 in pixels
+TRAINER_LENGTH = 64  # the trainer phase's synthetic items: 4 steps of B=16 an epoch
+TRAINER_EPOCHS = 2
+LAPS_TRAINER_LENGTH = 2  # the LAPS loop: one epoch of 2 steps at B=1
+EVALUATOR_RTOL = 1e-6  # RMSE and SSIM, card vs CPU
 
 
 def emit(obj) -> None:
@@ -1532,6 +1562,165 @@ def reach_offsets(torch, model, frames, reach):
     return before, largest_offsets(torch, model, frames)
 
 
+def trainer_config(tmp):
+    """The trainer phase's SH run: ``sh_config`` at TRAIN_BATCH (bf16, drop path 0.1) on
+    TRAINER_LENGTH synthetic items for TRAINER_EPOCHS epochs, checkpoints
+    and results.json under ``tmp``, no PNG strips."""
+    cfg = sh_config(TRAIN_BATCH, "bfloat16")
+    cfg.data.name = "synthetic"
+    cfg.data.synthetic_length = TRAINER_LENGTH
+    cfg.train.epochs = TRAINER_EPOCHS
+    cfg.train.ckpt_dir = os.path.join(tmp, "ckpt")
+    cfg.train.out_dir = os.path.join(tmp, "out")
+    cfg.train.vis_batches = 0
+    return cfg
+
+
+def same_results(got, want, path="results"):
+    """Raises unless two results trees are equal, NaN equal to NaN."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            same_results(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} values, want {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            same_results(a, b, f"{path}/{i}")
+    elif not (got == want or (isinstance(want, float) and want != want and got != got)):
+        raise AssertionError(f"{path}: {got!r} != {want!r}")
+
+
+def time_calls(torch, owner, name, seconds, deterministic=False):
+    """Replaces ``owner.name`` by a wrapper that appends each call's seconds
+    (the device synchronized before and after) to ``seconds``, under
+    ``cudnn.deterministic`` if asked; returns the original."""
+    original = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            return original(*args, **kwargs)
+        finally:
+            torch.backends.cudnn.deterministic = False
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(owner, name, timed)
+    return original
+
+
+def trainer_phase(torch, np, card, reset_counts, read_counts, launches_per, path_launches):
+    """The trainer phase (the module docstring): the SH loop, its best
+    checkpoint's test pass, the Evaluator card vs CPU, the LAPS loop; returns
+    the phase's fields."""
+    import csv
+    import tempfile
+
+    from kmunet_tpu_torch.metrics import Evaluator
+    from kmunet_tpu_torch.train import checkpoint, engine
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as a user trains
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds = {"test_pass": [], "checkpoint_save": []}
+    evaluate = time_calls(torch, engine, "evaluate_model", seconds["test_pass"],
+                          deterministic=True)
+    save = time_calls(torch, checkpoint.CheckpointManager, "save", seconds["checkpoint_save"])
+    fields = {"nvidia_smi": card}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = trainer_config(tmp)
+            steps = TRAINER_EPOCHS * TRAINER_LENGTH // TRAIN_BATCH
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            results = engine.train_and_evaluate(cfg, log_csv=os.path.join(tmp, "epochs.csv"))
+            wall = time.perf_counter() - t0
+            launches = path_launches["trainer"] = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # K7 in every forward: the train steps', the val batches' and the test batch's.
+            expect_launches("trainer", launches, launches_per(
+                k7=DEFORM_CONVS * (steps + TRAINER_EPOCHS + 1), k6s=DEFORM_CONVS * steps))
+            history = results["history"]
+            if results["steps"] != steps or not np.isfinite(
+                    history["train_loss"] + history["val_loss"] + [results["test_loss"]]).all():
+                raise AssertionError(f"trainer: {results['steps']} steps, history {history}")
+            with open(os.path.join(cfg.train.out_dir, "results.json")) as fh:
+                written = json.load(fh)
+            scores = [written[k] for k in ("FAR", "RMSE", "SSIM")] + [
+                v for m in written["threshold_metrics"].values() for v in m.values()]
+            if not all(isinstance(v, float) and np.isfinite(v) for v in scores):
+                raise AssertionError(f"trainer: results.json scores {scores}")
+            with open(os.path.join(tmp, "epochs.csv")) as fh:
+                ends = [float(r["time"]) for r in csv.DictReader(fh)]
+            best = checkpoint.CheckpointManager(cfg.train.ckpt_dir).best_step()
+            if best != steps:
+                raise AssertionError(f"trainer: the best checkpoint is step {best}, not the "
+                                     f"last epoch's {steps} (val losses {history['val_loss']})")
+            restored = engine.evaluate_checkpoint(cfg, cfg.train.ckpt_dir, which="best")
+            if restored["checkpoint_step"] != steps:
+                raise AssertionError(f"trainer: restored step {restored['checkpoint_step']}")
+            same_results({k: v for k, v in restored.items() if k != "checkpoint_step"},
+                         {k: v for k, v in results.items() if k not in ("history", "steps")})
+            fields.update(
+                batch=TRAIN_BATCH, compute="bfloat16", epochs=TRAINER_EPOCHS, steps=steps,
+                synthetic_length=TRAINER_LENGTH, launches=launches, history=history,
+                test_loss=results["test_loss"], FAR=results["FAR"], RMSE=results["RMSE"],
+                SSIM=results["SSIM"], threshold_metrics=written["threshold_metrics"],
+                epoch_seconds=[b - a for a, b in zip([0.0] + ends, ends)],
+                loop_seconds=wall, test_pass_seconds=seconds["test_pass"],
+                checkpoint_save_seconds=seconds["checkpoint_save"], peak_gib=peak,
+                best_checkpoint=best, restored_equals_in_memory=True)
+
+            # The Evaluator on the card and on the CPU, on the same inputs.
+            rng = np.random.default_rng(18)
+            shape = (TRAIN_BATCH, 20, 128, 128)
+            evaluators = {dev: Evaluator(seq_len=20, value_scale=90.0) for dev in ("cuda", "cpu")}
+            for _ in range(2):
+                true = rng.random(shape, dtype=np.float32)
+                pred = np.clip(true + rng.normal(0, 0.1, shape), 0, 1).astype(np.float32)
+                pred[..., :16] = rng.integers(0, 91, (*shape[:3], 16)) / np.float32(90.0)
+                for dev, ev in evaluators.items():
+                    ev.evaluate(torch.from_numpy(true).to(dev), torch.from_numpy(pred).to(dev))
+            on_card, on_cpu = evaluators["cuda"], evaluators["cpu"]
+            if not np.array_equal(on_card._cont_t, on_cpu._cont_t):
+                raise AssertionError("Evaluator: the card's contingency counts differ")
+            done_card, done_cpu = on_card.done(), on_cpu.done()
+            rel = {k: abs(done_card[k] - done_cpu[k]) / abs(done_cpu[k]) for k in ("RMSE", "SSIM")}
+            if max(rel.values()) > EVALUATOR_RTOL:
+                raise AssertionError(f"Evaluator card vs CPU: {rel} > {EVALUATOR_RTOL}")
+            fields["evaluator_card_vs_cpu"] = {"counts_equal": True, "relative_error": rel,
+                                               "tf32_matmul": False}
+
+            # The LAPS recipe with the scatter metrics: no kernel on its path.
+            cfg = laps_config(1, "float32")
+            cfg.data.name = "synthetic"
+            cfg.data.synthetic_length = LAPS_TRAINER_LENGTH
+            cfg.train.epochs = 1
+            cfg.train.out_dir = os.path.join(tmp, "laps")
+            cfg.train.vis_batches = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            laps = engine.train_and_evaluate(cfg)
+            laps_wall = time.perf_counter() - t0
+            launches = path_launches["trainer_laps"] = read_counts()
+            expect_launches("trainer_laps", launches, launches_per())
+            scatter = laps["scatter"]
+            if laps["steps"] != LAPS_TRAINER_LENGTH or set(scatter) != set(cfg.data.thresholds) \
+                    or not all(np.isfinite(list(row.values())).all() for row in scatter.values()):
+                raise AssertionError(f"LAPS loop: {laps['steps']} steps, scatter {scatter}")
+            fields["laps"] = {"batch": 1, "size": LAPS_SIZE, "compute": "float32",
+                              "steps": laps["steps"], "history": laps["history"],
+                              "loop_seconds": laps_wall, "scatter": scatter}
+    finally:
+        engine.evaluate_model = evaluate
+        checkpoint.CheckpointManager.save = save
+    return fields
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import numpy as np
@@ -1589,6 +1778,7 @@ def main() -> int:
         f.update(kind=kind, count=torch.cuda.device_count(), nvidia_smi=card,
                  torch=torch.__version__, cuda=torch.version.cuda)
     print(card, flush=True)
+    nvidia_smi = card  # ``card`` names the card's step in the phases below
 
     with Phase("build") as f:
         sources = (bilinear.SOURCE, bilinear.MULTIVIEW_SOURCE, bilinear.BACKWARD_SOURCE,
@@ -2163,6 +2353,10 @@ def main() -> int:
         check = compare_steps(card, step_gradients(cfg, "cpu", batch, **options))
         f.update(batch=1, size=LAPS_SIZE, compute="float32", launches=launches, check=check,
                  tf32=False, **options)
+
+    with Phase("trainer") as f:
+        f.update(trainer_phase(torch, np, nvidia_smi, reset_counts, read_counts, launches_per,
+                               path_launches))
 
     def time_kernel(kernel, plain, library, bound, iters, plain_iters):
         """A kernel's numbers beside its ``bound`` ((bound_ms, bound_by,

@@ -4,7 +4,8 @@ same seed.
 
 Advecting Gaussian "storm cells": items are (seq_len, S, S) float32 in
 [0, 1] with heavy-tail intensities, temporally coherent so that forecast
-skill is learnable.
+skill is learnable. An item is a function of (seed, i), so it is kept once
+made: a loader's later epochs do not make it again.
 """
 
 from __future__ import annotations
@@ -26,11 +27,17 @@ class SyntheticNowcastDataset:
         self.seq_len = seq_len
         self.n_cells = n_cells
         self.seed = seed
+        self._cache: dict[int, np.ndarray] = {}
 
     def __len__(self):
         return self.length
 
     def __getitem__(self, i: int) -> np.ndarray:
+        if i not in self._cache:
+            self._cache[i] = self._generate(i)
+        return self._cache[i]
+
+    def _generate(self, i: int) -> np.ndarray:
         rng = np.random.default_rng(self.seed * 100003 + i)
         S, T, K = self.img_size, self.seq_len, self.n_cells
         yy, xx = np.mgrid[0:S, 0:S].astype(np.float32)

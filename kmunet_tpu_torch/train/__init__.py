@@ -1,1 +1,1 @@
-"""Training of the port: schedule, optimizer and the train step."""
+"""Training of the port: schedules, optimizers, checkpoints and the engine (the train step and the loop)."""

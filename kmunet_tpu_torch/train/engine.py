@@ -1,17 +1,38 @@
-"""The training step of the port (port of ``kmunet_tpu/train/engine.py``),
-under the JAX engine's names::
+"""The training and evaluation engine of the port (port of
+``kmunet_tpu/train/engine.py``), under the JAX engine's names.
 
-    cfg = shanghai_km_unet()          # or laps_km_unet(), apply_recipe(shanghai_km_unet(), ...)
+Training and scoring a model end to end, as ``python -m
+kmunet_tpu.train.engine`` does::
+
+    cfg = shanghai_km_unet()          # or laps_km_unet(); parse_overrides(cfg, argv)
+    results = train_and_evaluate(cfg)                    # on "cuda"; raises without a card
+    results = evaluate_checkpoint(cfg, cfg.train.ckpt_dir, which="best")
+    python -m kmunet_tpu_torch.train.engine --config=synthetic --max_steps=2
+
+``train_and_evaluate`` builds the datasets and loaders, trains epoch after
+epoch (the losses stay on the device until the epoch ends), validates,
+consults the plateau controller, stops early or on a non-finite loss,
+checkpoints the best state by val loss, runs the test pass through the
+streaming ``Evaluator`` (with the scatter metrics where ``scatter_eval``)
+and writes ``results.json`` and the epoch CSV. ``data.device_cache`` keeps
+the train and val corpora on the device and gathers each batch there
+(``make_epoch_runner``, ``make_val_epoch``). ``train_and_evaluate``'s and
+``evaluate_checkpoint``'s keyword arguments (``dysample_window``,
+``kan_fused``, ``ssd_mixer``) go to ``build_model``.
+
+The pieces, for one step at a time::
+
     model = build_model(cfg)
     loss_fn = build_loss(cfg)
     tx = build_optimizer(cfg, steps_per_epoch=100)
     state = init_state(cfg, model, tx, seed=0)           # on "cuda"; raises without a card
     step = make_train_step(model, loss_fn, tx, cfg)
     state, metrics = step(state, batch, generator)      # batch (B, seq_len, H, W)
+    loss, pred, target = make_eval_step(model, loss_fn, cfg)(state, batch)
 
-Pass ``device="cpu"`` to ``init_state`` to train on the CPU (the gather then
-takes its plain versions); nothing falls back to the CPU on its own. The
-``generator`` (on the model's device) feeds DropPath; it may be None when
+Pass ``device="cpu"`` to run on the CPU (the gathers then take their plain
+versions); nothing falls back to the CPU on its own. The ``generator`` (on
+the model's device) feeds DropPath; it may be None when
 ``model.extra["drop_path"]`` is 0.
 
 ``build_model(cfg, dysample_window=False)`` takes DySample's exact path
@@ -34,31 +55,48 @@ depth: its ``batch_stats`` are empty and the generator may be None.
 Every option of the JAX engine's step is here: every ``loss``
 (``build_loss``), every ``optimizer`` and ``schedule`` of the JAX factories
 with ``grad_clip``, ``wd_mask_norms`` and ``plateau`` (``build_optimizer``;
-``schedule="plateau"`` holds its scale in ``state.opt_state.scale``, 1.0
-until a caller sets it from ``optimizers.PlateauScheduler``), ``remat`` and
-``kan_reg_weight`` (``make_loss_of``). What the port does not have yet
-raises ``NotImplementedError`` naming its ROADMAP Queue 1 item: the other
-models (item 10). The epoch runner, which consults the plateau between
-epochs, and the evaluation with ``scatter_eval`` are item 8's second half
-and item 6.
+``schedule="plateau"`` holds its scale in ``state.opt_state.scale``, which
+the epoch loop sets from ``optimizers.PlateauScheduler``), ``remat`` and
+``kan_reg_weight`` (``make_loss_of``). Where the port departs from the JAX
+engine: checkpoints are torch files (``train/checkpoint.py``) with orbax's
+retention; a resumed run goes on from the epoch after its checkpoint's,
+with the loader's epoch count, the generator's state and the plateau
+controller's as they were (JAX counts its epochs from 0 again); and the
+device-cache epoch draws its permutation from a ``torch.Generator``, not a
+JAX PRNG. What the port does not have yet raises ``NotImplementedError``
+naming its ROADMAP Queue 1 item: the other models (item 10) and any mesh
+but one device (item 9).
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import functools
+import json
+import math
+import os
+import sys
+import time
 from typing import Any, Callable, Optional, Union
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from kmunet_tpu_torch.configs import ExperimentConfig
+from kmunet_tpu_torch.configs import (ExperimentConfig, laps_km_unet, parse_overrides,
+                                      shanghai_km_unet)
+from kmunet_tpu_torch.data import (DataLoader, LAPSDataset, ShanghaiDataset,
+                                   SyntheticNowcastDataset, split_indices)
 from kmunet_tpu_torch.losses import hybrid_loss, rain_loss, rainfall_loss, weighted_mse_mae
+from kmunet_tpu_torch.metrics import Evaluator, make_lpips_fn, scatter_evaluate
 from kmunet_tpu_torch.models import zoo
 from kmunet_tpu_torch.nn.kan import kan_regularization_loss
 from kmunet_tpu_torch.serve import resolve_device
-from kmunet_tpu_torch.train.optimizers import AdamW, Chain, Optimizer, make_optimizer
+from kmunet_tpu_torch.train.checkpoint import CheckpointManager
+from kmunet_tpu_torch.train.optimizers import (AdamW, Chain, Optimizer, PlateauScheduler,
+                                               make_optimizer)
 from kmunet_tpu_torch.train.schedule import cosine_annealing_per_epoch, make_schedule
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -271,3 +309,396 @@ def make_train_step(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentConf
         return new_state, {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return step
+
+
+def make_eval_step(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
+    """``eval_step(state, batch) -> (loss, pred, target)``: the model in eval
+    mode (BatchNorm on its running statistics, no stochastic depth) on its
+    fp32 parameters, as JAX evaluates, with no gradient; pred and target
+    (B, out_frames, H, W) fp32 on the model's device."""
+    in_f, out_f = cfg.data.in_frames, cfg.data.out_frames
+    layout = _model_layout(cfg)
+
+    def eval_step(state: TrainState, batch):
+        device = next(iter(state.params.values())).device
+        batch = torch.as_tensor(batch).to(device=device, dtype=torch.float32)
+        inp, tgt = _split_batch(batch, in_f, out_f, layout)
+        training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                out = model(inp)
+        finally:
+            model.train(training)
+        pred = _to_btHW(out.float(), layout)
+        return loss_fn(pred, tgt), pred, tgt
+
+    return eval_step
+
+
+def make_epoch_runner(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentConfig,
+                      n_batches: int):
+    """``run_epoch(state, data, generator) -> (state, mean loss)``: one
+    training epoch over a corpus ``data`` (N, seq_len, H, W) on the device,
+    its batches gathered there in the order of ``torch.randperm`` drawn from
+    ``generator`` (which also feeds DropPath), with no host copy and no
+    host sync; the mean loss is a 0-d tensor on the device. (JAX's runner
+    draws its permutation from a JAX PRNG: the same distribution, another
+    stream.)"""
+    step = make_train_step(model, loss_fn, tx, cfg)
+    B = cfg.data.batch_size
+
+    def run_epoch(state: TrainState, data: torch.Tensor, generator: torch.Generator):
+        perm = torch.randperm(data.shape[0], generator=generator, device=data.device)
+        losses = []
+        for ib in perm[:n_batches * B].view(n_batches, B):
+            state, m = step(state, data.index_select(0, ib), generator)
+            losses.append(m["loss"])
+        return state, torch.stack(losses).mean()
+
+    return run_epoch
+
+
+def make_val_epoch(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig, n_batches: int):
+    """``run_val(state, data) -> mean loss``: the eval step over the first
+    ``n_batches`` batches of a corpus on the device, in order; a 0-d tensor
+    on the device."""
+    eval_step = make_eval_step(model, loss_fn, cfg)
+    B = cfg.data.batch_size
+
+    def run_val(state: TrainState, data: torch.Tensor) -> torch.Tensor:
+        return torch.stack([eval_step(state, data[i * B:(i + 1) * B])[0]
+                            for i in range(n_batches)]).mean()
+
+    return run_val
+
+
+# --------------------------------------------------------------------------
+# data
+# --------------------------------------------------------------------------
+
+def build_datasets(cfg: ExperimentConfig):
+    """(train, val, test) datasets of ``cfg.data.name``: synthetic (train of
+    ``synthetic_length`` items, val and test of a quarter of it or a batch,
+    from seeds 0, 1, 2), shanghai (the 60/20/20 split of the file's train
+    group) or laps (its 80/10/10 windows)."""
+    d = cfg.data
+    if d.name == "synthetic":
+        def mk(n, seed):
+            return SyntheticNowcastDataset(length=n, img_size=d.img_size, seq_len=d.seq_len,
+                                           seed=seed)
+
+        n_eval = max(d.synthetic_length // 4, d.batch_size)
+        return mk(d.synthetic_length, 0), mk(n_eval, 1), mk(n_eval, 2)
+    if d.name == "shanghai":
+        base = ShanghaiDataset(d.path, d.img_size, "train")
+        splits = split_indices(base.all_len)
+        base.close()
+        return tuple(ShanghaiDataset(d.path, d.img_size, "train", indices=idx) for idx in splits)
+    if d.name == "laps":
+        return tuple(LAPSDataset(d.path, d.seq_len, split) for split in ("train", "val", "test"))
+    raise ValueError(f"unknown dataset {d.name}")
+
+
+def _single_device(cfg: ExperimentConfig) -> None:
+    """Raises unless ``cfg.mesh`` asks for one device."""
+    m = cfg.mesh
+    if m.data not in (-1, 1) or m.spatial != 1 or m.model != 1 or m.fsdp:
+        raise NotImplementedError(f"mesh {m}: the port trains on one device; data, spatial and "
+                                  "model parallelism are ROADMAP Queue 1 item 9")
+
+
+def _loader(cfg: ExperimentConfig, dataset, shuffle: bool, device) -> DataLoader:
+    return DataLoader(dataset, cfg.data.batch_size, shuffle=shuffle, seed=cfg.train.seed,
+                      num_workers=cfg.data.num_workers, device=device)
+
+
+# --------------------------------------------------------------------------
+# loop
+# --------------------------------------------------------------------------
+
+def _write_results_json(path: str, results: dict, cfg: ExperimentConfig) -> None:
+    """results.json: the test metrics and the run's identity, JSON-safe
+    (numpy scalars to Python, threshold keys to strings, NaN and Inf to
+    strings)."""
+    def safe(x):
+        if isinstance(x, dict):
+            return {str(k): safe(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [safe(v) for v in x]
+        if isinstance(x, (np.floating, np.integer)):
+            return safe(x.item())
+        if isinstance(x, float) and not math.isfinite(x):
+            return str(x)
+        return x
+
+    history = results.get("history", {})
+    payload = {
+        "model": cfg.model.name,
+        "dataset": cfg.data.name,
+        "img_size": cfg.data.img_size,
+        "batch_size": cfg.data.batch_size,
+        "loss": cfg.train.loss,
+        "optimizer": cfg.train.optimizer,
+        "lr": cfg.train.lr,
+        "compute_dtype": cfg.train.compute_dtype,
+        **{k: safe(v) for k, v in results.items() if k != "history"},
+        "final_train_loss": safe(history["train_loss"][-1]) if history.get("train_loss") else None,
+        "final_val_loss": safe(history["val_loss"][-1]) if history.get("val_loss") else None,
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=1)
+
+
+def train_and_evaluate(cfg: ExperimentConfig, max_steps: Optional[int] = None,
+                       log_csv: Optional[str] = None, device=None, **build_kwargs) -> dict:
+    """Trains ``cfg`` on ``device`` (None: the card, which must exist) for
+    ``cfg.train.epochs`` epochs, or until ``max_steps`` steps, early
+    stopping or a non-finite loss (``nan_abort``), checkpointing the best
+    state by val loss into ``cfg.train.ckpt_dir``; then the test pass
+    (``evaluate_model``). Returns its results with the epochs' ``history``
+    and the ``steps`` taken; writes ``results.json`` into
+    ``cfg.train.out_dir`` and the epochs' CSV to ``log_csv`` when given.
+    ``build_kwargs`` go to ``build_model``."""
+    _single_device(cfg)
+    device = resolve_device(device)
+    train_ds, val_ds, test_ds = build_datasets(cfg)
+    train_loader = _loader(cfg, train_ds, True, device)
+    val_loader = _loader(cfg, val_ds, False, device)
+    test_loader = _loader(cfg, test_ds, False, device)
+    for name, ld in [("train", train_loader), ("val", val_loader), ("test", test_loader)]:
+        if len(ld) == 0:
+            raise ValueError(f"{name} loader yields 0 batches (dataset len {len(ld.dataset)} "
+                             f"< batch {cfg.data.batch_size}?)")
+    steps_per_epoch = max(len(train_loader), 1)
+
+    model = build_model(cfg, **build_kwargs)
+    loss_fn = build_loss(cfg)
+    tx = build_optimizer(cfg, steps_per_epoch)
+    state = init_state(cfg, model, tx, seed=cfg.train.seed, device=device)
+    # DropPath's masks, and the device-cache epoch's permutation.
+    generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
+    train_step = make_train_step(model, loss_fn, tx, cfg)
+    eval_step = make_eval_step(model, loss_fn, cfg)
+
+    # The corpus on the device, each batch gathered there; the loader path
+    # where max_steps cuts an epoch.
+    use_device_cache = cfg.data.device_cache and max_steps is None
+    if use_device_cache:
+        def corpus(ds):
+            return torch.from_numpy(np.stack([ds[i] for i in range(len(ds))])).to(device)
+
+        train_data, val_data = corpus(train_ds), corpus(val_ds)
+        # The loaders' emptiness check above leaves every split a full batch.
+        n_tr_batches = len(train_ds) // cfg.data.batch_size
+        run_epoch = make_epoch_runner(model, loss_fn, tx, cfg, n_tr_batches)
+        run_val = make_val_epoch(model, loss_fn, cfg, len(val_ds) // cfg.data.batch_size)
+
+    plateau = None
+    if cfg.train.schedule == "plateau":
+        plateau = PlateauScheduler(factor=cfg.train.plateau_factor,
+                                   patience=cfg.train.plateau_patience)
+    best_val, bad_epochs, start_epoch = float("inf"), 0, 0
+    ckpt = None
+    if cfg.train.ckpt_dir:
+        ckpt = CheckpointManager(cfg.train.ckpt_dir)
+        if cfg.train.resume:
+            step_restored, restored = ckpt.restore_latest(state)
+            if restored is not None:
+                state = restored
+                extra = ckpt.extra(step_restored)
+                start_epoch = extra["epoch"] + 1
+                train_loader.epoch = extra["loader_epoch"]
+                generator.set_state(extra["generator"])
+                best_val = extra["best_val"]
+                if plateau is not None:
+                    plateau.best, plateau.bad = extra["plateau"]
+                print(f"resumed from checkpoint step {step_restored} (epoch {extra['epoch']})")
+    if plateau is not None:
+        # Carried over on resume: the restored optimizer state holds it.
+        plateau.scale = float(state.opt_state.scale)
+
+    csv_rows = []
+    global_step = state.step
+    t_start = time.time()
+    history = {"train_loss": [], "val_loss": []}
+
+    for epoch in range(start_epoch, cfg.train.epochs):
+        if use_device_cache:
+            state, tr_loss = run_epoch(state, train_data, generator)
+            val_loss = float(run_val(state, val_data))
+            train_loss = float(tr_loss)
+            global_step += n_tr_batches
+        else:
+            # The losses stay on the device until the epoch ends: a read per
+            # step would wait for the device every step.
+            ep_losses = []
+            for batch in train_loader:
+                state, m = train_step(state, batch, generator)
+                ep_losses.append(m["loss"])
+                global_step += 1
+                if max_steps and global_step >= max_steps:
+                    break
+            train_loss = float(torch.stack(ep_losses).mean()) if ep_losses else 0.0
+            v_losses = [eval_step(state, batch)[0] for batch in val_loader]
+            val_loss = float(torch.stack(v_losses).mean()) if v_losses else 0.0
+
+        if plateau is not None and math.isfinite(val_loss):
+            scale = plateau.update(val_loss)
+            state = dataclasses.replace(
+                state, opt_state=dataclasses.replace(state.opt_state, scale=scale))
+
+        history["train_loss"].append(train_loss)
+        history["val_loss"].append(val_loss)
+        csv_rows.append({"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
+                         "time": time.time() - t_start})
+        print(f"epoch {epoch}: train={train_loss:.5f} val={val_loss:.5f} "
+              f"({global_step} steps, {time.time() - t_start:.0f}s)")
+
+        if cfg.train.nan_abort and not (math.isfinite(train_loss) and math.isfinite(val_loss)):
+            # The parameters are dead, and NaN < best_val is False: no
+            # checkpoint would ever be saved again.
+            print(f"ABORT: non-finite loss at epoch {epoch} (train={train_loss}, "
+                  f"val={val_loss}); stopping. Consider --train.grad_clip or a lower lr.")
+            break
+
+        if val_loss < best_val:
+            best_val = val_loss
+            bad_epochs = 0
+            if ckpt is not None:
+                ckpt.save(global_step, state, val_loss, extra={
+                    "epoch": epoch, "loader_epoch": train_loader.epoch,
+                    "generator": generator.get_state(), "best_val": best_val,
+                    "plateau": None if plateau is None else [plateau.best, plateau.bad]})
+        else:
+            bad_epochs += 1
+            if cfg.train.early_stop_patience and bad_epochs >= cfg.train.early_stop_patience:
+                print(f"early stop at epoch {epoch} (patience {cfg.train.early_stop_patience})")
+                break
+
+        if max_steps and global_step >= max_steps:
+            break
+
+    results = evaluate_model(cfg, state, eval_step, test_loader)
+    results["history"] = history
+    results["steps"] = global_step
+    if cfg.train.out_dir:
+        _write_results_json(os.path.join(cfg.train.out_dir, "results.json"), results, cfg)
+    if log_csv and csv_rows:
+        if os.path.dirname(log_csv):
+            os.makedirs(os.path.dirname(log_csv), exist_ok=True)
+        with open(log_csv, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(csv_rows[0]))
+            w.writeheader()
+            w.writerows(csv_rows)
+    return results
+
+
+def evaluate_model(cfg: ExperimentConfig, state: TrainState, eval_step, test_loader) -> dict:
+    """The reference's test() (train_shanghai.py:218-283): the streaming
+    CSI/POD/HSS/FAR/RMSE/SSIM evaluator, per forecast frame too, the
+    scatter metrics where ``scatter_eval`` (and their CSV in ``out_dir``),
+    PNG strips of the first ``vis_batches`` batches' samples in
+    ``out_dir``/vis, and the mean test loss."""
+    evaluator = Evaluator(seq_len=cfg.data.out_frames, value_scale=cfg.data.value_scale,
+                          thresholds=tuple(cfg.data.thresholds),
+                          lpips_fn=make_lpips_fn(cfg.data.lpips_weights, test_loader.device))
+    out_dir = cfg.train.out_dir
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    vis_dir = os.path.join(out_dir, "vis") if out_dir else None
+    scatter_gts: list = []
+    scatter_preds: list = []
+    losses = []
+    for bi, batch in enumerate(test_loader):
+        loss, pred, tgt = eval_step(state, batch)
+        evaluator.evaluate(tgt, pred)
+        losses.append(loss)
+        if cfg.train.scatter_eval:
+            # Every prediction and target flattened, clipped as the
+            # reference's .clip(0, 1) readback (train_LAPS.py:274-331).
+            scatter_preds.append(pred.clamp(0, 1).cpu().numpy())
+            scatter_gts.append(tgt.clamp(0, 1).cpu().numpy())
+        if vis_dir and bi < cfg.train.vis_batches:
+            from kmunet_tpu_torch.utils.vis import vis_res
+
+            pred_np = pred.clamp(0, 1).cpu().numpy()
+            tgt_np = tgt.clamp(0, 1).cpu().numpy()
+            inp_np = batch[:, :cfg.data.in_frames].float().clamp(0, 1).cpu().numpy()
+            for si in range(pred_np.shape[0]):
+                vis_res(pred_np[si], tgt_np[si], inp_np[si],
+                        os.path.join(vis_dir, f"batch_{bi}_sample_{si}"))
+    results = evaluator.done() if losses else {}
+    if losses:
+        results["per_horizon"] = evaluator.per_horizon()
+    if cfg.train.scatter_eval and scatter_gts:
+        results["scatter"] = scatter_evaluate(
+            np.concatenate(scatter_gts), np.concatenate(scatter_preds),
+            thresholds=tuple(cfg.data.thresholds),
+            csv_path=os.path.join(out_dir, "scatter_metrics.csv") if out_dir else None)
+    results["test_loss"] = sum(float(v) for v in losses) / max(len(losses), 1)
+    return results
+
+
+def evaluate_checkpoint(cfg: ExperimentConfig, ckpt_dir: str, which: str = "best", device=None,
+                        **build_kwargs) -> dict:
+    """Restores the ``which`` checkpoint of ``ckpt_dir`` ('best' by val
+    loss, the reference's reload before test, or 'latest') on ``device``
+    (None: the card) and runs only the test pass; ``build_kwargs`` go to
+    ``build_model``."""
+    _single_device(cfg)
+    device = resolve_device(device)
+    _, _, test_ds = build_datasets(cfg)
+    test_loader = _loader(cfg, test_ds, False, device)
+    if len(test_loader) == 0:
+        raise ValueError(f"test loader yields 0 batches (dataset len {len(test_ds)} < batch "
+                         f"{cfg.data.batch_size}?): the metrics would be empty")
+    if which not in ("best", "latest"):
+        raise ValueError(f"which={which!r}: expected 'best' or 'latest'")
+    model = build_model(cfg, **build_kwargs)
+    loss_fn = build_loss(cfg)
+    tx = build_optimizer(cfg, steps_per_epoch=1)
+    state = init_state(cfg, model, tx, seed=cfg.train.seed, device=device)
+    ckpt = CheckpointManager(ckpt_dir)
+    step, state = ckpt.restore_best(state) if which == "best" else ckpt.restore_latest(state)
+    if state is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    results = evaluate_model(cfg, state, make_eval_step(model, loss_fn, cfg), test_loader)
+    results["checkpoint_step"] = int(step)
+    if cfg.train.out_dir:
+        _write_results_json(os.path.join(cfg.train.out_dir, "results.json"), results, cfg)
+    return results
+
+
+def main(argv=None, device=None):
+    """The JAX engine's command line: ``--config=synthetic|shanghai|laps``,
+    ``--max_steps=N`` and dotted overrides (``parse_overrides``). ``device``
+    is for a caller in Python (None: the card)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    config_name = "synthetic"
+    max_steps = None
+    rest = []
+    for a in argv:
+        if a.startswith("--config="):
+            config_name = a.split("=", 1)[1]
+        elif a.startswith("--max_steps="):
+            max_steps = int(a.split("=", 1)[1])
+        else:
+            rest.append(a)
+
+    if config_name == "shanghai":
+        cfg = shanghai_km_unet()
+    elif config_name == "laps":
+        cfg = laps_km_unet()
+    else:
+        cfg = shanghai_km_unet()
+        cfg.data.name = "synthetic"
+    parse_overrides(cfg, rest)
+    results = train_and_evaluate(cfg, max_steps=max_steps, device=device)
+    print({k: v for k, v in results.items() if k != "history"})
+    return results
+
+
+if __name__ == "__main__":
+    main()

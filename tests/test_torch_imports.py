@@ -16,7 +16,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kmunet_tpu")
 SCRIPTS = [REPO / "scripts" / "torch_ablate_mix_kernel.py",
            REPO / "scripts" / "profile_torch_forward.py",
            REPO / "scripts" / "torch_kernel_timing.py",
-           REPO / "scripts" / "torch_ablate_variants.py"]
+           REPO / "scripts" / "torch_ablate_variants.py",
+           REPO / "scripts" / "torch_train_shanghai.py",
+           REPO / "scripts" / "torch_train_laps.py",
+           REPO / "scripts" / "torch_evaluate.py"]
 SOURCES = sorted((REPO / "kmunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
 

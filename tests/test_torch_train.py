@@ -240,15 +240,19 @@ def test_adamw_steps_match_optax():
 
 
 def test_config_defaults_match_jax():
-    """The port's copy of the configs: every field it keeps has the JAX
-    package's default, in every config and in the SH recipe."""
+    """The port's copy of the configs: the JAX package's fields, each with
+    its default, in every config and in both recipes."""
     pairs = [(configs.DataConfig(), configs_jax.DataConfig()),
              (configs.ModelConfig(), configs_jax.ModelConfig()),
-             (configs.TrainConfig(), configs_jax.TrainConfig())]
-    port_sh, jax_sh = configs.shanghai_km_unet(), configs_jax.shanghai_km_unet()
-    pairs += [(port_sh.data, jax_sh.data), (port_sh.model, jax_sh.model),
-              (port_sh.train, jax_sh.train)]
+             (configs.TrainConfig(), configs_jax.TrainConfig()),
+             (configs.MeshConfig(), configs_jax.MeshConfig())]
+    for recipe in ("shanghai_km_unet", "laps_km_unet"):
+        port_cfg, jax_cfg = getattr(configs, recipe)(), getattr(configs_jax, recipe)()
+        pairs += [(getattr(port_cfg, f.name), getattr(jax_cfg, f.name))
+                  for f in dataclasses.fields(jax_cfg)]
     for port_cfg, jax_cfg in pairs:
+        assert {f.name for f in dataclasses.fields(port_cfg)} == {
+            f.name for f in dataclasses.fields(jax_cfg)}
         for f in dataclasses.fields(port_cfg):
             assert getattr(port_cfg, f.name) == getattr(jax_cfg, f.name), f.name
 
