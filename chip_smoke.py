@@ -244,6 +244,35 @@ Phases, each printing one JSON line with its seconds:
               relative. Then the LAPS recipe (``laps_config``: 256^2, 5 -> 3,
               B=1, fp32, ``scatter_eval``) for one epoch of 2 steps: no
               kernel, a finite ``scatter`` block.
+   data_parallel -- training across cards: one process per visible card
+              (up to DP_MAX_CARDS; 1, 2 or 4), each on cuda:rank in one NCCL
+              group (``spawn_ranks``: a store on a free localhost port).
+              World 1 through the mesh path (``dp_world1_job``): the SH
+              recipe's B=16 bf16 step with drop path 0.1, plain and through a
+              1 x 1 x 1 mesh whose collectives run on a group of one, from
+              the same weights, batch and CUDA generator state under
+              ``cudnn.deterministic``: the loss, grad norm and every
+              parameter and buffer after the step bit for bit; its K7 and K6
+              shared launches are this path's; its bf16 step's ms and peak
+              memory (``dp_bf16_step``). With one card it prints
+              ``cards: 1`` and that the multi-card checks did not run. With
+              N >= 2 cards (``dp_multi_job``), against one card's run on
+              card 0 of the same thing: the fp32 B=16 step (TF32 off, drop
+              path 0.1 from each rank's CUDA generator seeded alike) at dp =
+              N and with FSDP at data N/2 x model 2, each rank's gradients
+              and state after the step (gathered whole) through
+              ``compare_steps`` and ``compare_states``, every rank's state
+              alike; the trainer (``dp_trainer_config``: ``trainer_config`` in
+              fp32 with SGD) for 2 epochs at dp = N, its results and history
+              within DP_RESULTS_RTOL relative (``same_results``); the bf16
+              dp step's ms by CUDA events over DP_TIMED_STEPS steps, peak
+              memory and K7 / K6 shared launches per step, per rank, beside
+              one card's B=16 step by the same protocol (``dp_bf16_step``); and
+              ``selective_scan_sharded`` at DP_SCAN_SHAPE over the N cards (K8
+              and its backward once per rank) within ``scan_reference``'s
+              tolerances of the plain version, its distance from unsharded
+              K8 beside. ``python3 chip_smoke.py --phase data_parallel`` runs
+              the build of K7's, K6's and K8's sources and this phase alone.
 6. timing  -- CUDA events after warm-up, PyTorch's default TF32 settings:
               the forward at B=128 bf16 on the window and the exact path and
               at B=8 fp32 (ms, frames/s = B*20/s); the train step at B=16 and
@@ -558,6 +587,11 @@ TRAINER_LENGTH = 64  # the trainer phase's synthetic items: 4 steps of B=16 an e
 TRAINER_EPOCHS = 2
 LAPS_TRAINER_LENGTH = 2  # the LAPS loop: one epoch of 2 steps at B=1
 EVALUATOR_RTOL = 1e-6  # RMSE and SSIM, card vs CPU
+DP_MAX_CARDS = 4  # data_parallel: one process per visible card, up to this many
+DP_TIMED_STEPS = 3  # data_parallel: the bf16 dp step, timed after 2 warm-up steps
+DP_RESULTS_RTOL = 1e-4  # data_parallel: the dp trainer's losses and scores against one card's
+DP_SCAN_SHAPE = (2, 4096, 16, 16)  # data_parallel: (B, L, D, N) of the sharded scan
+DP_SECONDS = 300  # data_parallel: each spawn's deadline
 
 
 def emit(obj) -> None:
@@ -1576,20 +1610,29 @@ def trainer_config(tmp):
     return cfg
 
 
-def same_results(got, want, path="results"):
-    """Raises unless two results trees are equal, NaN equal to NaN."""
+def same_results(got, want, rtol=0.0, path="results"):
+    """Raises unless two results trees have the same keys and values, their
+    floats within ``rtol`` relative (0: equal), NaN equal to NaN; returns
+    the worst relative gap."""
     if isinstance(want, dict):
         if set(got) != set(want):
             raise AssertionError(f"{path}: keys {sorted(got)} != {sorted(want)}")
-        for k in want:
-            same_results(got[k], want[k], f"{path}/{k}")
-    elif isinstance(want, (list, tuple)):
+        return max([same_results(got[k], want[k], rtol, f"{path}/{k}") for k in want] + [0.0])
+    if isinstance(want, (list, tuple)):
         if len(got) != len(want):
             raise AssertionError(f"{path}: {len(got)} values, want {len(want)}")
-        for i, (a, b) in enumerate(zip(got, want)):
-            same_results(a, b, f"{path}/{i}")
-    elif not (got == want or (isinstance(want, float) and want != want and got != got)):
+        return max([same_results(a, b, rtol, f"{path}/{i}")
+                    for i, (a, b) in enumerate(zip(got, want))] + [0.0])
+    if isinstance(want, float) and isinstance(got, float):
+        if want != want and got != got:
+            return 0.0
+        gap = 0.0 if got == want else abs(got - want) / max(abs(want), 1e-30)
+        if not gap <= rtol:
+            raise AssertionError(f"{path}: {got!r} != {want!r} (relative {gap} > {rtol})")
+        return gap
+    if got != want:
         raise AssertionError(f"{path}: {got!r} != {want!r}")
+    return 0.0
 
 
 def time_calls(torch, owner, name, seconds, deterministic=False):
@@ -1721,6 +1764,334 @@ def trainer_phase(torch, np, card, reset_counts, read_counts, launches_per, path
     return fields
 
 
+def _kernel_counters():
+    """{name: the launch counter's owner} of the kernels on the data-parallel
+    path: K7, K6's shared-source entry, K8 and its backward."""
+    from kmunet_tpu_torch.kernels import bilinear, scan
+
+    return {"bilinear_gather_multiview": bilinear.bilinear_gather_multiview,
+            "bilinear_gather_multiview_backward": bilinear.bilinear_gather_multiview_backward,
+            "selective_scan": scan.selective_scan, "selective_scan_backward": scan.selective_scan_backward}
+
+
+def _counts(torch, reset=False):
+    torch.cuda.synchronize()
+    counters = _kernel_counters()
+    if reset:
+        for k in counters.values():
+            k.launches = 0
+    return {name: k.launches for name, k in counters.items()}
+
+
+def _dp_rank(rank, world, port, job, args, out_dir):
+    """One rank of the data_parallel phase: joins the NCCL group on
+    cuda:rank, runs ``job(rank, world, *args)`` and saves what it returns."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, device_id=torch.device("cuda", rank))
+    try:
+        torch.save(job(rank, world, *args), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, world, job, *args):
+    """``job(rank, world, *args)`` in ``world`` processes, one per card, over
+    NCCL (a store on a free localhost port); their results by rank. A rank
+    that fails raises here; ranks alive at the deadline are killed."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        ctx = torch.multiprocessing.start_processes(
+            _dp_rank, args=(world, port, job, args, out), nprocs=world, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + DP_SECONDS
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"data_parallel: {job.__name__} on {world} cards ran past "
+                                   f"{DP_SECONDS} s")
+        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def mesh_step_readings(cfg, mesh, batch, generator):
+    """``step_readings`` through the mesh path: the engine's step on this
+    rank's rows of ``batch`` from weights made from seed 0 (the sharded
+    leaves' blocks), the gradients where the optimizer takes them and the
+    state after the step gathered whole, on the CPU."""
+    from kmunet_tpu_torch.parallel import batch_sharding
+    from kmunet_tpu_torch.parallel.collectives import gather
+    from kmunet_tpu_torch.train import engine
+
+    model = engine.build_model(cfg)
+    tx = engine.build_optimizer(cfg, steps_per_epoch=100)
+    state = engine.init_state(cfg, model, tx, seed=0, device=batch.device, mesh=mesh)
+    step = engine.make_train_step(model, engine.build_loss(cfg, mesh), tx, cfg)
+    seen = []
+    update = tx.update
+    tx.update = lambda grads, *a, **k: seen.append(list(grads)) or update(grads, *a, **k)
+    state, m = step(state, batch_sharding(mesh, batch), generator)
+
+    def whole(key, t):
+        dim = state.shards.get(key)
+        return (t if dim is None else gather(t.contiguous(), mesh.axis("model"), dim=dim)).cpu()
+
+    grads = {k: whole(k, g) for k, g in zip(state.params, seen[0])}
+    after = {k: whole(k, p.detach()) for k, p in state.params.items()}
+    after.update({k: b.cpu() for k, b in state.batch_stats.items()})
+    return (float(m["loss"]), float(m["grad_norm"]), grads), after, len(state.shards)
+
+
+def dp_world1_job(rank, world):
+    """World 1 through the mesh path: the SH B=16 bf16 step with drop path
+    0.1 from a CUDA generator, plain and through a 1 x 1 x 1 mesh over NCCL
+    (its collectives run on a group of one), from the same weights, batch
+    and generator state, under ``cudnn.deterministic``: the loss, the grad
+    norm and every parameter and buffer after the step, bit for bit; then
+    the mesh step's ``dp_bf16_step``."""
+    import numpy as np
+    import torch
+
+    from kmunet_tpu_torch.parallel import MeshSpec, make_mesh
+    from kmunet_tpu_torch.parallel.mesh import REPLICA
+    from kmunet_tpu_torch.train import engine
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev = torch.device("cuda", rank)
+    cfg = sh_config(TRAIN_BATCH, "bfloat16")
+    batch = torch.from_numpy(synthetic_batch(np, TRAIN_BATCH, seed=0)).to(dev)
+    mesh = make_mesh(MeshSpec(cfg.mesh.data, cfg.mesh.spatial, cfg.mesh.model))
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        model = engine.build_model(cfg)
+        tx = engine.build_optimizer(cfg, steps_per_epoch=100)
+        state = engine.init_state(cfg, model, tx, seed=0, device=dev, mesh=m)
+        step = engine.make_train_step(model, engine.build_loss(cfg, m), tx, cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        _counts(torch, reset=True)
+        state, metrics = step(state, batch, gen)
+        launches = _counts(torch)
+        runs[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                      {k: v.detach().clone() for k, v in model.state_dict().items()}, launches,
+                      state.distributed)
+    (loss, gn, after, _, _), (loss_m, gn_m, after_m, launches, through) = runs["plain"], runs["mesh"]
+    equal = loss == loss_m and gn == gn_m and all(torch.equal(after[k], after_m[k]) for k in after)
+    torch.backends.cudnn.deterministic = False
+    return {"bit_equal": equal, "collectives": through and mesh.axis(REPLICA).group is not None,
+            "loss": [loss, loss_m], "grad_norm": [gn, gn_m], "launches": launches,
+            "bf16_step": dp_bf16_step(torch, batch, mesh)}
+
+
+def dp_multi_job(rank, world, tmp):
+    """The multi-card checks on ``world`` cards (the module docstring's
+    data_parallel): the fp32 dp = world step and the FSDP step (data =
+    world / 2 x model 2) as ``mesh_step_readings``, the dp trainer, the bf16
+    dp step's ms and peak memory and the sharded scan, each rank's."""
+    import numpy as np
+    import torch
+
+    from kmunet_tpu_torch.ops.scan import selective_scan_sharded
+    from kmunet_tpu_torch.parallel import MeshSpec, make_mesh
+    from kmunet_tpu_torch.train import engine
+
+    dev = torch.device("cuda", rank)
+    out = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batch = torch.from_numpy(synthetic_batch(np, TRAIN_BATCH, seed=0)).to(dev)
+    cfg = sh_config(TRAIN_BATCH, "float32")
+    for name, spec, fsdp in (("dp", (world, 1, 1), False), ("fsdp", (world // 2, 1, 2), True)):
+        cfg.mesh.fsdp = fsdp
+        readings, after, shards = mesh_step_readings(
+            cfg, make_mesh(MeshSpec(*spec)), batch, torch.Generator(device=dev).manual_seed(0))
+        out[name] = {"readings": readings, "after": after, "mesh": list(spec), "shards": shards}
+    cfg.mesh.fsdp = False
+    out["trainer"] = engine.train_and_evaluate(dp_trainer_config(tmp))
+    torch.backends.cudnn.deterministic = False
+
+    out["bf16_step"] = dp_bf16_step(torch, batch, make_mesh(MeshSpec(world, 1, 1)))
+
+    # The sequence-parallel scan over every card.
+    args, g = scan_inputs(np, np.random.default_rng(19), DP_SCAN_SHAPE, "mamba")
+    args = [torch.from_numpy(a).to(dev).requires_grad_() for a in args]
+    _counts(torch, reset=True)
+    y = selective_scan_sharded(*args, make_mesh(MeshSpec(1, world, 1)), axis="spatial")
+    grads = torch.autograd.grad((y * torch.from_numpy(g).to(dev)).sum(), args)
+    out["scan"] = {"outputs": [t.detach().cpu() for t in (y, *grads)], "launches": _counts(torch)}
+    return out
+
+
+def dp_bf16_step(torch, batch, mesh=None):
+    """The SH recipe's bf16 step on the global ``batch`` (B=16; this rank's
+    rows under a ``mesh``), PyTorch's default TF32 settings: ms by CUDA
+    events over DP_TIMED_STEPS steps after 2 warm-up steps, the peak
+    ``max_memory_allocated``, K7 and K6 shared launches per step, the
+    losses."""
+    from kmunet_tpu_torch.parallel import batch_sharding
+    from kmunet_tpu_torch.train import engine
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    dev = batch.device
+    cfg = sh_config(TRAIN_BATCH, "bfloat16")
+    model = engine.build_model(cfg)
+    tx = engine.build_optimizer(cfg, steps_per_epoch=100)
+    state = engine.init_state(cfg, model, tx, seed=0, device=dev, mesh=mesh)
+    step = engine.make_train_step(model, engine.build_loss(cfg, mesh), tx, cfg)
+    rows = batch if mesh is None else batch_sharding(mesh, batch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        state, _ = step(state, rows, gen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _counts(torch, reset=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step(state, rows, gen)[1]["loss"] for _ in range(DP_TIMED_STEPS)]
+    end.record()
+    launches = _counts(torch)
+    return {"rows": rows.shape[0], "ms": start.elapsed_time(end) / DP_TIMED_STEPS,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "launches_per_step": {k: v / DP_TIMED_STEPS for k, v in launches.items()},
+            "losses": [float(v) for v in losses]}
+
+
+def dp_trainer_config(tmp):
+    """``trainer_config`` in fp32 with SGD (AdamW's first update is about lr
+    whatever |g|, so it would amplify rounding noise; ROADMAP's rules), so
+    that the loop across cards can be held to one card's."""
+    cfg = trainer_config(tmp)
+    cfg.train.compute_dtype, cfg.train.optimizer = "float32", "sgd"
+    return cfg
+
+
+def data_parallel_phase(torch, np, card, path_launches, launches_per):
+    """The data_parallel phase (the module docstring); returns its fields."""
+    import tempfile
+
+    from kmunet_tpu_torch.kernels import scan
+    from kmunet_tpu_torch.train import engine
+
+    visible = torch.cuda.device_count()
+    cards = max(c for c in (1, 2, DP_MAX_CARDS) if c <= visible)  # the FSDP mesh is data x 2
+    torch.cuda.empty_cache()
+    fields = {"nvidia_smi": card, "cards": cards}
+    print(f"data_parallel: cards: {cards}", flush=True)
+    world1 = spawn_ranks(torch, 1, dp_world1_job)[0]
+    if not (world1["bit_equal"] and world1["collectives"]):
+        raise AssertionError(f"data_parallel: the world-1 mesh step differs from the plain "
+                             f"step: {world1}")
+    path_launches["data_parallel"] = {**launches_per(), **world1["launches"]}
+    fields["world1"] = world1
+    if cards == 1:
+        fields["multi_card"] = ("not run (cards: 1): dp = N and FSDP steps against one card, "
+                                "the dp trainer, the sharded scan")
+        print(f"data_parallel: multi-card checks {fields['multi_card']}", flush=True)
+        return fields
+
+    # One card's references, on card 0, before the ranks start.
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    cfg = sh_config(TRAIN_BATCH, "float32")
+    batch = synthetic_batch(np, TRAIN_BATCH, seed=0)
+    reference = step_readings(cfg, "cuda", batch, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    lr = engine.build_optimizer(cfg, steps_per_epoch=100).lr(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        one_card = engine.train_and_evaluate(dp_trainer_config(tmp))
+    torch.backends.cudnn.deterministic = False
+    one_card_bf16 = dp_bf16_step(torch, torch.from_numpy(batch).to(dev))
+    args, g = scan_inputs(np, np.random.default_rng(19), DP_SCAN_SHAPE, "mamba")
+    args, g = [torch.from_numpy(a).to(dev) for a in args], torch.from_numpy(g).to(dev)
+    ref, tols, _ = scan_reference(torch, args, g)
+    unsharded = (scan.selective_scan_forward(*args), *scan.selective_scan_backward(*args, g))
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(torch, cards, dp_multi_job, tmp)
+    checks = {}
+    for name in ("dp", "fsdp"):
+        checks[name] = []
+        for rank in ranks:
+            r = rank[name]
+            got = (r["readings"], r["after"])
+            checks[name].append({**compare_steps(r["readings"], reference[0]),
+                                 **compare_states(got, reference, lr, float("inf"))})
+        for rank in ranks[1:]:  # every rank holds the same state
+            for k, v in rank[name]["after"].items():
+                if not torch.equal(v, ranks[0][name]["after"][k]):
+                    raise AssertionError(f"data_parallel {name}: rank states differ at {k}")
+        checks[name] = {"mesh": ranks[0][name]["mesh"], "sharded_leaves": ranks[0][name]["shards"],
+                        "ranks": checks[name]}
+    trainer_gap = max(same_results(rank["trainer"], one_card, DP_RESULTS_RTOL)
+                      for rank in ranks)
+    scan_errors = []
+    for rank in ranks:
+        errs = {}
+        for name, got, want, tol, k8 in zip(SCAN_OUTPUTS, rank["scan"]["outputs"], ref, tols,
+                                            unsharded):
+            errs[name] = check_close(f"sharded scan {name}", got.to(dev), want,
+                                     torch.full_like(want, tol))
+            errs[f"{name}_vs_k8"] = float((got.to(dev) - k8).abs().max())
+        scan_errors.append(errs)
+        if rank["scan"]["launches"]["selective_scan"] != 1 or \
+                rank["scan"]["launches"]["selective_scan_backward"] != 1:
+            raise AssertionError(f"sharded scan launches {rank['scan']['launches']}")
+    fields.update(
+        fp32_steps=checks, trainer={"one_card": {k: v for k, v in one_card.items()
+                                                 if k != "history"},
+                                    "history_one_card": one_card["history"],
+                                    "history_ranks": [r["trainer"]["history"] for r in ranks],
+                                    "worst_relative_gap": trainer_gap,
+                                    "rtol": DP_RESULTS_RTOL},
+        bf16_step=[r["bf16_step"] for r in ranks], bf16_step_one_card=one_card_bf16,
+        scan={"shape": list(DP_SCAN_SHAPE), "tolerances": dict(zip(SCAN_OUTPUTS, tols)),
+              "ranks": scan_errors, "launches": [r["scan"]["launches"] for r in ranks]})
+    for r, rank in enumerate(ranks):
+        per_step = rank["bf16_step"]["launches_per_step"]
+        if per_step["bilinear_gather_multiview"] != DEFORM_CONVS or \
+                per_step["bilinear_gather_multiview_backward"] != DEFORM_CONVS:
+            raise AssertionError(f"data_parallel rank {r}: launches per step {per_step}")
+    return fields
+
+
+def data_parallel_only(torch, np) -> int:
+    """``python3 chip_smoke.py --phase data_parallel``: the card's line, the
+    build of K7's, K6's and K8's sources (one nvcc each, together) and the
+    data_parallel phase alone, on every visible card up to DP_MAX_CARDS."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kmunet_tpu_torch.kernels import bilinear, build, scan
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=30,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    with Phase("build") as f:
+        sources = (bilinear.MULTIVIEW_SOURCE, bilinear.BACKWARD_SOURCE, scan.SOURCE)
+        with ThreadPoolExecutor(len(sources)) as pool:
+            builds = list(pool.map(build.build, sources))
+        f.update(nvcc_seconds=[round(b.seconds, 3) for b in builds])
+    names = list(_kernel_counters())
+    path_launches = {}
+    with Phase("data_parallel") as f:
+        f.update(data_parallel_phase(torch, np, card, path_launches,
+                                     lambda: dict.fromkeys(names, 0)))
+    faulthandler.cancel_dump_traceback_later()
+    emit({"ok": True, "phases": ["data_parallel"],
+          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                     "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import numpy as np
@@ -1731,6 +2102,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["--phase", "data_parallel"]:
+        return data_parallel_only(torch, np)
     from concurrent.futures import ThreadPoolExecutor
 
     import torch.nn.functional as F
@@ -2357,6 +2730,9 @@ def main() -> int:
     with Phase("trainer") as f:
         f.update(trainer_phase(torch, np, nvidia_smi, reset_counts, read_counts, launches_per,
                                path_launches))
+
+    with Phase("data_parallel") as f:
+        f.update(data_parallel_phase(torch, np, nvidia_smi, path_launches, launches_per))
 
     def time_kernel(kernel, plain, library, bound, iters, plain_iters):
         """A kernel's numbers beside its ``bound`` ((bound_ms, bound_by,

@@ -11,9 +11,10 @@ batch 2, the Shanghai radar data. ``laps_km_unet()`` is the LAPS one
 rescaled, thresholds on normalized values, the same optimizer and loss, and
 the flattened scatter metrics in the test pass.
 
-``MeshConfig`` is carried for the command line: the port trains on one
-device, and ``train/engine.py`` refuses any other mesh (ROADMAP Queue 1
-item 9).
+``MeshConfig`` is the JAX one: the trainer runs one process per card over
+that mesh (``parallel.make_mesh``; data parallelism, and FSDP on 'model');
+``train/engine.py`` refuses ``spatial`` > 1, KM_UNetV3's H-sharded
+activations (ROADMAP Queue 1 item 9b).
 """
 
 from __future__ import annotations

@@ -97,6 +97,21 @@ def _convert_leaf(path, value):
     return ".".join((*mods, name)), value
 
 
+def flax_permutation(key: str, ndim: int):
+    """The axis permutation that took the flax leaf of the port's ``key`` (a
+    parameter of ``ndim`` dims) to its torch layout: torch axis i is flax
+    axis ``perm[i]``; None where the layouts agree."""
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf == "weight":  # a conv or dense ``kernel``, or a norm's ``scale``
+        return _OIHW if ndim == 4 else (1, 0) if ndim == 2 else None
+    if leaf in _KAN_LINEAR and ndim == len(_KAN_LINEAR[leaf]):
+        return _KAN_LINEAR[leaf]
+    for name, perm in _RENAMES.values():
+        if name == leaf:
+            return perm
+    return None
+
+
 def to_state_dict(model: nn.Module, params: Mapping, batch_stats: Mapping | None = None) -> dict:
     """The state_dict for ``model`` from flax ``params`` and ``batch_stats``
     (nested mappings of arrays). Raises KeyError on a flax leaf with no

@@ -9,6 +9,13 @@ The batches are JAX's: epoch e (counted from 1 at each ``iter``) visits
 ``shuffle``, else their order, and ``drop_last`` drops the ragged tail. An
 iteration abandoned mid-epoch (``--max_steps``) stops its feeder and workers
 instead of leaving them blocked on the bounded queues.
+
+Across cards (``mesh``) every rank draws the same order and reads and
+yields only its block of rows of each global batch of ``batch_size``, as
+JAX's ``device_put`` of the global batch places it on a one-host mesh
+(``parallel.batch_sharding``); ``len`` counts global batches. (JAX's
+multi-host loader, ``batch_size`` rows per process with strided indices,
+is not this: the port follows the one-host run.)
 """
 
 from __future__ import annotations
@@ -30,7 +37,14 @@ class DataLoader:
     exist)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = True, num_workers: int = 4, prefetch: int = 2, device=None):
+                 drop_last: bool = True, num_workers: int = 4, prefetch: int = 2, device=None,
+                 mesh=None):
+        axis = None if mesh is None else mesh.axis("data")
+        self.rows = (0, 1) if axis is None else (axis.index, axis.size)  # (block, blocks)
+        if batch_size % self.rows[1]:
+            raise ValueError(f"global batch {batch_size} not divisible by data={self.rows[1]}")
+        if self.rows[1] > 1 and not drop_last:
+            raise ValueError("a batch split over the data axis needs drop_last")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -56,6 +70,12 @@ class DataLoader:
         stop = len(idx) // self.batch_size * self.batch_size if self.drop_last else len(idx)
         if stop == 0:
             return
+        block, blocks = self.rows
+        size = self.batch_size // blocks
+        if blocks > 1:  # this rank's rows of each global batch
+            idx = idx[:stop].reshape(-1, self.batch_size)[:, block * size:(block + 1) * size]
+            idx = idx.reshape(-1)
+            stop = len(idx)
         work_q: queue.Queue = queue.Queue(maxsize=self.num_workers * 4)
         result_q: queue.Queue = queue.Queue(maxsize=self.num_workers * 4)
         # Set when the consumer stops (the epoch's end, or an abandoned
@@ -102,7 +122,7 @@ class DataLoader:
                     k, item = result_q.get()
                     stash[k] = item
                 out.append(stash.pop(j))
-                if len(out) == self.batch_size or (j == stop - 1 and not self.drop_last):
+                if len(out) == size or (j == stop - 1 and not self.drop_last):
                     yield np.stack(out)
                     out = []
         finally:
@@ -114,6 +134,7 @@ class DataLoader:
                     pass
 
     def __iter__(self) -> Iterator[torch.Tensor]:
+        """The epoch's batches on the device (this rank's rows of each)."""
         self.epoch += 1
         buf = collections.deque()
         for batch in self._batches(self._indices(self.epoch)):

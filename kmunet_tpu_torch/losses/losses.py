@@ -13,20 +13,27 @@ from typing import Optional, Sequence
 import torch
 
 from kmunet_tpu_torch.ops.ssim import ssim_valid
+from kmunet_tpu_torch.parallel.collectives import all_reduce_max_
 
 
-def hybrid_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 0.7) -> torch.Tensor:
+def hybrid_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 0.7,
+                data_axis=None) -> torch.Tensor:
     """KM-UNet's training loss: weighted MSE mix + SSIM on min-max-normalized
     maps. pred/target: (B, T, H, W) -- SSIM treats the two trailing axes as
     the image. The min/max bounds carry no gradient (``.detach()``, the
-    reference's stop-gradient)."""
+    reference's stop-gradient). In a data-parallel run they are the global
+    batch's, as JAX's are under GSPMD: the extrema are reduced over
+    ``data_axis`` (a ``parallel.mesh.Axis``), so that this rank's loss is its
+    rows' share of the global batch's."""
     mse = torch.mean((pred - target) ** 2)
 
     weight_map = torch.exp(target * 2.0)  # emphasize heavy rainfall
     weighted = torch.mean((pred - target) ** 2 * weight_map)
 
-    t_min, t_max = target.min().detach(), target.max().detach()
-    p_min, p_max = pred.min().detach(), pred.max().detach()
+    bounds = torch.stack([-target.min(), target.max(), -pred.min(), pred.max()]).detach()
+    if data_axis is not None:
+        all_reduce_max_(bounds, data_axis)
+    t_min, t_max, p_min, p_max = -bounds[0], bounds[1], -bounds[2], bounds[3]
     t_norm = (target - t_min) / (t_max - t_min + 1e-8)
     p_norm = (pred - p_min) / (p_max - p_min + 1e-8)
     ssim = torch.mean(ssim_valid(p_norm, t_norm, data_range=1.0))

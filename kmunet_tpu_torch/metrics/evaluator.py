@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from kmunet_tpu_torch.ops.ssim import ssim_valid
+from kmunet_tpu_torch.parallel.collectives import gather
 
 
 def batch_metrics(true: torch.Tensor, pred: torch.Tensor, thresholds: Sequence[float],
@@ -57,15 +58,22 @@ def batch_metrics(true: torch.Tensor, pred: torch.Tensor, thresholds: Sequence[f
 
 class Evaluator:
     """Streaming evaluator with the reference's API (evaluate, done, reset);
-    ``per_horizon`` breaks the scores down by forecast frame."""
+    ``per_horizon`` breaks the scores down by forecast frame.
+
+    In a data-parallel run (``data_axis``, a ``parallel.mesh.Axis``) each
+    rank evaluates its rows of each batch, and ``evaluate`` gathers the
+    ranks' per-sample counts and scores over the axis in the order of the
+    global batch's rows: every rank holds, and ``done`` reduces, what the
+    one process would."""
 
     def __init__(self, seq_len: int, value_scale: float,
                  thresholds: Sequence[float] = (20, 30, 35, 40),
-                 lpips_fn: Optional[Callable] = None):
+                 lpips_fn: Optional[Callable] = None, data_axis=None):
         self.seq_len = seq_len
         self.value_scale = float(value_scale)
         self.thresholds = tuple(thresholds)
         self.lpips_fn = lpips_fn
+        self.data_axis = data_axis
         self.reset()
 
     def reset(self):
@@ -83,6 +91,11 @@ class Evaluator:
         true = torch.as_tensor(true_batch)
         pred = torch.as_tensor(pred_batch).to(true.device)
         out = batch_metrics(true, pred, self.thresholds, self.value_scale)
+        if self.lpips_fn is not None:
+            out["lpips"] = self.lpips_fn(pred, true)
+        if self.data_axis is not None:
+            out = {k: gather(v.contiguous(), self.data_axis, dim=1 if k == "cont" else 0)
+                   for k, v in out.items()}
         cont = out["cont"].cpu().numpy()  # (n_thr, B, T, 4)
         self._cont += cont.sum(axis=(1, 2))
         self._cont_t += cont.sum(axis=1)
@@ -90,8 +103,8 @@ class Evaluator:
                           ("psnr", self._psnr)):
             kept.append(out[key].cpu().numpy())
         if self.lpips_fn is not None:
-            self._lpips.append(self.lpips_fn(pred, true).cpu().numpy())
-        self.total += true.shape[0]
+            self._lpips.append(out["lpips"].cpu().numpy())
+        self.total += out["mse"].shape[0]
 
     def done(self) -> dict:
         threshold_metrics = {}

@@ -14,6 +14,7 @@ carry the flax names; flax's LayerNorm and GroupNorm take eps 1e-6.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -50,14 +51,14 @@ class DMFMLayer(nn.Module):
     times) and one MambaBlock (used on both views) over the H*W tokens in
     row-major order; the second view shuffles the channels in groups of
     ``group`` as the JAX layer does in NHWC (channel g * C/group + i to
-    i * group + g)."""
+    i * group + g). ``seq_mesh``: the MambaBlock's sequence-parallel scan."""
 
     def __init__(self, input_dim: int, output_dim: int, d_state: int = 16, d_conv: int = 4,
-                 expand: int = 2, group: int = 8):
+                 expand: int = 2, group: int = 8, seq_mesh=None):
         super().__init__()
         self.group = group
         self.norm = nn.LayerNorm(input_dim, eps=EPS)
-        self.mamba = MambaBlock(input_dim, d_state, d_conv, expand)
+        self.mamba = MambaBlock(input_dim, d_state, d_conv, expand, seq_mesh=seq_mesh)
         self.skip_scale1 = nn.Parameter(torch.ones(1))
         self.skip_scale2 = nn.Parameter(torch.ones(1))
         self.proj = nn.Linear(input_dim, output_dim)
@@ -142,26 +143,29 @@ class MultiScaleSTAMBridge(nn.Module):
 
 class Mamba_UNet(nn.Module):
     """(B, H, W, input_frames) -> (B, H, W, predicted_frames); H and W
-    multiples of 32 (five 2x2 poolings)."""
+    multiples of 32 (five 2x2 poolings). ``seq_mesh`` (a ``parallel.Mesh``)
+    runs every DMFM's scan sequence-parallel over its 'spatial' axis
+    (``ops/scan.py::selective_scan_sharded``), as the JAX field does."""
 
     def __init__(self, predicted_frames: int = 3, c_list: Sequence[int] = (8, 16, 24, 32, 48, 64),
-                 bridge: bool = True, input_frames: int = 5):
+                 bridge: bool = True, input_frames: int = 5, seq_mesh=None):
         super().__init__()
         c = list(c_list)
+        dmfm = functools.partial(DMFMLayer, seq_mesh=seq_mesh)
         self.bridge = bridge
         self.encoder1 = _conv(input_frames, c[0], 3)
         self.encoder2 = _conv(c[0], c[1], 3)
         self.encoder3 = _conv(c[1], c[2], 3)
-        self.encoder4 = DMFMLayer(c[2], c[3])
-        self.encoder5 = DMFMLayer(c[3], c[4])
-        self.encoder6 = DMFMLayer(c[4], c[5])
+        self.encoder4 = dmfm(c[2], c[3])
+        self.encoder5 = dmfm(c[3], c[4])
+        self.encoder6 = dmfm(c[4], c[5])
         for i, f in enumerate(c, 1):
             setattr(self, f"ebn{i}", _group_norm(f))
         if bridge:
             self.scab = MultiScaleSTAMBridge(c[:5])
-        self.decoder1 = DMFMLayer(c[5], c[4])
-        self.decoder2 = DMFMLayer(c[4], c[3])
-        self.decoder3 = DMFMLayer(c[3], c[2])
+        self.decoder1 = dmfm(c[5], c[4])
+        self.decoder2 = dmfm(c[4], c[3])
+        self.decoder3 = dmfm(c[3], c[2])
         self.decoder4 = _conv(c[2], c[1], 3)
         self.decoder5 = _conv(c[1], c[0], 3)
         self.final = nn.Conv2d(c[0], c[0], 1)
@@ -169,10 +173,10 @@ class Mamba_UNet(nn.Module):
             setattr(self, f"dbn{i}", _group_norm(f))
         for i, f in enumerate((c[3], c[2], c[1], c[0], c[0]), 1):
             setattr(self, f"contr{i}", _up(f))
-        self.refine1 = DMFMLayer(c[0], c[1])
-        self.refine2 = DMFMLayer(c[1], c[2])
-        self.refine3 = DMFMLayer(c[2], c[1])
-        self.refine4 = DMFMLayer(c[1], c[0])
+        self.refine1 = dmfm(c[0], c[1])
+        self.refine2 = dmfm(c[1], c[2])
+        self.refine3 = dmfm(c[2], c[1])
+        self.refine4 = dmfm(c[1], c[0])
         self.S1 = _conv(c[0], predicted_frames, 3)
         self.S = _conv(predicted_frames, predicted_frames, 3)
         self.beta = nn.Parameter(torch.ones(()))

@@ -47,12 +47,9 @@ def build(model_cfg, dysample_window: bool = True, kan_fused: bool = False,
             raise ValueError(f"{name} takes no model.extra, got {sorted(extra)}")
         return (ef.ConvLSTM_EF if name == "convlstm" else ef.TrajGRU_EF)(out_frames=n)
     if name == "mamba_unet":
-        if "seq_mesh" in extra:
-            raise NotImplementedError("mamba_unet seq_mesh: the sequence-parallel scan needs a "
-                                      "device mesh, not in the port yet (ROADMAP Queue 1 item 9)")
-        unknown = set(extra) - {"c_list", "bridge"}
+        unknown = set(extra) - {"c_list", "bridge", "seq_mesh"}
         if unknown:
-            raise ValueError(f"mamba_unet takes model.extra c_list and bridge, "
+            raise ValueError(f"mamba_unet takes model.extra c_list, bridge and seq_mesh, "
                              f"got {sorted(unknown)}")
         return mamba_unet.Mamba_UNet(predicted_frames=n, **extra)
     raise NotImplementedError(f"model {name!r}: not in the port yet (the zoo is ROADMAP "

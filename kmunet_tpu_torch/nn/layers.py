@@ -8,6 +8,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kmunet_tpu_torch.parallel.collectives import all_reduce_sum
+
 
 class ChannelLayerNorm(nn.Module):
     """LayerNorm over the channel axis (dim 1) of an NCHW or (B, C, L) tensor:
@@ -45,12 +47,21 @@ def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     batch`` (``m = bn.momentum``, 0.1 = flax's 1 - 0.9) with the same biased
     variance, in place and in fp32. ``F.batch_norm`` with ``training=True``
     would update them with the unbiased variance.
+
+    In a data-parallel run (``set_data_axis``: ``bn.data_axis``) the
+    statistics are the global batch's, as flax's under GSPMD: each rank's
+    mean of x and of x^2 is summed over the data axis, with a collective
+    whose backward sums the gradients, and divided by its size (every rank
+    holds as many rows), so every rank's running buffers move alike.
     """
     channel_dim %= x.dim()
     dims = [d for d in range(x.dim()) if d != channel_dim]
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(dims)
-    var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+    mean, mean_sq = xf.mean(dims), xf.square().mean(dims)
+    axis = getattr(bn, "data_axis", None)
+    if axis is not None:
+        mean, mean_sq = (all_reduce_sum(torch.stack([mean, mean_sq]), axis) / axis.size).unbind()
+    var = (mean_sq - mean.square()).clamp_min(0.0)
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean.detach().to(bn.running_mean.dtype), alpha=m)
@@ -104,12 +115,16 @@ class DropPath(nn.Module):
     per sample from ``generator``, which lies on ``x``'s device) and a kept
     sample is scaled by ``1 / (1 - rate)``, as ``kmunet_tpu/nn/layers.py``'s
     ``DropPath`` does. There is no global random state: training with
-    ``rate > 0`` needs the caller's generator.
+    ``rate > 0`` needs the caller's generator. In a data-parallel run
+    (``set_data_axis``) the mask is drawn for the global batch and this rank
+    keeps its block of it, so every rank's generator moves as the one
+    process's would.
     """
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.data_axis = None
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -117,6 +132,19 @@ class DropPath(nn.Module):
         if generator is None:
             raise ValueError("DropPath in training draws from a torch.Generator: pass one")
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        rows, axis = x.shape[0], self.data_axis
+        shape = (rows * (1 if axis is None else axis.size),) + (1,) * (x.dim() - 1)
         mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        if axis is not None:
+            mask = mask[axis.index * rows:(axis.index + 1) * rows]
         return torch.where(mask, x / keep, 0.0)
+
+
+def set_data_axis(model: nn.Module, axis) -> nn.Module:
+    """Makes ``model``'s train-mode BatchNorms take their statistics over the
+    data axis ``axis`` (a ``parallel.mesh.Axis``; None: this rank's rows
+    alone) and its DropPaths draw the global batch's mask."""
+    for m in model.modules():
+        if isinstance(m, (nn.modules.batchnorm._BatchNorm, DropPath)):
+            m.data_axis = axis
+    return model

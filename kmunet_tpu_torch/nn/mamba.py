@@ -4,7 +4,9 @@
     x_proj(x) -> (dt_raw, B, C);  dt = softplus(dt_raw @ dt_proj + bias)
     A = -exp(A_log);  y = selective_scan(x, dt, A, B, C, D) * silu(z) -> out_proj
 
-The scan is K8 on a CUDA tensor (``ops/scan.py``). ``A`` is computed from
+The scan is K8 on a CUDA tensor (``ops/scan.py``); with ``seq_mesh`` (a
+``parallel.Mesh``) it is ``selective_scan_sharded``, L cut over the mesh's
+``seq_axis``, each rank's chunk through K8. ``A`` is computed from
 ``A_log`` in the parameters' dtype, as the JAX block computes it from the
 parameters the engine has cast to the compute dtype; the kernel takes it in
 fp32 from there.
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kmunet_tpu_torch.nn.init import kaiming_uniform_
-from kmunet_tpu_torch.ops.scan import selective_scan
+from kmunet_tpu_torch.ops.scan import selective_scan, selective_scan_sharded
 
 
 class MambaBlock(nn.Module):
@@ -27,10 +29,13 @@ class MambaBlock(nn.Module):
     ceil(d_model / 16). Parameters under the flax names, in PyTorch layout:
     ``conv1d_weight`` (d_inner, 1, d_conv) is flax's ``conv1d_kernel``
     (d_conv, 1, d_inner), ``dt_proj_weight`` (d_inner, dt_rank) its
-    ``dt_proj_kernel`` (dt_rank, d_inner)."""
+    ``dt_proj_kernel`` (dt_rank, d_inner). ``seq_mesh``, ``seq_axis`` and
+    ``batch_axis`` are the JAX block's fields (``selective_scan_sharded``)."""
 
-    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2):
+    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
+                 seq_mesh=None, seq_axis: str = "spatial", batch_axis: str = "data"):
         super().__init__()
+        self.seq_mesh, self.seq_axis, self.batch_axis = seq_mesh, seq_axis, batch_axis
         d_inner = expand * d_model
         self.d_inner, self.d_state, self.d_conv = d_inner, d_state, d_conv
         self.dt_rank = math.ceil(d_model / 16)
@@ -72,5 +77,9 @@ class MambaBlock(nn.Module):
         dt_raw, Bm, Cm = self.x_proj(xc).split([self.dt_rank, self.d_state, self.d_state], -1)
         dt = F.softplus(F.linear(dt_raw, self.dt_proj_weight, self.dt_proj_bias))
         A = -torch.exp(self.A_log)
-        y = selective_scan(xc, dt, A, Bm, Cm, self.D)
+        if self.seq_mesh is not None:
+            y = selective_scan_sharded(xc, dt, A, Bm, Cm, self.D, self.seq_mesh,
+                                       axis=self.seq_axis, batch_axis=self.batch_axis)
+        else:
+            y = selective_scan(xc, dt, A, Bm, Cm, self.D)
         return self.out_proj(y * F.silu(z))

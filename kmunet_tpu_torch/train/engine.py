@@ -64,8 +64,14 @@ with the loader's epoch count, the generator's state and the plateau
 controller's as they were (JAX counts its epochs from 0 again); and the
 device-cache epoch draws its permutation from a ``torch.Generator``, not a
 JAX PRNG. What the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP Queue 1 item: the other models (item 10) and any mesh
-but one device (item 9).
+naming its ROADMAP Queue 1 item: the other models (item 10) and
+H-sharded activations (``mesh.spatial`` > 1, item 9b).
+
+Across cards: one process per card (``torchrun --nproc_per_node=N -m
+kmunet_tpu_torch.train.engine ...``), over the mesh of ``cfg.mesh``
+(``build_mesh``): data parallelism with BatchNorm and DropPath over the
+global batch, and with ``mesh.fsdp`` the larger parameters sharded over
+'model' (``init_state(..., mesh=)``, ``make_train_step``).
 """
 
 from __future__ import annotations
@@ -93,6 +99,12 @@ from kmunet_tpu_torch.losses import hybrid_loss, rain_loss, rainfall_loss, weigh
 from kmunet_tpu_torch.metrics import Evaluator, make_lpips_fn, scatter_evaluate
 from kmunet_tpu_torch.models import zoo
 from kmunet_tpu_torch.nn.kan import kan_regularization_loss
+from kmunet_tpu_torch.nn.layers import set_data_axis
+from kmunet_tpu_torch.parallel import (Mesh, MeshSpec, batch_sharding, init_distributed,
+                                       make_mesh, param_sharding_rules, shard_params)
+from kmunet_tpu_torch.parallel.collectives import (all_reduce_, all_reduce_many_, gather,
+                                                   reduce_scatter_mean)
+from kmunet_tpu_torch.parallel.mesh import REPLICA
 from kmunet_tpu_torch.serve import resolve_device
 from kmunet_tpu_torch.train.checkpoint import CheckpointManager
 from kmunet_tpu_torch.train.optimizers import (AdamW, Chain, Optimizer, PlateauScheduler,
@@ -107,12 +119,35 @@ class TrainState:
     """What a step reads and updates. ``params`` are the model's own fp32
     parameters and ``batch_stats`` its BatchNorm running buffers, by
     state_dict name: the model always holds the current weights, and the
-    step updates them in place (the JAX step donates its state)."""
+    step updates them in place (the JAX step donates its state).
+
+    ``mesh`` is the run's ``parallel.Mesh`` (None: one process). ``shards``
+    maps each parameter sharded over the mesh's 'model' axis (``fsdp``) to
+    the dim it is cut on: ``params`` (and the model, and the optimizer's
+    slots) hold only this rank's block of it."""
 
     step: int
     params: dict[str, torch.Tensor]
     batch_stats: dict[str, torch.Tensor]
     opt_state: Any  # the optimizer's: optimizers.OptState, or ChainState
+    shards: dict[str, int] = dataclasses.field(default_factory=dict)
+    mesh: Optional[Mesh] = None
+
+    @property
+    def distributed(self) -> bool:
+        """True when the step's collectives run (a mesh with process groups)."""
+        return self.mesh is not None and self.mesh.axis(REPLICA).group is not None
+
+
+def full_params(state: TrainState) -> dict[str, torch.Tensor]:
+    """The whole parameters: each sharded leaf gathered over the 'model'
+    axis (a new leaf that takes a gradient), the others as they are."""
+    if not state.shards:
+        return state.params
+    ax = state.mesh.axis("model")
+    return {k: p if k not in state.shards
+            else gather(p.detach(), ax, dim=state.shards[k]).requires_grad_()
+            for k, p in state.params.items()}
 
 
 def build_model(cfg: ExperimentConfig, dysample_window: bool = True, kan_fused: bool = False,
@@ -125,11 +160,18 @@ def build_model(cfg: ExperimentConfig, dysample_window: bool = True, kan_fused: 
                      ssd_mixer=ssd_mixer)
 
 
-def build_loss(cfg: ExperimentConfig) -> Callable:
-    """``loss(pred, target)`` on (B, T, H, W) maps."""
+def build_loss(cfg: ExperimentConfig, mesh: Optional[Mesh] = None) -> Callable:
+    """``loss(pred, target)`` on (B, T, H, W) maps. In a data-parallel run
+    (``mesh``) it is this rank's rows' share of the global batch's loss: the
+    mean of the ranks' losses is the global batch's (the hybrid loss takes
+    its min-max bounds over the data axis; the others are means or sums over
+    rows of equal counts)."""
     name = cfg.train.loss
     if name == "hybrid":
-        return functools.partial(hybrid_loss, alpha=cfg.train.loss_alpha)
+        axis = None if mesh is None else mesh.axis("data")
+        return functools.partial(hybrid_loss, alpha=cfg.train.loss_alpha,
+                                 data_axis=axis if axis is not None and axis.group is not None
+                                 else None)
     if name == "rainfall":
         return rainfall_loss
     if name == "rain":
@@ -180,16 +222,43 @@ def build_optimizer(cfg: ExperimentConfig, steps_per_epoch: int) -> Union[Optimi
 
 
 def init_state(cfg: ExperimentConfig, model: nn.Module, tx, seed: int = 0,
-               device=None) -> TrainState:
+               device=None, mesh: Optional[Mesh] = None) -> TrainState:
     """Initialises ``model`` from ``seed`` with the JAX package's
     distributions, moves it to ``device`` (None: the card, which must exist)
-    in training mode, and returns the state that aliases its tensors."""
+    in training mode, and returns the state that aliases its tensors,
+    placed on ``mesh`` where one is given (``place_state``)."""
     device = resolve_device(device)
     zoo.init_weights_(model, torch.Generator().manual_seed(seed))
     model.to(device=device, dtype=torch.float32).train()
     params = dict(model.named_parameters())
     batch_stats = {k: b for k, b in model.named_buffers() if not k.endswith("num_batches_tracked")}
-    return TrainState(0, params, batch_stats, tx.init(list(params.values())))
+    state = TrainState(0, params, batch_stats, tx.init(list(params.values())))
+    return state if mesh is None else place_state(cfg, model, tx, state, mesh)
+
+
+def place_state(cfg: ExperimentConfig, model: nn.Module, tx, state: TrainState,
+                mesh: Mesh) -> TrainState:
+    """A fresh ``state`` of ``model`` (every rank's the same) on ``mesh``.
+    With several processes the BatchNorms and DropPaths work over the
+    global batch (``nn.layers.set_data_axis``), and with ``cfg.mesh.fsdp``
+    the leaves that ``param_sharding_rules`` picks are cut over the 'model'
+    axis: the model's parameter becomes this rank's block, and the
+    optimizer's slots are made anew for the blocks."""
+    if mesh.axis(REPLICA).group is None:  # one process: nothing to place
+        return dataclasses.replace(state, mesh=mesh)
+    set_data_axis(model, mesh.axis("data"))
+    shards = {}
+    if cfg.mesh.fsdp:
+        rules = param_sharding_rules(mesh, state.params, fsdp=True)
+        shards = {k: a for k, a in rules.items() if a is not None}
+        blocks = shard_params({k: state.params[k].detach() for k in shards}, shards, mesh)
+        for name, block in blocks.items():
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf, nn.Parameter(block))
+    params = dict(model.named_parameters())
+    opt_state = tx.init(list(params.values())) if shards else state.opt_state
+    return dataclasses.replace(state, params=params, opt_state=opt_state, shards=shards,
+                               mesh=mesh)
 
 
 def _model_layout(cfg: ExperimentConfig) -> str:
@@ -289,24 +358,67 @@ def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
     return loss_of
 
 
+def _reduce_gradients(state: TrainState, grads: list[torch.Tensor]):
+    """The gradients of the global batch's loss from this rank's, and their
+    global norm. A replicated leaf's are averaged over the data x model
+    ranks (one flat collective; the model ranks of one data index hold the
+    same values, and the average keeps every rank's bits equal); a sharded
+    leaf's are reduce-scattered over 'model' to this rank's block, then
+    averaged over 'data'. The norm adds the blocks' squares over 'model'."""
+    mesh, names = state.mesh, list(state.params)
+    replicated = [g for k, g in zip(names, grads) if k not in state.shards]
+    all_reduce_many_(replicated, mesh.axis(REPLICA), mean=True)
+    if not state.shards:
+        return grads, torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    model_ax = mesh.axis("model")
+    grads = [g if k not in state.shards else reduce_scatter_mean(g, model_ax, state.shards[k])
+             for k, g in zip(names, grads)]
+    blocks = [g for k, g in zip(names, grads) if k in state.shards]
+    all_reduce_many_(blocks, mesh.axis("data"), mean=True)
+    squares = torch.stack(torch._foreach_norm(blocks)).square().sum()
+    all_reduce_(squares, model_ax)
+    if replicated:
+        squares = squares + torch.stack(torch._foreach_norm(replicated)).square().sum()
+    return grads, squares.sqrt()
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentConfig):
     """``step(state, batch, generator) -> (state, {"loss", "grad_norm"})``:
     one update of ``tx`` (``build_optimizer``'s) on ``batch`` (B, seq_len,
     H, W), a tensor or array moved to the model's device as fp32. The
     metrics are 0-d tensors on that device (reading them waits for it);
     ``grad_norm`` is the global L2 norm of the fp32 gradients, before any
-    clip, as JAX reports it."""
+    clip, as JAX reports it.
+
+    In a data-parallel run (``state.mesh``) ``batch`` is this rank's rows of
+    the global batch (``parallel.batch_sharding``, the loaders' blocks): the
+    sharded leaves are gathered before the forward, the gradients reduced
+    over the ranks (``_reduce_gradients``), the clip takes the global norm,
+    and the reported loss is the data ranks' mean, the same on every rank.
+    (``nn.parallel.DistributedDataParallel`` hooks the module's own
+    backward; this step differentiates a functional call.)"""
     loss_of = make_loss_of(model, loss_fn, cfg)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         params = list(state.params.values())
         batch = torch.as_tensor(batch).to(device=params[0].device, dtype=torch.float32)
-        loss = loss_of(state.params, batch, generator)
-        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        opt_state = tx.update(list(grads), state.opt_state, params)
-        new_state = TrainState(state.step + 1, state.params, state.batch_stats, opt_state)
-        return new_state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        if not state.distributed:
+            loss = loss_of(state.params, batch, generator)
+            grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            opt_state = tx.update(list(grads), state.opt_state, params)
+            return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), {
+                "loss": loss.detach(), "grad_norm": grad_norm}
+        whole = full_params(state)
+        loss = loss_of(whole, batch, generator)
+        grads = list(torch.autograd.grad(loss, list(whole.values()), allow_unused=True,
+                                         materialize_grads=True))
+        grads, grad_norm = _reduce_gradients(state, grads)
+        loss = all_reduce_(loss.detach().clone(), state.mesh.axis(REPLICA), mean=True)
+        norm = {"grad_norm": grad_norm} if isinstance(tx, Chain) else {}
+        opt_state = tx.update(grads, state.opt_state, params, **norm)
+        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), {
+            "loss": loss, "grad_norm": grad_norm}
 
     return step
 
@@ -314,8 +426,10 @@ def make_train_step(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentConf
 def make_eval_step(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
     """``eval_step(state, batch) -> (loss, pred, target)``: the model in eval
     mode (BatchNorm on its running statistics, no stochastic depth) on its
-    fp32 parameters, as JAX evaluates, with no gradient; pred and target
-    (B, out_frames, H, W) fp32 on the model's device."""
+    fp32 parameters (the sharded ones gathered), as JAX evaluates, with no
+    gradient; pred and target (B, out_frames, H, W) fp32 on the model's
+    device. In a data-parallel run ``batch`` and the outputs are this
+    rank's rows, and the loss is this rank's share (``build_loss``)."""
     in_f, out_f = cfg.data.in_frames, cfg.data.out_frames
     layout = _model_layout(cfg)
 
@@ -327,7 +441,10 @@ def make_eval_step(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
         model.eval()
         try:
             with torch.no_grad():
-                out = model(inp)
+                if state.shards:
+                    out = torch.func.functional_call(model, full_params(state), (inp,))
+                else:
+                    out = model(inp)
         finally:
             model.train(training)
         pred = _to_btHW(out.float(), layout)
@@ -344,7 +461,8 @@ def make_epoch_runner(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentCo
     ``generator`` (which also feeds DropPath), with no host copy and no
     host sync; the mean loss is a 0-d tensor on the device. (JAX's runner
     draws its permutation from a JAX PRNG: the same distribution, another
-    stream.)"""
+    stream.) In a data-parallel run every rank holds the corpus and draws
+    the same permutation, and gathers its rows of each global batch."""
     step = make_train_step(model, loss_fn, tx, cfg)
     B = cfg.data.batch_size
 
@@ -352,6 +470,8 @@ def make_epoch_runner(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentCo
         perm = torch.randperm(data.shape[0], generator=generator, device=data.device)
         losses = []
         for ib in perm[:n_batches * B].view(n_batches, B):
+            if state.mesh is not None:
+                ib = batch_sharding(state.mesh, ib)
             state, m = step(state, data.index_select(0, ib), generator)
             losses.append(m["loss"])
         return state, torch.stack(losses).mean()
@@ -362,13 +482,16 @@ def make_epoch_runner(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentCo
 def make_val_epoch(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig, n_batches: int):
     """``run_val(state, data) -> mean loss``: the eval step over the first
     ``n_batches`` batches of a corpus on the device, in order; a 0-d tensor
-    on the device."""
+    on the device. In a data-parallel run each rank evaluates its rows of
+    each batch, and the mean is over the data ranks too."""
     eval_step = make_eval_step(model, loss_fn, cfg)
     B = cfg.data.batch_size
 
     def run_val(state: TrainState, data: torch.Tensor) -> torch.Tensor:
-        return torch.stack([eval_step(state, data[i * B:(i + 1) * B])[0]
-                            for i in range(n_batches)]).mean()
+        rows = (lambda b: b) if state.mesh is None else functools.partial(batch_sharding,
+                                                                         state.mesh)
+        return _data_mean(state.mesh, torch.stack(
+            [eval_step(state, rows(data[i * B:(i + 1) * B]))[0] for i in range(n_batches)]).mean())
 
     return run_val
 
@@ -400,17 +523,42 @@ def build_datasets(cfg: ExperimentConfig):
     raise ValueError(f"unknown dataset {d.name}")
 
 
-def _single_device(cfg: ExperimentConfig) -> None:
-    """Raises unless ``cfg.mesh`` asks for one device."""
+def build_mesh(cfg: ExperimentConfig, device=None) -> tuple[Mesh, torch.device]:
+    """(the mesh of ``cfg.mesh``, this process's device): joins the run's
+    process group (``parallel.init_distributed``: NCCL on the card under
+    ``torchrun``, gloo for ``device="cpu"``, none for one process) and makes
+    the mesh over its ranks, which raises ``ValueError`` as JAX's
+    ``MeshSpec.resolve`` does where the world cannot fill it. H-sharded
+    activations (``spatial`` > 1) raise ``NotImplementedError``."""
     m = cfg.mesh
-    if m.data not in (-1, 1) or m.spatial != 1 or m.model != 1 or m.fsdp:
-        raise NotImplementedError(f"mesh {m}: the port trains on one device; data, spatial and "
-                                  "model parallelism are ROADMAP Queue 1 item 9")
+    if m.spatial not in (-1, 1):
+        raise NotImplementedError(f"mesh {m}: KM_UNetV3's activations sharded on H (the halo "
+                                  "exchanges, the gathers across row boundaries and the "
+                                  "reductions over L) are ROADMAP Queue 1 item 9b")
+    device = init_distributed(device)
+    mesh = make_mesh(MeshSpec(m.data, m.spatial, m.model))
+    if mesh.shape["spatial"] > 1:
+        raise NotImplementedError(f"mesh {mesh.shape}: H-sharded activations are ROADMAP "
+                                  "Queue 1 item 9b")
+    return mesh, device
 
 
-def _loader(cfg: ExperimentConfig, dataset, shuffle: bool, device) -> DataLoader:
+def _data_mean(mesh: Optional[Mesh], value: torch.Tensor) -> torch.Tensor:
+    """The mean of ``value`` over the mesh's data x model ranks (the same on
+    every rank), or ``value`` in a run of one process."""
+    if mesh is None:
+        return value
+    return all_reduce_(value.detach().clone(), mesh.axis(REPLICA), mean=True)
+
+
+def _lead(mesh: Optional[Mesh]) -> bool:
+    """True on the rank that writes the logs, the files and the strips."""
+    return mesh is None or mesh.rank == 0
+
+
+def _loader(cfg: ExperimentConfig, dataset, shuffle: bool, device, mesh=None) -> DataLoader:
     return DataLoader(dataset, cfg.data.batch_size, shuffle=shuffle, seed=cfg.train.seed,
-                      num_workers=cfg.data.num_workers, device=device)
+                      num_workers=cfg.data.num_workers, device=device, mesh=mesh)
 
 
 # --------------------------------------------------------------------------
@@ -460,13 +608,21 @@ def train_and_evaluate(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     (``evaluate_model``). Returns its results with the epochs' ``history``
     and the ``steps`` taken; writes ``results.json`` into
     ``cfg.train.out_dir`` and the epochs' CSV to ``log_csv`` when given.
-    ``build_kwargs`` go to ``build_model``."""
-    _single_device(cfg)
-    device = resolve_device(device)
+    ``build_kwargs`` go to ``build_model``.
+
+    Across cards (``cfg.mesh``, one process per card under ``torchrun``;
+    ``build_mesh``) every rank runs this loop on its rows of each global
+    batch of ``cfg.data.batch_size``; the losses it decides on (plateau,
+    early stop, ``nan_abort``, the best checkpoint) are the data ranks'
+    means, the same on every rank, so every rank takes the same branch.
+    Rank 0 alone prints, writes the checkpoints, the CSV, results.json and
+    the strips; every rank returns the results."""
+    mesh, device = build_mesh(cfg, device)
+    lead = _lead(mesh)
     train_ds, val_ds, test_ds = build_datasets(cfg)
-    train_loader = _loader(cfg, train_ds, True, device)
-    val_loader = _loader(cfg, val_ds, False, device)
-    test_loader = _loader(cfg, test_ds, False, device)
+    train_loader = _loader(cfg, train_ds, True, device, mesh)
+    val_loader = _loader(cfg, val_ds, False, device, mesh)
+    test_loader = _loader(cfg, test_ds, False, device, mesh)
     for name, ld in [("train", train_loader), ("val", val_loader), ("test", test_loader)]:
         if len(ld) == 0:
             raise ValueError(f"{name} loader yields 0 batches (dataset len {len(ld.dataset)} "
@@ -474,10 +630,12 @@ def train_and_evaluate(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     steps_per_epoch = max(len(train_loader), 1)
 
     model = build_model(cfg, **build_kwargs)
-    loss_fn = build_loss(cfg)
+    loss_fn = build_loss(cfg, mesh)
     tx = build_optimizer(cfg, steps_per_epoch)
-    state = init_state(cfg, model, tx, seed=cfg.train.seed, device=device)
-    # DropPath's masks, and the device-cache epoch's permutation.
+    state = place_state(cfg, model, tx, init_state(cfg, model, tx, seed=cfg.train.seed,
+                                                   device=device), mesh)
+    # DropPath's masks, and the device-cache epoch's permutation: every rank
+    # draws what the one process would.
     generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
     train_step = make_train_step(model, loss_fn, tx, cfg)
     eval_step = make_eval_step(model, loss_fn, cfg)
@@ -514,7 +672,9 @@ def train_and_evaluate(cfg: ExperimentConfig, max_steps: Optional[int] = None,
                 best_val = extra["best_val"]
                 if plateau is not None:
                     plateau.best, plateau.bad = extra["plateau"]
-                print(f"resumed from checkpoint step {step_restored} (epoch {extra['epoch']})")
+                if lead:
+                    print(f"resumed from checkpoint step {step_restored} "
+                          f"(epoch {extra['epoch']})")
     if plateau is not None:
         # Carried over on resume: the restored optimizer state holds it.
         plateau.scale = float(state.opt_state.scale)
@@ -542,7 +702,7 @@ def train_and_evaluate(cfg: ExperimentConfig, max_steps: Optional[int] = None,
                     break
             train_loss = float(torch.stack(ep_losses).mean()) if ep_losses else 0.0
             v_losses = [eval_step(state, batch)[0] for batch in val_loader]
-            val_loss = float(torch.stack(v_losses).mean()) if v_losses else 0.0
+            val_loss = float(_data_mean(mesh, torch.stack(v_losses).mean())) if v_losses else 0.0
 
         if plateau is not None and math.isfinite(val_loss):
             scale = plateau.update(val_loss)
@@ -553,14 +713,16 @@ def train_and_evaluate(cfg: ExperimentConfig, max_steps: Optional[int] = None,
         history["val_loss"].append(val_loss)
         csv_rows.append({"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
                          "time": time.time() - t_start})
-        print(f"epoch {epoch}: train={train_loss:.5f} val={val_loss:.5f} "
-              f"({global_step} steps, {time.time() - t_start:.0f}s)")
+        if lead:
+            print(f"epoch {epoch}: train={train_loss:.5f} val={val_loss:.5f} "
+                  f"({global_step} steps, {time.time() - t_start:.0f}s)")
 
         if cfg.train.nan_abort and not (math.isfinite(train_loss) and math.isfinite(val_loss)):
             # The parameters are dead, and NaN < best_val is False: no
             # checkpoint would ever be saved again.
-            print(f"ABORT: non-finite loss at epoch {epoch} (train={train_loss}, "
-                  f"val={val_loss}); stopping. Consider --train.grad_clip or a lower lr.")
+            if lead:
+                print(f"ABORT: non-finite loss at epoch {epoch} (train={train_loss}, "
+                      f"val={val_loss}); stopping. Consider --train.grad_clip or a lower lr.")
             break
 
         if val_loss < best_val:
@@ -574,7 +736,9 @@ def train_and_evaluate(cfg: ExperimentConfig, max_steps: Optional[int] = None,
         else:
             bad_epochs += 1
             if cfg.train.early_stop_patience and bad_epochs >= cfg.train.early_stop_patience:
-                print(f"early stop at epoch {epoch} (patience {cfg.train.early_stop_patience})")
+                if lead:
+                    print(f"early stop at epoch {epoch} "
+                          f"(patience {cfg.train.early_stop_patience})")
                 break
 
         if max_steps and global_step >= max_steps:
@@ -583,9 +747,9 @@ def train_and_evaluate(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     results = evaluate_model(cfg, state, eval_step, test_loader)
     results["history"] = history
     results["steps"] = global_step
-    if cfg.train.out_dir:
+    if cfg.train.out_dir and lead:
         _write_results_json(os.path.join(cfg.train.out_dir, "results.json"), results, cfg)
-    if log_csv and csv_rows:
+    if log_csv and csv_rows and lead:
         if os.path.dirname(log_csv):
             os.makedirs(os.path.dirname(log_csv), exist_ok=True)
         with open(log_csv, "w", newline="") as f:
@@ -600,12 +764,21 @@ def evaluate_model(cfg: ExperimentConfig, state: TrainState, eval_step, test_loa
     CSI/POD/HSS/FAR/RMSE/SSIM evaluator, per forecast frame too, the
     scatter metrics where ``scatter_eval`` (and their CSV in ``out_dir``),
     PNG strips of the first ``vis_batches`` batches' samples in
-    ``out_dir``/vis, and the mean test loss."""
+    ``out_dir``/vis, and the mean test loss. In a data-parallel run each
+    rank evaluates its rows; the evaluator gathers the ranks' per-sample
+    scores in the one process's order (``Evaluator(data_axis=...)``), the
+    scatter metrics and the strips gather the rows, and the test loss is the
+    ranks' mean: every rank returns the one process's results, and rank 0
+    writes the files."""
+    mesh = state.mesh
+    axis = None if mesh is None else mesh.axis("data")
+    lead = _lead(mesh)
     evaluator = Evaluator(seq_len=cfg.data.out_frames, value_scale=cfg.data.value_scale,
                           thresholds=tuple(cfg.data.thresholds),
-                          lpips_fn=make_lpips_fn(cfg.data.lpips_weights, test_loader.device))
+                          lpips_fn=make_lpips_fn(cfg.data.lpips_weights, test_loader.device),
+                          data_axis=axis)
     out_dir = cfg.train.out_dir
-    if out_dir:
+    if out_dir and lead:
         os.makedirs(out_dir, exist_ok=True)
     vis_dir = os.path.join(out_dir, "vis") if out_dir else None
     scatter_gts: list = []
@@ -615,12 +788,14 @@ def evaluate_model(cfg: ExperimentConfig, state: TrainState, eval_step, test_loa
         loss, pred, tgt = eval_step(state, batch)
         evaluator.evaluate(tgt, pred)
         losses.append(loss)
+        if axis is not None and (cfg.train.scatter_eval or (vis_dir and bi < cfg.train.vis_batches)):
+            pred, tgt, batch = (gather(t.contiguous(), axis) for t in (pred, tgt, batch))
         if cfg.train.scatter_eval:
             # Every prediction and target flattened, clipped as the
             # reference's .clip(0, 1) readback (train_LAPS.py:274-331).
             scatter_preds.append(pred.clamp(0, 1).cpu().numpy())
             scatter_gts.append(tgt.clamp(0, 1).cpu().numpy())
-        if vis_dir and bi < cfg.train.vis_batches:
+        if vis_dir and bi < cfg.train.vis_batches and lead:
             from kmunet_tpu_torch.utils.vis import vis_res
 
             pred_np = pred.clamp(0, 1).cpu().numpy()
@@ -636,7 +811,9 @@ def evaluate_model(cfg: ExperimentConfig, state: TrainState, eval_step, test_loa
         results["scatter"] = scatter_evaluate(
             np.concatenate(scatter_gts), np.concatenate(scatter_preds),
             thresholds=tuple(cfg.data.thresholds),
-            csv_path=os.path.join(out_dir, "scatter_metrics.csv") if out_dir else None)
+            csv_path=os.path.join(out_dir, "scatter_metrics.csv") if out_dir and lead else None)
+    if losses and mesh is not None:
+        losses = [float(v) for v in _data_mean(mesh, torch.stack(losses))]
     results["test_loss"] = sum(float(v) for v in losses) / max(len(losses), 1)
     return results
 
@@ -646,27 +823,29 @@ def evaluate_checkpoint(cfg: ExperimentConfig, ckpt_dir: str, which: str = "best
     """Restores the ``which`` checkpoint of ``ckpt_dir`` ('best' by val
     loss, the reference's reload before test, or 'latest') on ``device``
     (None: the card) and runs only the test pass; ``build_kwargs`` go to
-    ``build_model``."""
-    _single_device(cfg)
-    device = resolve_device(device)
+    ``build_model``. Across cards as ``train_and_evaluate``: every rank
+    restores the whole checkpoint and keeps its blocks of the sharded
+    leaves; rank 0 writes results.json."""
+    mesh, device = build_mesh(cfg, device)
     _, _, test_ds = build_datasets(cfg)
-    test_loader = _loader(cfg, test_ds, False, device)
+    test_loader = _loader(cfg, test_ds, False, device, mesh)
     if len(test_loader) == 0:
         raise ValueError(f"test loader yields 0 batches (dataset len {len(test_ds)} < batch "
                          f"{cfg.data.batch_size}?): the metrics would be empty")
     if which not in ("best", "latest"):
         raise ValueError(f"which={which!r}: expected 'best' or 'latest'")
     model = build_model(cfg, **build_kwargs)
-    loss_fn = build_loss(cfg)
+    loss_fn = build_loss(cfg, mesh)
     tx = build_optimizer(cfg, steps_per_epoch=1)
-    state = init_state(cfg, model, tx, seed=cfg.train.seed, device=device)
+    state = place_state(cfg, model, tx, init_state(cfg, model, tx, seed=cfg.train.seed,
+                                                   device=device), mesh)
     ckpt = CheckpointManager(ckpt_dir)
     step, state = ckpt.restore_best(state) if which == "best" else ckpt.restore_latest(state)
     if state is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     results = evaluate_model(cfg, state, make_eval_step(model, loss_fn, cfg), test_loader)
     results["checkpoint_step"] = int(step)
-    if cfg.train.out_dir:
+    if cfg.train.out_dir and _lead(mesh):
         _write_results_json(os.path.join(cfg.train.out_dir, "results.json"), results, cfg)
     return results
 
@@ -674,7 +853,12 @@ def evaluate_checkpoint(cfg: ExperimentConfig, ckpt_dir: str, which: str = "best
 def main(argv=None, device=None):
     """The JAX engine's command line: ``--config=synthetic|shanghai|laps``,
     ``--max_steps=N`` and dotted overrides (``parse_overrides``). ``device``
-    is for a caller in Python (None: the card)."""
+    is for a caller in Python (None: the card). Across cards::
+
+        torchrun --nproc_per_node=N -m kmunet_tpu_torch.train.engine --config=... [--mesh.model=2 --mesh.fsdp=True]
+
+    runs one process per card over the mesh of ``--mesh.*`` (data=-1: every
+    card on the data axis); the process group it made is closed at the end."""
     argv = list(sys.argv[1:] if argv is None else argv)
     config_name = "synthetic"
     max_steps = None
@@ -695,8 +879,14 @@ def main(argv=None, device=None):
         cfg = shanghai_km_unet()
         cfg.data.name = "synthetic"
     parse_overrides(cfg, rest)
-    results = train_and_evaluate(cfg, max_steps=max_steps, device=device)
-    print({k: v for k, v in results.items() if k != "history"})
+    joined = torch.distributed.is_initialized()
+    try:
+        results = train_and_evaluate(cfg, max_steps=max_steps, device=device)
+    finally:
+        if not joined and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if int(os.environ.get("RANK", 0)) == 0:
+        print({k: v for k, v in results.items() if k != "history"})
     return results
 
 

@@ -71,14 +71,16 @@ def add_decayed_weights(grads, params, weight_decay: float, mask=None):
     return out
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm: Optional[torch.Tensor] = None):
     """``optax.clip_by_global_norm``: every tensor becomes ``t / norm *
     max_norm`` when the global L2 norm is at least ``max_norm``, and stays
     ``t`` below it; out of place, decided on the device (no host sync): the
     division and the product take 1 in place of norm and max_norm when the
     norm is below, which leaves t exact. (``torch.nn.utils.clip_grad_norm_``
-    multiplies by max_norm / (norm + 1e-6) instead.)"""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    multiplies by max_norm / (norm + 1e-6) instead.) ``norm``: the global
+    norm where ``grads`` are this rank's blocks of sharded leaves."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     below = norm < max_norm
     one = torch.ones_like(norm)
     out = torch._foreach_div(grads, torch.where(below, one, norm))
@@ -432,9 +434,12 @@ class Chain:
 
     @torch.no_grad()
     def update(self, grads: list[torch.Tensor], state: ChainState,
-               params: list[torch.Tensor]) -> ChainState:
+               params: list[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> ChainState:
+        """``grad_norm``: the gradients' global norm, where they are this
+        rank's blocks of leaves sharded over the mesh (the clip needs the
+        whole gradient's)."""
         if self.grad_clip:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            grads = clip_by_global_norm(grads, self.grad_clip, grad_norm)
         if self.masked_decay:
             grads = add_decayed_weights(grads, params, self.masked_decay, norms_mask(params))
         scale = 1.0 if state.scale is None else state.scale

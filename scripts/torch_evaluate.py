@@ -49,7 +49,9 @@ def main():
     if cfg.data.path is None and cfg.data.name == "shanghai":
         print("no --data.path given; falling back to synthetic data")
         cfg.data.name = "synthetic"
-    print(evaluate_checkpoint(cfg, ckpt_dir, which=which))
+    results = evaluate_checkpoint(cfg, ckpt_dir, which=which)
+    if int(os.environ.get("RANK", 0)) == 0:  # under torchrun, rank 0 reports
+        print(results)
 
 
 if __name__ == "__main__":

@@ -31,7 +31,8 @@ def main():
         print("no --data.path given; falling back to synthetic data")
         cfg.data.name = "synthetic"
     results = train_and_evaluate(cfg, log_csv="outputs/torch/laps_epochs.csv")
-    print({k: v for k, v in results.items() if k != "history"})
+    if int(os.environ.get("RANK", 0)) == 0:  # under torchrun, rank 0 reports
+        print({k: v for k, v in results.items() if k != "history"})
 
 
 if __name__ == "__main__":

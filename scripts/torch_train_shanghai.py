@@ -34,7 +34,8 @@ def main():
         cfg.data.name = "synthetic"
     csv_dir = cfg.train.out_dir or "outputs/torch"
     results = train_and_evaluate(cfg, log_csv=os.path.join(csv_dir, "shanghai_epochs.csv"))
-    print({k: v for k, v in results.items() if k != "history"})
+    if int(os.environ.get("RANK", 0)) == 0:  # under torchrun, rank 0 reports
+        print({k: v for k, v in results.items() if k != "history"})
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ fused KAN conv, and K2 and K3, the HSM-SSD compress and fused mixer, against
 their plain versions, their gradients against the CPU's, and KM_UNetV3-SH's
 forward and a train step through them; K3a, the mixer ablation, in its five
 modes against its plain version; KM_UNetV3-LAPS's forward on each path and
-a ``laps_km_unet()`` step through K1 and K3 against the CPU's. Marked
+a ``laps_km_unet()`` step through K1 and K3 against the CPU's; the
+world-1 NCCL mesh step bit for bit the plain step. Marked
 ``gpu``; they skip where there is no card. This file
 imports no JAX, so it runs on a machine without
 it: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -1092,3 +1093,16 @@ def test_cuda_laps_train_step_matches_cpu(cuda_device, monkeypatch):
     card = chip_smoke.step_gradients(cfg, cuda_device, batch, seed=2, **options)
     assert [c.launches - b for c, b in zip(counters, before)] == [4, 15]
     chip_smoke.compare_steps(card, chip_smoke.step_gradients(cfg, "cpu", batch, seed=2, **options))
+
+
+def test_cuda_world1_mesh_step_is_the_plain_step(cuda_device):
+    """One process over NCCL on the card (``chip_smoke.spawn_ranks``): the
+    SH recipe's B=16 bf16 step through a 1 x 1 x 1 mesh, whose collectives
+    run on a group of one, bit for bit the plain step from the same weights,
+    batch and generator state (``chip_smoke.dp_world1_job``), with K7 and
+    K6's shared-source entry launched once each."""
+    (world1,) = chip_smoke.spawn_ranks(torch, 1, chip_smoke.dp_world1_job)
+    assert world1["collectives"], world1
+    assert world1["bit_equal"], world1
+    assert world1["launches"]["bilinear_gather_multiview"] == chip_smoke.DEFORM_CONVS
+    assert world1["launches"]["bilinear_gather_multiview_backward"] == chip_smoke.DEFORM_CONVS

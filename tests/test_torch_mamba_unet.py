@@ -35,6 +35,7 @@ from kmunet_tpu_torch.kernels import scan
 from kmunet_tpu_torch.losses import rain_loss, rainfall_loss
 from kmunet_tpu_torch.models import mamba_unet, zoo
 from kmunet_tpu_torch.nn.mamba import MambaBlock
+from kmunet_tpu_torch.parallel import make_mesh
 from kmunet_tpu_torch.train import engine, recipes
 from kmunet_tpu_torch.train.optimizers import SGD, make_optimizer
 from kmunet_tpu_torch.train.schedule import make_schedule
@@ -306,15 +307,19 @@ def test_recipe_builds_the_pieces():
 
 def test_zoo_and_entry_point(monkeypatch):
     """The zoo builds Mamba-UNet with its ``c_list`` and ``bridge`` extras and
-    refuses ``seq_mesh``; ``build_zoo_model("mamba_unet")`` is seeded, in
+    passes ``seq_mesh`` through to every MambaBlock (the sequence-parallel
+    scan, tests/test_torch_scan_sharded.py); ``build_zoo_model("mamba_unet")`` is seeded, in
     eval mode, with MambaBlock's inits, maps (B, 32, 32, 5) to (B, 32, 32,
     20), and is on the card unless the CPU is asked for."""
     cfg = configs.ModelConfig(name="mamba_unet", num_classes=3, extra={"bridge": False})
     model = zoo.build(cfg)
     assert isinstance(model, mamba_unet.Mamba_UNet) and not hasattr(model, "scab")
     assert tuple(model.S.weight.shape) == (3, 3, 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        zoo.build(configs.ModelConfig(name="mamba_unet", extra={"seq_mesh": object()}))
+    mesh = make_mesh()
+    sharded = zoo.build(configs.ModelConfig(name="mamba_unet", extra={"seq_mesh": mesh}))
+    blocks = [m for m in sharded.modules() if isinstance(m, MambaBlock)]
+    assert len(blocks) == 10 and all(b.seq_mesh is mesh and b.seq_axis == "spatial"
+                                     for b in blocks)
     assert zoo.SEQUENCE_MODELS == {"convlstm", "trajgru"}
 
     model = serve.build_zoo_model("mamba_unet", device="cpu", seed=3)
