@@ -244,6 +244,39 @@ Phases, each printing one JSON line with its seconds:
               relative. Then the LAPS recipe (``laps_config``: 256^2, 5 -> 3,
               B=1, fp32, ``scatter_eval``) for one epoch of 2 steps: no
               kernel, a finite ``scatter`` block.
+   zoo     -- the baseline zoo (``models/zoo.py``): SmaAt-UNet
+              (kernels_per_layer 2, reduction 16), SCECA-Net (64/128/256/512),
+              LPTQPN (dim 20, blocks 4/6/6/8, heads 1/2/4/8, expansion 2.66),
+              TransUNet (R50-ViT-B/16: hidden 768, 12 layers, 12 heads, MLP
+              3072) and Swin-UNet (tiny: embed 96, depths 2/2/2/2, heads
+              3/6/12/24, window 8, patch 4), each at full width on the "pic"
+              recipe's data (256^2, 5 -> 20), seeded weights. Each: the fp32
+              forward at B=2 through ``serve.build_zoo_model`` with TF32 off
+              within 1e-4 abs of the same weights on the CPU; one step of its
+              "pic" recipe at B=2 (dropout and stochastic depth off: the
+              card's and the CPU's generators draw other masks) in float64 on
+              the card against float64 on the CPU through ``compare_steps``,
+              and the engine's fp32 step on the card (TF32 off) against that
+              float64 step through ``fp32_step_distance`` (the loss within
+              ZOO_FP32_LOSS_REL, the whole gradient within ZOO_FP32_GRAD_REL in
+              relative L2, the per-leaf gate's reading beside it: the gate is
+              out of fp32's reach on either device for SmaAt-UNet, SCECA-Net
+              and TransUNet, whose fp32 gradients on the CPU lie up to 1 % of
+              a leaf and 1.6e-2 of the whole from float64); the bf16
+              forward and step at
+              B=16 (the dropouts on, from a CUDA generator), PyTorch's default
+              TF32 settings, ms by CUDA events over ZOO_TIMED_ITERS calls
+              after 2 warm-up calls, and peak ``max_memory_allocated``. The
+              zoo reaches no kernel of the port: every count must stay 0 on
+              each of these paths. Then ``scripts/torch_train_baseline.py``'s
+              ``main`` for smaat_unet ``--recipe=pic`` on synthetic data, 2
+              epochs of 2 steps at B=2 (finite losses, the steps taken, no
+              kernel). Then, where ``KMUNET_TRAINED_SMAAT`` names the torch
+              export of the trained SmaAt-UNet (``python -m tests.torch_export
+              OUT.pt``: the checkpoint is orbax's, which the card cannot
+              read), its fp32 forward at 256^2, B=2, TF32 off, card against
+              CPU within 1e-4 abs. ``python3 chip_smoke.py --phase zoo`` runs
+              this phase alone (nothing to build).
    data_parallel -- training across cards: one process per visible card
               (up to DP_MAX_CARDS; 1, 2 or 4), each on cuda:rank in one NCCL
               group (``spawn_ranks``: a store on a free localhost port).
@@ -355,6 +388,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import math
 import os
 import re
 import subprocess
@@ -592,6 +626,20 @@ DP_TIMED_STEPS = 3  # data_parallel: the bf16 dp step, timed after 2 warm-up ste
 DP_RESULTS_RTOL = 1e-4  # data_parallel: the dp trainer's losses and scores against one card's
 DP_SCAN_SHAPE = (2, 4096, 16, 16)  # data_parallel: (B, L, D, N) of the sharded scan
 DP_SECONDS = 300  # data_parallel: each spawn's deadline
+ZOO_MODELS = ("smaat_unet", "sceca_net", "lptqpn", "transunet", "swin_unet")
+ZOO_SIZE = 256  # the "pic" recipe's data: shanghai_km_unet(), 256^2, 5 -> 20
+ZOO_TIMED_BATCH = 16  # zoo: the bf16 forward and step, timed after 2 warm-up calls
+ZOO_TIMED_ITERS = 5
+# zoo: the fp32 step's whole gradient vs float64, relative L2: a wrong path
+# lands O(1) off; fp32 itself lands up to 1.6e-2 off (TransUNet at 64^2 on
+# the CPU), so this holds the path, and the float64 step the function.
+ZOO_FP32_GRAD_REL = 0.1
+ZOO_FP32_LOSS_REL = 1e-4  # and its loss (LPTQPN's lies 1.1e-5 off on the card)
+ZOO_NO_DROP = {"transunet": {"dropout": 0.0}, "swin_unet": {"drop_path_rate": 0.0}}
+ZOO_TRAINER_LENGTH = 4  # zoo: torch_train_baseline's loop, 2 steps of B=2 an epoch
+ZOO_TRAINER_EPOCHS = 2
+BASELINE_SCRIPT = "scripts/torch_train_baseline.py"
+TRAINED_SMAAT_ENV = "KMUNET_TRAINED_SMAAT"  # a torch export of the trained SmaAt checkpoint
 
 
 def emit(obj) -> None:
@@ -911,25 +959,43 @@ def step_gradients(cfg, device, batch, seed=0, dysample_window=True, flow_scale=
                          ssd_mixer)[0]
 
 
-def float64_gradients(cfg, batch, seed=0, flow_scale=1.0):
+def float64_gradients(cfg, batch, seed=0, flow_scale=1.0, device="cpu"):
     """The exact reference of ``step_gradients(cfg, "cuda", batch, seed,
     flow_scale=flow_scale)``: (loss, grad norm, {name: gradient}) of the same
-    loss from the same weights, computed in float64 on the CPU."""
+    loss from the same weights, computed in float64 on ``device`` (the CPU
+    by default), the gradients on the CPU."""
     import torch
 
     from kmunet_tpu_torch.train import engine
 
-    model, _, _, _ = train_setup(cfg, "cpu", seed, flow_scale=flow_scale)
+    model, _, _, _ = train_setup(cfg, device, seed, flow_scale=flow_scale)
     model.double()
     layout = engine._model_layout(cfg)
-    inp, tgt = engine._split_batch(torch.as_tensor(batch, dtype=torch.float64),
+    inp, tgt = engine._split_batch(torch.as_tensor(batch, dtype=torch.float64, device=device),
                                    cfg.data.in_frames, cfg.data.out_frames, layout)
     loss = engine.build_loss(cfg)(engine._to_btHW(model(inp), layout), tgt)
     named = dict(model.named_parameters())
     grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True,
                                 materialize_grads=True)
     norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads]))
-    return float(loss.detach()), float(norm), dict(zip(named, grads))
+    return float(loss.detach()), float(norm), {k: g.cpu() for k, g in zip(named, grads)}
+
+
+def step_differences(card, cpu):
+    """The readings of ``compare_steps``: the loss's and grad norm's
+    relative differences, and the leaf farthest from the gate as its share
+    of its tolerance."""
+    (loss_gpu, gn_gpu, g_gpu), (loss_cpu, gn_cpu, g_cpu) = card, cpu
+    leaf_ratio, worst = 0.0, ""
+    for k, want in g_cpu.items():
+        err = float((g_gpu[k].to(want) - want).abs().max())
+        ratio = err / (STEP_LEAF_RTOL * float(want.abs().max()) + STEP_LEAF_ATOL)
+        if ratio > leaf_ratio:
+            leaf_ratio, worst = ratio, k
+    return {"loss": [loss_gpu, loss_cpu], "grad_norm": [gn_gpu, gn_cpu],
+            "loss_rel": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+            "grad_norm_rel": abs(gn_gpu - gn_cpu) / gn_cpu, "worst_leaf": worst,
+            "worst_leaf_share_of_tol": leaf_ratio}
 
 
 def compare_steps(card, cpu):
@@ -937,19 +1003,29 @@ def compare_steps(card, cpu):
     STEP_LOSS_RTOL, the grad norm within STEP_GRAD_NORM_RTOL, every leaf's
     gradient within STEP_LEAF_RTOL of that leaf's largest |gradient| on the
     CPU plus STEP_LEAF_ATOL. Raises if not; returns the readings."""
-    (loss_gpu, gn_gpu, g_gpu), (loss_cpu, gn_cpu, g_cpu) = card, cpu
-    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    gn_rel = abs(gn_gpu - gn_cpu) / gn_cpu
-    leaf_ratio, worst = 0.0, ""
-    for k, want in g_cpu.items():
-        err = float((g_gpu[k] - want).abs().max())
-        ratio = err / (STEP_LEAF_RTOL * float(want.abs().max()) + STEP_LEAF_ATOL)
-        if ratio > leaf_ratio:
-            leaf_ratio, worst = ratio, k
-    readings = {"loss": [loss_gpu, loss_cpu], "grad_norm": [gn_gpu, gn_cpu], "loss_rel": loss_rel,
-                "grad_norm_rel": gn_rel, "worst_leaf": worst, "worst_leaf_share_of_tol": leaf_ratio}
-    if loss_rel > STEP_LOSS_RTOL or gn_rel > STEP_GRAD_NORM_RTOL or leaf_ratio > 1.0:
-        raise AssertionError(f"card vs CPU fp32 step: {readings}")
+    readings = step_differences(card, cpu)
+    if (readings["loss_rel"] > STEP_LOSS_RTOL or readings["grad_norm_rel"] > STEP_GRAD_NORM_RTOL
+            or readings["worst_leaf_share_of_tol"] > 1.0):
+        raise AssertionError(f"card vs CPU step: {readings}")
+    return readings
+
+
+def fp32_step_distance(card, exact):
+    """How far a card's fp32 ``step_gradients`` lies from the same step's
+    exact gradient (``float64_gradients``): the loss within ZOO_FP32_LOSS_REL
+    and the whole gradient within ZOO_FP32_GRAD_REL of its norm (the L2
+    norm of the difference over every leaf). Raises if not; returns the
+    readings, ``step_differences``' per leaf beside them, not held to the
+    leaf gate: the zoo's first convs take positive frames, so their weight
+    gradients are cancelling sums that fp32 gets to about 1 % of the leaf
+    on either device."""
+    readings = step_differences(card, exact)
+    (_, _, g), (_, gn64, g64) = card, exact
+    diff = sum(float((g[k].double().cpu() - w.double()).square().sum()) for k, w in g64.items())
+    readings["grad_rel_l2"] = diff ** 0.5 / gn64
+    readings["leaf_gate_met"] = readings["worst_leaf_share_of_tol"] <= 1.0
+    if readings["loss_rel"] > ZOO_FP32_LOSS_REL or readings["grad_rel_l2"] > ZOO_FP32_GRAD_REL:
+        raise AssertionError(f"card fp32 step vs float64: {readings}")
     return readings
 
 
@@ -2063,6 +2139,219 @@ def data_parallel_phase(torch, np, card, path_launches, launches_per):
     return fields
 
 
+def zoo_step_config(name, B, dtype, drop=True, img_size=ZOO_SIZE, seq_len=25, out_frames=20):
+    """``zoo_config`` of the baseline ``name`` (its "pic" recipe; by default
+    its data, 5 -> 20 at 256^2), its dropouts and stochastic depth off
+    unless ``drop`` (SCECA-Net's DenseLayer rate is a class attribute:
+    ``zoo_dense_dropout``)."""
+    cfg = zoo_config(name, B, dtype, img_size=img_size, seq_len=seq_len, out_frames=out_frames)
+    if not drop:
+        cfg.model.extra.update(ZOO_NO_DROP.get(name, {}))
+    return cfg
+
+
+class zoo_dense_dropout:
+    """Sets SCECA-Net's DenseLayer dropout rate (a class attribute, as the
+    JAX constructor does not expose it) for the models built inside."""
+
+    def __init__(self, rate):
+        from kmunet_tpu_torch.models import sceca_net
+
+        self.cls, self.rate = sceca_net.DenseLayer, rate
+
+    def __enter__(self):
+        self.kept, self.cls.dropout_rate = self.cls.dropout_rate, self.rate
+
+    def __exit__(self, *exc):
+        self.cls.dropout_rate = self.kept
+        return False
+
+
+def zoo_model_phase(torch, np, name, reset_counts, read_counts, launches_per, path_launches):
+    """One baseline of the zoo phase (the module docstring); returns its
+    fields."""
+    from kmunet_tpu_torch import serve
+    from kmunet_tpu_torch.train import engine
+
+    rng = np.random.default_rng(ZOO_MODELS.index(name))
+    fields = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = serve.build_zoo_model(name, device="cuda", seed=0, img_size=ZOO_SIZE)
+    fields["params"] = sum(p.numel() for p in model.parameters())
+    frames = rng.uniform(size=(CHECK_BATCH, ZOO_SIZE, ZOO_SIZE, 5)).astype(np.float32)
+    reset_counts()
+    answer = serve.predict(model, frames)
+    expect_launches(f"zoo {name} forward", read_counts(), launches_per())
+    model_cpu = serve.build_zoo_model(name, device="cpu", seed=0, img_size=ZOO_SIZE)
+    model_cpu.load_state_dict(model.state_dict())
+    if tuple(answer.shape) != (CHECK_BATCH, ZOO_SIZE, ZOO_SIZE, 20):
+        raise AssertionError(f"{name} answer shape {tuple(answer.shape)}")
+    if not bool(torch.isfinite(answer).all()):
+        raise AssertionError(f"{name} answer has non-finite values")
+    err = float((answer.cpu() - serve.predict(model_cpu, frames)).abs().max())
+    if err > 1e-4:
+        raise AssertionError(f"zoo {name}: card vs CPU fp32 forward: max abs err {err} > 1e-4")
+    fields["forward_fp32"] = {"batch": CHECK_BATCH, "max_abs_err_vs_cpu": err,
+                              "answer_max_abs": float(answer.abs().max()), "tf32": False}
+    del model, model_cpu, answer
+
+    # One step of the recipe at B=2 (no dropout: the card's and the CPU's
+    # generators draw other masks): in float64 on the card against float64
+    # on the CPU within the step gate (the same function), and the fp32
+    # step on the card (the engine's, TF32 off) against that exact step
+    # (``fp32_step_distance``: on positive frames the first convs' weight
+    # gradients are cancelling sums; SmaAt-UNet's lie 0.9 % of the leaf off
+    # in fp32 on the CPU, the grad norm 1.0e-3).
+    batch = synthetic_batch(np, CHECK_BATCH, seed=5, img_size=ZOO_SIZE)
+    cfg = zoo_step_config(name, CHECK_BATCH, "float32", drop=False, img_size=ZOO_SIZE)
+    with zoo_dense_dropout(0.0):
+        reset_counts()
+        card = step_gradients(cfg, "cuda", batch)
+        card64 = float64_gradients(cfg, batch, device="cuda")
+        expect_launches(f"zoo {name} step", read_counts(), launches_per())
+        exact = float64_gradients(cfg, batch)
+    fields["step"] = {"batch": CHECK_BATCH, "recipe": "pic", "optimizer": cfg.train.optimizer,
+                      "loss": cfg.train.loss, "float64": compare_steps(card64, exact),
+                      "fp32_vs_float64": fp32_step_distance(card, exact), "tf32": False}
+
+    # The bf16 forward and step at B=16, PyTorch's default TF32 settings,
+    # the dropouts on (from a CUDA generator).
+    torch.backends.cudnn.allow_tf32 = True
+    model = serve.build_zoo_model(name, device="cuda", dtype=torch.bfloat16, seed=0,
+                                  img_size=ZOO_SIZE)
+    x = torch.rand(ZOO_TIMED_BATCH, ZOO_SIZE, ZOO_SIZE, 5, device="cuda", dtype=torch.bfloat16)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fwd_ms = cuda_ms(torch, forward, ZOO_TIMED_ITERS)
+    expect_launches(f"zoo {name} bf16 forward", read_counts(), launches_per())
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    cfg = zoo_step_config(name, ZOO_TIMED_BATCH, "bfloat16", img_size=ZOO_SIZE)
+    model, state, step, _ = train_setup(cfg, "cuda")
+    data = torch.as_tensor(synthetic_batch(np, ZOO_TIMED_BATCH, seed=6, img_size=ZOO_SIZE),
+                           device="cuda")
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    losses = []
+
+    def train_step():
+        nonlocal state
+        state, m = step(state, data, generator)
+        losses.append(m["loss"])
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = cuda_ms(torch, train_step, ZOO_TIMED_ITERS)
+    launches = path_launches[f"zoo_{name}"] = read_counts()
+    expect_launches(f"zoo {name} bf16 step", launches, launches_per())
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(bool(torch.isfinite(v)) for v in losses):
+        raise AssertionError(f"zoo {name}: a bf16 step's loss is not finite")
+    fields["bf16"] = {"batch": ZOO_TIMED_BATCH, "forward_ms": fwd_ms,
+                      "frames_per_s": ZOO_TIMED_BATCH * 20 / (fwd_ms / 1e3),
+                      "forward_peak_gib": fwd_peak, "step_ms": step_ms,
+                      "step_peak_gib": step_peak, "kernel_launches_per_call": 0,
+                      "timed_calls": ZOO_TIMED_ITERS, "warmup_calls": 2}
+    del model, state, step, data
+    torch.cuda.empty_cache()
+    return fields
+
+
+def zoo_phase(torch, np, card, reset_counts, read_counts, launches_per, path_launches):
+    """The zoo phase (the module docstring): each baseline at full width,
+    the baseline trainer's loop and the trained SmaAt-UNet; returns the
+    phase's fields."""
+    import importlib.util
+    import tempfile
+
+    from kmunet_tpu_torch.models import smaat_unet
+
+    fields = {"nvidia_smi": card, "size": ZOO_SIZE}
+    for name in ZOO_MODELS:
+        t0 = time.perf_counter()
+        fields[name] = zoo_model_phase(torch, np, name, reset_counts, read_counts, launches_per,
+                                       path_launches)
+        fields[name]["seconds"] = round(time.perf_counter() - t0, 3)
+
+    # torch_train_baseline's main, as a user runs it: smaat_unet, "pic".
+    spec = importlib.util.spec_from_file_location("torch_train_baseline",
+                                                  os.path.join(REPO, BASELINE_SCRIPT))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        results = script.main([
+            "--model.name=smaat_unet", "--recipe=pic",
+            f"--data.synthetic_length={ZOO_TRAINER_LENGTH}", f"--train.epochs={ZOO_TRAINER_EPOCHS}",
+            "--train.vis_batches=0", f"--train.ckpt_dir={os.path.join(tmp, 'ckpt')}",
+            f"--train.out_dir={os.path.join(tmp, 'out')}"])
+        wall = time.perf_counter() - t0
+        expect_launches("zoo trainer", read_counts(), launches_per())
+        history = results["history"]
+        if len(history["train_loss"]) != ZOO_TRAINER_EPOCHS or not all(
+                math.isfinite(v) for v in history["train_loss"] + history["val_loss"]):
+            raise AssertionError(f"zoo trainer: history {history}")
+        steps = ZOO_TRAINER_EPOCHS * ZOO_TRAINER_LENGTH // 2
+        if results["steps"] != steps:
+            raise AssertionError(f"zoo trainer: {results['steps']} steps, want {steps}")
+        fields["trainer"] = {"script": BASELINE_SCRIPT, "model": "smaat_unet", "recipe": "pic",
+                             "steps": results["steps"], "history": history, "wall_s": wall,
+                             "scores": {k: v for k, v in results.items()
+                                        if isinstance(v, float)}}
+
+    # The trained SmaAt-UNet (outputs/quality_table/smaat_unet/ckpt/1168, an
+    # orbax checkpoint the card cannot read) where its torch export is given.
+    path = os.environ.get(TRAINED_SMAAT_ENV)
+    if not path:
+        fields["trained_smaat"] = (f"not run: no {TRAINED_SMAAT_ENV} (the checkpoint is "
+                                   "orbax's; tests/torch_export.py writes its torch export)")
+        return fields
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    frames = np.random.default_rng(7).uniform(size=(CHECK_BATCH, ZOO_SIZE, ZOO_SIZE, 5))
+    answers = []
+    for device in ("cuda", "cpu"):
+        model = smaat_unet.SmaAt_UNet(n_classes=20)
+        model.load_state_dict(state)
+        model.to(device).eval()
+        with torch.inference_mode():
+            answers.append(model(torch.as_tensor(frames, dtype=torch.float32,
+                                                 device=device)).cpu())
+    err = float((answers[0] - answers[1]).abs().max())
+    if err > 1e-4 or not bool(torch.isfinite(answers[0]).all()):
+        raise AssertionError(f"trained SmaAt-UNet: card vs CPU max abs err {err} > 1e-4")
+    fields["trained_smaat"] = {"max_abs_err_vs_cpu": err, "answer_std": float(answers[0].std()),
+                               "batch": CHECK_BATCH, "tf32": False}
+    return fields
+
+
+def zoo_only(torch, np) -> int:
+    """``python3 chip_smoke.py --phase zoo``: the card's line and the zoo
+    phase alone (it reaches no kernel of the port, so nothing is built)."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=30,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    names = list(_kernel_counters())
+    path_launches = {}
+    with Phase("zoo") as f:
+        f.update(zoo_phase(torch, np, card, lambda: _counts(torch, reset=True),
+                           lambda: _counts(torch), lambda: dict.fromkeys(names, 0),
+                           path_launches))
+    faulthandler.cancel_dump_traceback_later()
+    emit({"ok": True, "phases": ["zoo"],
+          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                     "count": torch.cuda.device_count()}})
+    return 0
+
+
 def data_parallel_only(torch, np) -> int:
     """``python3 chip_smoke.py --phase data_parallel``: the card's line, the
     build of K7's, K6's and K8's sources (one nvcc each, together) and the
@@ -2104,6 +2393,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["--phase", "data_parallel"]:
         return data_parallel_only(torch, np)
+    if sys.argv[1:] == ["--phase", "zoo"]:
+        return zoo_only(torch, np)
     from concurrent.futures import ThreadPoolExecutor
 
     import torch.nn.functional as F
@@ -2730,6 +3021,10 @@ def main() -> int:
     with Phase("trainer") as f:
         f.update(trainer_phase(torch, np, nvidia_smi, reset_counts, read_counts, launches_per,
                                path_launches))
+
+    with Phase("zoo") as f:
+        f.update(zoo_phase(torch, np, nvidia_smi, reset_counts, read_counts, launches_per,
+                           path_launches))
 
     with Phase("data_parallel") as f:
         f.update(data_parallel_phase(torch, np, nvidia_smi, path_launches, launches_per))

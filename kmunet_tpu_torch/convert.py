@@ -23,7 +23,15 @@ changes are:
   ``dt_proj_weight`` (d_inner, dt_rank), and Mamba-UNet's
   ``get_all_att_kernel`` (3, 1, 1) -> ``get_all_att_weight`` (1, 1, 3);
   ``conv1d_bias``, ``dt_proj_bias``, ``A_log``, ``skip_scale1/2`` and the 0-d
-  ``alpha1..3`` and ``beta`` keep their names.
+  ``alpha1..3`` and ``beta`` keep their names;
+- the zoo's: ECA's ``conv_kernel`` (k, 1, 1) -> ``conv_weight`` (1, 1, k);
+  flax ``MultiHeadDotProductAttention``'s DenseGeneral kernels, ``query``,
+  ``key``, ``value`` (in, heads, head_dim) -> ``weight`` (heads * head_dim,
+  in) and ``out`` (heads, head_dim, out) -> (out, heads * head_dim), their
+  (heads, head_dim) biases flattened; SRU's ``gamma``, LPTQPN's
+  SigmoidLayerNorm ``weight``, ``temperature`` and 0-d ``swish_beta``,
+  TransUNet's ``position_embeddings`` and Swin's
+  ``relative_position_bias_table`` keep their names and shapes.
 
 ``to_state_dict`` raises if a flax leaf is left unused or a torch key unfilled.
 """
@@ -66,6 +74,13 @@ _RENAMES = {
     "alpha2": ("alpha2", None),
     "alpha3": ("alpha3", None),
     "beta": ("beta", None),
+    "conv_kernel": ("conv_weight", (2, 1, 0)),
+    "gamma": ("gamma", None),
+    "weight": ("weight", None),
+    "temperature": ("temperature", None),
+    "swish_beta": ("swish_beta", None),
+    "position_embeddings": ("position_embeddings", None),
+    "relative_position_bias_table": ("relative_position_bias_table", None),
 }
 # KANLinear's leaves (its 2-D spline_scaler; KANConv2d's is 4-D, above).
 _KAN_LINEAR = {"base_weight": (1, 0), "spline_weight": (2, 0, 1), "spline_scaler": (1, 0)}
@@ -81,8 +96,16 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _convert_leaf(path, value):
+def convert_leaf(path, value):
+    """(the port's state_dict key, the value in its layout) of the flax leaf
+    at ``path`` (a tuple of names) holding ``value``."""
     *mods, leaf = path
+    if leaf == "kernel" and value.ndim == 3:  # a DenseGeneral of attention
+        flat = value.reshape(-1, value.shape[-1]) if mods[-1] == "out" else value.reshape(
+            value.shape[0], -1)
+        return ".".join((*mods, "weight")), flat.T
+    if leaf == "bias" and value.ndim == 2:
+        return ".".join((*mods, "bias")), value.reshape(-1)
     if leaf == "kernel":
         perm = _OIHW if value.ndim == 4 else (1, 0)
         name = "weight"
@@ -122,7 +145,7 @@ def to_state_dict(model: nn.Module, params: Mapping, batch_stats: Mapping | None
     unused = []
     leaves = list(_flatten(params)) + list(_flatten(batch_stats or {}))
     for path, value in leaves:
-        key, value = _convert_leaf(path, value)
+        key, value = convert_leaf(path, value)
         if key not in target:
             unused.append("/".join(path))
             continue

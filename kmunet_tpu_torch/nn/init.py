@@ -39,3 +39,18 @@ def kaiming_normal_fanout_(t: torch.Tensor, generator: torch.Generator) -> torch
 def normal_(t: torch.Tensor, generator: torch.Generator, std: float = 1.0,
             mean: float = 0.0) -> torch.Tensor:
     return t.normal_(mean, std, generator=generator)
+
+
+@torch.no_grad()
+def truncated_normal_(t: torch.Tensor, generator: torch.Generator, std: float) -> torch.Tensor:
+    """flax's ``truncated_normal(std)``: N(0, std^2) cut at +-2 std (the
+    untruncated std, as JAX's initializer)."""
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``xavier_uniform()``: U(-b, b), b = sqrt(6 / (fan_in + fan_out))."""
+    fan_in, fan_out = fans(t.shape)
+    bound = math.sqrt(6.0 / max(fan_in + fan_out, 1))
+    return t.uniform_(-bound, bound, generator=generator)

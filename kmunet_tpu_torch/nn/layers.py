@@ -35,6 +35,18 @@ def same_padding(kernel_size) -> tuple[int, int]:
     return kh // 2, kw // 2
 
 
+def pad_same(x: torch.Tensor, kernel_size, stride) -> torch.Tensor:
+    """``x`` (NCHW) padded as XLA's ``padding='SAME'`` pads it for a conv of
+    ``kernel_size`` at ``stride``: ``max((ceil(n / s) - 1) * s + k - n, 0)``
+    zeros per axis, the odd one after (so a strided conv takes padding 0)."""
+    pads = []
+    sizes = zip(x.shape[2:], tuple(kernel_size), tuple(stride))
+    for n, k, s in reversed(list(sizes)):  # F.pad takes the last axis first
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
                      channel_dim: int = 1) -> torch.Tensor:
     """BatchNorm in training as flax's ``nn.BatchNorm(momentum=0.9)`` computes
@@ -72,6 +84,13 @@ def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     return (y + bn.bias.view(shape)).to(x.dtype)
 
 
+def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
+    """flax's ``nn.BatchNorm(use_running_average=not train)``: in training
+    (``bn.training``) ``batch_norm_train``, else ``bn`` on its running
+    statistics."""
+    return batch_norm_train(x, bn) if bn.training else bn(x)
+
+
 class ConvBNAct(nn.Module):
     """Bias-free conv, BatchNorm (eps 1e-5), optional activation. The
     BatchNorm runs on its running statistics in eval mode and as flax's in
@@ -91,8 +110,7 @@ class ConvBNAct(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Conv_0(x)
-        x = batch_norm_train(x, self.BatchNorm_0) if self.training else self.BatchNorm_0(x)
+        x = batch_norm(self.Conv_0(x), self.BatchNorm_0)
         return self.act(x) if self.act is not None else x
 
 
@@ -126,24 +144,38 @@ class DropPath(nn.Module):
         self.rate = rate
         self.data_axis = None
 
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        """The mask's shape past the batch axis: one draw per sample."""
+        return (1,) * (x.dim() - 1)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if generator is None:
-            raise ValueError("DropPath in training draws from a torch.Generator: pass one")
+            raise ValueError(f"{type(self).__name__} in training draws from a torch.Generator: "
+                             "pass one")
         keep = 1.0 - self.rate
         rows, axis = x.shape[0], self.data_axis
-        shape = (rows * (1 if axis is None else axis.size),) + (1,) * (x.dim() - 1)
+        shape = (rows * (1 if axis is None else axis.size),) + self._mask_shape(x)
         mask = torch.rand(shape, generator=generator, device=x.device) < keep
         if axis is not None:
             mask = mask[axis.index * rows:(axis.index + 1) * rows]
         return torch.where(mask, x / keep, 0.0)
 
 
+class Dropout(DropPath):
+    """flax's ``nn.Dropout(rate)``: ``DropPath`` with one draw per element
+    (``torch.nn.Dropout`` draws from the global generator; this one from
+    the caller's)."""
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape[1:])
+
+
 def set_data_axis(model: nn.Module, axis) -> nn.Module:
     """Makes ``model``'s train-mode BatchNorms take their statistics over the
     data axis ``axis`` (a ``parallel.mesh.Axis``; None: this rank's rows
-    alone) and its DropPaths draw the global batch's mask."""
+    alone) and its DropPaths (and Dropouts) draw the global batch's mask."""
     for m in model.modules():
         if isinstance(m, (nn.modules.batchnorm._BatchNorm, DropPath)):
             m.data_axis = axis

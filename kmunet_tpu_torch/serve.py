@@ -9,8 +9,10 @@
     model = build_zoo_model("trajgru")          # or "convlstm"
     forecast = predict(model, frames)           # (B, 5, H, W) -> (B, 20, H, W)
 
-    model = build_zoo_model("mamba_unet")       # or "km_unet_v3"
+    model = build_zoo_model("mamba_unet")       # or "km_unet_v3", or a baseline:
     forecast = predict(model, frames)           # (B, H, W, 5) -> (B, H, W, 20)
+    # "smaat_unet", "sceca_net", "lptqpn", "transunet", "swin_unet" (256^2 by
+    # default: img_size sizes TransUNet and Swin-UNet)
 
 Pass ``device="cpu"`` to run on the CPU (the gathers then take their plain
 versions); nothing falls back to the CPU on its own. Pass
@@ -70,13 +72,15 @@ def build_km_unet_v3_laps(device=None, dtype: torch.dtype = torch.float32, seed:
 
 
 def build_zoo_model(name: str, device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
-                    out_frames: int = 20) -> torch.nn.Module:
+                    out_frames: int = 20, img_size: int = 256) -> torch.nn.Module:
     """The zoo's model ``name`` (``km_unet_v3`` for the SH variant,
-    ``convlstm``, ``trajgru``, ``mamba_unet``) forecasting ``out_frames`` frames, in eval
-    mode, initialised from ``seed`` with the JAX package's distributions, on
-    ``device`` in ``dtype``."""
+    ``convlstm``, ``trajgru``, ``mamba_unet``, ``smaat_unet``,
+    ``sceca_net``, ``lptqpn``, ``transunet``, ``swin_unet``) forecasting
+    ``out_frames`` frames, in eval mode, initialised from ``seed`` with the
+    JAX package's distributions, on ``device`` in ``dtype``. TransUNet and
+    Swin-UNet take inputs of ``img_size`` squared only."""
     device = resolve_device(device)
-    model = zoo.build(ModelConfig(name=name, num_classes=out_frames))
+    model = zoo.build(ModelConfig(name=name, num_classes=out_frames), img_size=img_size)
     zoo.init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, dtype=dtype).eval()
 
@@ -85,7 +89,7 @@ def build_zoo_model(name: str, device=None, dtype: torch.dtype = torch.float32, 
 def predict(model: torch.nn.Module, frames) -> torch.Tensor:
     """Forecast from input frames, a tensor or array, moved to the model's
     device and dtype: KM_UNetV3 maps (B, H, W, 5) to maps (B, H, W, T) in
-    [0, 1], Mamba-UNet (B, H, W, 5) to (B, H, W, T), a sequence model
+    [0, 1], Mamba-UNet and the baselines (B, H, W, 5) to (B, H, W, T), a sequence model
     (``zoo.SEQUENCE_MODELS``) (B, 5, H, W) to (B, T, H, W)."""
     p = next(model.parameters())
     frames = torch.as_tensor(frames).to(device=p.device, dtype=p.dtype)

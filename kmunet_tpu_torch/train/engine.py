@@ -44,13 +44,18 @@ from the zoo (``models/zoo.py``): KM_UNetV3 in its SH or LAPS variant
 (``cfg.model.variant``; ``laps_km_unet()`` is the LAPS recipe, 5 -> 3 frames
 at B=1, with the SH recipe's loss and optimizer) with ``model.extra``'s
 ``drop_path`` and ``head_norm``, the sequence models
-ConvLSTM and TrajGRU, and Mamba-UNet (``cfg.model.name``;
+ConvLSTM and TrajGRU, Mamba-UNet and the five baselines SmaAt-UNet,
+SCECA-Net, LPTQPN, TransUNet and Swin-UNet (``cfg.model.name``;
 ``train/recipes.py::apply_recipe`` sets their reference recipes: Adam,
 ``weighted_mse_mae`` and MultiStepLR for the RNNs; SGD with momentum,
-``rainfall_loss`` and CosineAnnealingLR for Mamba-UNet's "pic"). TrajGRU's
-warp runs K7 and its backward K6's shared-source entry; Mamba-UNet's scans
-run K8 and its backward. Mamba-UNet has no BatchNorm and no stochastic
-depth: its ``batch_stats`` are empty and the generator may be None.
+``rainfall_loss`` and CosineAnnealingLR for Mamba-UNet's "pic"; SGD or
+AdamW and ``rain_loss`` for the baselines; ``scripts/torch_train_baseline.py``
+runs them). TrajGRU's warp runs K7 and its backward K6's shared-source
+entry; Mamba-UNet's scans run K8 and its backward; the baselines reach no
+kernel of the port. Mamba-UNet and LPTQPN have no BatchNorm and no
+stochastic layer: their ``batch_stats`` are empty and the generator may be
+None; SCECA-Net's and TransUNet's dropouts and Swin-UNet's stochastic depth
+draw from it (``zoo.STOCHASTIC_MODELS``).
 
 Every option of the JAX engine's step is here: every ``loss``
 (``build_loss``), every ``optimizer`` and ``schedule`` of the JAX factories
@@ -64,8 +69,8 @@ with the loader's epoch count, the generator's state and the plateau
 controller's as they were (JAX counts its epochs from 0 again); and the
 device-cache epoch draws its permutation from a ``torch.Generator``, not a
 JAX PRNG. What the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP Queue 1 item: the other models (item 10) and
-H-sharded activations (``mesh.spatial`` > 1, item 9b).
+naming its ROADMAP Queue 1 item: H-sharded activations (``mesh.spatial`` >
+1, item 9b).
 
 Across cards: one process per card (``torchrun --nproc_per_node=N -m
 kmunet_tpu_torch.train.engine ...``), over the mesh of ``cfg.mesh``
@@ -155,9 +160,10 @@ def build_model(cfg: ExperimentConfig, dysample_window: bool = True, kan_fused: 
     """The zoo's model of ``cfg.model``; ``dysample_window=False`` takes
     KM_UNetV3's DySample exact path (the JAX package's ``DYSAMPLE_WINDOW``,
     which its config does not carry either); ``kan_fused`` and ``ssd_mixer``
-    as in ``KM_UNetV3``."""
+    as in ``KM_UNetV3``. TransUNet and Swin-UNet are sized for
+    ``cfg.data.img_size``."""
     return zoo.build(cfg.model, dysample_window=dysample_window, kan_fused=kan_fused,
-                     ssd_mixer=ssd_mixer)
+                     ssd_mixer=ssd_mixer, img_size=cfg.data.img_size)
 
 
 def build_loss(cfg: ExperimentConfig, mesh: Optional[Mesh] = None) -> Callable:
@@ -231,7 +237,9 @@ def init_state(cfg: ExperimentConfig, model: nn.Module, tx, seed: int = 0,
     zoo.init_weights_(model, torch.Generator().manual_seed(seed))
     model.to(device=device, dtype=torch.float32).train()
     params = dict(model.named_parameters())
-    batch_stats = {k: b for k, b in model.named_buffers() if not k.endswith("num_batches_tracked")}
+    persistent = model.state_dict().keys()  # not Swin's window index and mask
+    batch_stats = {k: b for k, b in model.named_buffers()
+                   if k in persistent and not k.endswith("num_batches_tracked")}
     state = TrainState(0, params, batch_stats, tx.init(list(params.values())))
     return state if mesh is None else place_state(cfg, model, tx, state, mesh)
 
@@ -335,15 +343,15 @@ def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
     cdtype = _COMPUTE_DTYPES[cfg.train.compute_dtype]
     in_f, out_f = cfg.data.in_frames, cfg.data.out_frames
     layout = _model_layout(cfg)
-    takes_generator = cfg.model.name == "km_unet_v3"
+    takes_generator = cfg.model.name in zoo.STOCHASTIC_MODELS
     remat, kan_reg_weight = cfg.train.remat, cfg.train.kan_reg_weight
 
     def loss_of(params: dict, batch: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         inp, tgt = _split_batch(batch, in_f, out_f, layout)
         params_c = {k: p.to(cdtype) if p.is_floating_point() else p for k, p in params.items()}
-        # KM_UNetV3's stochastic depth takes the generator; the other
-        # models have none.
+        # Stochastic depth and dropout take the generator; the other
+        # models have neither.
         kwargs = {"generator": generator} if takes_generator else {}
         if remat:
             out = _remat_forward(model, params_c, inp.to(cdtype),

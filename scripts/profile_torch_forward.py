@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's KM_UNetV3-SH, KM_UNetV3-LAPS, TrajGRU or
-Mamba-UNet forward, or its train step, spends its time on the card.
+"""Where the PyTorch port's KM_UNetV3-SH, KM_UNetV3-LAPS, TrajGRU,
+Mamba-UNet or baseline forward, or its train step, spends its time on the
+card.
 
     python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16] [--exact]
     python3 scripts/profile_torch_forward.py --kan-fused --ssd-mixer fused [--train]
@@ -8,6 +9,7 @@ Mamba-UNet forward, or its train step, spends its time on the card.
     python3 scripts/profile_torch_forward.py --model trajgru [--train] [--batch 16]
     python3 scripts/profile_torch_forward.py --model mamba_unet [--train] [--batch 16]
     python3 scripts/profile_torch_forward.py --model laps [--kan-fused --ssd-mixer fused] [--train]
+    python3 scripts/profile_torch_forward.py --model smaat_unet [--train] [--batch 16]
 
 Prints JSON lines: the card (``nvidia-smi`` name and power limit); for the
 forward, the time of each top-level module of the model, from CUDA events
@@ -31,7 +33,9 @@ by default; 20 selective scans, K8, per forward) and its ("mamba_unet",
 "pic") recipe step (SGD with momentum, rainfall loss, CosineAnnealingLR).
 ``--model laps`` profiles KM_UNetV3-LAPS (5 -> 3 frames at 256^2, B=32 by
 default) and its ``laps_km_unet()`` step (B=1 by default, seq_len 8).
-Needs an NVIDIA GPU.
+``--model smaat_unet`` (or ``sceca_net``, ``lptqpn``, ``transunet``,
+``swin_unet``) profiles the baseline at its "pic" recipe's 256^2, 5 -> 20
+frames, B=16 by default, and its recipe step. Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from kmunet_tpu_torch import serve  # noqa: E402
+
+BASELINES = ("smaat_unet", "sceca_net", "lptqpn", "transunet", "swin_unet")
+BASELINE_SIZE = 256  # the "pic" recipe's shanghai_km_unet() size
 
 
 def emit(obj) -> None:
@@ -100,7 +107,8 @@ def module_times(model, frames, iters: int) -> dict:
 def train_step(batch: int, dtype: str, window: bool, model_name: str, **options):
     """One train step at ``batch`` as a closure, after two warm-up steps: the
     SH recipe for km_unet_v3 (at 128^2), ``laps_km_unet()`` for laps (at its
-    256^2), the (model, "pic") recipe for the zoo's (at 128^2)."""
+    256^2), the (model, "pic") recipe for the zoo's (at 128^2, the
+    baselines at ``BASELINE_SIZE``)."""
     from kmunet_tpu_torch.configs import laps_km_unet, shanghai_km_unet
     from kmunet_tpu_torch.data import SyntheticNowcastDataset
     from kmunet_tpu_torch.train import engine
@@ -112,7 +120,7 @@ def train_step(batch: int, dtype: str, window: bool, model_name: str, **options)
         cfg = shanghai_km_unet()
         if model_name != "km_unet_v3":
             cfg = apply_recipe(cfg, model_name, "pic")
-        cfg.data.img_size = 128
+        cfg.data.img_size = BASELINE_SIZE if model_name in BASELINES else 128
     cfg.data.batch_size, cfg.train.compute_dtype = batch, dtype
     model = engine.build_model(cfg, dysample_window=window, **options)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
@@ -135,7 +143,7 @@ def train_step(batch: int, dtype: str, window: bool, model_name: str, **options)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="km_unet_v3",
-                   choices=["km_unet_v3", "laps", "trajgru", "mamba_unet"])
+                   choices=["km_unet_v3", "laps", "trajgru", "mamba_unet", *BASELINES])
     p.add_argument("--batch", type=int, default=None,
                    help="default 16 for --train and for the zoo's models, else 128; "
                         "laps: 1 for --train, else 32")
@@ -172,6 +180,11 @@ def main() -> int:
         elif args.model == "mamba_unet":
             model = serve.build_zoo_model("mamba_unet", device="cuda", dtype=dtype, seed=0)
             frames = torch.rand(args.batch, 128, 128, 5, device="cuda").to(dtype)
+        elif args.model in BASELINES:
+            model = serve.build_zoo_model(args.model, device="cuda", dtype=dtype, seed=0,
+                                          img_size=BASELINE_SIZE)
+            frames = torch.rand(args.batch, BASELINE_SIZE, BASELINE_SIZE, 5,
+                                device="cuda").to(dtype)
         elif args.model == "laps":
             model = serve.build_km_unet_v3_laps(device="cuda", dtype=dtype, seed=0, **options)
             frames = torch.rand(args.batch, 256, 256, 5, device="cuda").to(dtype)

@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from kmunet_tpu_torch.kernels import ablate_mix as k3a
 from kmunet_tpu_torch.utils import chained_time_ms
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location("ablate_mix_kernel",

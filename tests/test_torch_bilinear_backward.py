@@ -25,6 +25,7 @@ from kmunet_tpu_torch.kernels import bilinear
 from tests.torch_cases import GATHER_CASES as CASES
 from tests.torch_cases import GATHER_SHAPES as SHAPES
 from tests.torch_cases import gather_inputs
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODES = ("zeros", "border")
 PALLAS = {"zeros": gather_bilinear_zeros, "border": gather_bilinear_border}

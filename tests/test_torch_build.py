@@ -7,6 +7,7 @@ import subprocess
 import pytest
 
 from kmunet_tpu_torch.kernels import build
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.fixture

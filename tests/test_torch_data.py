@@ -24,6 +24,7 @@ from kmunet_tpu.data.resize import Resizer as ResizerJax
 from kmunet_tpu_torch.data import (DataLoader, LAPSDataset, ShanghaiDataset,
                                    SyntheticNowcastDataset, native, shanghai, split_indices)
 from kmunet_tpu_torch.data.resize import Resizer
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 h5py = pytest.importorskip("h5py")
 

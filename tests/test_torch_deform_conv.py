@@ -17,6 +17,7 @@ import torch
 
 from kmunet_tpu_torch.kernels import bilinear
 from kmunet_tpu_torch.nn import resample
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def nine_gathers(module, x, offset):

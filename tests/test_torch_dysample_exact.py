@@ -14,6 +14,8 @@ tests/test_torch_train.py holds the window path's (its constants and
 checks, imported). JAX's gather takes its XLA path on the CPU.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from kmunet_tpu_torch.nn import resample
 from kmunet_tpu_torch.train import engine
 from tests.test_torch_train import _assert_step_matches, _recording, _small_config
 from tests.torch_parity import init_perturbed, nchw, nhwc, port
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-4
 COMBOS = [(style, dyscope, window) for style in ("lp", "pl") for dyscope in (False, True)
@@ -190,7 +193,10 @@ def jax_exact_step():
         mp.setattr(sample_jax, "USE_PALLAS_GATHER", None)
         model = engine_jax.build_model(cfg)
         tx = _recording(engine_jax.build_optimizer(cfg, steps_per_epoch=10))
-        state = engine_jax.init_state(cfg, model, tx, jax.random.PRNGKey(0))
+        # jitted: the eager init of the SH model takes about a minute, its trace
+        # and compile less and land in the persistent compilation cache
+        state = jax.jit(functools.partial(engine_jax.init_state, cfg, model, tx))(
+            jax.random.PRNGKey(0))
         initial = jax.device_get({"params": state.params, "batch_stats": state.batch_stats})
         step = jax.jit(engine_jax._make_train_body(model, engine_jax.build_loss(cfg), tx, cfg),
                        compiler_options={"xla_backend_optimization_level": 3})

@@ -9,7 +9,9 @@ their plain versions, their gradients against the CPU's, and KM_UNetV3-SH's
 forward and a train step through them; K3a, the mixer ablation, in its five
 modes against its plain version; KM_UNetV3-LAPS's forward on each path and
 a ``laps_km_unet()`` step through K1 and K3 against the CPU's; the
-world-1 NCCL mesh step bit for bit the plain step. Marked
+world-1 NCCL mesh step bit for bit the plain step; the baseline zoo's
+forwards and "pic" steps against the CPU's, and its dropouts on a CUDA
+generator by their statistics. Marked
 ``gpu``; they skip where there is no card. This file
 imports no JAX, so it runs on a machine without
 it: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -22,6 +24,7 @@ import torch
 import chip_smoke
 from kmunet_tpu_torch import serve
 from kmunet_tpu_torch.kernels import ablate_mix, bilinear, kanconv, scan, ssd
+from kmunet_tpu_torch.nn.layers import DropPath, Dropout
 # By its own name (pytest puts tests/ on sys.path): tests/ has no __init__.py,
 # so an installed regular package named ``tests`` would shadow ``tests.*``.
 from torch_cases import (  # noqa: F401
@@ -1106,3 +1109,51 @@ def test_cuda_world1_mesh_step_is_the_plain_step(cuda_device):
     assert world1["bit_equal"], world1
     assert world1["launches"]["bilinear_gather_multiview"] == chip_smoke.DEFORM_CONVS
     assert world1["launches"]["bilinear_gather_multiview_backward"] == chip_smoke.DEFORM_CONVS
+
+
+def _port_counts():
+    return [k.launches for k in chip_smoke._kernel_counters().values()]
+
+
+@pytest.mark.parametrize("name", chip_smoke.ZOO_MODELS)
+def test_cuda_zoo_forward_and_step_match_cpu(cuda_device, name, monkeypatch):
+    """Each baseline at full width, 64^2 (TransUNet's and Swin-UNet's
+    shapes sized for it), fp32 with TF32 off: the forward at B=2 within
+    1e-4 abs of the same weights on the CPU, and one step of its "pic"
+    recipe (seq 9 -> 4, no dropout) in float64 against the CPU's within
+    ``chip_smoke.compare_steps``, in fp32 against that within
+    ``chip_smoke.fp32_step_distance``; no kernel of the port launched."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    before = _port_counts()
+    model = serve.build_zoo_model(name, device=cuda_device, seed=3, img_size=64)
+    model_cpu = serve.build_zoo_model(name, device="cpu", seed=3, img_size=64)
+    frames = np.random.default_rng(12).uniform(size=(2, 64, 64, 5)).astype(np.float32)
+    got = serve.predict(model, frames).cpu().numpy()
+    assert got.shape == (2, 64, 64, 20)
+    np.testing.assert_allclose(got, serve.predict(model_cpu, frames).numpy(), rtol=0, atol=1e-4)
+    cfg = chip_smoke.zoo_step_config(name, 2, "float32", drop=False, img_size=64, seq_len=9,
+                                     out_frames=4)
+    batch = np.random.default_rng(13).random((2, 9, 64, 64), dtype=np.float32)
+    with chip_smoke.zoo_dense_dropout(0.0):
+        card = chip_smoke.step_gradients(cfg, cuda_device, batch, seed=4)
+        card64 = chip_smoke.float64_gradients(cfg, batch, seed=4, device=cuda_device)
+        exact = chip_smoke.float64_gradients(cfg, batch, seed=4)
+    chip_smoke.compare_steps(card64, exact)
+    chip_smoke.fp32_step_distance(card, exact)
+    assert _port_counts() == before
+
+
+@pytest.mark.parametrize("layer", [Dropout, DropPath])
+def test_cuda_dropouts_by_their_statistics(cuda_device, layer):
+    """On a CUDA generator: the share dropped near the rate, a kept element
+    scaled by 1 / (1 - rate), the same generator state the same mask."""
+    m = layer(0.2).train()
+    x = torch.ones(4096, 8, 4, 4, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    state = g.get_state()
+    y = m(x, g)
+    assert abs(float((y == 0).float().mean()) - 0.2) < 0.01
+    assert torch.unique(y).tolist() == [0.0, float(torch.tensor(1.0) / 0.8)]
+    g.set_state(state)
+    assert torch.equal(m(x, g), y)

@@ -31,6 +31,7 @@ from kmunet_tpu_torch.ops import sample
 from tests.torch_cases import GATHER_CASES as CASES
 from tests.torch_cases import GROUPED_SHAPES as SHAPES
 from tests.torch_cases import grouped_inputs
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODES = ("zeros", "border")
 FWD_TOL = dict(rtol=0, atol=1e-6)

@@ -39,6 +39,7 @@ from kmunet_tpu_torch.kernels import bilinear, kanconv, ssd
 from kmunet_tpu_torch.models.km_unet import KM_UNetV3_SH
 from kmunet_tpu_torch.nn import ssd as ssd_nn
 from tests.torch_parity import init_perturbed, port
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # (B, C, L, N, dt scale)
 SHAPES = {

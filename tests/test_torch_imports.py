@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import pytest
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kmunet_tpu")
@@ -19,7 +20,8 @@ SCRIPTS = [REPO / "scripts" / "torch_ablate_mix_kernel.py",
            REPO / "scripts" / "torch_ablate_variants.py",
            REPO / "scripts" / "torch_train_shanghai.py",
            REPO / "scripts" / "torch_train_laps.py",
-           REPO / "scripts" / "torch_evaluate.py"]
+           REPO / "scripts" / "torch_evaluate.py",
+           REPO / "scripts" / "torch_train_baseline.py"]
 SOURCES = sorted((REPO / "kmunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
 

@@ -46,6 +46,7 @@ import chip_smoke
 from kmunet_tpu.kernels.kanconv_pallas import fused_kanconv as fused_kanconv_jax
 from kmunet_tpu.kernels.kanconv_pallas import kanconv_reference
 from kmunet_tpu_torch.kernels import kanconv
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-4
 # (B, C, F, H, W): a ragged C=3 -> F=5, C=5 -> F=17 (a third tile of 8

@@ -46,6 +46,7 @@ import chip_smoke
 from kmunet_tpu.kernels.ssd_mix_pallas import hsmssd_mix as hsmssd_mix_jax
 from kmunet_tpu.kernels.ssd_pallas import hsmssd_compress_op
 from kmunet_tpu_torch.kernels import ssd
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 T_MODEL = 16  # the model's tile (the kernels' kT is 64)
 KERNEL_T = ssd.TILE

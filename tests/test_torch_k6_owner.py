@@ -43,6 +43,7 @@ from tests.torch_cases import (
     grouped_inputs,
     multiview_inputs,
 )
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODES = ("zeros", "border")
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -47,6 +47,7 @@ import torch
 import chip_smoke
 from kmunet_tpu.ops.scan import _selective_scan_xla
 from kmunet_tpu_torch.kernels import scan
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 f32 = np.float32
 LOG2E = f32(1.4426950408889634)

@@ -25,6 +25,7 @@ from kmunet_tpu_torch.nn.kan import KANConv2d, KANLinear, kan_regularization_los
 from kmunet_tpu_torch.ops import spline
 from kmunet_tpu_torch.ops.ssim import ssim_torchmetrics
 from tests.torch_parity import init_perturbed
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-5
 REG_RTOL = 1e-5

@@ -29,6 +29,7 @@ from kmunet_tpu_torch import convert
 from kmunet_tpu_torch.kernels import kanconv
 from kmunet_tpu_torch.nn import kan
 from tests.torch_parity import init_perturbed, nchw, nhwc
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-4
 # (B, H, W, C, F): enc1 16->16, enc2 16->32, enc3 32->64, dec1 64->32 at 16^2, B=2; ragged.

@@ -29,6 +29,7 @@ from kmunet_tpu_torch.kernels import kanconv, ssd
 from kmunet_tpu_torch.models import zoo
 from kmunet_tpu_torch.models.km_unet import KM_UNetV3, KM_UNetV3_LAPS
 from tests.torch_parity import init_perturbed, port
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-4
 SHAPE = (2, 32, 32, 5)

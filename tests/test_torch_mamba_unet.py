@@ -41,6 +41,7 @@ from kmunet_tpu_torch.train.optimizers import SGD, make_optimizer
 from kmunet_tpu_torch.train.schedule import make_schedule
 from tests.test_torch_train import _assert_step_matches, _recording
 from tests.torch_parity import init_perturbed, nchw, nhwc, port
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-4
 C_LIST = (8, 16, 24, 32, 48, 64)

@@ -20,6 +20,7 @@ from kmunet_tpu_torch import convert, serve
 from kmunet_tpu_torch.kernels import bilinear
 from kmunet_tpu_torch.models.km_unet import KM_UNetV3_SH
 from tests.torch_parity import init_perturbed, port
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SHAPE = (2, 32, 32, 5)
 

@@ -23,6 +23,7 @@ from kmunet_tpu.nn import wavelet as wavelet_jax
 from kmunet_tpu_torch.models import km_unet
 from kmunet_tpu_torch.nn import attention, dagem, kan, layers, resample, ssd, wavelet
 from tests.torch_parity import init_perturbed, nchw, nhwc, port
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-4
 

@@ -36,6 +36,7 @@ from kmunet_tpu_torch.ops import sample
 from tests.torch_cases import GATHER_CASES as CASES
 from tests.torch_cases import MULTIVIEW_SHAPES as SHAPES
 from tests.torch_cases import multiview_inputs, shifted_views
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODES = ("zeros", "border")
 FWD_TOL = dict(rtol=0, atol=1e-5)

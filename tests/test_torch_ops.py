@@ -14,6 +14,7 @@ from kmunet_tpu.ops import sample as sample_jax
 from kmunet_tpu.ops import spline as spline_jax
 from kmunet_tpu_torch.ops import dwt, sample, spline
 from tests.torch_parity import nchw, nhwc
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-5
 

@@ -28,6 +28,7 @@ from kmunet_tpu.train import optimizers as optimizers_jax
 from kmunet_tpu_torch import configs
 from kmunet_tpu_torch.train import engine, optimizers
 from kmunet_tpu_torch.train.schedule import make_schedule
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SHAPES = {"conv": (3, 3, 2, 4), "dense": (5, 3), "scale": (4,), "bias": (3,), "alpha": ()}
 PARAM_RTOL = 1e-6  # of each leaf's largest |value|

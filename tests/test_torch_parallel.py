@@ -14,6 +14,7 @@ the environment's ranks.
 
 import json
 import os
+import signal
 import subprocess
 import sys
 
@@ -148,7 +149,7 @@ def sh_params():
 
 
 class _Axes:
-    """Records the permutation ``convert._convert_leaf`` applies to a leaf."""
+    """Records the permutation ``convert.convert_leaf`` applies to a leaf."""
 
     def __init__(self, ndim):
         self.ndim, self.perm = ndim, tuple(range(ndim))
@@ -177,7 +178,7 @@ def test_param_sharding_rules_match_jax(sh_params, model, min_size):
                                                 is_leaf=lambda s: hasattr(s, "spec"))):
         leaf = dict(_flatten(flax_params))[path]
         axes = _Axes(leaf.ndim)
-        key, _ = convert._convert_leaf(path, axes)
+        key, _ = convert.convert_leaf(path, axes)
         spec = tuple(sharding.spec) + (None,) * (leaf.ndim - len(sharding.spec))
         want[key] = axes.perm.index(spec.index("model")) if "model" in spec else None
     got = param_sharding_rules(_mesh(model=model), params, fsdp=True, min_size=min_size)
@@ -246,11 +247,20 @@ def test_main_trains_under_torchrun(tmp_path):
             "--data.synthetic_length=8", "--data.num_workers=1", "--train.epochs=1",
             "--train.vis_batches=0", "--train.compute_dtype=float32", f"--train.out_dir={out}"]
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                           "--nproc_per_node=2", str(script), *argv], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=180)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    # Its own session, so that at the deadline the launcher and its ranks
+    # (which hold the output pipes) are killed together.
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node=2", str(script), *argv], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=180)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    assert proc.returncode == 0, stderr[-3000:]
     with open(out / "results.json") as f:
         written = json.load(f)
     assert written["steps"] == 1 and written["batch_size"] == 4
-    assert proc.stdout.count("epoch 0:") == 1  # rank 0 alone logs
+    assert stdout.count("epoch 0:") == 1  # rank 0 alone logs

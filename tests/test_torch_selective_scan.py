@@ -22,6 +22,7 @@ import kmunet_tpu.kernels.scan_pallas as scan_pallas_jax
 from kmunet_tpu.ops.scan import _selective_scan_xla
 from kmunet_tpu_torch.kernels import scan
 from kmunet_tpu_torch.ops import scan as scan_ops
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD")
 

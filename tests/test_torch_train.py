@@ -45,6 +45,7 @@ from kmunet_tpu_torch.train import engine
 from kmunet_tpu_torch.train.optimizers import AdamW, OptState
 from kmunet_tpu_torch.train.schedule import cosine_annealing_per_epoch
 from tests.torch_parity import init_perturbed, nchw, nhwc
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-4
 
@@ -266,10 +267,12 @@ def test_synthetic_items_match_jax():
 
 
 def test_engine_refuses_what_the_port_lacks():
-    """The train step's options are all ported (tests/test_torch_optimizers.py,
-    tests/test_torch_train_options.py): what is left to refuse is a model
-    not yet ported, and what JAX refuses too, an unknown loss (ValueError,
-    as ``engine_jax.build_loss``) and rprop under a schedule."""
+    """The train step's options and the zoo are all ported
+    (tests/test_torch_optimizers.py, tests/test_torch_train_options.py,
+    tests/test_torch_zoo.py): what is left to refuse is what JAX refuses
+    too, an unknown model and an unknown loss (ValueError, as
+    ``zoo_jax.build`` and ``engine_jax.build_loss``) and rprop under a
+    schedule; a baseline such as smaat_unet builds."""
     bad_jax = configs_jax.shanghai_km_unet()
     bad = configs.shanghai_km_unet()
     bad.train.loss = bad_jax.train.loss = "en_rainfall"
@@ -280,10 +283,14 @@ def test_engine_refuses_what_the_port_lacks():
     bad.train.optimizer = "rprop"
     with pytest.raises(ValueError, match="rprop"):
         engine.build_optimizer(bad, 10)
-    bad = configs.shanghai_km_unet()
-    bad.model.name = "smaat_unet"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.build_model(bad)
+    bad, bad_jax = configs.shanghai_km_unet(), configs_jax.shanghai_km_unet()
+    bad.model.name = bad_jax.model.name = "unet_9000"
+    for build_model in (engine_jax.build_model, engine.build_model):
+        with pytest.raises(ValueError, match="unknown model 'unet_9000'"):
+            build_model(bad_jax if build_model is engine_jax.build_model else bad)
+    good = configs.shanghai_km_unet()
+    good.model.name = "smaat_unet"
+    assert type(engine.build_model(good)).__name__ == "SmaAt_UNet"
 
 
 def test_init_state_needs_a_card_unless_cpu_is_asked(monkeypatch):
@@ -394,7 +401,10 @@ def jax_steps():
         mp.setattr(sample_jax, "USE_PALLAS_GATHER", None)
         model = engine_jax.build_model(cfg)
         tx = _recording(engine_jax.build_optimizer(cfg, steps_per_epoch=10))
-        state = engine_jax.init_state(cfg, model, tx, jax.random.PRNGKey(0))
+        # jitted: the eager init of the SH model takes about a minute, its trace
+        # and compile less and land in the persistent compilation cache
+        state = jax.jit(functools.partial(engine_jax.init_state, cfg, model, tx))(
+            jax.random.PRNGKey(0))
         initial = jax.device_get({"params": state.params, "batch_stats": state.batch_stats})
         step = jax.jit(engine_jax._make_train_body(model, engine_jax.build_loss(cfg), tx, cfg),
                        compiler_options={"xla_backend_optimization_level": 3})
@@ -412,7 +422,7 @@ def jax_steps():
 
 
 def _assert_step_matches(model, lr, got_grads, got_after, want, before, share=0.0,
-                         update=None):
+                         update=None, zero=None):
     """One step's gradients and the variables after it against JAX's.
 
     The gradients within GRAD_RTOL of each leaf's largest plus ``share`` of
@@ -422,13 +432,15 @@ def _assert_step_matches(model, lr, got_grads, got_after, want, before, share=0.
     within ATOL plus what the two gradients' difference makes of AdamW's
     update from the moments ``before`` ((count, mu, nu) by state_dict name)
     at ``lr``, or of ``update(g)``, the step's update direction for the
-    gradient g, where the optimizer is another."""
+    gradient g, where the optimizer is another. ``zero(key)`` names the
+    leaves whose exact gradient is 0 (default: this model's,
+    ``_is_zero_gradient_leaf``)."""
     stats = want["after"]["batch_stats"]
     want_g = convert.to_state_dict(model, want["grads"], stats)
     largest = max(float(w.abs().max()) for k, w in want_g.items() if k in got_grads)
     for key, g in got_grads.items():
         w = want_g[key]
-        if _is_zero_gradient_leaf(key):
+        if (zero or _is_zero_gradient_leaf)(key):
             assert max(_max(g.abs()), _max(w.abs())) <= ZERO_GRADIENT_SHARE * largest, key
         else:
             err = _max((g - w).abs())

@@ -30,6 +30,7 @@ from kmunet_tpu_torch import serve
 from kmunet_tpu_torch.models import ef
 from kmunet_tpu_torch.models.km_unet import KM_UNetV3
 from tests.torch_parity import port
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # name -> (checkpoint step directory, the model it holds: variant, head_norm, frames)

@@ -16,6 +16,7 @@ the entry points on the card by default.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from kmunet_tpu_torch.train.optimizers import make_optimizer
 from kmunet_tpu_torch.train.schedule import make_schedule
 from tests.test_torch_train import _assert_step_matches, _recording
 from tests.torch_parity import init_perturbed, nchw, nhwc, port
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-4
 
@@ -276,9 +278,11 @@ def test_zoo_builds_the_port_models_and_refuses_the_others():
     assert isinstance(zoo.build(cfg), ef.TrajGRU_EF) and zoo.build(cfg).out_frames == 3
     assert isinstance(zoo.build(configs.ModelConfig(name="convlstm")), ef.ConvLSTM_EF)
     assert zoo.SEQUENCE_MODELS == {"convlstm", "trajgru"}
-    for name in ("smaat_unet", "lptqpn", "swin_unet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-            zoo.build(configs.ModelConfig(name=name))
+    for name, cls in (("smaat_unet", "SmaAt_UNet"), ("lptqpn", "LPTQPN"),
+                      ("swin_unet", "SwinUNet")):
+        assert type(zoo.build(configs.ModelConfig(name=name))).__name__ == cls
+    with pytest.raises(ValueError, match="unknown model 'unet_9000'"):
+        zoo.build(configs.ModelConfig(name="unet_9000"))
 
 
 @pytest.mark.parametrize("name", ["trajgru", "convlstm"])
@@ -334,7 +338,10 @@ def jax_trajgru_step():
                                                         "trajgru", "pic"))
     model = engine_jax.build_model(cfg)
     tx = _recording(engine_jax.build_optimizer(cfg, steps_per_epoch=10))
-    state = engine_jax.init_state(cfg, model, tx, jax.random.PRNGKey(0))
+    # jitted: the eager init of the SH model takes about a minute, its trace
+    # and compile less and land in the persistent compilation cache
+    state = jax.jit(functools.partial(engine_jax.init_state, cfg, model, tx))(
+        jax.random.PRNGKey(0))
     # The flow convs scaled by 30, so that the warp samples between pixels:
     # the seeded init's flows reach 0.11 px at enc_rnn1, 0.006 px at fore_rnn1.
     params = jax.tree.map(lambda a: a, state.params)  # a copy to edit

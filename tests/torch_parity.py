@@ -15,6 +15,7 @@ from collections.abc import Mapping
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from kmunet_tpu_torch.convert import load_flax
@@ -69,3 +70,16 @@ def nchw(a) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for the importing test module: the tests
+    run at small shapes, where one thread is about as fast as eight, and
+    the tier-1 run's six xdist workers share eight cores (with the default
+    eight threads each, one file took 1,236 s there, 43 s pinned). A module
+    that imports this fixture gets it, autouse."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

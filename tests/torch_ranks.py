@@ -12,6 +12,7 @@ it and keeps its blocks), with that run's generator state.
 
 from __future__ import annotations
 
+import datetime
 import pathlib
 import time
 import uuid
@@ -29,9 +30,12 @@ from kmunet_tpu_torch.train.checkpoint import CheckpointManager
 DROPOUT_SEED = 3
 
 
-def _entry(rank, fn, world, store, out, args):
+def _entry(rank, fn, world, store, out, args, timeout):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    # A collective whose peers are gone gives up after the spawn's deadline
+    # (gloo's default waits 30 minutes).
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout))
     try:
         torch.save(fn(rank, world, *args), out / f"rank{rank}.pt")
     finally:
@@ -41,17 +45,24 @@ def _entry(rank, fn, world, store, out, args):
 def spawn(fn, world: int, tmp_path, *args, timeout: float = 120.0) -> list:
     """``fn(rank, world, *args)`` in ``world`` gloo processes; their results,
     by rank. A rank that raises fails the call with its traceback; ranks
-    still running at the deadline are killed and the call raises."""
+    still running at the deadline are killed and the call raises. Every
+    rank has ended when the call returns or raises: one left waiting on a
+    collective whose peer failed would keep the test process from exiting
+    (multiprocessing joins its children at exit)."""
     out = pathlib.Path(tmp_path) / f"ranks-{uuid.uuid4().hex[:8]}"
     out.mkdir()
-    ctx = mp.start_processes(_entry, args=(fn, world, str(out / "store"), out, args),
+    ctx = mp.start_processes(_entry, args=(fn, world, str(out / "store"), out, args, timeout),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {world} ranks ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
                 p.kill()
-            raise TimeoutError(f"{fn.__name__} on {world} ranks ran past {timeout} s")
+            p.join(timeout=10)
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
