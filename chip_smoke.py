@@ -69,16 +69,20 @@ Phases, each printing one JSON line with its seconds:
               knots (``check_kanconv``), and K2 and K3 at SH's three mixer
               shapes at B=2, LAPS's three at B=1 (L=65536 at enc1), a
               ragged L=1000 with N=8, L=1 and L=65 (one token past the
-              kernels' 64-token tile), dt
+              kernels' 64-token tile), the EfficientViM classifier's
+              mixers at B=2 (M4's (C, L, N) = (224, 196, 64), (320, 49, 32),
+              (512, 16, 16) and M1's (128, 196, 49), (192, 49, 25), (320,
+              16, 9): the kernels' wide path) and C=72 with N=1, dt
               N(0, 1) and 40 N(0, 1), dt, B and C the strided slices of one
               bcdt (``MIXER_SHAPES``, ``check_mixer``): fp32 within 1e-5 abs
               + 1e-5 of the largest |value| of the plain version, bf16 and
               fp16 against the plain version in fp32 on the same rounded
               inputs within that plus one ulp of the dtype (K3's y also
-              one ulp of each h2 carried through the scatter); at enc1 and
-              LAPS's enc1 beside each, in fp32 and bf16, the kernels' and
-              the plain version's largest distance from float64 on the same
-              rounded inputs (``mixer_float64_distance``). Then K3a in
+              one ulp of each h2 carried through the scatter); at enc1,
+              LAPS's enc1 and five of the classifier's cases
+              (``MIXER_FLOAT64_CASES``) beside each, in fp32 and bf16, the
+              kernels' and the plain version's largest distance from
+              float64 on the same rounded inputs (``mixer_float64_distance``). Then K3a in
               its five modes at the TPU script's shape (B=64, C=16,
               L=16384, N=64, tiles of 4096, bf16), several tiles of 64, C
               != N and one tile (``ABLATE_SHAPES``, ``check_ablate``):
@@ -277,6 +281,35 @@ Phases, each printing one JSON line with its seconds:
               read), its fp32 forward at 256^2, B=2, TF32 off, card against
               CPU within 1e-4 abs. ``python3 chip_smoke.py --phase zoo`` runs
               this phase alone (nothing to build).
+   classifier -- the EfficientViM classifier, M1-M4 at full width (embed
+              128/192/320, 128/256/512, 224/320/512 and 224/320/512; depths
+              2/2/2 and, for M4, 3/4/2; N 49/25/9 and, for M4, 64/32/16),
+              224^2, 1000 classes, seeded weights, through
+              ``serve.build_efficient_vim`` and ``serve.classify`` on each
+              ``ssd_mixer`` (``classifier_phase``): the fp32 forward at B=2,
+              TF32 off, within 1e-4 abs of the same weights on the CPU, with
+              the counts set to 0 just before and read just after: K2
+              ("compress") or K3 ("fused") once per mixer, 6 for M1-M3 and
+              9 for M4, no other kernel, none with "einsum"; M1's and M4's
+              gradient of one train-mode forward in float64 card against
+              CPU in the train phase's leaf gate, and through K3 in fp32
+              against that float64 as the zoo's step (ZOO_FP32_GRAD_REL in
+              relative L2; M4's float64 gradient moves 11x the leaf gate
+              when the images move by 2e-7); the bf16
+              forward at B=128 through each mixer, ms, images/s and peak
+              memory. ``python3 chip_smoke.py --phase classifier`` builds
+              K2's and K3's source and runs this phase alone.
+   vim_layouts -- EnhancedViMBlock's layouts ("separate", "fused" grouped
+              and blockdiag, "vmap") at SH's enc1 (C=16, 128^2), seeded:
+              the fp32 forward at B=2 card against CPU within 1e-4, the
+              fused block from the separate one's state dict within 1e-5,
+              the bf16 forward at B=128 timed (``vim_layouts_phase``; no
+              kernel).
+   kan_variants -- each KAN variant and ``PatchKANConv2d`` on the card
+              against the CPU, fp32: outputs and gradients within
+              KAN_VARIANT_RTOL (``kan_variants_phase``; no kernel).
+              ``python3 chip_smoke.py --phase vim_layouts`` runs these two
+              alone.
    data_parallel -- training across cards: one process per visible card
               (up to DP_MAX_CARDS; 1, 2 or 4), each on cuda:rank in one NCCL
               group (``spawn_ranks``: a store on a free localhost port).
@@ -351,10 +384,10 @@ Phases, each printing one JSON line with its seconds:
               basis and one for the base branch, the dense count beside it)
               and their plain versions (today's default paths); no one
               PyTorch call computes them, so their library time is null;
-              and K2 and K3 by pass at SH's three mixer shapes at B=128 and
-              LAPS's enc1 at B=32 (``mixer_timing``: ms, queued ms, device
-              ms, device launches per call and device ms by kernel, beside
-              the bound). K3a in each mode at the TPU script's shape beside
+              and K2 and K3 by pass at SH's three mixer shapes at B=128,
+              LAPS's enc1 at B=32 and the classifier's six at B=128
+              (``mixer_timing``: ms, queued ms, device ms, device launches
+              per call and device ms by kernel, beside the bound). K3a in each mode at the TPU script's shape beside
               its bound (bytes; the products on the tensor cores), its
               plain version (library null) and its device ms by pass (tile
               max, compress, merge, scatter). KM_UNetV3-LAPS:
@@ -577,7 +610,9 @@ KAN_FLOAT64_CASES = ("enc1/unit", "enc1/wide", "enc1/knots", "dec1/wide", "laps_
 # KM_UNetV3-LAPS's three at B=1 (enc1 and dec3 at 256^2: 128 slices of the
 # compress pass per batch element on 132 SMs, against SH's 32; enc2 and dec2
 # at 128^2; enc3 at 64^2), a ragged L with N=8, L=1 and L one past the
-# kernels' 64-token tile; each with the dt cases listed: "seeded" N(0, 1),
+# kernels' 64-token tile; the EfficientViM classifier's mixers at B=2 (M4's
+# and M1's three stages at 224^2: past 64 channels, the kernels' wide path)
+# and a ragged C=72 with N=1; each with the dt cases listed: "seeded" N(0, 1),
 # "large" 40 N(0, 1), where one token takes most of a softmax.
 MIXER_SHAPES = {
     "enc1": ((2, 16, 16384, 64), ("seeded", "large")),
@@ -589,15 +624,29 @@ MIXER_SHAPES = {
     "ragged_l1000_n8": ((2, 16, 1000, 8), ("seeded", "large")),
     "l1": ((2, 16, 1, 64), ("seeded",)),
     "t_plus_1": ((2, 16, 65, 64), ("seeded", "large")),
+    "m4_stage0": ((2, 224, 196, 64), ("seeded", "large")),
+    "m4_stage1": ((2, 320, 49, 32), ("seeded", "large")),
+    "m4_stage2": ((2, 512, 16, 16), ("seeded", "large")),
+    "m1_stage0": ((2, 128, 196, 49), ("seeded", "large")),
+    "m1_stage1": ((2, 192, 49, 25), ("seeded", "large")),
+    "m1_stage2": ((2, 320, 16, 9), ("seeded", "large")),
+    "c72_n1": ((2, 72, 100, 1), ("seeded", "large")),
 }
 # The mixer cases whose outputs are also held to float64 (k3_float64_distance).
-MIXER_FLOAT64_CASES = ("enc1/seeded", "enc1/large", "laps_enc1/seeded", "laps_enc1/large")
+MIXER_FLOAT64_CASES = ("enc1/seeded", "enc1/large", "laps_enc1/seeded", "laps_enc1/large",
+                       "m4_stage0/seeded", "m4_stage0/large", "m4_stage2/large",
+                       "m1_stage0/seeded", "m1_stage2/large")
 SSD_MIXERS = 15  # 5 EnhancedViM blocks of 3 directional ViMs: one K2 or K3 call each
 ENC1_MIX = (128, 16, 16384, 64)  # K2's and K3's timing shape (B, C, L, N): enc1_vim's mixer
 # K2's and K3's timing shapes by pass (``mixer_timing``): SH's three mixer
-# shapes at B=128 and LAPS's enc1 at B=32 (256^2).
+# shapes at B=128, LAPS's enc1 at B=32 (256^2), and the EfficientViM
+# classifier's mixers at 224^2, B=128 (M4's and M1's three stages: the
+# kernels' wide path).
 MIXER_TIMING_SHAPES = {"enc1": ENC1_MIX, "enc2": (128, 32, 4096, 64),
-                       "enc3": (128, 64, 1024, 64), "laps_enc1": (32, 16, 65536, 64)}
+                       "enc3": (128, 64, 1024, 64), "laps_enc1": (32, 16, 65536, 64),
+                       "m4_stage0": (128, 224, 196, 64), "m4_stage1": (128, 320, 49, 32),
+                       "m4_stage2": (128, 512, 16, 16), "m1_stage0": (128, 128, 196, 49),
+                       "m1_stage1": (128, 192, 49, 25), "m1_stage2": (128, 320, 16, 9)}
 
 K3A_SOURCE = "kmunet_tpu_torch/csrc/hsmssd_ablate.cu"
 K3A_REPLACES = "scripts/ablate_mix_kernel.py:98"
@@ -639,6 +688,37 @@ ZOO_NO_DROP = {"transunet": {"dropout": 0.0}, "swin_unet": {"drop_path_rate": 0.
 ZOO_TRAINER_LENGTH = 4  # zoo: torch_train_baseline's loop, 2 steps of B=2 an epoch
 ZOO_TRAINER_EPOCHS = 2
 BASELINE_SCRIPT = "scripts/torch_train_baseline.py"
+# classifier: the EfficientViM variants at full width and their HSM-SSD
+# mixers per forward (M1-M3 two blocks per stage, M4 3/4/2), 224^2.
+CLASSIFIER_MIXERS = {"m1": 6, "m2": 6, "m3": 6, "m4": 9}
+CLASSIFIER_SIZE = 224
+CLASSIFIER_CLASSES = 1000
+CLASSIFIER_TIMED_BATCH = 128  # the bf16 forward, timed after 2 warm-up calls
+CLASSIFIER_TIMED_ITERS = 5
+CLASSIFIER_GRAD_VARIANTS = ("m1", "m4")  # one train-mode forward's gradient, card vs CPU
+CLASSIFIER_SHIFT = 2e-7  # the images' relative move that reads the gradient's conditioning
+# The classifier's fp32 gradient is out of the leaf gate's reach: M4's
+# float64 gradient (seeded, 224^2, B=2, train mode) moves 11x the gate when
+# the images move by 2e-7 relative (the phase reads it on the card,
+# "worst_gate_ratio_float64_images_moved"), so each fp32 path lands
+# where its rounding puts it (M4's worst leaf: the CPU 0.03x the gate, the
+# card through K2 0.04x, through "einsum" 2.1x, through K3 11x). The
+# function is held in float64, and the fp32 step through K3 as the zoo's
+# is, within ZOO_FP32_GRAD_REL of float64 in relative L2; the mixers'
+# leaves' gate ratios are printed beside.
+
+
+def classifier_mixer_leaf(key: str) -> bool:
+    return ".mixer." in key and not key.endswith(".mixer.A")
+
+
+# vim_layouts: EnhancedViMBlock's layouts at SH's enc1 (C=16, 128^2).
+VIM_LAYOUTS = (("separate", "grouped"), ("fused", "grouped"), ("fused", "blockdiag"),
+               ("vmap", "grouped"))
+VIM_SHAPE = (16, 128)  # (C, H = W)
+VIM_TIMED_BATCH = 128
+# kan_variants: each layer on (64, 12) inputs, card vs CPU in fp32, TF32 off.
+KAN_VARIANT_RTOL = 1e-5
 TRAINED_SMAAT_ENV = "KMUNET_TRAINED_SMAAT"  # a torch export of the trained SmaAt checkpoint
 
 
@@ -2332,6 +2412,276 @@ def zoo_phase(torch, np, card, reset_counts, read_counts, launches_per, path_lau
     return fields
 
 
+def classifier_gradients(torch, variant, images, device, dtype, ssd_mixer, seed=0):
+    """(loss, {key: gradient in float64 on the CPU}) of mean(out**2) over one
+    train-mode forward of the seeded classifier ``variant`` on ``device`` in
+    ``dtype``."""
+    from kmunet_tpu_torch.models import efficient_vim
+    from kmunet_tpu_torch.nn.init import init_module_
+
+    model = efficient_vim.VARIANTS[variant](num_classes=CLASSIFIER_CLASSES, ssd_mixer=ssd_mixer)
+    init_module_(model, torch.Generator().manual_seed(seed))
+    model = model.to(device=device, dtype=dtype).train()
+    loss = model(images.to(device=device, dtype=dtype)).square().mean()
+    loss.backward()
+    return float(loss), {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+
+
+def leaf_gate_ratios(got, want):
+    """Per leaf: max |got - want| over the train phase's leaf gate
+    (STEP_LEAF_RTOL of the leaf's largest |want| + STEP_LEAF_ATOL)."""
+    return {k: float((got[k] - w).abs().max()) / (STEP_LEAF_RTOL * float(w.abs().max())
+                                                  + STEP_LEAF_ATOL)
+            for k, w in want.items()}
+
+
+def classifier_phase(torch, np, card, reset_counts, read_counts, launches_per, path_launches):
+    """The EfficientViM classifier (M1-M4) at full width and 224^2 through
+    ``serve.build_efficient_vim`` and ``serve.classify``: the fp32 forward
+    at B=2, TF32 off, through each ``ssd_mixer`` on the card within 1e-4
+    abs of the same weights on the CPU, with K2 or K3 launching once per
+    mixer (6 for M1-M3, 9 for M4) and neither with "einsum"; the gradient
+    of mean(out**2) over one train-mode forward (M1 and M4): through
+    "einsum" in float64 on the card against the CPU's (the function) within
+    1e-3 of the train phase's leaf gate, every leaf; through K3 in fp32
+    against the CPU's float64 within ZOO_FP32_GRAD_REL in relative L2 and
+    the loss within 1e-5 (the leaf gate is out of fp32's reach here: the
+    worst leaf's gate ratio through K3, through "einsum" on the card and on
+    the CPU, and the mixers' leaves', are printed, beside the float64
+    gradient's own move for images moved by CLASSIFIER_SHIFT); and the
+    bf16 forward at B=128 through each mixer, ms by CUDA events over
+    CLASSIFIER_TIMED_ITERS calls after 2 warm-up calls, images/s and peak
+    ``max_memory_allocated``."""
+    from kmunet_tpu_torch import serve
+    from kmunet_tpu_torch.nn.ssd import MIXERS
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(21)
+    images = torch.from_numpy(rng.random((CHECK_BATCH, CLASSIFIER_SIZE, CLASSIFIER_SIZE, 3),
+                                         dtype=np.float32))
+    out = {"card": card, "size": CLASSIFIER_SIZE, "check_batch": CHECK_BATCH, "tf32": False}
+    for variant, mixers in CLASSIFIER_MIXERS.items():
+        want = serve.classify(serve.build_efficient_vim(variant, device="cpu"), images)
+        res = out[variant] = {}
+        for mixer in MIXERS:
+            model = serve.build_efficient_vim(variant, ssd_mixer=mixer)
+            reset_counts()
+            got = serve.classify(model, images).float().cpu()
+            launches = path_launches[f"classifier_{variant}_{mixer}"] = read_counts()
+            expect_launches(f"classifier_{variant}_{mixer}", launches, launches_per(
+                k2=mixers if mixer == "compress" else 0, k3=mixers if mixer == "fused" else 0))
+            err = float((got - want).abs().max())
+            if not (got.shape == want.shape and torch.isfinite(got).all() and err <= 1e-4):
+                raise AssertionError(f"classifier {variant} {mixer}: {tuple(got.shape)}, "
+                                     f"max |card - cpu| {err}")
+            res[mixer] = {"max_abs_err_vs_cpu": err,
+                          "hsmssd_compress": launches["hsmssd_compress"],
+                          "hsmssd_mix": launches["hsmssd_mix"]}
+            del model
+    grads = out["gradients"] = {}
+    for variant in CLASSIFIER_GRAD_VARIANTS:
+        loss64, cpu64 = classifier_gradients(torch, variant, images, "cpu", torch.float64,
+                                             "einsum")
+        _, cpu32 = classifier_gradients(torch, variant, images, "cpu", torch.float32, "einsum")
+        loss32, card32 = classifier_gradients(torch, variant, images, "cuda", torch.float32,
+                                              "fused")
+        _, card64 = classifier_gradients(torch, variant, images, "cuda", torch.float64,
+                                         "einsum")
+        # The function's own conditioning: its float64 gradient at images
+        # moved by CLASSIFIER_SHIFT relative.
+        shift = torch.from_numpy(np.random.default_rng(24).standard_normal(images.shape)
+                                 .astype(np.float32))
+        _, card64_moved = classifier_gradients(
+            torch, variant, images.double() * (1 + CLASSIFIER_SHIFT * shift.double()), "cuda",
+            torch.float64, "einsum")
+        _, card32_einsum = classifier_gradients(torch, variant, images, "cuda", torch.float32,
+                                                "einsum")
+        ratio_card, ratio_cpu = leaf_gate_ratios(card32, cpu64), leaf_gate_ratios(cpu32, cpu64)
+        ratio_einsum = leaf_gate_ratios(card32_einsum, cpu64)
+        ratio64 = leaf_gate_ratios(card64, cpu64)
+        flat = lambda g: torch.cat([g[k].flatten() for k in sorted(g)])  # noqa: E731
+        rel = float((flat(card32) - flat(cpu64)).norm() / flat(cpu64).norm())
+        mixer = [k for k in cpu64 if classifier_mixer_leaf(k)]
+        worst_mixer = max(ratio_card[k] for k in mixer)
+        if (max(ratio64.values()) > 1e-3 or rel > ZOO_FP32_GRAD_REL
+                or abs(loss32 - loss64) > 1e-5 * abs(loss64)):
+            raise AssertionError(f"classifier {variant}: float64 gradient "
+                                 f"{max(ratio64.values()):.3g} of the gate, fp32 {rel:.3g} "
+                                 f"relative L2, loss {loss32} vs {loss64}")
+        worst = lambda r: max(r.items(), key=lambda kv: kv[1])  # noqa: E731
+        grads[variant] = {
+            "loss_fp32_card": loss32, "loss_float64_cpu": loss64,
+            "worst_gate_ratio_float64_card": max(ratio64.values()),
+            "worst_gate_ratio_float64_images_moved": max(
+                leaf_gate_ratios(card64_moved, card64).values()),
+            "rel_l2_fp32_card": rel, "mixer_leaves": len(mixer),
+            "worst_mixer_gate_ratio_fp32_card": worst_mixer,
+            "worst_gate_ratio_fp32": {"card_k3": worst(ratio_card),
+                                      "card_einsum": worst(ratio_einsum),
+                                      "cpu": worst(ratio_cpu)}}
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults for the timing
+    timed = out["timed"] = {"batch": CLASSIFIER_TIMED_BATCH, "dtype": "bfloat16"}
+    x = torch.rand(CLASSIFIER_TIMED_BATCH, CLASSIFIER_SIZE, CLASSIFIER_SIZE, 3, device="cuda",
+                   dtype=torch.bfloat16)
+    for variant in CLASSIFIER_MIXERS:
+        for mixer in MIXERS:
+            model = serve.build_efficient_vim(variant, dtype=torch.bfloat16, ssd_mixer=mixer)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(torch, lambda: serve.classify(model, x), CLASSIFIER_TIMED_ITERS)
+            timed[f"{variant}_{mixer}"] = {
+                "ms": ms, "images_per_s": CLASSIFIER_TIMED_BATCH / ms * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            del model
+    return out
+
+
+def vim_layouts_phase(torch, np, card):
+    """EnhancedViMBlock in its layouts ("separate", "fused" grouped and
+    blockdiag, "vmap") at SH's enc1 (C=16, 128^2), seeded: the fp32 forward
+    at B=2, TF32 off, card within 1e-4 abs of the CPU; the fused block
+    loaded from the separate one's state dict (``fuse_direction_params``)
+    within 1e-5 of it on the card; the bf16 forward at B=128, ms by CUDA
+    events after 2 warm-up calls and peak ``max_memory_allocated``. No
+    kernel of the port: the mixers run "einsum", as the JAX block does."""
+    import copy
+
+    from kmunet_tpu_torch.models.km_unet import EnhancedViMBlock
+    from kmunet_tpu_torch.nn.fused_vim import fuse_direction_params
+    from kmunet_tpu_torch.nn.init import init_module_
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    C, H = VIM_SHAPE
+    x = torch.from_numpy(np.random.default_rng(22).normal(size=(CHECK_BATCH, C, H, H))
+                         .astype(np.float32))
+    out = {"card": card, "channels": C, "size": H, "tf32": False}
+    blocks = {}
+    for impl, packing in VIM_LAYOUTS:
+        name = impl if impl != "fused" else f"fused_{packing}"
+        block = EnhancedViMBlock(C, impl=impl, packing=packing, drop_path=0.0)
+        init_module_(block, torch.Generator().manual_seed(len(name)))
+        with torch.no_grad():
+            want = copy.deepcopy(block).eval()(x)
+            blocks[name] = block.cuda().eval()
+            got = blocks[name](x.cuda()).cpu()
+        err = float((got - want).abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"vim_layouts {name}: max |card - cpu| {err}")
+        out[name] = {"max_abs_err_vs_cpu": err}
+    fused = EnhancedViMBlock(C, impl="fused", drop_path=0.0).cuda().eval()
+    fused.load_state_dict(fuse_direction_params(blocks["separate"].state_dict()))
+    with torch.no_grad():
+        moved = float((fused(x.cuda()) - blocks["separate"](x.cuda())).abs().max())
+    if not moved <= 1e-5:
+        raise AssertionError(f"vim_layouts: fused from separate lies {moved} off")
+    out["fused_from_separate_max_abs_diff"] = moved
+    torch.backends.cudnn.allow_tf32 = True
+    xb = torch.randn(VIM_TIMED_BATCH, C, H, H, device="cuda", dtype=torch.bfloat16)
+    for name, block in blocks.items():
+        block = block.to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda: block(xb), CLASSIFIER_TIMED_ITERS)
+        out[name].update(bf16_ms=ms, batch=VIM_TIMED_BATCH,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def kan_variants_phase(torch, np, card):
+    """The KAN variants (``nn/kan_variants.py``: every layer, WavKAN in each
+    wavelet, and ``PatchKANConv2d`` around a Chebyshev layer), seeded, fp32,
+    on (64, 12) inputs in [-1, 1] (the patch conv on (2, 3, 16, 16)): the
+    output and the gradients of sum(out**2) (the input's and every
+    parameter's) on the card within KAN_VARIANT_RTOL of each one's largest
+    |value| of the CPU's; WavKAN also in training mode, in float64 (its
+    BatchNorm's input gradient cancels in fp32)."""
+    import copy
+
+    from kmunet_tpu_torch.nn import kan_variants as kv
+    from kmunet_tpu_torch.nn.init import init_module_
+
+    rng = np.random.default_rng(23)
+    layers = {name: getattr(kv, name)(12, 6) for name in (
+        "ChebyKANLayer", "FastKANLayer", "FasterKANLayer", "GRAMLayer", "JacobiKANLayer",
+        "ReLUKANLayer", "RBFKANLayer")}
+    layers.update({f"WavKANLayer_{w}": kv.WavKANLayer(12, 6, w) for w in kv.WavKANLayer.WAVELETS})
+    layers["PatchKANConv2d"] = kv.PatchKANConv2d(kv.ChebyKANLayer(27, 4), 3, 1, 1)
+    out = {"card": card}
+    for name, layer in layers.items():
+        init_module_(layer, torch.Generator().manual_seed(len(name)))
+        shape = (2, 3, 16, 16) if name == "PatchKANConv2d" else (64, 12)
+        x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+        worst = 0.0
+        for train in (False, True) if name.startswith("WavKAN") else (False,):
+            # In training the BatchNorm's input gradient cancels in fp32:
+            # held in float64 there.
+            dtype = torch.float64 if train else torch.float32
+            runs = []
+            for device in ("cpu", "cuda"):
+                m = copy.deepcopy(layer).to(device=device, dtype=dtype).train(train)
+                xd = x.detach().clone().to(device=device, dtype=dtype).requires_grad_()
+                y = m(xd)
+                y.square().sum().backward()
+                runs.append([y.detach().cpu(), xd.grad.cpu()]
+                            + [p.grad.cpu() for p in m.parameters()])
+            for want, got in zip(*runs):
+                err = float((got - want).abs().max())
+                tol = KAN_VARIANT_RTOL * float(want.abs().max()) + 1e-7
+                if not err <= tol:
+                    raise AssertionError(f"kan_variants {name} (train {train}): {err}")
+                worst = max(worst, err / tol)
+        out[name] = {"worst_share_of_tolerance": worst}
+    return out
+
+
+def classifier_only(torch, np, phase: str) -> int:
+    """``python3 chip_smoke.py --phase classifier`` (the build of K2's and
+    K3's source, then the classifier phase) or ``--phase vim_layouts`` (the
+    vim_layouts and kan_variants phases: no kernel), alone."""
+    from kmunet_tpu_torch.kernels import build, ssd
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=30,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    counters = {"hsmssd_compress": ssd.hsmssd_compress, "hsmssd_mix": ssd.hsmssd_mix}
+
+    def counts(reset=False):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0 if reset else c.launches
+        return {name: c.launches for name, c in counters.items()}
+
+    phases = []
+    if phase == "classifier":
+        with Phase("build") as f:
+            built = build.build(ssd.SOURCE)
+            f.update(nvcc_seconds=round(built.seconds, 3))
+        for line in ptxas_summary(built.compiler_output):
+            print(f"{ssd.SOURCE} {line}", flush=True)
+        path_launches = {}
+        with Phase("classifier") as f:
+            f.update(classifier_phase(torch, np, card, lambda: counts(reset=True), counts,
+                                      lambda k2=0, k3=0: {"hsmssd_compress": k2,
+                                                          "hsmssd_mix": k3},
+                                      path_launches))
+        phases.append("classifier")
+    else:
+        with Phase("vim_layouts") as f:
+            f.update(vim_layouts_phase(torch, np, card))
+        with Phase("kan_variants") as f:
+            f.update(kan_variants_phase(torch, np, card))
+        phases += ["vim_layouts", "kan_variants"]
+    faulthandler.cancel_dump_traceback_later()
+    emit({"ok": True, "phases": phases,
+          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                     "count": torch.cuda.device_count()}})
+    return 0
+
+
 def zoo_only(torch, np) -> int:
     """``python3 chip_smoke.py --phase zoo``: the card's line and the zoo
     phase alone (it reaches no kernel of the port, so nothing is built)."""
@@ -2395,6 +2745,8 @@ def main() -> int:
         return data_parallel_only(torch, np)
     if sys.argv[1:] == ["--phase", "zoo"]:
         return zoo_only(torch, np)
+    if sys.argv[1:] in (["--phase", "classifier"], ["--phase", "vim_layouts"]):
+        return classifier_only(torch, np, sys.argv[2])
     from concurrent.futures import ThreadPoolExecutor
 
     import torch.nn.functional as F
@@ -3025,6 +3377,16 @@ def main() -> int:
     with Phase("zoo") as f:
         f.update(zoo_phase(torch, np, nvidia_smi, reset_counts, read_counts, launches_per,
                            path_launches))
+
+    with Phase("classifier") as f:
+        f.update(classifier_phase(torch, np, nvidia_smi, reset_counts, read_counts, launches_per,
+                                  path_launches))
+
+    with Phase("vim_layouts") as f:
+        f.update(vim_layouts_phase(torch, np, nvidia_smi))
+
+    with Phase("kan_variants") as f:
+        f.update(kan_variants_phase(torch, np, nvidia_smi))
 
     with Phase("data_parallel") as f:
         f.update(data_parallel_phase(torch, np, nvidia_smi, path_launches, launches_per))

@@ -31,7 +31,15 @@ changes are:
   (heads, head_dim) biases flattened; SRU's ``gamma``, LPTQPN's
   SigmoidLayerNorm ``weight``, ``temperature`` and 0-d ``swish_beta``,
   TransUNet's ``position_embeddings`` and Swin's
-  ``relative_position_bias_table`` keep their names and shapes.
+  ``relative_position_bias_table`` keep their names and shapes;
+- the EfficientViM classifier's head weights ``weights`` and
+  ``weights_dist`` keep theirs, and so do the KAN variants' own leaves
+  (``cheby_coeffs``, ``grams_basis_weights``, WavKAN's 2-D ``scale``, ...);
+- EnhancedViMBlock's fused layout (``directions``): each stacked kernel
+  (G, kh, kw, in, out) -> (G, out, in, kh, kw), each stacked dense kernel
+  (G, in, out) -> (G, out, in), the three projections as convs; its vmap
+  layout (``vit_mamba3``, ``attn3``): every leaf stacked on a leading axis
+  of 3, each slice converted as the lone leaf.
 
 ``to_state_dict`` raises if a flax leaf is left unused or a torch key unfilled.
 """
@@ -81,6 +89,18 @@ _RENAMES = {
     "swish_beta": ("swish_beta", None),
     "position_embeddings": ("position_embeddings", None),
     "relative_position_bias_table": ("relative_position_bias_table", None),
+    "weights": ("weights", None),
+    "weights_dist": ("weights_dist", None),
+    "cheby_coeffs": ("cheby_coeffs", None),
+    "beta_weights": ("beta_weights", None),
+    "grams_basis_weights": ("grams_basis_weights", None),
+    "base_weights": ("base_weights", None),
+    "translation": ("translation", None),
+    "wavelet_weights": ("wavelet_weights", None),
+    "weight1": ("weight1", None),
+    "jacobi_coeffs": ("jacobi_coeffs", None),
+    "phase_low": ("phase_low", None),
+    "phase_height": ("phase_height", None),
 }
 # KANLinear's leaves (its 2-D spline_scaler; KANConv2d's is 4-D, above).
 _KAN_LINEAR = {"base_weight": (1, 0), "spline_weight": (2, 0, 1), "spline_scaler": (1, 0)}
@@ -96,10 +116,52 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def convert_leaf(path, value):
+# FusedDirectionViM's leaves (the flax module ``directions``): flax name ->
+# (torch name, axis permutation or None); its BatchNorms take the rules above.
+_STACK_OIHW = (0, 4, 3, 1, 2)  # (G, kh, kw, in, out) -> (G, out, in, kh, kw)
+_FUSED_VIM = {
+    "proj_h_kernel": ("proj_h_weight", _OIHW),
+    "proj_w_kernel": ("proj_w_weight", _OIHW),
+    "proj_c_kernel": ("proj_c_weight", _OIHW),
+    "proj_bias": ("proj_bias", None),
+    "alpha": ("alpha", None),
+    "dw1_kernel": ("dw1_weight", _STACK_OIHW),
+    "ln_scale": ("ln_scale", None),
+    "ln_bias": ("ln_bias", None),
+    "BCdt_proj_kernel": ("BCdt_proj", (0, 2, 1)),
+    "BCdt_dw_kernel": ("BCdt_dw", _STACK_OIHW),
+    "A": ("A", None),
+    "hz_kernel": ("hz_weight", (0, 2, 1)),
+    "D": ("D", None),
+    "out_kernel": ("out_weight", (0, 2, 1)),
+    "dw2_kernel": ("dw2_weight", _STACK_OIHW),
+    "ffn1_kernel": ("ffn1_weight", _STACK_OIHW),
+    "ffn2_kernel": ("ffn2_weight", _STACK_OIHW),
+    "gate1_kernel": ("gate1_weight", (0, 2, 1)),
+    "gate1_bias": ("gate1_bias", None),
+    "gate2_kernel": ("gate2_weight", (0, 2, 1)),
+    "gate2_bias": ("gate2_bias", None),
+    "qkv_kernel": ("qkv_weight", _STACK_OIHW),
+    "qkv_bias": ("qkv_bias", None),
+    "attn_dw_kernel": ("attn_dw_weight", _STACK_OIHW),
+    "attn_dw_bias": ("attn_dw_bias", None),
+}
+# The modules ``nn.vmap`` stacks (EnhancedViMBlock's "vmap" layout): each of
+# their leaves has a leading axis of 3, whose slices convert as a lone leaf.
+_VMAPPED = ("vit_mamba3", "attn3")
+
+
+def convert_leaf(path, value, sliced: bool = False):
     """(the port's state_dict key, the value in its layout) of the flax leaf
-    at ``path`` (a tuple of names) holding ``value``."""
+    at ``path`` (a tuple of names) holding ``value``; ``sliced``: one slice
+    of a vmapped module's stacked leaf."""
     *mods, leaf = path
+    if not sliced and any(m in _VMAPPED for m in mods):
+        parts = [convert_leaf(path, v, sliced=True) for v in value]
+        return parts[0][0], np.stack([p[1] for p in parts])
+    if mods and mods[-1] == "directions" and leaf in _FUSED_VIM:
+        name, perm = _FUSED_VIM[leaf]
+        return ".".join((*mods, name)), value if perm is None else value.transpose(perm)
     if leaf == "kernel" and value.ndim == 3:  # a DenseGeneral of attention
         flat = value.reshape(-1, value.shape[-1]) if mods[-1] == "out" else value.reshape(
             value.shape[0], -1)
@@ -111,6 +173,8 @@ def convert_leaf(path, value):
         name = "weight"
     elif leaf in _KAN_LINEAR and value.ndim == len(_KAN_LINEAR[leaf]):
         name, perm = leaf, _KAN_LINEAR[leaf]
+    elif leaf == "scale" and value.ndim == 2:  # WavKANLayer's (out, in) scales
+        name, perm = leaf, None
     elif leaf in _RENAMES:
         name, perm = _RENAMES[leaf]
     else:

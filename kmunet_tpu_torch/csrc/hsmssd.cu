@@ -68,6 +68,31 @@
 // So K2 is two device launches (compress, merge) and K3 three. dt, B and x
 // are read once, C once; neither the softmax nor e*B is ever written.
 //
+// The wide path (C > 64 or N > 64: the EfficientViM classifier's mixers, C
+// 128-512, N 9-64, L 16-196). The Pallas kernels take any N and C, and so do
+// these; make_plan picks the layout of a call:
+//   compress  the same kernel with CP = 64 channels a warp: a block holds
+//             ngb groups of 16 states x ccb chunks of 64 channels, one warp
+//             each, up to 16 warps (N = 49 pads to 64 rows: dt = A = B = 0
+//             in the padded rows, which are never written), so that dt and B
+//             are staged once per block for all its chunks; a ring of 4
+//             stages, or 2 where 4 do not fit the block's shared memory,
+//             then fewer chunks and state groups a block (grid z) where 2 do
+//             not. At M4's first stage (C = 224, N = 64) a block is 16 warps,
+//             4 stages, dt and B read once.
+//   merge     as above, writing h in fp32 (B, N, C) for the MLP.
+//   MLP       two products over all B N rows on the tensor cores
+//             (mlp_kernel): hz = h W_hz^T, then h2 = gate(hz) W_out^T with
+//             the gate applied as its operand is staged, in 64 x 64 tiles.
+//             At C = 512, B = 128 staging W_hz and W_out (1.5 MB in bf16) in
+//             each batch element's merge block would be 200 MB of L2 reads.
+//   scatter   the same kernel with a warp per 16 channels (8 or 16 warps) and
+//             grid z over groups of 256 channels; past 64 states a warp
+//             reloads its A fragments per chunk of 64 states.
+// So wide K3 is five device launches. What cannot fit a block's shared
+// memory (the scatter's ring of N rows of C: N in the thousands) is refused
+// (-2), never run elsewhere.
+//
 // The split of w. The plain version keeps w = e * B in fp32; the TPU kernel
 // rounds it once to x's dtype (ssd_mix_pallas.py:80), an error of up to
 // 2^-9 |w| per term in bf16 that the check (one bf16 ulp of each h element
@@ -99,6 +124,15 @@
 // each row gives a tile, and the ring's depth (2 blocks of 83 KB per SM in
 // bf16), set the compress's rate, not its instructions. The merge's MLP is
 // (4C + 2) C N operations per batch element, its largest pass at C = 64.
+// K3's bounds at M4's three mixers (B = 128, bf16; chip_smoke.mixer_bound:
+// bytes at 3.35 TB/s against the products at 989 TFLOP/s): 36.4 MB, 10.9 us
+// at (C, L, N) = (224, 196, 64); 13.1 MB, 3.9 us at (320, 49, 32); 9.6 MB,
+// 2.9 us against 3.29 GFLOP of products (the MLP's most of them), 3.3 us,
+// at (512, 16, 16), where the products bound it. Measured there (NVIDIA
+// H100 80GB HBM3, 700 W, chip_smoke's mixer_timing): 241, 192 and 148 us,
+// the MLP's two products 104-116 us of it (mma.sync in 3xTF32 with split
+// accumulators: three TF32 products per product, not the bf16 rate the
+// bound assumes).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -110,13 +144,16 @@
 namespace {
 
 constexpr int kT = 64;              // tokens per tile, compress and scatter
-constexpr int kStages = 4;          // tiles in a block's ring
+constexpr int kStages = 4;          // tiles in a block's ring (the wide path: 2 where 4 do not fit)
 constexpr int kRow = kT + 8;        // a staged row in elements: 8 of padding against bank conflicts
-constexpr int kMaxN = 64;           // N a power of two in [4, kMaxN]
-constexpr int kMaxC = 64;
+constexpr int kNarrow = 64;         // the narrow path: C <= 64 and N <= 64
+constexpr int kFragStates = 64;     // states whose scatter A fragments a warp holds at once
 constexpr int kMergeThreads = 256;  // 16 states x 16 lanes
 constexpr int kMergeRows = 16;      // states per merge block
-constexpr int kScatterWarps = 4;
+constexpr int kScatterWarps = 4;    // the narrow scatter's warps
+constexpr int kWideWarps = 16;      // the wide compress's and scatter's most warps a block
+constexpr int kMlpTile = 64;        // the wide MLP's output tile (rows x columns) a block
+constexpr int kMlpK = 32;           // and its k-chunk staged in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
@@ -184,6 +221,14 @@ __device__ __forceinline__ void mma_tf32(float* d, float a0, float a1, float a2,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)), "r"(__float_as_uint(a2)),
         "r"(__float_as_uint(a3)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// The same with the fragments as 32-bit registers of TF32 values.
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ float fast_exp2(float v) {
@@ -443,52 +488,70 @@ __device__ __forceinline__ void compress_tile(const T* xs, const T* ds, const T*
   }
 }
 
-// The compress pass: block (s, b), 32 * max(N, 16) / 16 threads, walks tiles
-// [s * tps, min((s + 1) * tps, tiles)) of batch element b and writes its
-// partial max, denominator and unnormalised h at (b, s). Dynamic shared
-// memory: the ring, kStages x (CP + 2 max(N, 16)) rows of kRow elements.
-template <typename T, int CT>
-__global__ void __launch_bounds__(128) compress_kernel(
+// cp.async.wait_group for a ring of STAGES tiles: this thread's copies of
+// the tile STAGES - 1 behind the newest have landed.
+template <int STAGES>
+__device__ __forceinline__ void wait_ring() {
+  cp_async_wait<STAGES - 2>();
+}
+
+// The compress pass: block (s, b, z) walks tiles [s * tps, min((s + 1) *
+// tps, tiles)) of batch element b for ngb groups of 16 states from state
+// 16 ngb (z % sgc) and ccb chunks of CP = 8 CT channels from channel CP ccb
+// (z / sgc), one warp per (state group, channel chunk), and writes its
+// partial max, denominator and unnormalised h at (b, s); part_h rows hold
+// cpt channels. The narrow path is one block per (s, b) with every state
+// (ngb = N16 / 16, ccb = 1, cpt = CP); the wide one takes CP = 64 and as
+// many state groups and chunks as fit 16 warps and the ring, so that x, dt
+// and B are each read once where they do. Dynamic shared memory: the ring,
+// STAGES x (CP ccb + 2 x 16 ngb) rows of kRow elements.
+template <typename T, int CT, int STAGES, int THREADS>
+__global__ void __launch_bounds__(THREADS) compress_kernel(
     const T* __restrict__ x, const T* __restrict__ dt, const T* __restrict__ Bm,
     const float* __restrict__ A, float* __restrict__ part_m, float* __restrict__ part_d,
     float* __restrict__ part_h, int C, int L, int N, int tps, long long dt_bstride,
-    long long bm_bstride, int aligned) {
+    long long bm_bstride, int aligned, int ngb, int ccb, int sgc, int cpt) {
   constexpr int CP = 8 * CT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
-  const int N16 = max(N, 16);
-  const int stage = (CP + 2 * N16) * kRow;
+  const int NR = 16 * ngb, XR = CP * ccb;
+  const int stage = (XR + 2 * NR) * kRow;
   const int b = blockIdx.y, s = blockIdx.x, S = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, n0 = (tid >> 5) * 16;
+  const int sb = blockIdx.z % sgc, cb = blockIdx.z / sgc;
+  const int ns = sb * NR, cs = cb * XR;  // the block's first state and channel
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = (warp % ngb) * 16, cc = warp / ngb;
   const int g = lane >> 2, q = lane & 3;
   const int tiles = (L + kT - 1) / kT;
   const int first = s * tps, last = min(tiles, first + tps);
-  const T* xb = x + (long long)b * C * L;
-  const T* dtb = dt + b * dt_bstride;
-  const T* bmb = Bm + b * bm_bstride;
+  const int nrows = min(NR, N - ns), xrows = min(XR, C - cs);
+  const T* xb = x + ((long long)b * C + cs) * L;
+  const T* dtb = dt + b * dt_bstride + (long long)ns * L;
+  const T* bmb = Bm + b * bm_bstride + (long long)ns * L;
 
   // Rows past C and N are never loaded: zeroed once, they hold x = 0, dt =
   // 0 and B = 0.
   {
     uint4* z = reinterpret_cast<uint4*>(ring);
-    const int chunks = kStages * stage * (int)sizeof(T) / 16;
+    const int chunks = STAGES * stage * (int)sizeof(T) / 16;
     for (int i = tid; i < chunks; i += blockDim.x) z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
   auto issue = [&](int tile) {
-    T* st = ring + ((tile - first) % kStages) * stage;
+    T* st = ring + ((tile - first) % STAGES) * stage;
     const int l0 = tile * kT;
-    load_rows(st, xb, L, C, l0, L, aligned);
-    load_rows(st + CP * kRow, dtb, L, N, l0, L, aligned);
-    load_rows(st + (CP + N16) * kRow, bmb, L, N, l0, L, aligned);
+    if (xrows > 0) load_rows(st, xb, L, xrows, l0, L, aligned);
+    load_rows(st + XR * kRow, dtb, L, nrows, l0, L, aligned);
+    load_rows(st + (XR + NR) * kRow, bmb, L, nrows, l0, L, aligned);
   };
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
+  for (int i = 0; i < STAGES - 1; ++i) {
     if (first + i < last) issue(first + i);
     cp_async_commit();
   }
 
-  const float a[2] = {n0 + g < N ? A[n0 + g] : 0.f, n0 + g + 8 < N ? A[n0 + g + 8] : 0.f};
+  const int na = ns + n0 + g;
+  const float a[2] = {na < N ? A[na] : 0.f, na + 8 < N ? A[na + 8] : 0.f};
   float m[2] = {-INFINITY, -INFINITY}, d[2] = {0.f, 0.f};
   float acc[CT][4];
 #pragma unroll
@@ -497,13 +560,14 @@ __global__ void __launch_bounds__(128) compress_kernel(
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
   for (int tile = first; tile < last; ++tile) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of `tile` have landed
-    __syncthreads();               // everyone's have; the stage read last is free
-    if (tile + kStages - 1 < last) issue(tile + kStages - 1);
+    wait_ring<STAGES>();  // this thread's copies of `tile` have landed
+    __syncthreads();      // everyone's have; the stage read last is free
+    if (tile + STAGES - 1 < last) issue(tile + STAGES - 1);
     cp_async_commit();
-    const T* xs = ring + ((tile - first) % kStages) * stage;
-    const T* ds = xs + CP * kRow;
-    const T* bs = ds + N16 * kRow;
+    const T* st = ring + ((tile - first) % STAGES) * stage;
+    const T* xs = st + cc * CP * kRow;
+    const T* ds = st + XR * kRow;
+    const T* bs = ds + NR * kRow;
     const int rem = L - tile * kT;
     if (rem >= kT)
       compress_tile<T, CT, false>(xs, ds, bs, n0, lane, a, m, d, acc, kT);
@@ -512,32 +576,39 @@ __global__ void __launch_bounds__(128) compress_kernel(
   }
 
   const long long part = (long long)b * S + s;
+  const int c0 = cs + cc * CP;  // the warp's first channel
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     d[r] += __shfl_xor_sync(0xffffffffu, d[r], 1);
     d[r] += __shfl_xor_sync(0xffffffffu, d[r], 2);
-    const int n = n0 + g + 8 * r;
+    const int n = na + 8 * r;
     if (n < N) {
-      if (q == 0) {
+      if (q == 0 && cs == 0 && cc == 0) {
         part_m[part * N + n] = m[r];
         part_d[part * N + n] = d[r];
       }
-      float* ph = part_h + (part * N + n) * CP + 2 * q;
+      if (c0 < cpt) {
+        float* ph = part_h + (part * N + n) * cpt + c0 + 2 * q;
 #pragma unroll
-      for (int j = 0; j < CT; ++j)
-        *reinterpret_cast<float2*>(ph + 8 * j) = make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+        for (int j = 0; j < CT; ++j)
+          *reinterpret_cast<float2*>(ph + 8 * j) =
+              make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      }
     }
   }
 }
 
-// The merge pass: block (r, b) merges the R = min(N, 16) states from r R of
-// batch element b over its S slices, in slice order. MIX = false writes h
-// (B, N, C) (K2); MIX = true computes the gated MLP on those states and
-// writes h2 (B, N, C) (K3). part_h rows hold CP channels. 256 threads: 16
-// lanes per state take every 16th slice for the max, the weights and the
-// denominator, combined by shuffles in a fixed order; then a thread per
-// (state, channel) walks the slices; the MLP reads W_hz^T and W_out^T
-// staged in shared memory. Dynamic shared memory: merge_smem bytes.
+// The merge pass: block (r, b) merges the states [r R, r R + Rh) of batch
+// element b (R = min(N, 16), Rh = min(R, N - r R)) over its S slices, in
+// slice order. MIX = false writes h (B, N, C) in T (K2; the wide K3's
+// merge writes it in fp32 for the MLP's products); MIX = true computes the
+// gated MLP on those states and writes h2 (B, N, C) (the narrow K3). part_h
+// rows hold CP channels. 256 threads: 16 lanes per state take every 16th
+// slice for the max, the weights and the denominator, combined by shuffles
+// in a fixed order (every lane shuffles; lanes past Rh hold -inf and 0);
+// then a thread per (state, channel) walks the slices; the MLP reads W_hz^T
+// and W_out^T staged in shared memory. Dynamic shared memory: merge_smem
+// bytes.
 template <typename T, bool MIX>
 __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_d,
@@ -553,6 +624,7 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
   float* wt = hz + R * (C2 + 1);     // [C][2C + 1]: W_hz^T
   float* wo = wt + C * (C2 + 1);     // [C][C + 1]: W_out^T
   const int b = blockIdx.y, n0 = blockIdx.x * R, tid = threadIdx.x;
+  const int Rh = min(R, N - n0);
   const float* pm = part_m + (long long)b * S * N + n0;
   const float* pd = part_d + (long long)b * S * N + n0;
   const float* ph = part_h + ((long long)b * S * N + n0) * CP;
@@ -564,26 +636,27 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
     for (int p = tid; p < C * C; p += kMergeThreads) wo[(p % C) * (C + 1) + p / C] = w_out[p];
   }
   {
-    const int r = tid >> 4, j = tid & 15;  // R is even: a warp's two states are both in or out
-    if (r < R) {
-      float m = -INFINITY;
+    const int r = tid >> 4, j = tid & 15;
+    const bool live = r < Rh;
+    float m = -INFINITY;
+    if (live)
       for (int i = j; i < S; i += 16) m = fmaxf(m, pm[i * N + r]);
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      float d = 0.f;
+    for (int off = 8; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float d = 0.f;
+    if (live)
       for (int i = j; i < S; i += 16) {
         const float e = expf(pm[i * N + r] - m);
         wgt[i * R + r] = e;
         d = fmaf(pd[i * N + r], e, d);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2) d += __shfl_xor_sync(0xffffffffu, d, off);
-      if (j == 0) dsum[r] = d;
-    }
+    for (int off = 8; off > 0; off /= 2) d += __shfl_xor_sync(0xffffffffu, d, off);
+    if (live && j == 0) dsum[r] = d;
   }
   __syncthreads();
   // Lanes run over c, so that the partials' reads are contiguous.
-  for (int p = tid; p < R * C; p += kMergeThreads) {
+  for (int p = tid; p < Rh * C; p += kMergeThreads) {
     const int r = p / C, c = p % C;
     const float* src = ph + (long long)r * CP + c;
     float acc = 0.f;
@@ -597,7 +670,7 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
   }
   if (!MIX) return;
   __syncthreads();
-  for (int p = tid; p < R * C2; p += kMergeThreads) {
+  for (int p = tid; p < Rh * C2; p += kMergeThreads) {
     const int r = p / C2, j = p % C2;
     const float* hr = hs + r * (C + 1);
     float acc = 0.f;
@@ -607,13 +680,13 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
   }
   __syncthreads();
   const float D = Dp[0];
-  for (int p = tid; p < R * C; p += kMergeThreads) {
+  for (int p = tid; p < Rh * C; p += kMergeThreads) {
     const int r = p / C, c = p % C;
     const float hv = hz[r * (C2 + 1) + c], z = hz[r * (C2 + 1) + C + c];
     hs[r * (C + 1) + c] = hv * (z / (1.f + expf(-z))) + hv * D;
   }
   __syncthreads();
-  for (int p = tid; p < R * C; p += kMergeThreads) {
+  for (int p = tid; p < Rh * C; p += kMergeThreads) {
     const int r = p / C, c = p % C;
     const float* gr = hs + r * (C + 1);
     float h2 = 0.f;
@@ -623,19 +696,166 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
   }
 }
 
-// The scatter's A operand, h2^T (channels c0..c0+15 x states), and its
-// products with a staged C tile (N16 x kT): acc[h] (16 channels x 8 tokens
+// The wide K3's gated MLP as two products over all B N rows on the tensor
+// cores: out (M x O) = a (M x K) . W^T, W (O x K) as nn.Linear stores it,
+// 3xTF32 (a_hi w_hi + a_lo w_hi + a_hi w_lo, the parts TF32-rounded) into
+// fp32. GATE = false: a = src, rows of K (h . W_hz^T, O = 2K); GATE = true:
+// a[m, k] = h_ silu(z) + h_ D with h_ = src[m, k], z = src[m, K + k], rows
+// of 2K (the gated states . W_out^T, out in x's dtype). A block of 4 warps
+// takes a 64 x 64 tile of out, each warp 32 x 32 (2 x 4 mma.m16n8k8), over
+// k-chunks of 32: each thread loads its part of the next chunk (16-byte
+// loads where K is a multiple of 4) into registers while the warps multiply
+// the current one, which sits in shared memory already split into its TF32
+// hi and lo parts, rows padded by 4 floats, so that one ldmatrix.x4 reads a
+// whole A fragment (or two B fragments) of 32-bit values without bank
+// conflicts. A chunk's hi . hi products and its two small terms go to
+// zeroed fragments of their own, added to the running sums by fp32 adds:
+// the tensor cores' accumulation truncates, and one chain over all of K
+// (3 K / 8 mma) drifted several times further from float64 than the plain
+// version's cuBLAS products at C = 224-600. With these the fp32 h2 lies
+// 0.7-2.3x the plain version's distance from float64 at the classifier's
+// shapes (chip_smoke's k3_float64_distance).
+template <typename OutT, bool GATE>
+__global__ void __launch_bounds__(128) mlp_kernel(const float* __restrict__ src,
+                                                  const float* __restrict__ w,
+                                                  const float* __restrict__ Dp,
+                                                  OutT* __restrict__ out, int M, int O, int K) {
+  constexpr int LD = kMlpK + 4;
+  constexpr int kGroups = kMlpK / 4;                 // 4-element groups a staged row holds
+  constexpr int kPer = kMlpTile * kGroups / 128;     // groups a thread stages per operand
+  __shared__ __align__(16) float ah[kMlpTile][LD];
+  __shared__ __align__(16) float al[kMlpTile][LD];
+  __shared__ __align__(16) float wh[kMlpTile][LD];
+  __shared__ __align__(16) float wl[kMlpTile][LD];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lm = lane >> 3, lr = lane & 7;  // the ldmatrix row this lane addresses
+  const long long m0 = (long long)blockIdx.y * kMlpTile;
+  const int o0 = blockIdx.x * kMlpTile;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  const long long lda = GATE ? 2LL * K : (long long)K;
+  const bool vec = (K & 3) == 0;
+  const float D = GATE ? Dp[0] : 0.f;
+  float4 ra[kPer], rz[kPer], rw[kPer];
+
+  // Group i of a chunk: row i / kGroups, columns 4 (i % kGroups) .. + 3.
+  auto fetch4 = [&](const float* base, long long row, int k, bool in_rows) -> float4 {
+    if (!in_rows) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* p = base + row + k;
+    if (vec && k + 3 < K) return *reinterpret_cast<const float4*>(p);
+    return make_float4(k < K ? p[0] : 0.f, k + 1 < K ? p[1] : 0.f, k + 2 < K ? p[2] : 0.f,
+                       k + 3 < K ? p[3] : 0.f);
+  };
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = tid + 128 * j, r = i / kGroups, k = k0 + 4 * (i % kGroups);
+      const long long m = m0 + r;
+      ra[j] = fetch4(src, m * lda, k, m < M);
+      if (GATE) rz[j] = fetch4(src + K, m * lda, k, m < M);
+      rw[j] = fetch4(w, (long long)(o0 + r) * K, k, o0 + r < O);
+    }
+  };
+  auto split4 = [](float4 v, float* hi, float* lo) {
+    const float4 h = make_float4(tf32(v.x), tf32(v.y), tf32(v.z), tf32(v.w));
+    *reinterpret_cast<float4*>(hi) = h;
+    *reinterpret_cast<float4*>(lo) =
+        make_float4(tf32(v.x - h.x), tf32(v.y - h.y), tf32(v.z - h.z), tf32(v.w - h.w));
+  };
+  auto gate = [D](float h, float z) { return h * (z / (1.f + expf(-z))) + h * D; };
+  auto stage = [&]() {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = tid + 128 * j, r = i / kGroups, c = 4 * (i % kGroups);
+      float4 a = ra[j];
+      if (GATE)
+        a = make_float4(gate(a.x, rz[j].x), gate(a.y, rz[j].y), gate(a.z, rz[j].z),
+                        gate(a.w, rz[j].w));
+      split4(a, &ah[r][c], &al[r][c]);
+      split4(rw[j], &wh[r][c], &wl[r][c]);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  load(0);
+  for (int k0 = 0; k0 < K; k0 += kMlpK) {
+    stage();
+    __syncthreads();
+    if (k0 + kMlpK < K) load(k0 + kMlpK);  // in flight while this chunk multiplies
+    float thi[2][4][4], tlo[2][4][4];  // the chunk's hi . hi products and its two small terms
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) thi[i][j][e] = tlo[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kMlpK; kk += 8) {
+      unsigned fa[2][2][4], fb[2][2][4];  // [tile pair][hi, lo][register]
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)
+        const int r = wm + 16 * i + lr + 8 * (lm & 1), c = kk + 4 * (lm >> 1);
+        ldsm_x4(fa[i][0], &ah[r][c]);
+        ldsm_x4(fa[i][1], &al[r][c]);
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {  // b0, b1 of n-tile 2p, then of 2p + 1
+        const int r = wn + 16 * p + lr + 8 * (lm >> 1), c = kk + 4 * (lm & 1);
+        ldsm_x4(fb[p][0], &wh[r][c]);
+        ldsm_x4(fb[p][1], &wl[r][c]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned* bh = &fb[j >> 1][0][2 * (j & 1)];
+          const unsigned* bl = &fb[j >> 1][1][2 * (j & 1)];
+          mma_tf32(thi[i][j], fa[i][0], bh);
+          mma_tf32(tlo[i][j], fa[i][1], bh);
+          mma_tf32(tlo[i][j], fa[i][0], bl);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += thi[i][j][e] + tlo[i][j][e];
+    __syncthreads();
+  }
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, ..)
+        const long long m = m0 + wm + 16 * i + g + 8 * (e >> 1);
+        const int o = o0 + wn + 8 * j + 2 * q + (e & 1);
+        if (m < M && o < O) out[m * O + o] = from_f32<OutT>(acc[i][j][e]);
+      }
+}
+
+// The scatter's A operand, h2^T (channels c0..c0+15 x up to kFragStates
+// states), and its products with a staged C tile (rows x kT, rows a
+// multiple of 16 and at most kFragStates): acc[h] (16 channels x 8 tokens
 // t0 + 8h..) += h2^T . C[:, t0 + 8h..].
 template <typename T>
 struct ScatterProducts {
-  unsigned a[kMaxN / 16][4];  // per 16 states: the m16n8k16 A fragment
+  unsigned a[kFragStates / 16][4];  // per 16 states: the m16n8k16 A fragment
 
   __device__ __forceinline__ void load(const T* h2b, int C, int N, int c0, int lane) {
     const uint16_t* h = reinterpret_cast<const uint16_t*>(h2b);
     const int g = lane >> 2, q = lane & 3;
     auto at = [&](int n, int c) -> unsigned { return n < N && c < C ? h[n * C + c] : 0u; };
 #pragma unroll
-    for (int ks = 0; ks < kMaxN / 16; ++ks)
+    for (int ks = 0; ks < kFragStates / 16; ++ks)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = c0 + g + 8 * (i & 1), n = 16 * ks + 2 * q + 8 * (i >> 1);
@@ -647,7 +867,7 @@ struct ScatterProducts {
                                       int lane) const {
     const int m = lane >> 3;
 #pragma unroll
-    for (int ks = 0; ks < kMaxN / 16; ++ks) {
+    for (int ks = 0; ks < kFragStates / 16; ++ks) {
       if (16 * ks >= N16) break;
       unsigned b[4];
       ldsm_x4_trans(b, cs + (16 * ks + (m & 1) * 8 + (lane & 7)) * kRow + t0 + (m >> 1) * 8);
@@ -660,12 +880,12 @@ struct ScatterProducts {
 // fp32: 3xTF32 m16n8k8 over 8 states a step.
 template <>
 struct ScatterProducts<float> {
-  float hi[kMaxN / 8][4], lo[kMaxN / 8][4];
+  float hi[kFragStates / 8][4], lo[kFragStates / 8][4];
 
   __device__ __forceinline__ void load(const float* h2b, int C, int N, int c0, int lane) {
     const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-    for (int ks = 0; ks < kMaxN / 8; ++ks)
+    for (int ks = 0; ks < kFragStates / 8; ++ks)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         // a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4): (channel, state)
@@ -680,7 +900,7 @@ struct ScatterProducts<float> {
                                       int lane) const {
     const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-    for (int ks = 0; ks < kMaxN / 8; ++ks) {
+    for (int ks = 0; ks < kFragStates / 8; ++ks) {
       if (8 * ks >= N16) break;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -707,57 +927,73 @@ __device__ __forceinline__ void store2(__half* p, float a, float b) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
-// The scatter pass of K3: block (s, b) walks the compress's tiles of slice s
-// and writes y[b, :, tile] = h2[b]^T C[b, :, tile]. MT: 16-channel rows of
-// h2^T, 16 MT >= C. Dynamic shared memory: kStages x max(N, 16) rows of C
-// and 16 MT rows of y, kRow elements each.
-template <typename T, int MT>
-__global__ void __launch_bounds__(32 * kScatterWarps) scatter_kernel(
+// The scatter pass of K3: block (s, b, z) walks the compress's tiles of
+// slice s and writes y[b, c, tile] = h2[b]^T C[b, :, tile] for the 16 MT
+// channels from 16 MT z. MT 16-channel rows of h2^T over WARPS warps:
+// where MT < WARPS, WARPS / MT warps share a row and take every (WARPS /
+// MT)-th pair of 8-token columns (the narrow path: 4 warps, MT 1, 2 or 4);
+// the wide one has a warp per row (MT = WARPS = 8 or 16). A warp holds its
+// row's A fragments for up to kFragStates states: with more, it reloads
+// them per chunk of states. Dynamic shared memory: STAGES x N16 rows of C
+// and 16 MT rows of y, kRow elements each (N16: N rounded up to 16).
+template <typename T, int MT, int WARPS, int STAGES>
+__global__ void __launch_bounds__(32 * WARPS) scatter_kernel(
     const T* __restrict__ h2, const T* __restrict__ Cm, T* __restrict__ y, int C, int L, int N,
     int tps, long long cm_bstride, int aligned) {
-  constexpr int TG = kScatterWarps / MT;  // warps that share a channel block
+  static_assert(MT <= WARPS && WARPS % MT == 0, "a warp takes one 16-channel row");
+  constexpr int TG = WARPS / MT;  // warps that share a channel row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
-  const int N16 = max(N, 16);
+  const int N16 = (N + 15) / 16 * 16;
   const int stage = N16 * kRow;
-  T* ys = ring + kStages * stage;
-  const int b = blockIdx.y, s = blockIdx.x;
+  T* ys = ring + STAGES * stage;
+  const int b = blockIdx.y, s = blockIdx.x, cz = blockIdx.z * 16 * MT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mt = warp % MT, tg = warp / MT;
   const int g = lane >> 2, q = lane & 3;
   const int tiles = (L + kT - 1) / kT;
   const int first = s * tps, last = min(tiles, first + tps);
+  const int chunks = (N16 + kFragStates - 1) / kFragStates;
   const T* cb = Cm + b * cm_bstride;
-  T* yb = y + (long long)b * C * L;
+  const T* h2b = h2 + (long long)b * N * C;
+  T* yb = y + ((long long)b * C + cz) * L;
 
   {  // rows past N are never loaded: zeroed once
     uint4* z = reinterpret_cast<uint4*>(ring);
-    const int chunks = kStages * stage * (int)sizeof(T) / 16;
-    for (int i = tid; i < chunks; i += blockDim.x) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    const int n16 = STAGES * stage * (int)sizeof(T) / 16;
+    for (int i = tid; i < n16; i += blockDim.x) z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
   auto issue = [&](int tile) {
-    load_rows(ring + ((tile - first) % kStages) * stage, cb, L, N, tile * kT, L, aligned);
+    load_rows(ring + ((tile - first) % STAGES) * stage, cb, L, N, tile * kT, L, aligned);
   };
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
+  for (int i = 0; i < STAGES - 1; ++i) {
     if (first + i < last) issue(first + i);
     cp_async_commit();
   }
   ScatterProducts<T> prod;
-  prod.load(h2 + (long long)b * N * C, C, N, 16 * mt, lane);
+  if (chunks == 1) prod.load(h2b, C, N, cz + 16 * mt, lane);
 
   for (int tile = first; tile < last; ++tile) {
-    cp_async_wait<kStages - 2>();
+    wait_ring<STAGES>();
     __syncthreads();  // C's tile has landed; the y tile and the stage read last are free
-    if (tile + kStages - 1 < last) issue(tile + kStages - 1);
+    if (tile + STAGES - 1 < last) issue(tile + STAGES - 1);
     cp_async_commit();
-    const T* cs = ring + ((tile - first) % kStages) * stage;
+    const T* cs = ring + ((tile - first) % STAGES) * stage;
     const int rem = L - tile * kT;
     for (int p = tg; p < kT / 16; p += TG) {
       if (16 * p >= rem) break;
       float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      prod.run(acc, cs, N16, 16 * p, lane);
+      if (chunks == 1) {
+        prod.run(acc, cs, N16, 16 * p, lane);
+      } else {
+        for (int k = 0; k < chunks; ++k) {
+          const int n0 = k * kFragStates;
+          prod.load(h2b + (long long)n0 * C, C, N - n0, cz + 16 * mt, lane);
+          prod.run(acc, cs + n0 * kRow, min(kFragStates, N16 - n0), 16 * p, lane);
+        }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -766,7 +1002,7 @@ __global__ void __launch_bounds__(32 * kScatterWarps) scatter_kernel(
                  acc[h][2 * r + 1]);
     }
     __syncthreads();
-    store_rows(yb, ys, L, C, tile * kT, L, aligned);
+    store_rows(yb, ys, L, min(16 * MT, C - cz), tile * kT, L, aligned);
   }
 }
 
@@ -779,84 +1015,170 @@ int allow_smem(K kernel, size_t smem) {
   return 0;
 }
 
-// 8-channel blocks of the compress (1, 2, 4 or 8): C padded to CP = 8 CT.
+// 8-channel blocks of the narrow compress (1, 2, 4 or 8): C padded to CP = 8 CT.
 int channel_tiles(int C) {
   int ct = 1;
   while (8 * ct < C) ct *= 2;
   return ct;
 }
 
-bool valid(int B, int C, int L, int N, int S, int tps) {
-  if (B < 1 || B > 65535 || C < 1 || C > kMaxC || L < 1 || N < 4 || N > kMaxN ||
-      (N & (N - 1)) != 0 || S < 1 || tps < 1)
-    return false;
-  const int tiles = (L + kT - 1) / kT;
-  return (long long)S * tps >= tiles && (long long)(S - 1) * tps < tiles && S <= 65535;
+// How a call is laid out, from (C, N), the element size and the block's
+// shared-memory limit. The narrow path (C <= 64 and N <= 64) is PR 13's
+// design: one compress block per (slice, b), the MLP in the merge. The wide
+// path splits the compress's warps over 16-state groups and 64-channel
+// chunks, runs the MLP as two tiled products and the scatter over groups of
+// up to 256 channels. ok = false where a pass's shared memory cannot fit.
+struct Plan {
+  bool ok, wide;
+  int ct, cstages, ngb, ccb, sgc, cgc, cpt;  // compress
+  size_t csmem;
+  int mt, sstages, sgroups;  // scatter
+  size_t ssmem;
+};
+
+size_t compress_smem(int esz, int ct, int stages, int ngb, int ccb) {
+  return (size_t)esz * stages * (size_t)(8 * ct * ccb + 32 * ngb) * kRow;
 }
 
-template <typename T, int CT>
-int compress_ct(const void* x, const void* dt, const void* Bm, const void* A, void* part_m,
-                void* part_d, void* part_h, int B, int C, int L, int N, int S, int tps,
-                long long dt_bstride, long long bm_bstride, int aligned, cudaStream_t stream) {
-  const int N16 = N < 16 ? 16 : N;
-  const size_t smem = sizeof(T) * kStages * (size_t)(8 * CT + 2 * N16) * kRow;
-  int err = allow_smem(compress_kernel<T, CT>, smem);
+size_t scatter_smem(int esz, int stages, int N16, int mt) {
+  return (size_t)esz * (size_t)(stages * N16 + 16 * mt) * kRow;
+}
+
+size_t smem_limit() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return 48 * 1024;
+  return (size_t)limit;
+}
+
+Plan make_plan(int C, int N, int esz, size_t limit) {
+  Plan p{};
+  const int N16 = (N + 15) / 16 * 16, NG = N16 / 16;
+  p.wide = C > kNarrow || N > kNarrow;
+  if (!p.wide) {
+    p.ct = channel_tiles(C);
+    p.cstages = kStages;
+    p.ngb = NG;
+    p.ccb = p.sgc = p.cgc = 1;
+    p.cpt = 8 * p.ct;
+    p.csmem = compress_smem(esz, p.ct, kStages, NG, 1);
+    p.mt = C <= 16 ? 1 : C <= 32 ? 2 : 4;
+    p.sstages = kStages;
+    p.sgroups = 1;
+    p.ssmem = scatter_smem(esz, kStages, N16, p.mt);
+    p.ok = p.csmem <= limit && p.ssmem <= limit;
+    return p;
+  }
+  // Compress: every state group and chunk in one block where 16 warps and
+  // two ring stages take them, fewer chunks (x read once, dt and B once per
+  // block of chunks) and then fewer state groups where they do not.
+  const int CC = (C + 63) / 64;
+  p.ct = 8;
+  p.cpt = 64 * CC;
+  p.ngb = NG < kWideWarps ? NG : kWideWarps;
+  p.ccb = CC < kWideWarps / p.ngb ? CC : kWideWarps / p.ngb;
+  while (p.ccb > 1 && compress_smem(esz, 8, 2, p.ngb, p.ccb) > limit) --p.ccb;
+  while (p.ngb > 1 && compress_smem(esz, 8, 2, p.ngb, p.ccb) > limit) --p.ngb;
+  p.cstages = compress_smem(esz, 8, kStages, p.ngb, p.ccb) <= limit ? kStages : 2;
+  p.csmem = compress_smem(esz, 8, p.cstages, p.ngb, p.ccb);
+  p.sgc = (NG + p.ngb - 1) / p.ngb;
+  p.cgc = (CC + p.ccb - 1) / p.ccb;
+  // Scatter: a warp per 16 channels, 8 or 16 warps a block.
+  p.mt = C <= 128 ? 8 : 16;
+  p.sgroups = (C + 16 * p.mt - 1) / (16 * p.mt);
+  p.sstages = scatter_smem(esz, kStages, N16, p.mt) <= limit ? kStages : 2;
+  p.ssmem = scatter_smem(esz, p.sstages, N16, p.mt);
+  p.ok = p.csmem <= limit && p.ssmem <= limit && (long long)p.sgc * p.cgc <= 65535;
+  return p;
+}
+
+bool valid(int B, int C, int L, int N, int S, int tps) {
+  if (B < 1 || B > 65535 || C < 1 || L < 1 || N < 1 || S < 1 || tps < 1 || S > 65535)
+    return false;
+  const int tiles = (L + kT - 1) / kT;
+  return (long long)S * tps >= tiles && (long long)(S - 1) * tps < tiles;
+}
+
+template <typename T, int CT, int STAGES, int THREADS>
+int compress_launch(const void* x, const void* dt, const void* Bm, const void* A,
+                    void* part_m, void* part_d, void* part_h, int B, int C, int L, int N, int S,
+                    int tps, long long sdt, long long sbm, int aligned, const Plan& p,
+                    cudaStream_t stream) {
+  auto kernel = compress_kernel<T, CT, STAGES, THREADS>;
+  int err = allow_smem(kernel, p.csmem);
   if (err != 0) return err;
-  compress_kernel<T, CT><<<dim3(S, B), 32 * (N16 / 16), smem, stream>>>(
+  kernel<<<dim3(S, B, p.sgc * p.cgc), 32 * p.ngb * p.ccb, p.csmem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const T*>(Bm),
       static_cast<const float*>(A), static_cast<float*>(part_m), static_cast<float*>(part_d),
-      static_cast<float*>(part_h), C, L, N, tps, dt_bstride, bm_bstride, aligned);
+      static_cast<float*>(part_h), C, L, N, tps, sdt, sbm, aligned, p.ngb, p.ccb, p.sgc, p.cpt);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int compress(const void* x, const void* dt, const void* Bm, const void* A, void* part_m,
              void* part_d, void* part_h, int B, int C, int L, int N, int S, int tps,
-             long long sdt, long long sbm, int aligned, cudaStream_t stream) {
-  switch (channel_tiles(C)) {
-    case 1: return compress_ct<T, 1>(x, dt, Bm, A, part_m, part_d, part_h, B, C, L, N, S, tps,
-                                     sdt, sbm, aligned, stream);
-    case 2: return compress_ct<T, 2>(x, dt, Bm, A, part_m, part_d, part_h, B, C, L, N, S, tps,
-                                     sdt, sbm, aligned, stream);
-    case 4: return compress_ct<T, 4>(x, dt, Bm, A, part_m, part_d, part_h, B, C, L, N, S, tps,
-                                     sdt, sbm, aligned, stream);
-    default: return compress_ct<T, 8>(x, dt, Bm, A, part_m, part_d, part_h, B, C, L, N, S, tps,
-                                      sdt, sbm, aligned, stream);
+             long long sdt, long long sbm, int aligned, const Plan& p, cudaStream_t stream) {
+#define KMUNET_COMPRESS(CT, STAGES, THREADS)                                                  \
+  compress_launch<T, CT, STAGES, THREADS>(x, dt, Bm, A, part_m, part_d, part_h, B, C, L, N, S, \
+                                          tps, sdt, sbm, aligned, p, stream)
+  if (p.wide) return p.cstages == kStages ? KMUNET_COMPRESS(8, kStages, 32 * kWideWarps)
+                                          : KMUNET_COMPRESS(8, 2, 32 * kWideWarps);
+  switch (p.ct) {
+    case 1: return KMUNET_COMPRESS(1, kStages, 128);
+    case 2: return KMUNET_COMPRESS(2, kStages, 128);
+    case 4: return KMUNET_COMPRESS(4, kStages, 128);
+    default: return KMUNET_COMPRESS(8, kStages, 128);
   }
+#undef KMUNET_COMPRESS
 }
 
 // The merge block's shared memory in floats (the MLP's only with MIX).
 size_t merge_smem(int S, int N, int C, bool mix) {
   const size_t R = N < kMergeRows ? N : kMergeRows;
-  size_t f = S * R + R + R * (C + 1);
-  if (mix) f += R * (2 * C + 1) + (size_t)C * (2 * C + 1) + (size_t)C * (C + 1);
+  size_t f = S * R + R;
+  if (mix)
+    f += R * (C + 1) + R * (2 * C + 1) + (size_t)C * (2 * C + 1) + (size_t)C * (C + 1);
   return f * sizeof(float);
 }
 
 template <typename T, bool MIX>
 int merge(const void* part_m, const void* part_d, const void* part_h, const void* w_hz,
-          const void* w_out, const void* Dp, void* out, int B, int C, int N, int S,
+          const void* w_out, const void* Dp, void* out, int B, int C, int N, int S, int cpt,
           cudaStream_t stream) {
   const size_t smem = merge_smem(S, N, C, MIX);
   int err = allow_smem(merge_kernel<T, MIX>, smem);
   if (err != 0) return err;
   const int R = N < kMergeRows ? N : kMergeRows;
-  merge_kernel<T, MIX><<<dim3(N / R, B), kMergeThreads, smem, stream>>>(
+  merge_kernel<T, MIX><<<dim3((N + R - 1) / R, B), kMergeThreads, smem, stream>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_d),
       static_cast<const float*>(part_h), static_cast<const float*>(w_hz),
       static_cast<const float*>(w_out), static_cast<const float*>(Dp), static_cast<T*>(out), S,
-      N, C, 8 * channel_tiles(C));
+      N, C, cpt);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MT>
-int scatter_mt(const void* h2, const void* Cm, void* y, int B, int C, int L, int N, int S,
-               int tps, long long cm_bstride, int aligned, cudaStream_t stream) {
-  const int N16 = N < 16 ? 16 : N;
-  const size_t smem = sizeof(T) * (size_t)(kStages * N16 + 16 * MT) * kRow;
-  int err = allow_smem(scatter_kernel<T, MT>, smem);
+template <typename OutT, bool GATE>
+int mlp(const void* src, const void* w, const void* Dp, void* out, long long M, int O, int K,
+        cudaStream_t stream) {
+  mlp_kernel<OutT, GATE><<<dim3((O + kMlpTile - 1) / kMlpTile,
+                                (unsigned)((M + kMlpTile - 1) / kMlpTile)),
+                           128, 0, stream>>>(static_cast<const float*>(src),
+                                             static_cast<const float*>(w),
+                                             static_cast<const float*>(Dp),
+                                             static_cast<OutT*>(out), (int)M, O, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int MT, int WARPS, int STAGES>
+int scatter_launch(const void* h2, const void* Cm, void* y, int B, int C, int L, int N, int S,
+                   int tps, long long cm_bstride, int aligned, const Plan& p,
+                   cudaStream_t stream) {
+  auto kernel = scatter_kernel<T, MT, WARPS, STAGES>;
+  int err = allow_smem(kernel, p.ssmem);
   if (err != 0) return err;
-  scatter_kernel<T, MT><<<dim3(S, B), 32 * kScatterWarps, smem, stream>>>(
+  kernel<<<dim3(S, B, p.sgroups), 32 * WARPS, p.ssmem, stream>>>(
       static_cast<const T*>(h2), static_cast<const T*>(Cm), static_cast<T*>(y), C, L, N, tps,
       cm_bstride, aligned);
   return (int)cudaGetLastError();
@@ -864,48 +1186,84 @@ int scatter_mt(const void* h2, const void* Cm, void* y, int B, int C, int L, int
 
 template <typename T>
 int scatter(const void* h2, const void* Cm, void* y, int B, int C, int L, int N, int S, int tps,
-            long long cm_bstride, int aligned, cudaStream_t stream) {
-  if (C <= 16) return scatter_mt<T, 1>(h2, Cm, y, B, C, L, N, S, tps, cm_bstride, aligned, stream);
-  if (C <= 32) return scatter_mt<T, 2>(h2, Cm, y, B, C, L, N, S, tps, cm_bstride, aligned, stream);
-  return scatter_mt<T, 4>(h2, Cm, y, B, C, L, N, S, tps, cm_bstride, aligned, stream);
+            long long scm, int aligned, const Plan& p, cudaStream_t stream) {
+#define KMUNET_SCATTER(MT, WARPS, STAGES) \
+  scatter_launch<T, MT, WARPS, STAGES>(h2, Cm, y, B, C, L, N, S, tps, scm, aligned, p, stream)
+  if (p.wide) {
+    if (p.mt == 8)
+      return p.sstages == kStages ? KMUNET_SCATTER(8, 8, kStages) : KMUNET_SCATTER(8, 8, 2);
+    return p.sstages == kStages ? KMUNET_SCATTER(16, 16, kStages) : KMUNET_SCATTER(16, 16, 2);
+  }
+  switch (p.mt) {
+    case 1: return KMUNET_SCATTER(1, kScatterWarps, kStages);
+    case 2: return KMUNET_SCATTER(2, kScatterWarps, kStages);
+    default: return KMUNET_SCATTER(4, kScatterWarps, kStages);
+  }
+#undef KMUNET_SCATTER
 }
 
 template <typename T>
 int run_compress(const void* x, const void* dt, const void* Bm, const void* A, void* part_m,
                  void* part_d, void* part_h, void* h, int B, int C, int L, int N, int S,
-                 int tps, int aligned, long long sdt, long long sbm, cudaStream_t stream) {
+                 int tps, int aligned, long long sdt, long long sbm, const Plan& p,
+                 cudaStream_t stream) {
   int err = compress<T>(x, dt, Bm, A, part_m, part_d, part_h, B, C, L, N, S, tps, sdt, sbm,
-                        aligned, stream);
+                        aligned, p, stream);
   if (err != 0) return err;
   return merge<T, false>(part_m, part_d, part_h, nullptr, nullptr, nullptr, h, B, C, N, S,
-                         stream);
+                         p.cpt, stream);
 }
 
 template <typename T>
 int run_mix(const void* x, const void* dt, const void* Bm, const void* Cm, const void* A,
             const void* w_hz, const void* w_out, const void* Dp, void* part_m, void* part_d,
-            void* part_h, void* y, void* h2, int B, int C, int L, int N, int S, int tps,
-            int aligned, long long sdt, long long sbm, long long scm, cudaStream_t stream) {
+            void* part_h, void* h32, void* hz32, void* y, void* h2, int B, int C, int L, int N,
+            int S, int tps, int aligned, long long sdt, long long sbm, long long scm,
+            const Plan& p, cudaStream_t stream) {
   int err = compress<T>(x, dt, Bm, A, part_m, part_d, part_h, B, C, L, N, S, tps, sdt, sbm,
-                        aligned, stream);
+                        aligned, p, stream);
   if (err != 0) return err;
-  err = merge<T, true>(part_m, part_d, part_h, w_hz, w_out, Dp, h2, B, C, N, S, stream);
+  if (p.wide) {
+    const long long M = (long long)B * N;
+    err = merge<float, false>(part_m, part_d, part_h, nullptr, nullptr, nullptr, h32, B, C, N,
+                              S, p.cpt, stream);
+    if (err == 0) err = mlp<float, false>(h32, w_hz, nullptr, hz32, M, 2 * C, C, stream);
+    if (err == 0) err = mlp<T, true>(hz32, w_out, Dp, h2, M, C, C, stream);
+  } else {
+    err = merge<T, true>(part_m, part_d, part_h, w_hz, w_out, Dp, h2, B, C, N, S, p.cpt,
+                         stream);
+  }
   if (err != 0) return err;
-  return scatter<T>(h2, Cm, y, B, C, L, N, S, tps, scm, aligned, stream);
+  return scatter<T>(h2, Cm, y, B, C, L, N, S, tps, scm, aligned, p, stream);
 }
+
+int element_size(int dtype) { return dtype == 0 ? 4 : 2; }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16, 2 = fp16, of x, dt, B, C and the outputs; A,
 // W_hz, W_out and D fp32. The compress (and scatter) pass splits the
 // ceil(L / 64) tiles of each batch element into S slices of tps tiles (S =
-// ceil(tiles / tps)); part_m, part_d (B, S, N) and part_h (B, S, N, CP) are
-// its fp32 scratch, CP = C rounded up to 8, 16, 32 or 64. aligned: every
-// tensor's base, batch stride and row of L tokens is a multiple of 16 bytes
-// (the tiles move by 16-byte cp.async; else by plain loads). The batch
+// ceil(tiles / tps)); part_m, part_d (B, S, N) and part_h (B, S, N, cpt) are
+// its fp32 scratch, cpt from kmunet_hsmssd_plan; the wide K3 also takes h32
+// (B, N, C) and hz32 (B, N, 2C) fp32 (null on the narrow path). aligned:
+// every tensor's base, batch stride and row of L tokens is a multiple of 16
+// bytes (the tiles move by 16-byte cp.async; else by plain loads). The batch
 // strides are in elements. Returns cudaGetLastError() after the first launch
-// that fails or after the last, or -1 for an argument the kernels do not take
-// (C in [1, 64], N a power of two in [4, 64]).
+// that fails or after the last, -1 for an argument the kernels do not take
+// and -2 where a pass's shared memory exceeds the device's block limit.
+
+// The layout of a call at (C, N, dtype) on the current device: cpt, the
+// channels of a part_h row, and wide (1: the wide path, which needs h32 and
+// hz32). Returns 0, or -2 if the call cannot fit (N in the thousands; no
+// model of the repo comes near), -1 for a bad argument.
+extern "C" int kmunet_hsmssd_plan(int C, int N, int dtype, int* cpt, int* wide) {
+  if (C < 1 || N < 1 || dtype < 0 || dtype > 2) return -1;
+  const Plan p = make_plan(C, N, element_size(dtype), smem_limit());
+  *cpt = p.cpt;
+  *wide = p.wide ? 1 : 0;
+  return p.ok ? 0 : -2;
+}
 
 // K2: h (B, N, C).
 extern "C" int kmunet_hsmssd_compress(const void* x, const void* dt, const void* Bm,
@@ -913,16 +1271,18 @@ extern "C" int kmunet_hsmssd_compress(const void* x, const void* dt, const void*
                                       void* h, int B, int C, int L, int N, int S, int tps,
                                       int aligned, long long dt_bstride, long long bm_bstride,
                                       int dtype, void* stream) {
-  if (!valid(B, C, L, N, S, tps)) return -1;
+  if (!valid(B, C, L, N, S, tps) || dtype < 0 || dtype > 2) return -1;
+  const Plan p = make_plan(C, N, element_size(dtype), smem_limit());
+  if (!p.ok) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return run_compress<float>(x, dt, Bm, A, part_m, part_d, part_h, h, B, C, L, N, S,
-                                       tps, aligned, dt_bstride, bm_bstride, s);
+                                       tps, aligned, dt_bstride, bm_bstride, p, s);
     case 1: return run_compress<__nv_bfloat16>(x, dt, Bm, A, part_m, part_d, part_h, h, B, C,
-                                               L, N, S, tps, aligned, dt_bstride, bm_bstride, s);
-    case 2: return run_compress<__half>(x, dt, Bm, A, part_m, part_d, part_h, h, B, C, L, N, S,
-                                        tps, aligned, dt_bstride, bm_bstride, s);
-    default: return -1;
+                                               L, N, S, tps, aligned, dt_bstride, bm_bstride, p,
+                                               s);
+    default: return run_compress<__half>(x, dt, Bm, A, part_m, part_d, part_h, h, B, C, L, N,
+                                         S, tps, aligned, dt_bstride, bm_bstride, p, s);
   }
 }
 
@@ -930,21 +1290,24 @@ extern "C" int kmunet_hsmssd_compress(const void* x, const void* dt, const void*
 extern "C" int kmunet_hsmssd_mix(const void* x, const void* dt, const void* Bm, const void* Cm,
                                  const void* A, const void* w_hz, const void* w_out,
                                  const void* Dp, void* part_m, void* part_d, void* part_h,
-                                 void* y, void* h2, int B, int C, int L, int N, int S, int tps,
-                                 int aligned, long long dt_bstride, long long bm_bstride,
-                                 long long cm_bstride, int dtype, void* stream) {
-  if (!valid(B, C, L, N, S, tps)) return -1;
+                                 void* h32, void* hz32, void* y, void* h2, int B, int C, int L,
+                                 int N, int S, int tps, int aligned, long long dt_bstride,
+                                 long long bm_bstride, long long cm_bstride, int dtype,
+                                 void* stream) {
+  if (!valid(B, C, L, N, S, tps) || dtype < 0 || dtype > 2) return -1;
+  const Plan p = make_plan(C, N, element_size(dtype), smem_limit());
+  if (!p.ok) return -2;
+  if (p.wide && (h32 == nullptr || hz32 == nullptr)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return run_mix<float>(x, dt, Bm, Cm, A, w_hz, w_out, Dp, part_m, part_d, part_h, y,
-                                  h2, B, C, L, N, S, tps, aligned, dt_bstride, bm_bstride,
-                                  cm_bstride, s);
+    case 0: return run_mix<float>(x, dt, Bm, Cm, A, w_hz, w_out, Dp, part_m, part_d, part_h,
+                                  h32, hz32, y, h2, B, C, L, N, S, tps, aligned, dt_bstride,
+                                  bm_bstride, cm_bstride, p, s);
     case 1: return run_mix<__nv_bfloat16>(x, dt, Bm, Cm, A, w_hz, w_out, Dp, part_m, part_d,
-                                          part_h, y, h2, B, C, L, N, S, tps, aligned,
-                                          dt_bstride, bm_bstride, cm_bstride, s);
-    case 2: return run_mix<__half>(x, dt, Bm, Cm, A, w_hz, w_out, Dp, part_m, part_d, part_h, y,
-                                   h2, B, C, L, N, S, tps, aligned, dt_bstride, bm_bstride,
-                                   cm_bstride, s);
-    default: return -1;
+                                          part_h, h32, hz32, y, h2, B, C, L, N, S, tps, aligned,
+                                          dt_bstride, bm_bstride, cm_bstride, p, s);
+    default: return run_mix<__half>(x, dt, Bm, Cm, A, w_hz, w_out, Dp, part_m, part_d, part_h,
+                                    h32, hz32, y, h2, B, C, L, N, S, tps, aligned, dt_bstride,
+                                    bm_bstride, cm_bstride, p, s);
   }
 }

@@ -23,7 +23,10 @@ return those of their XLA references. Nothing falls back: the launchers
 do not take, a CPU tensor included. Each counts its calls, one per mixer
 forward, on ``hsmssd_compress.launches`` and ``hsmssd_mix.launches`` (a call
 of K2 is two device launches, compress and merge, one of K3 three, with the
-scatter: see the source note).
+scatter; on the wide path, past 64 channels or states, five: compress,
+merge, the MLP's two products and the scatter; see the source note). The
+kernels take any N and C; ``plan`` raises where a pass's shared memory
+would not fit a block.
 """
 
 from __future__ import annotations
@@ -38,8 +41,13 @@ from kmunet_tpu_torch.kernels import build, sm_count
 
 SOURCE = "hsmssd.cu"
 TILE = 64  # tokens per tile of the compress and scatter passes (csrc's kT)
-MAX_C = 64
-STATE_SIZES = (4, 8, 16, 32, 64)  # N: a power of two; 16 states per warp, 4 and 8 padded
+# The kernels take any N >= 1 (16 states per warp, the last group padded)
+# and any C >= 1: up to NARROW channels and states the compress holds a
+# batch element's every state and channel in one block and the merge runs
+# the MLP; past it (the wide path: the EfficientViM classifier) the compress
+# splits its warps over 16-state groups and 64-channel chunks and the MLP
+# runs as two tiled products (see the source note).
+NARROW = 64
 # The compress pass splits each batch element's tiles into slices, one block
 # each, until B * slices reaches BLOCKS_PER_SM blocks per SM (a small batch
 # must still fill the card), but of at least MIN_TILES tiles, so that the
@@ -117,7 +125,33 @@ def compress_kernel() -> ctypes._CFuncPtr:
 
 def mix_kernel() -> ctypes._CFuncPtr:
     """K3's entry point, built on first use (from the same source)."""
-    return _kernel("kmunet_hsmssd_mix", 13, 7, 3)
+    return _kernel("kmunet_hsmssd_mix", 15, 7, 3)
+
+
+@functools.cache
+def _plan_entry() -> ctypes._CFuncPtr:
+    fn = getattr(ctypes.CDLL(str(build.build(SOURCE).path)), "kmunet_hsmssd_plan")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def plan(C: int, N: int, dtype: torch.dtype, device: torch.device) -> tuple[int, bool]:
+    """(cpt, wide) of a call at (C, N) in ``dtype`` on ``device``: the
+    channels of a compress partial's row and whether the wide path runs.
+    Raises ValueError where a pass's shared memory would exceed the
+    device's block limit: N in the thousands, which no model of the repo
+    comes near (the largest N is 64)."""
+    cpt, wide = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _plan_entry()(C, N, _DTYPE_CODES[dtype], ctypes.byref(cpt), ctypes.byref(wide))
+    if err == -2:
+        raise ValueError(f"the mixer kernels at C={C}, N={N} in {dtype} need more shared "
+                         "memory a block than the device has (the scatter stages N rows of "
+                         "C per tile): no model of the repo comes near (largest N: 64)")
+    if err != 0:
+        raise ValueError(f"the mixer kernels do not take C={C}, N={N}")
+    return cpt.value, bool(wide.value)
 
 
 def _check(x, dt, Bm, Cm=None) -> None:
@@ -137,12 +171,9 @@ def _check(x, dt, Bm, Cm=None) -> None:
         if t.stride(2) != 1 or t.stride(1) != L:
             raise ValueError(f"{name} must have contiguous rows of L tokens, strides "
                              f"{t.stride()}")
-    if N not in STATE_SIZES:
-        raise ValueError(f"the kernels take a state size N in {STATE_SIZES}, got {N}")
-    if not 1 <= C <= MAX_C:
-        raise ValueError(f"the kernels take 1 <= C <= {MAX_C}, got {C}")
-    if min(Bsz, L) < 1 or Bsz > 65535:
-        raise ValueError(f"the kernels take 1 <= B <= 65535 and L >= 1, got {tuple(x.shape)}")
+    if min(Bsz, C, L, N) < 1 or Bsz > 65535:
+        raise ValueError(f"the kernels take 1 <= B <= 65535 and C, L, N >= 1, got x "
+                         f"{tuple(x.shape)}, N={N}")
     if not x.is_cuda:
         raise ValueError(f"the CUDA mixer kernels need a CUDA tensor, got {x.device}")
 
@@ -157,22 +188,13 @@ def _slices(x) -> tuple[int, int]:
     return -(-tiles // tps), tps
 
 
-def _padded_channels(C: int) -> int:
-    """The channels of a compress partial's rows: C rounded up to 8, 16, 32
-    or 64 (csrc's CP, 8 per tensor-core column block)."""
-    cp = 8
-    while cp < C:
-        cp *= 2
-    return cp
-
-
-def _scratch(x, N, S):
+def _scratch(x, N, S, cpt):
     """The compress pass's fp32 partials per (b, slice): max and
-    denominator (B, S, N), unnormalised h (B, S, N, CP)."""
-    Bsz, C, _ = x.shape
+    denominator (B, S, N), unnormalised h (B, S, N, cpt)."""
+    Bsz = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     return (torch.empty(Bsz, S, N, **f32), torch.empty(Bsz, S, N, **f32),
-            torch.empty(Bsz, S, N, _padded_channels(C), **f32))
+            torch.empty(Bsz, S, N, cpt, **f32))
 
 
 def _aligned(*tensors) -> int:
@@ -203,8 +225,9 @@ def hsmssd_compress_forward(x, dt, Bm, A) -> torch.Tensor:
     Bsz, C, L = x.shape
     N = dt.shape[1]
     S, tps = _slices(x)
+    cpt, _ = plan(C, N, x.dtype, x.device)
     A32 = A.float().contiguous()
-    part_m, part_d, part_h = _scratch(x, N, S)
+    part_m, part_d, part_h = _scratch(x, N, S, cpt)
     h = torch.empty(Bsz, N, C, dtype=x.dtype, device=x.device)
     _launch(compress_kernel(), x, x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), A32.data_ptr(),
             part_m.data_ptr(), part_d.data_ptr(), part_h.data_ptr(), h.data_ptr(),
@@ -222,13 +245,18 @@ def hsmssd_mix_forward(x, dt, Bm, Cm, A, w_hz, w_out, D):
     Bsz, C, L = x.shape
     N = dt.shape[1]
     S, tps = _slices(x)
+    cpt, wide = plan(C, N, x.dtype, x.device)
     A32, whz32, wout32, D32 = (t.float().contiguous() for t in (A, w_hz, w_out, D))
-    part_m, part_d, part_h = _scratch(x, N, S)
+    part_m, part_d, part_h = _scratch(x, N, S, cpt)
+    # The wide path's merged h and h W_hz^T, fp32, for the MLP's products.
+    h32, hz32 = ((torch.empty(Bsz, N, k * C, dtype=torch.float32, device=x.device)
+                  for k in (1, 2)) if wide else (None, None))
     y = torch.empty_like(x)
     h2 = torch.empty(Bsz, N, C, dtype=x.dtype, device=x.device)
     _launch(mix_kernel(), x, x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             A32.data_ptr(), whz32.data_ptr(), wout32.data_ptr(), D32.data_ptr(),
-            part_m.data_ptr(), part_d.data_ptr(), part_h.data_ptr(), y.data_ptr(),
+            part_m.data_ptr(), part_d.data_ptr(), part_h.data_ptr(),
+            h32.data_ptr() if wide else None, hz32.data_ptr() if wide else None, y.data_ptr(),
             h2.data_ptr(), Bsz, C, L, N, S, tps, _aligned(x, dt, Bm, Cm, y), dt.stride(0),
             Bm.stride(0), Cm.stride(0))
     hsmssd_mix.launches += 1

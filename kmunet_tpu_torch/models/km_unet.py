@@ -1,8 +1,8 @@
 """KM_UNetV3 in its SH and LAPS variants (port of
 ``kmunet_tpu/models/km_unet.py``).
 
-Input (B, H, W, 5) NHWC, output (B, H, W, num_classes) sigmoid maps; NCHW
-inside. Ladder at 128^2: 128 -> 64 -> 32 -> 16 (IWP x3), then 16 -> 32 -> 64
+Input (B, H, W, in_frames) NHWC (5 frames by default), output (B, H, W,
+num_classes) sigmoid maps; NCHW inside. Ladder at 128^2: 128 -> 64 -> 32 -> 16 (IWP x3), then 16 -> 32 -> 64
 -> 128. SH: the DAGEM bridge, and DySample x2 upsamplings; LAPS: no bridge,
 and align-corners bilinear x2 resizes. Kept quirks of the reference: the
 EfficientViM blocks hardcode state_dim=64; the skip fusion takes [e1, e2,
@@ -15,6 +15,7 @@ the EnhancedViM blocks' stochastic depth on; the forward then takes the
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -28,7 +29,8 @@ from kmunet_tpu_torch.nn.attention import (
     TripleNorm,
 )
 from kmunet_tpu_torch.nn.dagem import DAGEM
-from kmunet_tpu_torch.nn.init import kaiming_normal_fanout_, kaiming_uniform_
+from kmunet_tpu_torch.nn.fused_vim import FusedDirectionViM, StackedBranches
+from kmunet_tpu_torch.nn.init import init_module_, kaiming_normal_fanout_
 from kmunet_tpu_torch.nn.kan import KANConv2d
 from kmunet_tpu_torch.nn.layers import DropPath, same_padding
 from kmunet_tpu_torch.nn.resample import DySample
@@ -78,16 +80,38 @@ class DirectionViM(nn.Module):
 
 class EnhancedViMBlock(nn.Module):
     """Three directional ViM branches blended by a softmax gate, then a
-    TripleNorm + 1x1 MLP residual (the 'separate' layout); both residual
-    branches go through stochastic depth of rate ``drop_path``."""
+    TripleNorm + 1x1 MLP residual; both residual branches go through
+    stochastic depth of rate ``drop_path``. ``impl`` lays the branches out
+    as the JAX block's does, the same function in each: "separate" (three
+    ``DirectionViM``s), "fused" (one ``FusedDirectionViM`` named
+    ``directions``, its convs packed as ``packing`` says) or "vmap" (the
+    projections ``height_proj``, ``width_proj``, ``channel_proj``, then one
+    EfficientViM block and one DirectionAttention per branch held as stacked
+    leaves, ``vit_mamba3`` and ``attn3``). ``ssd_mixer`` is the separate and
+    vmap layouts' HSM-SSD path (the fused layout computes its mixers
+    itself)."""
+
+    IMPLS = ("separate", "fused", "vmap")
 
     def __init__(self, channels: int, expansion: int = 4, drop_path: float = 0.1,
-                 ssd_mixer: str = "einsum"):
+                 ssd_mixer: str = "einsum", impl: str = "separate", packing: str = "grouped"):
         super().__init__()
+        if impl not in self.IMPLS:
+            raise ValueError(f"impl must be one of {self.IMPLS}, got {impl!r}")
         C = channels
-        self.height_block = DirectionViM(C, "height", ssd_mixer)
-        self.width_block = DirectionViM(C, "width", ssd_mixer)
-        self.channel_block = DirectionViM(C, "channel", ssd_mixer)
+        self.impl = impl
+        if impl == "fused":
+            self.directions = FusedDirectionViM(C, packing)
+        elif impl == "vmap":
+            for mode, ks in DirectionViM.KERNELS.items():
+                setattr(self, f"{mode}_proj", nn.Conv2d(C, C, ks, padding=same_padding(ks)))
+            self.vit_mamba3 = StackedBranches(functools.partial(
+                EfficientViMBlock, C, mlp_ratio=4, ssd_expand=1, state_dim=64, mixer=ssd_mixer))
+            self.attn3 = StackedBranches(functools.partial(DirectionAttention, C))
+        else:
+            self.height_block = DirectionViM(C, "height", ssd_mixer)
+            self.width_block = DirectionViM(C, "width", ssd_mixer)
+            self.channel_block = DirectionViM(C, "channel", ssd_mixer)
         self.Dense_0 = nn.Linear(3 * C, C // 4)
         self.Dense_1 = nn.Linear(C // 4, 3)
         self.drop_path = DropPath(drop_path)
@@ -95,10 +119,16 @@ class EnhancedViMBlock(nn.Module):
         self.Conv_0 = nn.Conv2d(C, C * expansion, 1)
         self.Conv_1 = nn.Conv2d(C * expansion, C, 1)
 
+    def _branches(self, x: torch.Tensor):
+        if self.impl == "fused":
+            return self.directions(x).unbind(1)
+        if self.impl == "vmap":
+            stacked = torch.stack([getattr(self, f"{m}_proj")(x) for m in DirectionViM.KERNELS])
+            return self.attn3(self.vit_mamba3(stacked)).unbind(0)
+        return self.height_block(x), self.width_block(x), self.channel_block(x)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.height_block(x)
-        w = self.width_block(x)
-        c = self.channel_block(x)
+        h, w, c = self._branches(x)
         gate_in = torch.cat([h, w, c], dim=1).mean(dim=(2, 3))
         g = torch.softmax(self.Dense_1(F.gelu(self.Dense_0(gate_in))), dim=-1)
         g = g[:, :, None, None, None]  # (B, 3, 1, 1, 1)
@@ -118,11 +148,14 @@ class KM_UNetV3(nn.Module):
     variant, which has no DySample, refuses False. ``kan_fused`` runs the
     four KAN convs through K1 and ``ssd_mixer`` ("einsum", "compress" or
     "fused") the 15 HSM-SSD mixers through K2 or K3 on the card: the same
-    function as the defaults, which the JAX model computes."""
+    function as the defaults, which the JAX model computes. ``in_frames``:
+    the input frames (channels of the first conv), which flax infers from
+    its input."""
 
     def __init__(self, num_classes: int = 20, embed_dims=(16, 32, 64), drop_path: float = 0.1,
                  dysample_window: bool = True, kan_fused: bool = False,
-                 ssd_mixer: str = "einsum", variant: str = "sh", head_norm: bool = True):
+                 ssd_mixer: str = "einsum", variant: str = "sh", head_norm: bool = True,
+                 in_frames: int = 5):
         super().__init__()
         if variant not in ("sh", "laps"):
             raise ValueError(f"variant must be 'sh' or 'laps', got {variant!r}")
@@ -130,7 +163,7 @@ class KM_UNetV3(nn.Module):
             raise ValueError("dysample_window=False: the LAPS variant has no DySample")
         self.variant = variant
         d0, d1, d2 = embed_dims
-        self.conv_f = nn.Conv2d(5, 16, 3, padding=1)  # 5 input frames
+        self.conv_f = nn.Conv2d(in_frames, 16, 3, padding=1)
         widths = [16, d0, d1, d2]
         for i in (1, 2, 3):
             c_in, c = widths[i - 1], widths[i]
@@ -169,7 +202,7 @@ class KM_UNetV3(nn.Module):
 
     def forward(self, frames: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """frames (B, H, W, 5) -> (B, H, W, num_classes). ``generator`` (on
+        """frames (B, H, W, in_frames) -> (B, H, W, num_classes). ``generator`` (on
         the frames' device) feeds stochastic depth in training."""
         x = self.conv_f(frames.permute(0, 3, 1, 2))
         skips = []
@@ -210,21 +243,8 @@ def KM_UNetV3_LAPS(num_classes: int = 3, embed_dims=(16, 32, 64), drop_path: flo
                      head_norm=head_norm)
 
 
-@torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded initialisation with the JAX package's distributions.
-
-    Convs and linears get PyTorch's default kaiming-uniform weight and a zero
-    bias; then every module with its own rule (``init_weights_``) applies it.
-    Norms, BN statistics and the constant parameters keep the values their
-    constructors give.
-    """
-    for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            kaiming_uniform_(m.weight, generator)
-            if m.bias is not None:
-                m.bias.zero_()
-    for m in model.modules():
-        if hasattr(m, "init_weights_"):
-            m.init_weights_(generator)
-    return model
+    """Seeded initialisation with the JAX package's distributions
+    (``nn.init.init_module_``): convs and linears PyTorch's default
+    kaiming-uniform weight and a zero bias, then every module's own rule."""
+    return init_module_(model, generator)

@@ -34,7 +34,7 @@ _BASELINES = {
 
 
 def build(model_cfg, dysample_window: bool = True, kan_fused: bool = False,
-          ssd_mixer: str = "einsum", img_size: int = 256) -> nn.Module:
+          ssd_mixer: str = "einsum", img_size: int = 256, in_frames: int = 5) -> nn.Module:
     """The model of ``model_cfg`` (``configs.ModelConfig``) for
     ``num_classes`` output frames; KM_UNetV3 in ``model_cfg.variant`` with
     ``model_cfg.extra``'s ``drop_path`` and ``head_norm``, the others with
@@ -44,7 +44,10 @@ def build(model_cfg, dysample_window: bool = True, kan_fused: bool = False,
     ``kan_fused`` and ``ssd_mixer`` its KAN convs' and HSM-SSD mixers'
     (``KM_UNetV3``); another model given either raises. ``img_size`` is
     the input's height and width, which TransUNet's position embeddings and
-    Swin-UNet's windows are sized from (flax sizes them at init)."""
+    Swin-UNet's windows are sized from (flax sizes them at init), and
+    ``in_frames`` the frames a stack model takes as input channels (flax
+    infers them from the init's dummy of ``cfg.data.in_frames`` frames; the
+    sequence models take the sequence as it comes)."""
     name, n = model_cfg.name, model_cfg.num_classes
     extra = dict(model_cfg.extra)
     if name != "km_unet_v3" and (kan_fused or ssd_mixer != "einsum"):
@@ -59,7 +62,8 @@ def build(model_cfg, dysample_window: bool = True, kan_fused: bool = False,
         return km_unet.KM_UNetV3(num_classes=n, embed_dims=tuple(model_cfg.embed_dims),
                                  drop_path=drop_path, dysample_window=dysample_window,
                                  kan_fused=kan_fused, ssd_mixer=ssd_mixer,
-                                 variant=model_cfg.variant, head_norm=head_norm)
+                                 variant=model_cfg.variant, head_norm=head_norm,
+                                 in_frames=in_frames)
     if name in SEQUENCE_MODELS:
         if extra:
             raise ValueError(f"{name} takes no model.extra, got {sorted(extra)}")
@@ -69,12 +73,12 @@ def build(model_cfg, dysample_window: bool = True, kan_fused: bool = False,
         if unknown:
             raise ValueError(f"mamba_unet takes model.extra c_list, bridge and seq_mesh, "
                              f"got {sorted(unknown)}")
-        return mamba_unet.Mamba_UNet(predicted_frames=n, **extra)
+        return mamba_unet.Mamba_UNet(predicted_frames=n, input_frames=in_frames, **extra)
     if name in _BASELINES:
         cls, out_arg, sized = _BASELINES[name]
         if sized:
             extra["img_size"] = img_size
-        return cls(**{out_arg: n}, **extra)
+        return cls(**{out_arg: n}, in_channels=in_frames, **extra)
     raise ValueError(f"unknown model {name!r}")
 
 

@@ -54,3 +54,21 @@ def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor
     fan_in, fan_out = fans(t.shape)
     bound = math.sqrt(6.0 / max(fan_in + fan_out, 1))
     return t.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def init_module_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Seeded initialisation of a module tree with the JAX package's
+    distributions: every conv and linear PyTorch's default kaiming-uniform
+    weight and a zero bias, then every module with its own rule
+    (``init_weights_``) applies it. Norms, BN statistics and the constant
+    parameters keep the values their constructors give."""
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            kaiming_uniform_(m.weight, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+    for m in model.modules():
+        if hasattr(m, "init_weights_"):
+            m.init_weights_(generator)
+    return model

@@ -97,21 +97,95 @@ class ConvBNAct(nn.Module):
     training (``batch_norm_train``).
 
     ``bn_weight_init`` is the initial BN scale (0 makes a residual branch
-    start as the identity).
+    start as the identity). ``stride`` > 1 pads as flax's ``SAME`` does
+    (``pad_same``: at an even size the one row and column after, none
+    before), not symmetrically.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size=(3, 3), groups: int = 1,
-                 bn_weight_init: float = 1.0, act: Optional[Callable] = F.relu):
+                 bn_weight_init: float = 1.0, act: Optional[Callable] = F.relu, stride: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_channels, features, kernel_size,
-                                padding=same_padding(kernel_size), groups=groups, bias=False)
+        self.stride = stride
+        self.Conv_0 = nn.Conv2d(in_channels, features, kernel_size, stride=stride,
+                                padding=same_padding(kernel_size) if stride == 1 else 0,
+                                groups=groups, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
         nn.init.constant_(self.BatchNorm_0.weight, bn_weight_init)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stride != 1:
+            x = pad_same(x, self.Conv_0.kernel_size, (self.stride, self.stride))
         x = batch_norm(self.Conv_0(x), self.BatchNorm_0)
         return self.act(x) if self.act is not None else x
+
+
+class Conv1x1(nn.Module):
+    """A plain 1x1 conv (bias optional), flax's ``Conv1x1`` wrapper."""
+
+    def __init__(self, in_channels: int, features: int, use_bias: bool = True):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_channels, features, 1, bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Conv_0(x)
+
+
+class SqueezeExcite(nn.Module):
+    """timm-style SE: the spatial mean through a 1x1 conv to
+    ``max(1, int(C * rd_ratio))`` channels, ReLU, a 1x1 conv back to C and a
+    sigmoid gate on x."""
+
+    def __init__(self, channels: int, rd_ratio: float = 0.25):
+        super().__init__()
+        rd = max(1, int(channels * rd_ratio))
+        self.Conv_0 = nn.Conv2d(channels, rd, 1)
+        self.Conv_1 = nn.Conv2d(rd, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.Conv_1(F.relu(self.Conv_0(x.mean(dim=(2, 3), keepdim=True))))
+        return x * torch.sigmoid(s)
+
+
+class Stem(nn.Module):
+    """The 16x downsampling stem: four strided 3x3 ConvBNActs to dim / 8,
+    dim / 4, dim / 2 (ReLU) and dim (none), flax's ``SAME`` padding."""
+
+    def __init__(self, in_channels: int, dim: int = 96):
+        super().__init__()
+        widths = (in_channels, dim // 8, dim // 4, dim // 2, dim)
+        for i in range(4):
+            setattr(self, f"ConvBNAct_{i}",
+                    ConvBNAct(widths[i], widths[i + 1], (3, 3), stride=2,
+                              act=F.relu if i < 3 else None))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(4):
+            x = getattr(self, f"ConvBNAct_{i}")(x)
+        return x
+
+
+class PatchMerging(nn.Module):
+    """The SE-augmented 2x downsampling merge: a depthwise 3x3 residual, a
+    1x1 expand to ``out_dim * ratio``, a strided depthwise 3x3 (flax's
+    ``SAME``), SE, a 1x1 project to ``out_dim`` and a depthwise 3x3
+    residual."""
+
+    def __init__(self, in_dim: int, out_dim: int, ratio: float = 4.0):
+        super().__init__()
+        hidden = int(out_dim * ratio)
+        self.ConvBNAct_0 = ConvBNAct(in_dim, in_dim, (3, 3), groups=in_dim, act=None)
+        self.ConvBNAct_1 = ConvBNAct(in_dim, hidden, (1, 1))
+        self.ConvBNAct_2 = ConvBNAct(hidden, hidden, (3, 3), groups=hidden, stride=2)
+        self.SqueezeExcite_0 = SqueezeExcite(hidden)
+        self.ConvBNAct_3 = ConvBNAct(hidden, out_dim, (1, 1), act=None)
+        self.ConvBNAct_4 = ConvBNAct(out_dim, out_dim, (3, 3), groups=out_dim, act=None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.ConvBNAct_0(x)
+        y = self.ConvBNAct_2(self.ConvBNAct_1(x))
+        y = self.ConvBNAct_3(self.SqueezeExcite_0(y))
+        return y + self.ConvBNAct_4(y)
 
 
 class FFN(nn.Module):

@@ -14,13 +14,17 @@
     # "smaat_unet", "sceca_net", "lptqpn", "transunet", "swin_unet" (256^2 by
     # default: img_size sizes TransUNet and Swin-UNet)
 
+    model = build_efficient_vim("m1")           # the classifier, "m1" to "m4"
+    logits = classify(model, images)            # (B, 224, 224, 3) -> (B, 1000)
+
 Pass ``device="cpu"`` to run on the CPU (the gathers then take their plain
 versions); nothing falls back to the CPU on its own. Pass
 ``dysample_window=False`` for DySample's exact path (the K4 grouped gather),
 ``kan_fused=True`` for the KAN convs through K1 and ``ssd_mixer="fused"``
 (or ``"compress"``) for the HSM-SSD mixers through K3 (or K2), on either
-variant; ``head_norm=False`` for a head without its GroupNorm.
-TrajGRU's warp is the K7 multiview gather, Mamba-UNet's scan K8.
+variant (and on the classifier: its 6 or 9 mixers); ``head_norm=False``
+for a head without its GroupNorm. TrajGRU's warp is the K7 multiview
+gather, Mamba-UNet's scan K8.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from kmunet_tpu_torch.configs import ModelConfig
-from kmunet_tpu_torch.models import zoo
+from kmunet_tpu_torch.models import efficient_vim, zoo
 from kmunet_tpu_torch.models.km_unet import KM_UNetV3_LAPS, KM_UNetV3_SH, init_weights_
 
 
@@ -94,3 +98,26 @@ def predict(model: torch.nn.Module, frames) -> torch.Tensor:
     p = next(model.parameters())
     frames = torch.as_tensor(frames).to(device=p.device, dtype=p.dtype)
     return model(frames)
+
+
+def build_efficient_vim(variant: str = "m1", device=None, dtype: torch.dtype = torch.float32,
+                        seed: int = 0, num_classes: int = 1000, ssd_mixer: str = "einsum",
+                        distillation: bool = False) -> torch.nn.Module:
+    """The EfficientViM classifier ``variant`` ("m1" to "m4") for
+    ``num_classes`` classes in eval mode, initialised from ``seed`` with
+    the JAX package's distributions, on ``device`` in ``dtype``;
+    ``ssd_mixer`` and ``distillation`` as in ``EfficientViM``."""
+    if variant not in efficient_vim.VARIANTS:
+        raise ValueError(f"variant must be one of {sorted(efficient_vim.VARIANTS)}, "
+                         f"got {variant!r}")
+    model = efficient_vim.VARIANTS[variant](num_classes=num_classes, ssd_mixer=ssd_mixer,
+                                            distillation=distillation)
+    return _ready(model, device, dtype, seed)
+
+
+@torch.inference_mode()
+def classify(model: torch.nn.Module, images) -> torch.Tensor:
+    """Logits (B, num_classes) of images (B, H, W, 3), a tensor or array,
+    moved to the model's device and dtype."""
+    p = next(model.parameters())
+    return model(torch.as_tensor(images).to(device=p.device, dtype=p.dtype))

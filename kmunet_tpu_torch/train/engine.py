@@ -161,9 +161,11 @@ def build_model(cfg: ExperimentConfig, dysample_window: bool = True, kan_fused: 
     KM_UNetV3's DySample exact path (the JAX package's ``DYSAMPLE_WINDOW``,
     which its config does not carry either); ``kan_fused`` and ``ssd_mixer``
     as in ``KM_UNetV3``. TransUNet and Swin-UNet are sized for
-    ``cfg.data.img_size``."""
+    ``cfg.data.img_size``; a stack model takes ``cfg.data.in_frames`` input
+    frames, as JAX's init on a dummy of that many frames makes it."""
     return zoo.build(cfg.model, dysample_window=dysample_window, kan_fused=kan_fused,
-                     ssd_mixer=ssd_mixer, img_size=cfg.data.img_size)
+                     ssd_mixer=ssd_mixer, img_size=cfg.data.img_size,
+                     in_frames=cfg.data.in_frames)
 
 
 def build_loss(cfg: ExperimentConfig, mesh: Optional[Mesh] = None) -> Callable:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's KM_UNetV3-SH, KM_UNetV3-LAPS, TrajGRU,
-Mamba-UNet or baseline forward, or its train step, spends its time on the
-card.
+Mamba-UNet or baseline forward, or its train step, or the EfficientViM
+classifier's forward, spends its time on the card.
 
     python3 scripts/profile_torch_forward.py [--batch 128] [--dtype bfloat16] [--exact]
     python3 scripts/profile_torch_forward.py --kan-fused --ssd-mixer fused [--train]
@@ -10,6 +10,7 @@ card.
     python3 scripts/profile_torch_forward.py --model mamba_unet [--train] [--batch 16]
     python3 scripts/profile_torch_forward.py --model laps [--kan-fused --ssd-mixer fused] [--train]
     python3 scripts/profile_torch_forward.py --model smaat_unet [--train] [--batch 16]
+    python3 scripts/profile_torch_forward.py --model efficient_vim_m4 [--ssd-mixer fused]
 
 Prints JSON lines: the card (``nvidia-smi`` name and power limit); for the
 forward, the time of each top-level module of the model, from CUDA events
@@ -35,7 +36,10 @@ by default; 20 selective scans, K8, per forward) and its ("mamba_unet",
 default) and its ``laps_km_unet()`` step (B=1 by default, seq_len 8).
 ``--model smaat_unet`` (or ``sceca_net``, ``lptqpn``, ``transunet``,
 ``swin_unet``) profiles the baseline at its "pic" recipe's 256^2, 5 -> 20
-frames, B=16 by default, and its recipe step. Needs an NVIDIA GPU.
+frames, B=16 by default, and its recipe step. ``--model efficient_vim_m1``
+(to ``_m4``) profiles the classifier's forward at 224^2, B=128 by default,
+its HSM-SSD mixers through ``--ssd-mixer`` (no train step: the JAX package
+has no classifier recipe). Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ from kmunet_tpu_torch import serve  # noqa: E402
 
 BASELINES = ("smaat_unet", "sceca_net", "lptqpn", "transunet", "swin_unet")
 BASELINE_SIZE = 256  # the "pic" recipe's shanghai_km_unet() size
+CLASSIFIERS = tuple(f"efficient_vim_m{i}" for i in range(1, 5))
+CLASSIFIER_SIZE = 224
 
 
 def emit(obj) -> None:
@@ -143,7 +149,8 @@ def train_step(batch: int, dtype: str, window: bool, model_name: str, **options)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="km_unet_v3",
-                   choices=["km_unet_v3", "laps", "trajgru", "mamba_unet", *BASELINES])
+                   choices=["km_unet_v3", "laps", "trajgru", "mamba_unet", *BASELINES,
+                            *CLASSIFIERS])
     p.add_argument("--batch", type=int, default=None,
                    help="default 16 for --train and for the zoo's models, else 128; "
                         "laps: 1 for --train, else 32")
@@ -156,9 +163,11 @@ def main() -> int:
                    help="KM_UNetV3's HSM-SSD mixers: einsums, K2 or K3")
     args = p.parse_args()
     options = dict(kan_fused=args.kan_fused, ssd_mixer=args.ssd_mixer)
-    if args.model not in ("km_unet_v3", "laps") and (args.kan_fused
-                                                     or args.ssd_mixer != "einsum"):
-        p.error("--kan-fused and --ssd-mixer are KM_UNetV3's")
+    if args.model not in ("km_unet_v3", "laps", *CLASSIFIERS) and (
+            args.kan_fused or args.ssd_mixer != "einsum"):
+        p.error("--kan-fused and --ssd-mixer are KM_UNetV3's (and --ssd-mixer the classifier's)")
+    if args.model in CLASSIFIERS and (args.train or args.kan_fused or args.exact):
+        p.error("the classifier takes --ssd-mixer, --batch, --dtype and --iters only")
     if not torch.cuda.is_available():
         print("profile_torch_forward: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -167,7 +176,7 @@ def main() -> int:
     if args.batch is None and args.model == "laps":
         args.batch = 1 if args.train else 32
     if args.batch is None:
-        args.batch = 16 if args.train or args.model != "km_unet_v3" else 128
+        args.batch = 16 if args.train or args.model not in ("km_unet_v3", *CLASSIFIERS) else 128
     if args.train:
         run = train_step(args.batch, args.dtype, not args.exact, args.model, **options)
         emit({"card": card, "model": args.model, "batch": args.batch, "dtype": args.dtype,
@@ -184,6 +193,12 @@ def main() -> int:
             model = serve.build_zoo_model(args.model, device="cuda", dtype=dtype, seed=0,
                                           img_size=BASELINE_SIZE)
             frames = torch.rand(args.batch, BASELINE_SIZE, BASELINE_SIZE, 5,
+                                device="cuda").to(dtype)
+        elif args.model in CLASSIFIERS:
+            options = dict(ssd_mixer=args.ssd_mixer)
+            model = serve.build_efficient_vim(args.model[-2:], device="cuda", dtype=dtype, seed=0,
+                                              **options)
+            frames = torch.rand(args.batch, CLASSIFIER_SIZE, CLASSIFIER_SIZE, 3,
                                 device="cuda").to(dtype)
         elif args.model == "laps":
             model = serve.build_km_unet_v3_laps(device="cuda", dtype=dtype, seed=0, **options)

@@ -19,7 +19,8 @@ kernels in bf16 with ``chip_smoke.py``'s timing function for them:
   (SH's four KAN convs at B=128, LAPS's enc1 at B=32), ``kan_timing``;
 - ``hsmssd``: ``hsmssd_compress_forward`` (K2) and ``hsmssd_mix_forward``
   (K3) at ``chip_smoke.MIXER_TIMING_SHAPES`` (SH's three mixer shapes at
-  B=128, LAPS's enc1 at B=32), ``mixer_timing`` by pass;
+  B=128, LAPS's enc1 at B=32, the classifier's six at B=128: a checkout
+  whose kernels do not take them raises), ``mixer_timing`` by pass;
 - ``ablate``: ``ablate_mix_forward`` (K3a) in its five modes at the TPU
   script's shape (B=64, C=16, L=128^2, N=64, tiles of 4096), each output
   first held to the plain version, ``ablate_timing`` by pass (tile max,

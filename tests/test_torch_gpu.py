@@ -11,7 +11,9 @@ modes against its plain version; KM_UNetV3-LAPS's forward on each path and
 a ``laps_km_unet()`` step through K1 and K3 against the CPU's; the
 world-1 NCCL mesh step bit for bit the plain step; the baseline zoo's
 forwards and "pic" steps against the CPU's, and its dropouts on a CUDA
-generator by their statistics. Marked
+generator by their statistics; the EfficientViM classifier's forward
+through each HSM-SSD path against the CPU's, with K2's and K3's launches;
+EnhancedViMBlock's layouts against the CPU's. Marked
 ``gpu``; they skip where there is no card. This file
 imports no JAX, so it runs on a machine without
 it: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -821,7 +823,10 @@ KAN_GPU_SHAPES = {
 # at 256^2 and B=1 (L=65536: the most compress slices per batch element),
 # ragged ones; the kernels' tile edges (L = T - 1, T + 1, 3T + 1 for their
 # T = 64 tokens), an L whose bf16 rows are not 16-byte aligned (200 bytes;
-# fp32 rows of 400 are), and C=64 with N=8 (states padded to 16).
+# fp32 rows of 400 are), and C=64 with N=8 (states padded to 16); the
+# EfficientViM classifier's mixers (chip_smoke's M4 and M1 stages at B=2:
+# the kernels' wide path), C=72 with N=1, and N=9 and N=6 on the narrow
+# path (odd state counts, padded to 16).
 MIXER_GPU_SHAPES = {
     "enc1": (2, 16, 1024, 64),
     "laps_enc1": (1, 16, 65536, 64),
@@ -834,6 +839,10 @@ MIXER_GPU_SHAPES = {
     "3t_plus_1": (2, 16, 3 * ssd.TILE + 1, 16),
     "unaligned_bf16_l100": (2, 16, 100, 64),
     "c64_n8": (2, 64, 300, 8),
+    **{name: shape for name, (shape, _) in chip_smoke.MIXER_SHAPES.items()
+       if name.startswith(("m4_", "m1_", "c72_"))},
+    "c24_n9": (2, 24, 16, 9),
+    "c8_n6": (1, 8, 40, 6),
 }
 
 
@@ -878,7 +887,8 @@ def test_cuda_mixer_kernels_match_plain(cuda_device, shape, dt_case, monkeypatch
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("shape", ["enc1", "laps_enc1", "c3_n4", "c64_n8"])
+@pytest.mark.parametrize("shape", ["enc1", "laps_enc1", "c3_n4", "c64_n8", "m4_stage0",
+                                   "m1_stage2"])
 def test_cuda_mixer_kernels_repeat_bitwise(cuda_device, shape, dtype):
     """K2 and K3 called twice on the same inputs give equal bits: no float
     atomics, the slices merged in order."""
@@ -944,8 +954,15 @@ def test_cuda_kanconv_and_mixer_reject_what_they_do_not_take(cuda_device):
         ssd.hsmssd_mix_forward(x.half(), dt, Bm, Cm, A, w_hz, w_out, D)
     with pytest.raises(ValueError):
         ssd.hsmssd_compress_forward(x, dt.transpose(1, 2).contiguous().transpose(1, 2), Bm, A)
-    with pytest.raises(ValueError):
-        ssd.hsmssd_compress_forward(x, dt[:, :6], Bm[:, :6], A[:6])
+    # Any N and C are taken; refused only where a pass's shared memory would
+    # not fit a block (N in the thousands, which no model reaches).
+    h = ssd.hsmssd_compress_forward(x, dt[:, :6], Bm[:, :6], A[:6])
+    assert h.shape == (1, 6, 8)
+    x, bcdt, A, w_hz, w_out, D = chip_smoke.mixer_inputs(torch, np.random.default_rng(5),
+                                                         (1, 8, 40, 2048), "seeded", cuda_device)
+    Bm, Cm, dt = bcdt.split(2048, dim=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd.hsmssd_mix_forward(x, dt, Bm, Cm, A, w_hz, w_out, D)
 
 
 @pytest.mark.parametrize("kan_fused,ssd_mixer", [(True, "fused"), (False, "compress")])
@@ -1157,3 +1174,35 @@ def test_cuda_dropouts_by_their_statistics(cuda_device, layer):
     assert torch.unique(y).tolist() == [0.0, float(torch.tensor(1.0) / 0.8)]
     g.set_state(state)
     assert torch.equal(m(x, g), y)
+
+
+@pytest.mark.parametrize("ssd_mixer", ["einsum", "compress", "fused"])
+@pytest.mark.parametrize("variant", ["m1", "m4"])
+def test_cuda_classifier_matches_cpu(cuda_device, variant, ssd_mixer, monkeypatch):
+    """The EfficientViM classifier at full width, 224^2, B=2, fp32, TF32
+    off, through ``serve``: within 1e-4 abs of the same weights on the
+    CPU; K2 or K3 once per mixer (6 for M1, 9 for M4), neither with
+    "einsum"."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    images = torch.from_numpy(np.random.default_rng(6).random((2, 224, 224, 3),
+                                                              dtype=np.float32))
+    want = serve.classify(serve.build_efficient_vim(variant, device="cpu"), images)
+    model = serve.build_efficient_vim(variant, device=cuda_device, ssd_mixer=ssd_mixer)
+    before = (ssd.hsmssd_compress.launches, ssd.hsmssd_mix.launches)
+    got = serve.classify(model, images).cpu()
+    torch.cuda.synchronize()
+    n = chip_smoke.CLASSIFIER_MIXERS[variant]
+    assert (ssd.hsmssd_compress.launches - before[0], ssd.hsmssd_mix.launches - before[1]) == (
+        n if ssd_mixer == "compress" else 0, n if ssd_mixer == "fused" else 0)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_cuda_vim_layouts_and_kan_variants_match_cpu(cuda_device, monkeypatch):
+    """chip_smoke's vim_layouts and kan_variants phases: EnhancedViMBlock's
+    four layouts and the KAN variants on the card against the CPU."""
+    monkeypatch.setattr(chip_smoke, "VIM_TIMED_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "CLASSIFIER_TIMED_ITERS", 1)
+    out = chip_smoke.vim_layouts_phase(torch, np, "card")
+    assert out["fused_from_separate_max_abs_diff"] <= 1e-5
+    chip_smoke.kan_variants_phase(torch, np, "card")

@@ -262,7 +262,9 @@ def test_launchers_refuse_what_the_kernels_do_not_take():
         ssd.hsmssd_mix_forward(x.double(), dt, Bm, Cm, A, w_hz, w_out, D)
     with pytest.raises(TypeError, match="dt must be"):
         ssd.hsmssd_mix_forward(x, dt.half(), Bm, Cm, A, w_hz, w_out, D)
-    with pytest.raises(ValueError, match="state size"):
+    # Any state size and width are taken (the Pallas kernels' domain): N=3
+    # and C=65 reach the device check, which refuses the CPU tensor.
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ssd.hsmssd_compress_forward(x, dt[:, :3], Bm[:, :3], A[:3])
     with pytest.raises(ValueError, match="rows of L"):
         ssd.hsmssd_compress_forward(x, dt.transpose(1, 2).contiguous().transpose(1, 2), Bm, A)
@@ -272,6 +274,10 @@ def test_launchers_refuse_what_the_kernels_do_not_take():
         ssd.hsmssd_mix_forward(x, dt, Bm, Cm[:, :, :5], A, w_hz, w_out, D)
     with pytest.raises(ValueError, match="contiguous"):
         ssd.hsmssd_compress_forward(x.transpose(0, 1).contiguous().transpose(0, 1), dt, Bm, A)
-    with pytest.raises(ValueError, match="C <= 64"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         wide = torch.zeros(2, 65, 64)
         ssd.hsmssd_compress_forward(wide, dt, Bm, A)
+    with pytest.raises(ValueError, match="B <= 65535"):
+        one = lambda *s: torch.zeros(*s)  # noqa: E731
+        ssd.hsmssd_compress_forward(one(65536, 1, 1), one(65536, 1, 1), one(65536, 1, 1),
+                                    one(1))

@@ -48,6 +48,8 @@ def test_package_imports_with_jax_blocked():
         "    sys.modules[name] = None  # any import of it raises ImportError\n"
         "import kmunet_tpu_torch.serve, kmunet_tpu_torch.convert, kmunet_tpu_torch.kernels.bilinear\n"
         "import kmunet_tpu_torch.kernels.ablate_mix, kmunet_tpu_torch.utils.profiler\n"
+        "import kmunet_tpu_torch.models.efficient_vim, kmunet_tpu_torch.nn.fused_vim\n"
+        "import kmunet_tpu_torch.nn.kan_variants\n"
         "import runpy\n"
         f"for path in {[str(p) for p in SCRIPTS]!r}:\n"
         "    runpy.run_path(path, run_name='imported')\n"
@@ -59,3 +61,11 @@ def test_package_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+@pytest.mark.parametrize("module", ["models/efficient_vim.py", "nn/fused_vim.py",
+                                    "nn/kan_variants.py"])
+def test_new_modules_are_checked(module):
+    """The classifier, the ViM layouts and the KAN variants are among the
+    sources the import check walks."""
+    assert REPO / "kmunet_tpu_torch" / module in SOURCES
