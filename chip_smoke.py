@@ -337,8 +337,35 @@ Phases, each printing one JSON line with its seconds:
               ``selective_scan_sharded`` at DP_SCAN_SHAPE over the N cards (K8
               and its backward once per rank) within ``scan_reference``'s
               tolerances of the plain version, its distance from unsharded
-              K8 beside. ``python3 chip_smoke.py --phase data_parallel`` runs
-              the build of K7's, K6's and K8's sources and this phase alone.
+              K8 beside. On four cards also the sharded image rows
+              (``mesh.spatial`` > 1): the fp32 step at 128^2, global B=16,
+              under each of SPATIAL_MESHES (dp1 x sp2, dp2 x sp2, dp1 x sp4)
+              against one card's by the same gates, every rank's state
+              alike; each one's bf16 step (``dp_bf16_step``: ms, peak
+              memory, launches per step a rank); and the LAPS bf16 step at
+              256^2, B=1, on LAPS_SPATIAL ranks: its peak memory a rank
+              beside one card's. ``python3 chip_smoke.py --phase
+              data_parallel`` runs the build of K7's, K6's and K8's sources
+              and this phase alone.
+5b. spatial -- the sharded rows' path on one card: a world-1 NCCL group
+              (``spatial_world1_job``) takes the fp32 SH step at 128^2, B=2,
+              on the window and the exact DySample paths through
+              ``engine.shard_rows`` (every halo, norm and gather collective
+              over a spatial group of one), held to the plain step by the
+              card-vs-CPU step gates, counting K7, K6 shared, K4 and grouped
+              K6; K7 and K6 shared at the bridge (B=16, the 16^2 source
+              whole, output rows 16, 8 and 4 of 16) and K4 and grouped K6 at
+              dec3 (B=16, the 64^2 source whole, output rows 128 and 64 of
+              128) in bf16, each forward held to its plain version first,
+              ms and queued ms beside the bounds (``spatial_shard_timing``;
+              the kernel phase holds both at B=2 with those rows too);
+              ``utils.flops_of`` on the SH forward at B=128 bf16, whose
+              ``custom_flops`` is K7's recorded 8*B*9*16*16*64; and
+              ``scripts/torch_predict.py`` on a fresh synthetic checkpoint
+              at 128^2 on the card against its ``--device=cpu`` run, fp32,
+              within PREDICT_ATOL, with its K7 launch. ``python3
+              chip_smoke.py --phase spatial`` runs the build of K7's, K6's
+              and K4's sources and this phase alone.
 6. timing  -- CUDA events after warm-up, PyTorch's default TF32 settings:
               the forward at B=128 bf16 on the window and the exact path and
               at B=8 fp32 (ms, frames/s = B*20/s); the train step at B=16 and
@@ -428,7 +455,7 @@ import subprocess
 import sys
 import time
 
-DEADLINE_S = 900
+DEADLINE_S = 1080  # the hard deadline, inside the 1200 s a smoke run may take
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -459,6 +486,7 @@ GROUPED_SHAPES = {
     "g1": (2, 7, 9, 24, 1, 8, 7),
     "g8": (2, 9, 7, 64, 8, 10, 12),
     "unstaged": (1, 16, 16, 8, 2, 160, 160),
+    "dec3_sp2": (2, 64, 64, 64, 4, 64, 128),  # a spatial rank's rows: the whole source, 64 of 128
 }
 DEC3 = (128, 64, 64, 64, 4, 128, 128)  # K4's timing shape: dec3 at B=128
 DYSAMPLES = 3  # one K4 launch per DySample forward, one grouped K6 per backward
@@ -512,6 +540,10 @@ MULTIVIEW_SHAPES = {
     "rnn1_b16": (16, 32, 32, 64, 13, 32, 32),
     "rnn2_b16": (16, 8, 8, 192, 13, 8, 8),
     "bridge_b128": (*BRIDGE, TAPS, *BRIDGE[1:3]),
+    # A spatial rank's deformable conv: the bridge's whole 16^2 source,
+    # coordinate rows 8 of 16 (sp2) and 4 of 16 (sp4).
+    "bridge_sp2": (2, 16, 16, 64, TAPS, 8, 16),
+    "bridge_sp4": (2, 16, 16, 64, TAPS, 4, 16),
 }
 RNN1 = (16, 32, 32, 64, 13, 32, 32)  # K7's timing shape: enc_rnn1 at B=16
 # K7's shapes on the model paths, bf16, timed by ``multiview_timing``:
@@ -675,6 +707,18 @@ DP_TIMED_STEPS = 3  # data_parallel: the bf16 dp step, timed after 2 warm-up ste
 DP_RESULTS_RTOL = 1e-4  # data_parallel: the dp trainer's losses and scores against one card's
 DP_SCAN_SHAPE = (2, 4096, 16, 16)  # data_parallel: (B, L, D, N) of the sharded scan
 DP_SECONDS = 300  # data_parallel: each spawn's deadline
+# Sharded image rows (mesh.spatial > 1): the fp32 SH step at 128^2, global
+# B=16, on these (data, spatial) meshes against one card's; the LAPS step
+# at 256^2 on LAPS_SPATIAL ranks, its peak memory a rank beside one card's.
+SPATIAL_MESHES = ((1, 2), (2, 2), (1, 4))
+LAPS_SPATIAL = 4
+# spatial (one card): K7 and K6 shared at the bridge, K4 and grouped K6 at
+# dec3, timed at the SH train step's batch with the rows a spatial rank
+# holds (sp = 1 the whole image): (B, H, W, C, G, Ho, Wo) by sp.
+SPATIAL_K7_SHAPES = {sp: (TRAIN_BATCH, 16, 16, 64, TAPS, 16 // sp, 16) for sp in (1, 2, 4)}
+SPATIAL_K4_SHAPES = {sp: (TRAIN_BATCH, 64, 64, 64, 4, 128 // sp, 128) for sp in (1, 2)}
+PREDICT_ATOL = 1e-4  # torch_predict.py on the card against --device=cpu, fp32
+PREDICT_SCRIPT = "scripts/torch_predict.py"
 ZOO_MODELS = ("smaat_unet", "sceca_net", "lptqpn", "transunet", "swin_unet")
 ZOO_SIZE = 256  # the "pic" recipe's data: shanghai_km_unet(), 256^2, 5 -> 20
 ZOO_TIMED_BATCH = 16  # zoo: the bf16 forward and step, timed after 2 warm-up calls
@@ -1922,10 +1966,13 @@ def trainer_phase(torch, np, card, reset_counts, read_counts, launches_per, path
 
 def _kernel_counters():
     """{name: the launch counter's owner} of the kernels on the data-parallel
-    path: K7, K6's shared-source entry, K8 and its backward."""
+    and spatial paths: K7, K6's shared-source entry, K4 and K6's grouped
+    entry (DySample's exact path), K8 and its backward."""
     from kmunet_tpu_torch.kernels import bilinear, scan
 
-    return {"bilinear_gather_multiview": bilinear.bilinear_gather_multiview,
+    return {"bilinear_gather_grouped": bilinear.bilinear_gather_grouped,
+            "bilinear_gather_grouped_backward": bilinear.bilinear_gather_grouped_backward,
+            "bilinear_gather_multiview": bilinear.bilinear_gather_multiview,
             "bilinear_gather_multiview_backward": bilinear.bilinear_gather_multiview_backward,
             "selective_scan": scan.selective_scan, "selective_scan_backward": scan.selective_scan_backward}
 
@@ -1979,23 +2026,31 @@ def spawn_ranks(torch, world, job, *args):
                 for r in range(world)]
 
 
-def mesh_step_readings(cfg, mesh, batch, generator):
+def mesh_step_readings(cfg, mesh, batch, generator, rows=False, **build_kwargs):
     """``step_readings`` through the mesh path: the engine's step on this
-    rank's rows of ``batch`` from weights made from seed 0 (the sharded
+    rank's rows of ``batch`` (and its block of image rows where the mesh's
+    spatial axis is above 1) from weights made from seed 0 (the sharded
     leaves' blocks), the gradients where the optimizer takes them and the
-    state after the step gathered whole, on the CPU."""
-    from kmunet_tpu_torch.parallel import batch_sharding
+    state after the step gathered whole, on the CPU. ``rows``: the sharded
+    rows' path at spatial = 1 too (``engine.shard_rows``); ``build_kwargs``
+    go to ``build_model``."""
+    from kmunet_tpu_torch.parallel import batch_sharding, row_sharding
     from kmunet_tpu_torch.parallel.collectives import gather
     from kmunet_tpu_torch.train import engine
 
-    model = engine.build_model(cfg)
+    model = engine.build_model(cfg, **build_kwargs)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=0, device=batch.device, mesh=mesh)
+    if rows and state.rows is None:
+        state = engine.shard_rows(model, state)
     step = engine.make_train_step(model, engine.build_loss(cfg, mesh), tx, cfg)
     seen = []
     update = tx.update
     tx.update = lambda grads, *a, **k: seen.append(list(grads)) or update(grads, *a, **k)
-    state, m = step(state, batch_sharding(mesh, batch), generator)
+    local = batch_sharding(mesh, batch)
+    if state.rows is not None:
+        local = row_sharding(mesh, local)
+    state, m = step(state, local, generator)
 
     def whole(key, t):
         dim = state.shards.get(key)
@@ -2086,23 +2141,56 @@ def dp_multi_job(rank, world, tmp):
     return out
 
 
-def dp_bf16_step(torch, batch, mesh=None):
-    """The SH recipe's bf16 step on the global ``batch`` (B=16; this rank's
-    rows under a ``mesh``), PyTorch's default TF32 settings: ms by CUDA
-    events over DP_TIMED_STEPS steps after 2 warm-up steps, the peak
+def dp_spatial_job(rank, world, specs, laps):
+    """The sharded rows' multi-card checks on ``world`` cards: for each
+    (data, spatial) of ``specs`` the fp32 SH step at B=16 as
+    ``mesh_step_readings`` and the bf16 step (``dp_bf16_step``); with
+    ``laps`` the LAPS bf16 step at 256^2, B=1, on a 1 x ``world`` mesh."""
+    import numpy as np
+    import torch
+
+    from kmunet_tpu_torch.parallel import MeshSpec, make_mesh
+
+    dev = torch.device("cuda", rank)
+    batch = torch.from_numpy(synthetic_batch(np, TRAIN_BATCH, seed=0)).to(dev)
+    out = {}
+    for d, sp in specs:
+        mesh = make_mesh(MeshSpec(d, sp, 1))
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        readings, after, _ = mesh_step_readings(sh_config(TRAIN_BATCH, "float32"), mesh, batch,
+                                                torch.Generator(device=dev).manual_seed(0))
+        torch.backends.cudnn.deterministic = False
+        out[(d, sp)] = {"readings": readings, "after": after,
+                        "bf16_step": dp_bf16_step(torch, batch, mesh)}
+    if laps:
+        laps_batch = torch.from_numpy(synthetic_batch(np, 1, seed=8, img_size=LAPS_SIZE,
+                                                      seq_len=LAPS_SEQ)).to(dev)
+        out["laps"] = dp_bf16_step(torch, laps_batch, make_mesh(MeshSpec(1, world, 1)),
+                                   laps_config(1, "bfloat16"))
+    return out
+
+
+def dp_bf16_step(torch, batch, mesh=None, cfg=None):
+    """The SH recipe's bf16 step (or ``cfg``'s) on the global ``batch`` (B=16;
+    this rank's rows under a ``mesh``, and its block of image rows where the
+    mesh's spatial axis is above 1), PyTorch's default TF32 settings: ms by
+    CUDA events over DP_TIMED_STEPS steps after 2 warm-up steps, the peak
     ``max_memory_allocated``, K7 and K6 shared launches per step, the
     losses."""
-    from kmunet_tpu_torch.parallel import batch_sharding
+    from kmunet_tpu_torch.parallel import batch_sharding, row_sharding
     from kmunet_tpu_torch.train import engine
 
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
     dev = batch.device
-    cfg = sh_config(TRAIN_BATCH, "bfloat16")
+    cfg = cfg or sh_config(TRAIN_BATCH, "bfloat16")
     model = engine.build_model(cfg)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=0, device=dev, mesh=mesh)
     step = engine.make_train_step(model, engine.build_loss(cfg, mesh), tx, cfg)
     rows = batch if mesh is None else batch_sharding(mesh, batch)
+    if state.rows is not None:
+        rows = row_sharding(mesh, rows)
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(2):
         state, _ = step(state, rows, gen)
@@ -2113,7 +2201,7 @@ def dp_bf16_step(torch, batch, mesh=None):
     losses = [step(state, rows, gen)[1]["loss"] for _ in range(DP_TIMED_STEPS)]
     end.record()
     launches = _counts(torch)
-    return {"rows": rows.shape[0], "ms": start.elapsed_time(end) / DP_TIMED_STEPS,
+    return {"rows": list(rows.shape), "ms": start.elapsed_time(end) / DP_TIMED_STEPS,
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
             "launches_per_step": {k: v / DP_TIMED_STEPS for k, v in launches.items()},
             "losses": [float(v) for v in losses]}
@@ -2216,6 +2304,200 @@ def data_parallel_phase(torch, np, card, path_launches, launches_per):
         if per_step["bilinear_gather_multiview"] != DEFORM_CONVS or \
                 per_step["bilinear_gather_multiview_backward"] != DEFORM_CONVS:
             raise AssertionError(f"data_parallel rank {r}: launches per step {per_step}")
+    if cards >= 4:
+        fields["spatial"] = spatial_multi_card(torch, np, reference, lr, one_card_bf16)
+    return fields
+
+
+def spatial_multi_card(torch, np, reference, lr, one_card_bf16):
+    """The sharded rows' checks on 2 and 4 cards (``dp_spatial_job``): each
+    mesh's fp32 step against one card's ``reference`` by the step gates,
+    every rank's state alike; the bf16 steps' ms, peak memory and launches a
+    rank beside one card's; the LAPS step's peak memory a rank beside one
+    card's."""
+    dev = torch.device("cuda", 0)
+    laps_batch = torch.from_numpy(synthetic_batch(np, 1, seed=8, img_size=LAPS_SIZE,
+                                                  seq_len=LAPS_SEQ)).to(dev)
+    laps_one_card = dp_bf16_step(torch, laps_batch, None, laps_config(1, "bfloat16"))
+    del laps_batch
+    torch.cuda.empty_cache()
+    ranks = {}
+    for world in sorted({d * sp for d, sp in SPATIAL_MESHES}):
+        specs = [m for m in SPATIAL_MESHES if m[0] * m[1] == world]
+        got = spawn_ranks(torch, world, dp_spatial_job, specs, world == LAPS_SPATIAL)
+        for spec in specs:
+            ranks[spec] = [r[spec] for r in got]
+        if world == LAPS_SPATIAL:
+            laps = [r["laps"] for r in got]
+    out = {}
+    for (d, sp), rs in ranks.items():
+        checks = [{**compare_steps(r["readings"], reference[0]),
+                   **compare_states((r["readings"], r["after"]), reference, lr, float("inf"))}
+                  for r in rs]
+        for r in rs[1:]:
+            for k, v in r["after"].items():
+                if not torch.equal(v, rs[0]["after"][k]):
+                    raise AssertionError(f"spatial dp{d} x sp{sp}: rank states differ at {k}")
+        for i, r in enumerate(rs):
+            per_step = r["bf16_step"]["launches_per_step"]
+            if per_step["bilinear_gather_multiview"] != DEFORM_CONVS or \
+                    per_step["bilinear_gather_multiview_backward"] != DEFORM_CONVS:
+                raise AssertionError(f"spatial dp{d} x sp{sp} rank {i}: launches {per_step}")
+        out[f"dp{d}_sp{sp}"] = {"fp32_step": checks,
+                                "bf16_step": [r["bf16_step"] for r in rs]}
+    out["bf16_step_one_card"] = one_card_bf16
+    out["laps_bf16_step"] = {"sp": LAPS_SPATIAL, "ranks": laps, "one_card": laps_one_card}
+    return out
+
+
+def spatial_world1_job(rank, world):
+    """World 1 through the sharded rows' path (``engine.shard_rows`` over a
+    spatial group of one NCCL rank: every halo, norm and gather collective
+    runs): the fp32 SH step at CHECK_BATCH, 128^2, drop path 0.1 from a CUDA
+    generator, on DySample's window and exact paths, held to the plain step
+    from the same weights, batch and generator state by the card-vs-CPU
+    step gates (``compare_steps``, ``compare_states``), TF32 off, under
+    ``cudnn.deterministic``; and the kernels' launches in the two sharded
+    steps."""
+    import numpy as np
+    import torch
+
+    from kmunet_tpu_torch.parallel import MeshSpec, make_mesh
+    from kmunet_tpu_torch.train import engine
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", rank)
+    cfg = sh_config(CHECK_BATCH, "float32")
+    batch = torch.from_numpy(synthetic_batch(np, CHECK_BATCH, seed=3)).to(dev)
+    mesh = make_mesh(MeshSpec(1, 1, 1))
+    lr = engine.build_optimizer(cfg, steps_per_epoch=100).lr(0)
+    out, launches = {}, dict.fromkeys(_kernel_counters(), 0)
+    for window in (True, False):
+        plain = step_readings(cfg, dev, batch, dysample_window=window,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+        _counts(torch, reset=True)
+        readings, after, _ = mesh_step_readings(
+            cfg, mesh, batch, torch.Generator(device=dev).manual_seed(0), rows=True,
+            dysample_window=window)
+        for k, v in _counts(torch).items():
+            launches[k] += v
+        out["window" if window else "exact"] = {
+            **compare_steps(readings, plain[0]),
+            **compare_states((readings, after), plain, lr, float("inf"))}
+    torch.backends.cudnn.deterministic = False
+    return {"steps": out, "launches": launches}
+
+
+def spatial_shard_timing(torch):
+    """K7 and K6's shared-source entry at the bridge, K4 and K6's grouped
+    entry at dec3, in bf16 at the SH train step's batch with the rows a
+    spatial rank holds (``SPATIAL_K7_SHAPES``, ``SPATIAL_K4_SHAPES``; sp = 1
+    the whole image): the whole source, rank 0's output rows, coordinates
+    the output grid (plus the 3x3 taps' displacements at the bridge, the
+    2x subpixel grid at dec3) plus noise. Each forward is held to its plain
+    version in fp32 first (1e-5 abs + one bf16 ulp); ms by CUDA events over
+    back-to-back calls and queued ms, beside the bound."""
+    from kmunet_tpu_torch.kernels import bilinear
+
+    def numbers(fn, bound):
+        return {"ms": cuda_ms(torch, fn, 50, 10), "queued_ms": queued_ms(torch, fn, 50)[0],
+                "bound_ms": bound[0], "bound_by": bound[1]}
+
+    out = {}
+    cases = [("bridge", sp, shape, "zeros") for sp, shape in SPATIAL_K7_SHAPES.items()]
+    cases += [("dec3", sp, shape, "border") for sp, shape in SPATIAL_K4_SHAPES.items()]
+    for where, sp, (B, H, W, C, G, Ho, Wo), mode in cases:
+        img = torch.randn(B, H, W, C, device="cuda").to(torch.bfloat16)
+        if where == "bridge":
+            tap = torch.arange(G, device="cuda")
+            ii = torch.arange(Ho, device="cuda").view(1, 1, Ho, 1) + (tap // 3 - 1).view(1, G, 1, 1)
+            jj = torch.arange(Wo, device="cuda").view(1, 1, 1, Wo) + (tap % 3 - 1).view(1, G, 1, 1)
+            noise = 1.0
+            forward, backward = (bilinear.bilinear_gather_multiview_forward,
+                                 bilinear.bilinear_gather_multiview_backward)
+            plain, n_out = bilinear.bilinear_gather_multiview_plain, G * C
+            names = ("K7", "K6 shared")
+        else:
+            ii = ((torch.arange(Ho, device="cuda") + 0.5) / 2 - 0.5).view(1, 1, Ho, 1)
+            jj = ((torch.arange(Wo, device="cuda") + 0.5) / 2 - 0.5).view(1, 1, 1, Wo)
+            noise = 0.5
+            forward, backward = (bilinear.bilinear_gather_grouped_forward,
+                                 bilinear.bilinear_gather_grouped_backward)
+            plain, n_out, names = bilinear.bilinear_gather_grouped_plain, C, ("K4", "K6 grouped")
+        y = (ii + noise * torch.randn(B, G, Ho, Wo, device="cuda")).float().contiguous()
+        x = (jj + noise * torch.randn(B, G, Ho, Wo, device="cuda")).float().contiguous()
+        g = torch.randn(B, Ho, Wo, n_out, device="cuda").to(torch.bfloat16)
+        want = plain(img.float(), x, y, mode)
+        err = check_close(f"{names[0]} {where} sp{sp} bfloat16", forward(img, x, y, mode), want,
+                          1e-5 + ulp_tolerance(torch, want, torch.bfloat16))
+        del want
+        count = B * Ho * Wo * n_out
+        key = f"{where}_sp{sp}"
+        out[key] = {"shape": [B, H, W, C, G, Ho, Wo], "max_abs_err": err,
+                    names[0]: numbers(lambda: forward(img, x, y, mode),
+                                      gather_bound(torch, img, x, count, False)),
+                    names[1]: numbers(lambda: backward(img, x, y, g, mode),
+                                      gather_bound(torch, img, x, count, True))}
+        del img, x, y, g
+    return out
+
+
+def spatial_phase(torch, np, card, path_launches, launches_per, reset_counts, read_counts):
+    """The spatial phase (the module docstring); returns its fields."""
+    import runpy
+    import tempfile
+
+    from kmunet_tpu_torch import configs, serve, utils
+    from kmunet_tpu_torch.train import engine
+    from kmunet_tpu_torch.train.checkpoint import CheckpointManager
+
+    fields = {"nvidia_smi": card}
+    world1 = spawn_ranks(torch, 1, spatial_world1_job)[0]
+    path_launches["spatial"] = {**launches_per(), **world1["launches"]}
+    expect_launches("spatial", path_launches["spatial"],
+                    launches_per(k7=2 * DEFORM_CONVS, k6s=2 * DEFORM_CONVS, k4=DYSAMPLES,
+                                 k6g=DYSAMPLES))
+    fields["world1_fp32_steps"] = world1["steps"]
+    fields["shard_timing"] = spatial_shard_timing(torch)
+
+    # The kernels' FLOPs the SH forward records: K7's, once, at the bridge.
+    model = serve.build_km_unet_v3_sh(device="cuda", dtype=torch.bfloat16, seed=0)
+    frames = torch.rand(128, 128, 128, 5, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        counted = utils.flops_of(model, frames)
+    k7 = 8.0 * BRIDGE[0] * TAPS * BRIDGE[1] * BRIDGE[2] * BRIDGE[3]
+    if counted["custom_flops"] != k7:
+        raise AssertionError(f"flops_of: custom_flops {counted['custom_flops']} != K7's {k7}")
+    fields["flops_of_sh_B128_bfloat16"] = {**counted, "k7_formula": k7}
+    del model, frames
+
+    # torch_predict.py on a fresh synthetic checkpoint: the card against --device=cpu.
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    args = ["--config=synthetic", "--data.img_size=128", "--data.synthetic_length=8",
+            "--data.batch_size=2", "--data.num_workers=1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = configs.shanghai_km_unet()
+        cfg.data.name = "synthetic"
+        configs.parse_overrides(cfg, args[1:])
+        model = engine.build_model(cfg)
+        tx = engine.build_optimizer(cfg, steps_per_epoch=1)
+        CheckpointManager(os.path.join(tmp, "ckpt")).save(
+            1, engine.init_state(cfg, model, tx, seed=0, device="cuda"), 0.0)
+        script = runpy.run_path(os.path.join(REPO, PREDICT_SCRIPT), run_name="torch_predict")
+        reset_counts()
+        card_npz = np.load(script["main"]([f"--ckpt={tmp}/ckpt", f"--out={tmp}/card", *args]))
+        path_launches["predict"] = read_counts()
+        cpu_npz = np.load(script["main"]([f"--ckpt={tmp}/ckpt", f"--out={tmp}/cpu",
+                                          "--device=cpu", *args]))
+        gap = float(np.abs(card_npz["pred"] - cpu_npz["pred"]).max())
+        if gap > PREDICT_ATOL or set(card_npz.files) != {"pred", "checkpoint_step",
+                                                         "in_frames", "model"}:
+            raise AssertionError(f"torch_predict: card vs CPU {gap}, keys {card_npz.files}")
+        fields["predict"] = {"pred_shape": list(card_npz["pred"].shape), "card_vs_cpu": gap,
+                             "atol": PREDICT_ATOL, "launches": path_launches["predict"]}
+    expect_launches("predict", path_launches["predict"], launches_per(k7=DEFORM_CONVS))
+    torch.backends.cudnn.allow_tf32 = True
     return fields
 
 
@@ -2731,6 +3013,50 @@ def data_parallel_only(torch, np) -> int:
     return 0
 
 
+def spatial_only(torch, np) -> int:
+    """``python3 chip_smoke.py --phase spatial``: the card's line, the build
+    of K7's, K6's and K4's sources (one nvcc each, together) and the spatial
+    phase alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kmunet_tpu_torch.kernels import bilinear, build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=30,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    with Phase("build") as f:
+        sources = (bilinear.SOURCE, bilinear.MULTIVIEW_SOURCE, bilinear.BACKWARD_SOURCE)
+        with ThreadPoolExecutor(len(sources)) as pool:
+            builds = list(pool.map(build.build, sources))
+        f.update(nvcc_seconds=[round(b.seconds, 3) for b in builds])
+    counters = {**_kernel_counters(), "bilinear_gather": bilinear.bilinear_gather,
+                "bilinear_gather_backward": bilinear.bilinear_gather_backward}
+
+    def reset_counts():
+        _counts(torch, reset=True)
+        for k in counters.values():
+            k.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in counters.items()}
+
+    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0):
+        return {"bilinear_gather": k5, "bilinear_gather_backward": k6,
+                "bilinear_gather_grouped": k4, "bilinear_gather_grouped_backward": k6g,
+                "bilinear_gather_multiview": k7, "bilinear_gather_multiview_backward": k6s,
+                "selective_scan": 0, "selective_scan_backward": 0}
+
+    with Phase("spatial") as f:
+        f.update(spatial_phase(torch, np, card, {}, launches_per, reset_counts, read_counts))
+    faulthandler.cancel_dump_traceback_later()
+    emit({"ok": True, "phases": ["spatial"],
+          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                     "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import numpy as np
@@ -2743,6 +3069,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["--phase", "data_parallel"]:
         return data_parallel_only(torch, np)
+    if sys.argv[1:] == ["--phase", "spatial"]:
+        return spatial_only(torch, np)
     if sys.argv[1:] == ["--phase", "zoo"]:
         return zoo_only(torch, np)
     if sys.argv[1:] in (["--phase", "classifier"], ["--phase", "vim_layouts"]):
@@ -3390,6 +3718,10 @@ def main() -> int:
 
     with Phase("data_parallel") as f:
         f.update(data_parallel_phase(torch, np, nvidia_smi, path_launches, launches_per))
+
+    with Phase("spatial") as f:
+        f.update(spatial_phase(torch, np, nvidia_smi, path_launches, launches_per, reset_counts,
+                               read_counts))
 
     def time_kernel(kernel, plain, library, bound, iters, plain_iters):
         """A kernel's numbers beside its ``bound`` ((bound_ms, bound_by,

@@ -8,3 +8,7 @@ points are ``kmunet_tpu_torch.serve`` (the forward) and
 ``kmunet_tpu_torch.train.engine`` (the train step, and the loop that
 trains, checkpoints and scores a model). Imports ``torch`` and numpy only.
 """
+
+from kmunet_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

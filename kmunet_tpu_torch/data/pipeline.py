@@ -13,7 +13,9 @@ instead of leaving them blocked on the bounded queues.
 Across cards (``mesh``) every rank draws the same order and reads and
 yields only its block of rows of each global batch of ``batch_size``, as
 JAX's ``device_put`` of the global batch places it on a one-host mesh
-(``parallel.batch_sharding``); ``len`` counts global batches. (JAX's
+(``parallel.batch_sharding``), and where the mesh shards image rows
+(``spatial`` > 1) its block of each item's rows (``parallel.row_sharding``);
+``len`` counts global batches. (JAX's
 multi-host loader, ``batch_size`` rows per process with strided indices,
 is not this: the port follows the one-host run.)
 """
@@ -28,6 +30,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from kmunet_tpu_torch.parallel.mesh import row_sharding
 from kmunet_tpu_torch.serve import resolve_device
 
 
@@ -41,6 +44,8 @@ class DataLoader:
                  mesh=None):
         axis = None if mesh is None else mesh.axis("data")
         self.rows = (0, 1) if axis is None else (axis.index, axis.size)  # (block, blocks)
+        # Where image rows are sharded: the mesh whose block of rows each item gives.
+        self.image_rows = mesh if mesh is not None and mesh.shape["spatial"] > 1 else None
         if batch_size % self.rows[1]:
             raise ValueError(f"global batch {batch_size} not divisible by data={self.rows[1]}")
         if self.rows[1] > 1 and not drop_last:
@@ -138,7 +143,10 @@ class DataLoader:
         self.epoch += 1
         buf = collections.deque()
         for batch in self._batches(self._indices(self.epoch)):
-            buf.append(torch.from_numpy(batch).to(self.device, non_blocking=True))
+            batch = torch.from_numpy(batch)
+            if self.image_rows is not None:
+                batch = row_sharding(self.image_rows, batch).contiguous()
+            buf.append(batch.to(self.device, non_blocking=True))
             if len(buf) > self.prefetch:
                 yield buf.popleft()
         while buf:

@@ -28,7 +28,9 @@ launcher counts its kernel's launches: ``bilinear_gather.launches``,
 ``bilinear_gather_backward.launches``, ``bilinear_gather_grouped.launches``,
 ``bilinear_gather_grouped_backward.launches``,
 ``bilinear_gather_multiview.launches`` and
-``bilinear_gather_multiview_backward.launches``.
+``bilinear_gather_multiview_backward.launches``. The three record their
+kernels' useful FLOPs (``utils.flops.custom_call``) where the JAX wrappers
+do, on either device.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import functools
 import torch
 
 from kmunet_tpu_torch.kernels import build, sm_count
+from kmunet_tpu_torch.utils.flops import custom_call
 
 SOURCE = "bilinear_gather.cu"
 MULTIVIEW_SOURCE = "multiview_gather.cu"
@@ -47,6 +50,9 @@ BACKWARD_SOURCE = "bilinear_gather_backward.cu"
 # keep busy (``multiview_chunk``).
 MULTIVIEW_WARPS_PER_SM = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The plain versions serve CPU tensors, and meta tensors' shapes (a FLOP count
+# without the work, ``utils.flops.lowered_flops``).
+_PLAIN_DEVICES = ("cpu", "meta")
 _MODES = ("border", "zeros")
 
 
@@ -414,7 +420,7 @@ def bilinear_gather_forward(
     takes fp32, bf16 and fp16 images with fp32 coordinates: K7's kernel with
     one view (x, y (B, Ho, Wo) are (B, 1, Ho, Wo) in memory). Its launches
     count on ``bilinear_gather.launches``."""
-    if img.device.type == "cpu":
+    if img.device.type in _PLAIN_DEVICES:
         return bilinear_gather_plain(img, x, y, padding_mode)
     _check(img, x, y, padding_mode)
     B, H, W, C = img.shape
@@ -437,7 +443,7 @@ def bilinear_gather_backward(
     fp32 coordinates, sums each d_img element in fp32 in an order fixed by
     the inputs and writes it once in ``img``'s dtype (the same bits on every
     call), and returns d_x, d_y in fp32."""
-    if img.device.type == "cpu":
+    if img.device.type in _PLAIN_DEVICES:
         return bilinear_gather_backward_plain(img, x, y, g, padding_mode)
     _check(img, x, y, padding_mode)
     _check_grad(img, x, g)
@@ -485,7 +491,9 @@ def bilinear_gather(
     K6 in the backward), which take fp32, bf16 and fp16 images and fp32
     coordinates.
     """
-    return BilinearGather.apply(img, x, y, padding_mode)
+    B, Ho, Wo = x.shape
+    with custom_call(8.0 * B * Ho * Wo * img.shape[-1]):  # bilinear_pallas.py:553-559, 573-576
+        return BilinearGather.apply(img, x, y, padding_mode)
 
 
 def bilinear_gather_grouped_forward(
@@ -495,7 +503,7 @@ def bilinear_gather_grouped_forward(
     dtype. A CPU ``img`` takes the plain version; a CUDA ``img`` launches
     K4, which takes fp32, bf16 and fp16 images with fp32 coordinates
     (B, G, Ho, Wo). Its launches count on ``bilinear_gather_grouped.launches``."""
-    if img.device.type == "cpu":
+    if img.device.type in _PLAIN_DEVICES:
         return bilinear_gather_grouped_plain(img, x, y, padding_mode)
     _check(img, x, y, padding_mode, grouped=True)
     B, H, W, C = img.shape
@@ -519,7 +527,7 @@ def bilinear_gather_grouped_backward(
     ``bilinear_gather_backward`` does (the same bits on every call), and
     returns d_x, d_y (B, G, Ho, Wo) in fp32. Its launches count on
     ``bilinear_gather_grouped_backward.launches``."""
-    if img.device.type == "cpu":
+    if img.device.type in _PLAIN_DEVICES:
         return bilinear_gather_grouped_backward_plain(img, x, y, g, padding_mode)
     _check(img, x, y, padding_mode, grouped=True)
     _check_grad(img, x, g)
@@ -569,7 +577,9 @@ def bilinear_gather_grouped(
     K6's grouped entry in the backward), which take fp32, bf16 and fp16
     images and fp32 coordinates.
     """
-    return BilinearGatherGrouped.apply(img, x, y, padding_mode)
+    B, _, Ho, Wo = x.shape
+    with custom_call(8.0 * B * Ho * Wo * img.shape[-1]):  # bilinear_pallas.py:788-791
+        return BilinearGatherGrouped.apply(img, x, y, padding_mode)
 
 
 def bilinear_gather_multiview_forward(
@@ -579,7 +589,7 @@ def bilinear_gather_multiview_forward(
     ``img``'s dtype. A CPU ``img`` takes the plain version; a CUDA ``img``
     launches K7, which takes fp32, bf16 and fp16 images with fp32 coordinates
     (B, G, Ho, Wo). Its launches count on ``bilinear_gather_multiview.launches``."""
-    if img.device.type == "cpu":
+    if img.device.type in _PLAIN_DEVICES:
         return bilinear_gather_multiview_plain(img, x, y, padding_mode)
     _check(img, x, y, padding_mode, views=True)
     B, H, W, C = img.shape
@@ -603,7 +613,7 @@ def bilinear_gather_multiview_backward(
     views as ``bilinear_gather_backward`` sums it (the same bits on every
     call), and returns d_x, d_y (B, G, Ho, Wo) in fp32. Its launches count on
     ``bilinear_gather_multiview_backward.launches``."""
-    if img.device.type == "cpu":
+    if img.device.type in _PLAIN_DEVICES:
         return bilinear_gather_multiview_backward_plain(img, x, y, g, padding_mode)
     _check(img, x, y, padding_mode, views=True)
     _check_grad(img, x, g, views=True)
@@ -653,7 +663,9 @@ def bilinear_gather_multiview(
     K6's shared-source entry in the backward), which take fp32, bf16 and
     fp16 images and fp32 coordinates.
     """
-    return BilinearGatherMultiview.apply(img, x, y, padding_mode)
+    B, G, Ho, Wo = x.shape
+    with custom_call(8.0 * B * G * Ho * Wo * img.shape[-1]):  # bilinear_pallas.py:838-841
+        return BilinearGatherMultiview.apply(img, x, y, padding_mode)
 
 
 bilinear_gather.launches = 0

@@ -19,7 +19,9 @@ fits one chunk; the backward's launcher adds two sums), and fp32 scratch per
 on a CUDA tensor, and the plain versions of both on a CPU tensor. It
 dispatches on the device of ``x`` alone; on a CUDA tensor it launches the
 kernels or raises. The launchers count their launches on
-``selective_scan.launches`` and ``selective_scan_backward.launches``.
+``selective_scan.launches`` and ``selective_scan_backward.launches``; it
+records K8's useful FLOPs (``utils.flops.custom_call``) as
+``scan_pallas.py:350-358`` does, on either device.
 
 The plain versions are a chunked sequential loop, not the JAX package's
 log-depth ``associative_scan``: they walk the recurrence one token at a
@@ -40,6 +42,7 @@ import functools
 import torch
 
 from kmunet_tpu_torch.kernels import build
+from kmunet_tpu_torch.utils.flops import custom_call
 
 SOURCE = "selective_scan.cu"
 PLAIN_CHUNK = 64  # tokens per chunk of the plain versions
@@ -243,7 +246,7 @@ def selective_scan_forward(x, dt, A, Bm, Cm, Dp) -> torch.Tensor:
     takes the plain version; a CUDA ``x`` launches K8, which takes fp32,
     bf16 and fp16 x, dt, B and C (one dtype) with A and D cast to fp32. Its
     launches count on ``selective_scan.launches``."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the plain version's shapes
         return selective_scan_plain(x, dt, A, Bm, Cm, Dp)
     A, Dp = A.float().contiguous(), Dp.float().contiguous()
     _check(x, dt, A, Bm, Cm, Dp)
@@ -264,7 +267,7 @@ def selective_scan_backward(x, dt, A, Bm, Cm, Dp, g):
     and dC, and fp32 partial sums of dA and dD per (batch, chunk), summed
     here in a fixed order: no atomics, so the gradients are the same from
     run to run. Its launches count on ``selective_scan_backward.launches``."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the plain version's shapes
         return selective_scan_backward_plain(x, dt, A, Bm, Cm, Dp, g)
     a_dtype, d_dtype = A.dtype, Dp.dtype
     A, Dp = A.float().contiguous(), Dp.float().contiguous()
@@ -317,7 +320,10 @@ def selective_scan(x, dt, A, Bm, Cm, Dp) -> torch.Tensor:
     backward), which take fp32, bf16 and fp16 x, dt, B and C of one dtype,
     and A and D of any float dtype, cast to fp32.
     """
-    return SelectiveScan.apply(*(t.contiguous() for t in (x, dt, A, Bm, Cm, Dp)))
+    B, L, D = x.shape
+    # per (b, l, d, n): decay 2, dt*B*x 2, the state update 2, C.h 2; the D*x skip 2
+    with custom_call(8.0 * B * L * D * A.shape[-1] + 2.0 * B * L * D):
+        return SelectiveScan.apply(*(t.contiguous() for t in (x, dt, A, Bm, Cm, Dp)))
 
 
 selective_scan.launches = 0

@@ -11,6 +11,12 @@ e2]; the head is GroupNorm(1) (``head_norm``, on by default) then sigmoid.
 ``model.train()`` switches every BatchNorm to flax's training semantics and
 the EnhancedViM blocks' stochastic depth on; the forward then takes the
 ``torch.Generator`` that DropPath draws from.
+
+With a spatial axis in ``row_axis`` (``train.engine.shard_rows``: the
+trainer's ``mesh.spatial`` > 1) the model takes and returns this rank's
+block of image rows, as ``parallel/halo.py`` sets out: the convs taller than a row
+read their neighbours' rows, the norms and means span the global image,
+and the gathers and resizes read whole sources.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from kmunet_tpu_torch.nn.resample import DySample
 from kmunet_tpu_torch.nn.ssd import EfficientViMBlock
 from kmunet_tpu_torch.nn.wavelet import IntelligentWaveletPooling
 from kmunet_tpu_torch.ops.sample import resize_bilinear
+from kmunet_tpu_torch.parallel.halo import (conv2d, group_norm, row_axis, sharded_rows,
+                                            spatial_mean)
 
 
 class StableHybridKANConv(nn.Module):
@@ -55,7 +63,7 @@ class StableHybridKANConv(nn.Module):
             kaiming_normal_fanout_(self.residual.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.pre_norm(x)
+        x = group_norm(self.pre_norm, x)
         identity = self.residual(x) if self.residual is not None else x
         return F.relu(identity + self.kanconv(x))
 
@@ -75,7 +83,7 @@ class DirectionViM(nn.Module):
         self.attn = DirectionAttention(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.attn(self.vit_mamba(self.proj(x)))
+        return self.attn(self.vit_mamba(conv2d(self.proj, x)))
 
 
 class EnhancedViMBlock(nn.Module):
@@ -123,13 +131,14 @@ class EnhancedViMBlock(nn.Module):
         if self.impl == "fused":
             return self.directions(x).unbind(1)
         if self.impl == "vmap":
-            stacked = torch.stack([getattr(self, f"{m}_proj")(x) for m in DirectionViM.KERNELS])
+            stacked = torch.stack([conv2d(getattr(self, f"{m}_proj"), x)
+                                   for m in DirectionViM.KERNELS])
             return self.attn3(self.vit_mamba3(stacked)).unbind(0)
         return self.height_block(x), self.width_block(x), self.channel_block(x)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, w, c = self._branches(x)
-        gate_in = torch.cat([h, w, c], dim=1).mean(dim=(2, 3))
+        gate_in = spatial_mean(torch.cat([h, w, c], dim=1))
         g = torch.softmax(self.Dense_1(F.gelu(self.Dense_0(gate_in))), dim=-1)
         g = g[:, :, None, None, None]  # (B, 3, 1, 1, 1)
         x = x + self.drop_path(g[:, 0] * h + g[:, 1] * w + g[:, 2] * c, generator)
@@ -188,23 +197,35 @@ class KM_UNetV3(nn.Module):
         self.dec3_vim = EnhancedViMBlock(d0, drop_path=drop_path, ssd_mixer=ssd_mixer)
         self.head = nn.Conv2d(d0, num_classes, 3, padding=1)
         self.output_norm = nn.GroupNorm(1, num_classes, eps=1e-5) if head_norm else None
+        self.row_axis = None
+
+    def _global_size(self, x):
+        """x's global (H, W): its rows times the spatial ranks."""
+        axis = row_axis()
+        H, W = x.shape[2:]
+        return (H if axis is None else H * axis.size), W
 
     def _up2(self, x, name):
         if self.variant == "sh":
             return getattr(self, name)(x)
-        H, W = x.shape[2:]
+        H, W = self._global_size(x)
         return resize_bilinear(x, (2 * H, 2 * W), align_corners=True)
 
     def _skip(self, d, e1, e2, fusion):
-        size = d.shape[2:]
+        size = self._global_size(d)
         feats = [resize_bilinear(e, size, align_corners=True) for e in (e1, e2, e2)]
         return torch.cat([d, fusion(feats)], dim=1)
 
     def forward(self, frames: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """frames (B, H, W, in_frames) -> (B, H, W, num_classes). ``generator`` (on
-        the frames' device) feeds stochastic depth in training."""
-        x = self.conv_f(frames.permute(0, 3, 1, 2))
+        the frames' device) feeds stochastic depth in training. With a row
+        axis, H is this rank's block of rows."""
+        with sharded_rows(self.row_axis):
+            return self._forward(frames, generator)
+
+    def _forward(self, frames, generator):
+        x = conv2d(self.conv_f, frames.permute(0, 3, 1, 2))
         skips = []
         for i in (1, 2, 3):
             x = getattr(self, f"enc{i}_kan")(x)
@@ -216,12 +237,12 @@ class KM_UNetV3(nn.Module):
         bridge = self.bridge(e3) if self.variant == "sh" else e3
         d = self.dec1_kan(self._up2(bridge, "dec1_up"))
         d = self._skip(d, e1, e2, self.attention1)
-        d = self.dec2_vim(self.dec2_conv(self._up2(d, "dec2_up")), generator)
+        d = self.dec2_vim(conv2d(self.dec2_conv, self._up2(d, "dec2_up")), generator)
         d = self._skip(d, e1, e2, self.attention2)
-        d = self.dec3_vim(self.dec3_conv(self._up2(d, "dec3_up")), generator)
-        d = self.head(d)
+        d = self.dec3_vim(conv2d(self.dec3_conv, self._up2(d, "dec3_up")), generator)
+        d = conv2d(self.head, d)
         if self.output_norm is not None:
-            d = self.output_norm(d)
+            d = group_norm(self.output_norm, d)
         return torch.sigmoid(d).permute(0, 2, 3, 1)
 
 

@@ -1,11 +1,15 @@
 """Attention and normalisation blocks of KM_UNetV3 (port of
-``kmunet_tpu/nn/attention.py``), NCHW."""
+``kmunet_tpu/nn/attention.py``), NCHW. Where the image rows are sharded
+(``parallel/halo.py``) the means and GroupNorms span the global image and
+the convs taller than a row read their neighbours' rows."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from kmunet_tpu_torch.parallel.halo import conv2d, group_norm, spatial_mean
 
 
 class ChannelAttention(nn.Module):
@@ -17,7 +21,7 @@ class ChannelAttention(nn.Module):
         self.Dense_1 = nn.Linear(channels // reduction, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.sigmoid(self.Dense_1(F.silu(self.Dense_0(x.mean(dim=(2, 3))))))
+        y = torch.sigmoid(self.Dense_1(F.silu(self.Dense_0(spatial_mean(x)))))
         return x * y[:, :, None, None]
 
 
@@ -33,7 +37,7 @@ class LocalContrastAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C = x.shape[:2]
-        avg = x.mean(dim=(2, 3)).reshape(B, C // self.reduction_ratio, self.reduction_ratio)
+        avg = spatial_mean(x).reshape(B, C // self.reduction_ratio, self.reduction_ratio)
         g = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(avg.mean(-1)))))[:, :, None, None]
         return x * (1.0 - g) + g
 
@@ -50,7 +54,7 @@ class TripleNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.norm_c(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        return (self.norm_h(x) + self.norm_w(x) + c) / 3.0
+        return (group_norm(self.norm_h, x) + group_norm(self.norm_w, x) + c) / 3.0
 
 
 class MultiScaleFusion(nn.Module):
@@ -70,10 +74,11 @@ class MultiScaleFusion(nn.Module):
 
     def forward(self, features) -> torch.Tensor:
         branches = [
-            F.silu(getattr(self, f"GroupNorm_{i}")(getattr(self, f"branch{i}")(f)))
+            F.silu(group_norm(getattr(self, f"GroupNorm_{i}"),
+                              conv2d(getattr(self, f"branch{i}"), f)))
             for i, f in enumerate(features)
         ]
-        fused = self.Conv_1(self.Conv_0(torch.cat(branches, dim=1)))
+        fused = conv2d(self.Conv_1, self.Conv_0(torch.cat(branches, dim=1)))
         return self.ChannelAttention_0(fused)
 
 
@@ -89,7 +94,7 @@ class DirectionAttention(nn.Module):
         self.conv = nn.Conv2d(channels, channels, 3, padding=1, groups=channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = torch.sigmoid(self.Dense_1(F.gelu(self.Dense_0(x.mean(dim=(2, 3))))))
+        w = torch.sigmoid(self.Dense_1(F.gelu(self.Dense_0(spatial_mean(x)))))
         q, k, v = self.qkv(x).chunk(3, dim=1)
-        attn = self.conv(torch.sigmoid(q * k) * v)
+        attn = conv2d(self.conv, torch.sigmoid(q * k) * v)
         return attn * w[:, :, None, None]

@@ -10,6 +10,10 @@ The H x W grid is a graph with 4-neighbour edges from *circular* shifts:
     out              = Conv1x1 + BN + ReLU([deform, update_vertex * update_edge])
 
 The row MLPs act on the last axis, so the module works in NHWC inside.
+Where the image rows are sharded (``parallel/halo.py``) the rolls along H
+read one row of a ring halo (the reference wraps), the offset conv reads
+its neighbours' rows, the deformable conv gathers from the whole image,
+and the row MLPs' BatchNorms take the statistics of data x spatial.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from torch import nn
 
 from kmunet_tpu_torch.nn.layers import ConvBNAct, batch_norm_train
 from kmunet_tpu_torch.nn.resample import DeformConv2d
+from kmunet_tpu_torch.parallel.halo import conv2d, halo_rows, row_axis
 
 
 class _RowMLP(nn.Module):
@@ -53,8 +58,14 @@ class DAGEM(nn.Module):
 
     def forward(self, x_nchw: torch.Tensor) -> torch.Tensor:
         x = x_nchw.permute(0, 2, 3, 1)  # (B, H, W, C)
+        axis = row_axis()
+        if axis is None:
+            up, down = x.roll(1, 1), x.roll(-1, 1)
+        else:
+            ring = halo_rows(x, axis, 1, 1, mode="wrap", dim=1)
+            up, down = ring[:, :-2], ring[:, 2:]
         edge = torch.stack(
-            [x.roll(1, 1), x.roll(-1, 1), x.roll(1, 2), x.roll(-1, 2)], dim=-1
+            [up, down, x.roll(1, 2), x.roll(-1, 2)], dim=-1
         ) * x[..., None]  # (B, H, W, C, 4)
         aggregated_edge = self.edge_aggregation(edge)[..., 0]
         update_vertex = self.vertex_update(torch.cat([x, aggregated_edge], dim=-1))
@@ -64,7 +75,7 @@ class DAGEM(nn.Module):
         update_edge = self.edge_reduce(upd)[..., 0]
         update_feature = update_vertex * update_edge
 
-        offset = self.offset_conv(x_nchw).permute(0, 2, 3, 1)
+        offset = conv2d(self.offset_conv, x_nchw).permute(0, 2, 3, 1)
         deformed = self.deform_conv(x, offset) + x
         combined = torch.cat([deformed, update_feature], dim=-1).permute(0, 3, 1, 2)
         return self.final_aggregation(combined)

@@ -20,6 +20,7 @@ from torch import nn
 from kmunet_tpu_torch.kernels.kanconv import fused_kanconv, kanconv_plain
 from kmunet_tpu_torch.nn.init import kaiming_uniform_
 from kmunet_tpu_torch.ops.spline import bspline_basis, knots, pinv
+from kmunet_tpu_torch.parallel.halo import halo_rows, row_axis
 
 
 def spline_noise_coeff(generator: torch.Generator, n_feat: int, out: int, grid_size: int,
@@ -104,7 +105,9 @@ class KANConv2d(nn.Module):
     ``spline_weight`` (F, C, n, k, k) and ``spline_scaler`` (F, C, k, k), with
     ``n = grid_size + 3`` bases per channel. ``fused=True`` computes the
     same function through ``fused_kanconv`` (K1 on the card), which takes a
-    3x3 kernel on the grid of 5 cubic intervals only.
+    3x3 kernel on the grid of 5 cubic intervals only. Where the image rows
+    are sharded (``parallel/halo.py``) the rows above and below come from
+    the neighbours, zeros past the global edges.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -136,7 +139,14 @@ class KANConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.padding
-        xp = F.pad(x, (p, p, p, p)) if p else x
+        axis = row_axis()
+        if axis is not None:
+            if self.fused:
+                raise NotImplementedError("the fused KAN conv (K1) on sharded rows is ROADMAP "
+                                          "Queue 1 item 12")
+            xp = F.pad(halo_rows(x, axis, p, p), (p, p)) if p else x
+        else:
+            xp = F.pad(x, (p, p, p, p)) if p else x
         F_, C, n_basis, k, _ = self.spline_weight.shape
         sk = (self.spline_weight * self.spline_scaler[:, :, None]).reshape(F_, C * n_basis, k, k)
         if self.fused:

@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kmunet_tpu_torch.parallel.collectives import all_reduce_sum
+from kmunet_tpu_torch.parallel.halo import conv2d
 
 
 class ChannelLayerNorm(nn.Module):
@@ -64,22 +65,33 @@ def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     statistics are the global batch's, as flax's under GSPMD: each rank's
     mean of x and of x^2 is summed over the data axis, with a collective
     whose backward sums the gradients, and divided by its size (every rank
-    holds as many rows), so every rank's running buffers move alike.
+    holds as many elements), so every rank's running buffers move alike.
+    Where the image rows are sharded too (``bn.centred``, the data x spatial
+    axis) the variance is the centred second pass's, the mean of (x -
+    mean)^2 summed over the axis after the mean: on the small SH config in
+    fp32 under sp2, E[x^2] - E[x]^2 put the step-1 gradients up to 1.5e-4
+    off float64 (1.3 % of the largest gradient of the bridge's final conv),
+    the centred pass 2.0e-7, as close as one process's E[x^2] - E[x]^2.
     """
     channel_dim %= x.dim()
     dims = [d for d in range(x.dim()) if d != channel_dim]
+    shape = [1] * x.dim()
+    shape[channel_dim] = -1
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean, mean_sq = xf.mean(dims), xf.square().mean(dims)
     axis = getattr(bn, "data_axis", None)
-    if axis is not None:
-        mean, mean_sq = (all_reduce_sum(torch.stack([mean, mean_sq]), axis) / axis.size).unbind()
-    var = (mean_sq - mean.square()).clamp_min(0.0)
+    if axis is not None and getattr(bn, "centred", False):
+        mean = all_reduce_sum(xf.mean(dims), axis) / axis.size
+        var = all_reduce_sum((xf - mean.view(shape)).square().mean(dims), axis) / axis.size
+    else:
+        mean, mean_sq = xf.mean(dims), xf.square().mean(dims)
+        if axis is not None:
+            mean, mean_sq = (all_reduce_sum(torch.stack([mean, mean_sq]), axis)
+                             / axis.size).unbind()
+        var = (mean_sq - mean.square()).clamp_min(0.0)
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean.detach().to(bn.running_mean.dtype), alpha=m)
         bn.running_var.mul_(1.0 - m).add_(var.detach().to(bn.running_var.dtype), alpha=m)
-    shape = [1] * x.dim()
-    shape[channel_dim] = -1
     y = (xf - mean.view(shape)) * (torch.rsqrt(var + bn.eps) * bn.weight).view(shape)
     return (y + bn.bias.view(shape)).to(x.dtype)
 
@@ -99,7 +111,8 @@ class ConvBNAct(nn.Module):
     ``bn_weight_init`` is the initial BN scale (0 makes a residual branch
     start as the identity). ``stride`` > 1 pads as flax's ``SAME`` does
     (``pad_same``: at an even size the one row and column after, none
-    before), not symmetrically.
+    before), not symmetrically. At stride 1 the rows are padded from the
+    neighbouring ranks where the image rows are sharded (``halo.conv2d``).
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size=(3, 3), groups: int = 1,
@@ -116,7 +129,10 @@ class ConvBNAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride != 1:
             x = pad_same(x, self.Conv_0.kernel_size, (self.stride, self.stride))
-        x = batch_norm(self.Conv_0(x), self.BatchNorm_0)
+            x = self.Conv_0(x)
+        else:
+            x = conv2d(self.Conv_0, x)
+        x = batch_norm(x, self.BatchNorm_0)
         return self.act(x) if self.act is not None else x
 
 
@@ -246,11 +262,17 @@ class Dropout(DropPath):
         return tuple(x.shape[1:])
 
 
-def set_data_axis(model: nn.Module, axis) -> nn.Module:
-    """Makes ``model``'s train-mode BatchNorms take their statistics over the
-    data axis ``axis`` (a ``parallel.mesh.Axis``; None: this rank's rows
-    alone) and its DropPaths (and Dropouts) draw the global batch's mask."""
+def set_data_axis(model: nn.Module, axis, norm_axis=None) -> nn.Module:
+    """Makes ``model``'s train-mode BatchNorms take their statistics over
+    ``norm_axis`` (default ``axis``; data x spatial where the image rows are
+    sharded, with the centred variance: ``batch_norm_train``) and its
+    DropPaths (and Dropouts) draw the global batch's mask over the data axis
+    ``axis`` (``parallel.mesh.Axis``es; None: this rank's rows alone), the
+    same mask on every spatial rank of a data index."""
     for m in model.modules():
-        if isinstance(m, (nn.modules.batchnorm._BatchNorm, DropPath)):
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.data_axis = axis if norm_axis is None else norm_axis
+            m.centred = norm_axis is not None
+        elif isinstance(m, DropPath):
             m.data_axis = axis
     return model

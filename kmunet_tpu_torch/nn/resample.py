@@ -3,7 +3,10 @@
 DySample runs the dense window formulation (``ops/sample.py``), the JAX
 package's default, or with ``window=False`` the exact path through the K4
 grouped gather; the deformable conv samples its 9 taps in one call of the
-K7 multiview gather (the taps as its views).
+K7 multiview gather (the taps as its views). Where the image rows are
+sharded (``parallel/halo.py``) each rank computes its block of output
+rows: the window path reads a halo of rows, and the gathers read the whole
+source, gathered from every rank, at coordinates in the global image.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from kmunet_tpu_torch.ops.sample import (
     bilinear_gather_multiview,
     dysample_window_upsample,
 )
+from kmunet_tpu_torch.parallel.halo import all_gather_rows, row_axis, row_range
 
 DYSAMPLE_WINDOW_RADIUS = 2
 
@@ -103,18 +107,21 @@ class DySample(nn.Module):
         sub = (torch.arange(s, dtype=x.dtype, device=x.device) - (s - 1) / 2.0) / s
         init_x = sub.view(1, 1, 1, s, 1, 1)  # varies with dj
         init_y = sub.view(1, 1, s, 1, 1, 1)  # varies with di
+        axis = row_axis()
         if self.window:
             return dysample_window_upsample(x, init_x + offx, init_y + offy,
                                             radius=DYSAMPLE_WINDOW_RADIUS)
+        row0, _ = row_range(axis, H)
         jj = torch.arange(W, dtype=x.dtype, device=x.device).view(1, 1, 1, 1, 1, W)
-        ii = torch.arange(H, dtype=x.dtype, device=x.device).view(1, 1, 1, 1, H, 1)
+        ii = torch.arange(row0, row0 + H, dtype=x.dtype, device=x.device)
+        ii = ii.view(1, 1, 1, 1, H, 1)
         px = jj + 0.5 + init_x + offx  # (B, g, di, dj, H, W)
         py = ii + 0.5 + init_y + offy
         # Output pixel (s*i+di, s*j+dj) of group g samples at (py, px) - 0.5:
         # (B, g, di, dj, H, W) -> (B, g, H, di, W, dj) -> (B, g, sH, sW).
         xs = (px - 0.5).permute(0, 1, 4, 2, 5, 3).reshape(B, g, s * H, s * W)
         ys = (py - 0.5).permute(0, 1, 4, 2, 5, 3).reshape(B, g, s * H, s * W)
-        out = bilinear_gather_grouped(x.permute(0, 2, 3, 1).contiguous(),
+        out = bilinear_gather_grouped(all_gather_rows(x, axis).permute(0, 2, 3, 1).contiguous(),
                                       xs.float().contiguous(), ys.float().contiguous(),
                                       padding_mode="border")
         return out.permute(0, 3, 1, 2).contiguous()
@@ -153,8 +160,9 @@ class DeformConv2d(nn.Module):
         k, p = self.kernel_size, self.padding
         if offset.shape[-1] != 2 * k * k:
             raise ValueError(f"offset needs {2 * k * k} channels, got {offset.shape[-1]}")
-        x = x.contiguous()
-        ii = torch.arange(H, dtype=x.dtype, device=x.device).view(1, 1, H, 1)
+        axis = row_axis()
+        row0, _ = row_range(axis, H)
+        ii = torch.arange(row0, row0 + H, dtype=x.dtype, device=x.device).view(1, 1, H, 1)
         jj = torch.arange(W, dtype=x.dtype, device=x.device).view(1, 1, 1, W)
         tap = torch.arange(k * k, device=x.device)
         dy = (tap // k - p).to(x.dtype).view(1, k * k, 1, 1)  # kh - p of tap kh * k + kw
@@ -162,7 +170,9 @@ class DeformConv2d(nn.Module):
         off = offset.permute(0, 3, 1, 2)  # (B, k*k*[dy, dx], H, W)
         sy = (ii + dy) + off[:, 0::2]  # (B, k*k, H, W)
         sx = (jj + dx) + off[:, 1::2]
-        gathered = bilinear_gather_multiview(x, sx.float().contiguous(), sy.float().contiguous(),
+        src = all_gather_rows(x, axis, dim=1).contiguous()  # the whole image
+        gathered = bilinear_gather_multiview(src, sx.float().contiguous(),
+                                             sy.float().contiguous(),
                                              padding_mode="zeros")  # (B, H, W, k*k*C), tap-major
         w = self.weight.permute(2, 3, 1, 0).reshape(k * k * C, -1)
         return gathered @ w + self.bias

@@ -9,6 +9,12 @@
 ``"einsum"`` (the default) as written here; ``"compress"`` the softmax and
 the compress through ``kernels.ssd.hsmssd_compress`` (K2 on the card);
 ``"fused"`` all of it through ``kernels.ssd.hsmssd_mix`` (K3 on the card).
+
+Where the image rows are sharded (``parallel/halo.py``) the einsum mixer
+runs on this rank's tokens: the depthwise 3x3 reads its neighbours' rows,
+the softmax's max, its denominator and the compressed states are reduced
+over the ranks, the gated MLP runs on the (then equal) states, and the
+scatter writes this rank's tokens.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from torch import nn
 from kmunet_tpu_torch.kernels.ssd import hsmssd_compress, hsmssd_mix
 from kmunet_tpu_torch.nn.init import kaiming_uniform_
 from kmunet_tpu_torch.nn.layers import ChannelLayerNorm, ConvBNAct, FFN
+from kmunet_tpu_torch.parallel.collectives import all_reduce_max_, all_reduce_sum
+from kmunet_tpu_torch.parallel.halo import halo_conv2d, row_axis
 
 
 MIXERS = ("einsum", "compress", "fused")
@@ -60,16 +68,28 @@ class HSMSSD(nn.Module):
         tokens are laid out on the square grid, as in the JAX package."""
         B, C, H, W = x.shape
         L = H * W
-        side = math.isqrt(L)
-        if side * side != L:
-            raise ValueError(f"HSMSSD assumes a square token grid, got L={L}")
+        axis = row_axis()
+        if axis is not None:
+            # This rank's rows of a square image: its tokens' grid is (H, W).
+            if H * axis.size != W:
+                raise ValueError(f"HSMSSD on sharded rows takes a square image, got "
+                                 f"{H * axis.size} x {W}")
+            if self.path != "einsum":
+                raise NotImplementedError(f"HSM-SSD's mixer={self.path!r} (K2/K3) on sharded "
+                                          "rows is ROADMAP Queue 1 item 12")
+            rows, side = H, W
+        else:
+            side = math.isqrt(L)
+            if side * side != L:
+                raise ValueError(f"HSMSSD assumes a square token grid, got L={L}")
+            rows = side
         N = self.A.shape[0]
         # The 1x1 projection and the depthwise 3x3 are linear and bias-free:
         # they compose into one 3x3 conv with the rank-1 kernel
         # k[n, c, i, j] = proj[n, c] * dw[n, i, j].
         comp = self.BCdt_proj[:, :, None, None] * self.dw_weight
-        grid = x.reshape(B, C, side, side)
-        bcdt = F.conv2d(grid, comp.to(x.dtype), padding=1).reshape(B, 3 * N, L)
+        grid = x.reshape(B, C, rows, side)
+        bcdt = halo_conv2d(grid, comp.to(x.dtype), padding=(1, 1)).reshape(B, 3 * N, L)
         Bm, Cm, dt = bcdt.split(N, dim=1)  # each (B, N, L)
         tokens = x.reshape(B, C, L)
         if self.path == "fused":
@@ -82,13 +102,21 @@ class HSMSSD(nn.Module):
             # softmax_L(dt + A) enters only the compress, which is linear in
             # it: normalise after the small (B, N, C) contraction.
             s = dt + self.A[None, :, None]
-            e = torch.exp(s - s.amax(dim=2, keepdim=True))
-            denom = e.sum(dim=2)  # (B, N)
-            h = torch.einsum("bcl,bnl->bnc", tokens, e * Bm) / denom[..., None]
+            if axis is None:
+                e = torch.exp(s - s.amax(dim=2, keepdim=True))
+                denom = e.sum(dim=2)  # (B, N)
+                h = torch.einsum("bcl,bnl->bnc", tokens, e * Bm) / denom[..., None]
+            else:
+                # The shift cancels in the quotient: the global max, no gradient.
+                e = torch.exp(s - all_reduce_max_(s.detach().amax(dim=2, keepdim=True), axis))
+                sums = all_reduce_sum(torch.cat(
+                    [torch.einsum("bcl,bnl->bnc", tokens, e * Bm), e.sum(dim=2)[..., None]], -1),
+                    axis)
+                h = sums[..., :-1] / sums[..., -1:]
         h_, z = self.hz_proj(h).chunk(2, dim=-1)
         h_ = self.out_proj(h_ * F.silu(z) + h_ * self.D)
         y = torch.einsum("bnc,bnl->bcl", h_, Cm)
-        return y.reshape(B, -1, side, side), h_
+        return y.reshape(B, -1, rows, side), h_
 
 
 class EfficientViMBlock(nn.Module):

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 
-def haar_dwt2d(x: torch.Tensor, quirk_edge_zero: bool = True):
+def haar_dwt2d(x: torch.Tensor, quirk_edge_zero: bool = True, last_rows: bool = True):
     """Haar DWT of an NCHW tensor with even H and W -> (LL, LH, HL, HH),
     each (B, C, H/2, W/2).
 
@@ -13,7 +13,10 @@ def haar_dwt2d(x: torch.Tensor, quirk_edge_zero: bool = True):
     first along H then along W: LH is low along H and high along W.
     ``quirk_edge_zero`` keeps the reference's off-by-one (its high-pass band
     matrix has an all-zero last row): LH's last column, HL's last row and
-    both for HH are zero.
+    both for HH are zero. On a block of the image's rows (sharded rows,
+    ``parallel/halo.py``) the transform is the block's own, and the row
+    quirk is the global last row's: ``last_rows`` says whether the block
+    holds it.
     """
     B, C, H, W = x.shape
     if H % 2 or W % 2:
@@ -28,7 +31,8 @@ def haar_dwt2d(x: torch.Tensor, quirk_edge_zero: bool = True):
     HH = (a - b - c + d) * 0.5
     if quirk_edge_zero:
         LH[..., -1] = 0
-        HL[..., -1, :] = 0
         HH[..., -1] = 0
-        HH[..., -1, :] = 0
+        if last_rows:
+            HL[..., -1, :] = 0
+            HH[..., -1, :] = 0
     return LL, LH, HL, HH

@@ -23,6 +23,7 @@ from kmunet_tpu_torch.kernels.bilinear import (
     bilinear_gather_multiview_plain,
     bilinear_gather_plain,
 )
+from kmunet_tpu_torch.parallel.halo import all_gather_rows, halo_rows, row_axis, row_range
 
 __all__ = [
     "bilinear_gather",
@@ -40,9 +41,22 @@ __all__ = [
 def resize_bilinear(img: torch.Tensor, size, align_corners: bool = True) -> torch.Tensor:
     """Bilinear resize of NCHW images with ``F.interpolate`` semantics, as two
     separable interpolation matrices ``R[o, i] = max(0, 1 - |coord[o] - i|)``
-    built in fp32."""
+    built in fp32.
+
+    On sharded rows (``row_axis()``, ``parallel/halo.py``) ``img`` is
+    this rank's block of rows and ``size`` the global output size: the
+    source's rows are gathered from every rank (``all_gather_rows``) and
+    this rank's block of output rows is taken from the global matrix."""
     B, C, H, W = img.shape
     Ho, Wo = size
+    rows = (0, Ho)
+    axis = row_axis()
+    if axis is not None:
+        if (H * axis.size, W) == (Ho, Wo):
+            return img
+        img = all_gather_rows(img, axis)
+        H = img.shape[2]
+        rows = row_range(axis, Ho // axis.size)
     if (H, W) == (Ho, Wo):
         return img
     kw = dict(dtype=torch.float32, device=img.device)
@@ -52,7 +66,7 @@ def resize_bilinear(img: torch.Tensor, size, align_corners: bool = True) -> torc
     else:
         ys = ((torch.arange(Ho, **kw) + 0.5) * (H / Ho) - 0.5).clamp(0, H - 1)
         xs = ((torch.arange(Wo, **kw) + 0.5) * (W / Wo) - 0.5).clamp(0, W - 1)
-    ry = (1.0 - (ys[:, None] - torch.arange(H, **kw)[None]).abs()).clamp_min(0.0)
+    ry = (1.0 - (ys[rows[0]:rows[1], None] - torch.arange(H, **kw)[None]).abs()).clamp_min(0.0)
     rx = (1.0 - (xs[:, None] - torch.arange(W, **kw)[None]).abs()).clamp_min(0.0)
     t = torch.einsum("oh,bchw->bcow", ry.to(img.dtype), img)
     return torch.einsum("pw,bcow->bcop", rx.to(img.dtype), t)
@@ -68,17 +82,30 @@ def dysample_window_upsample(x: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor
     (border padding), then the residual to (-r + 1e-3, r - 1e-3), so the two
     taps of each axis stay in the window; each tap weighs
     relu(1 - |e - d|). Returns (B, C, s*h, s*w).
+
+    On sharded rows (``row_axis()``, ``parallel/halo.py``) ``x`` and
+    the offsets are this rank's block of rows: the rows are numbered and
+    clamped in the global image, and the r rows above and below the block
+    come from the neighbours (``halo_rows``, the edge row repeated past the
+    global edges).
     """
     B, C, h, w = x.shape
     G, s = ex.shape[1], ex.shape[2]
     cg = C // G
     r = int(radius)
     eps = 1e-3
-    ii = torch.arange(h, dtype=torch.float32, device=x.device).view(1, 1, 1, 1, h, 1)
+    axis = row_axis()
+    row0, _ = row_range(axis, h)
+    H = h if axis is None else h * axis.size
+    ii = torch.arange(row0, row0 + h, dtype=torch.float32, device=x.device)
+    ii = ii.view(1, 1, 1, 1, h, 1)
     jj = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, 1, 1, 1, w)
-    ey = ((ii + ey.float()).clamp(0, h - 1) - ii).clamp(-r + eps, r - eps)
+    ey = ((ii + ey.float()).clamp(0, H - 1) - ii).clamp(-r + eps, r - eps)
     ex = ((jj + ex.float()).clamp(0, w - 1) - jj).clamp(-r + eps, r - eps)
-    xp = F.pad(x, (r, r, r, r), mode="replicate")
+    if axis is None:
+        xp = F.pad(x, (r, r, r, r), mode="replicate")
+    else:
+        xp = F.pad(halo_rows(x, axis, r, r, mode="replicate"), (r, r, 0, 0), mode="replicate")
     subs = []
     for di in range(s):
         for dj in range(s):

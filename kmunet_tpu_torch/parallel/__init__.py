@@ -10,6 +10,7 @@ from kmunet_tpu_torch.parallel.mesh import (
     make_mesh,
     param_sharding_rules,
     replicated,
+    row_sharding,
     shard_params,
 )
 
@@ -20,6 +21,7 @@ __all__ = [
     "make_mesh",
     "batch_sharding",
     "replicated",
+    "row_sharding",
     "shard_params",
     "param_sharding_rules",
     "init_distributed",

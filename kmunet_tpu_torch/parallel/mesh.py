@@ -8,9 +8,13 @@ holds what JAX's sharded arrays put on its device. The mesh has JAX's axes,
 
     data    -- the global batch is cut into contiguous blocks of rows, one
                per data index (``batch_sharding``);
-    spatial -- image rows (H); only the sequence-parallel scan
-               (``ops/scan.py::selective_scan_sharded``) uses it, and the
-               trainer refuses it (ROADMAP Queue 1 item 9b);
+    spatial -- image rows (H): each spatial index holds a contiguous block
+               of every image's rows (``row_sharding``, JAX's
+               ``spatial_sharding``); KM_UNetV3 trains on it
+               (``parallel/halo.py``) and the sequence-parallel scan
+               (``ops/scan.py::selective_scan_sharded``) runs over it; the
+               trainer refuses it for the other models, for K1-K3 and for
+               rows that do not divide evenly (ROADMAP Queue 1 item 12);
     model   -- with ``fsdp``, the larger parameters are sharded on it
                (``param_sharding_rules``); the ranks of one data index see
                the same rows;
@@ -18,8 +22,9 @@ holds what JAX's sharded arrays put on its device. The mesh has JAX's axes,
 with the ranks laid out as JAX lays out its devices: ``ranks`` is
 ``arange(world).reshape(data, spatial, model)``. Each axis of the mesh
 (and the data x model "replica" axis, over which the trainer averages its
-gradients) has a process group, made by every rank in the same order when
-the mesh is made. Without ``RANK`` / ``WORLD_SIZE`` in the environment
+gradients, and the data x spatial axis, over which BatchNorm takes its
+statistics when the rows are sharded) has a process group, made by every
+rank in the same order when the mesh is made. Without ``RANK`` / ``WORLD_SIZE`` in the environment
 and no process group, the run is one process of one device: the mesh is
 1 x 1 x 1 and has no groups.
 
@@ -44,6 +49,7 @@ from kmunet_tpu_torch.convert import flax_permutation
 
 AXES = ("data", "spatial", "model")
 REPLICA = ("data", "model")  # the ranks that hold one spatial index: the gradients' average
+IMAGE = ("data", "spatial")  # the ranks that hold one model index: whole images of the global batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +156,7 @@ def make_mesh(spec: MeshSpec | None = None, world: Optional[int] = None,
         return Mesh(ranks, 0, {})
     rank = dist.get_rank()
     groups = {}
-    for names in [(a,) for a in AXES] + [REPLICA]:
+    for names in [(a,) for a in AXES] + [REPLICA, IMAGE]:
         groups[names] = _axis_groups(ranks, names, rank)
     return Mesh(ranks, rank, groups)
 
@@ -164,6 +170,18 @@ def batch_sharding(mesh: Mesh, batch: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"global batch {batch.shape[0]} not divisible by data={ax.size}")
     rows = batch.shape[0] // ax.size
     return batch[ax.index * rows:(ax.index + 1) * rows]
+
+
+def row_sharding(mesh: Mesh, batch: torch.Tensor, dim: int = 2) -> torch.Tensor:
+    """This rank's block of image rows (along ``dim``; 2 for a (B, T, H, W)
+    batch) of ``batch``: the rows cut into ``spatial`` contiguous blocks,
+    block i on spatial index i (JAX's ``spatial_sharding``). Raises if they
+    do not divide."""
+    ax = mesh.axis("spatial")
+    if batch.shape[dim] % ax.size:
+        raise ValueError(f"{batch.shape[dim]} rows not divisible by spatial={ax.size}")
+    rows = batch.shape[dim] // ax.size
+    return batch.narrow(dim, ax.index * rows, rows)
 
 
 def replicated(mesh: Mesh) -> None:

@@ -69,14 +69,17 @@ with the loader's epoch count, the generator's state and the plateau
 controller's as they were (JAX counts its epochs from 0 again); and the
 device-cache epoch draws its permutation from a ``torch.Generator``, not a
 JAX PRNG. What the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP Queue 1 item: H-sharded activations (``mesh.spatial`` >
-1, item 9b).
+naming its ROADMAP Queue 1 item: image rows sharded (``mesh.spatial`` > 1)
+for another model than KM_UNetV3, or through K1-K3 (item 12).
 
 Across cards: one process per card (``torchrun --nproc_per_node=N -m
 kmunet_tpu_torch.train.engine ...``), over the mesh of ``cfg.mesh``
 (``build_mesh``): data parallelism with BatchNorm and DropPath over the
-global batch, and with ``mesh.fsdp`` the larger parameters sharded over
-'model' (``init_state(..., mesh=)``, ``make_train_step``).
+global batch, with ``mesh.fsdp`` the larger parameters sharded over
+'model' (``init_state(..., mesh=)``, ``make_train_step``), and with
+``mesh.spatial`` > 1 KM_UNetV3's image rows sharded over 'spatial'
+(``shard_rows``, ``parallel/halo.py``): each rank runs the model on its
+block of rows, and the loss and the scores take the whole frames.
 """
 
 from __future__ import annotations
@@ -106,10 +109,11 @@ from kmunet_tpu_torch.models import zoo
 from kmunet_tpu_torch.nn.kan import kan_regularization_loss
 from kmunet_tpu_torch.nn.layers import set_data_axis
 from kmunet_tpu_torch.parallel import (Mesh, MeshSpec, batch_sharding, init_distributed,
-                                       make_mesh, param_sharding_rules, shard_params)
+                                       make_mesh, param_sharding_rules, row_sharding,
+                                       shard_params)
 from kmunet_tpu_torch.parallel.collectives import (all_reduce_, all_reduce_many_, gather,
-                                                   reduce_scatter_mean)
-from kmunet_tpu_torch.parallel.mesh import REPLICA
+                                                   gather_chunks, reduce_scatter_mean)
+from kmunet_tpu_torch.parallel.mesh import IMAGE, REPLICA
 from kmunet_tpu_torch.serve import resolve_device
 from kmunet_tpu_torch.train.checkpoint import CheckpointManager
 from kmunet_tpu_torch.train.optimizers import (AdamW, Chain, Optimizer, PlateauScheduler,
@@ -129,7 +133,9 @@ class TrainState:
     ``mesh`` is the run's ``parallel.Mesh`` (None: one process). ``shards``
     maps each parameter sharded over the mesh's 'model' axis (``fsdp``) to
     the dim it is cut on: ``params`` (and the model, and the optimizer's
-    slots) hold only this rank's block of it."""
+    slots) hold only this rank's block of it. ``rows`` is the spatial axis
+    when the model runs on this rank's block of image rows (``shard_rows``),
+    else None."""
 
     step: int
     params: dict[str, torch.Tensor]
@@ -137,6 +143,7 @@ class TrainState:
     opt_state: Any  # the optimizer's: optimizers.OptState, or ChainState
     shards: dict[str, int] = dataclasses.field(default_factory=dict)
     mesh: Optional[Mesh] = None
+    rows: Any = None
 
     @property
     def distributed(self) -> bool:
@@ -253,9 +260,12 @@ def place_state(cfg: ExperimentConfig, model: nn.Module, tx, state: TrainState,
     global batch (``nn.layers.set_data_axis``), and with ``cfg.mesh.fsdp``
     the leaves that ``param_sharding_rules`` picks are cut over the 'model'
     axis: the model's parameter becomes this rank's block, and the
-    optimizer's slots are made anew for the blocks."""
+    optimizer's slots are made anew for the blocks. With ``spatial`` > 1 the
+    model runs on this rank's image rows (``shard_rows``)."""
     if mesh.axis(REPLICA).group is None:  # one process: nothing to place
         return dataclasses.replace(state, mesh=mesh)
+    if mesh.shape["spatial"] > 1:
+        return shard_rows(model, dataclasses.replace(state, mesh=mesh))
     set_data_axis(model, mesh.axis("data"))
     shards = {}
     if cfg.mesh.fsdp:
@@ -269,6 +279,25 @@ def place_state(cfg: ExperimentConfig, model: nn.Module, tx, state: TrainState,
     opt_state = tx.init(list(params.values())) if shards else state.opt_state
     return dataclasses.replace(state, params=params, opt_state=opt_state, shards=shards,
                                mesh=mesh)
+
+
+def shard_rows(model: nn.Module, state: TrainState) -> TrainState:
+    """``state`` (of ``model``, KM_UNetV3, on ``state.mesh``) with the model
+    run on this rank's block of image rows over the mesh's spatial axis
+    (``parallel/halo.py``): the parameters stay whole on every rank, the
+    BatchNorms take their statistics over data x spatial, DropPath draws
+    the global batch's mask over 'data' (the same on the spatial ranks of a
+    data index), the step gathers the output rows for the loss and sums the
+    ranks' parameter gradients over 'spatial' (``_reduce_gradients``).
+    ``place_state`` calls it where ``spatial`` > 1; at ``spatial`` = 1 it
+    runs the same path over a spatial group of one rank."""
+    mesh = state.mesh
+    if state.shards:
+        raise ValueError("sharded image rows take replicated parameters (no fsdp)")
+    rows = mesh.axis("spatial")
+    set_data_axis(model, mesh.axis("data"), mesh.axis(IMAGE))
+    model.row_axis = rows
+    return dataclasses.replace(state, rows=rows)
 
 
 def _model_layout(cfg: ExperimentConfig) -> str:
@@ -350,6 +379,10 @@ def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
 
     def loss_of(params: dict, batch: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        # On sharded rows (``shard_rows``) ``batch`` is this rank's rows, and
+        # the loss is the whole frames': every spatial rank computes it alike
+        # from the gathered rows, whose gradient each takes its rows of.
+        rows = getattr(model, "row_axis", None)
         inp, tgt = _split_batch(batch, in_f, out_f, layout)
         params_c = {k: p.to(cdtype) if p.is_floating_point() else p for k, p in params.items()}
         # Stochastic depth and dropout take the generator; the other
@@ -360,9 +393,19 @@ def make_loss_of(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
                                  generator if takes_generator else None, kwargs)
         else:
             out = torch.func.functional_call(model, params_c, (inp.to(cdtype),), kwargs)
-        loss = loss_fn(_to_btHW(out.float(), layout), tgt)
+        pred = _to_btHW(out.float(), layout)
+        if rows is not None:
+            pred, tgt = gather_chunks(pred, rows, dim=2), gather(tgt, rows, dim=2)
+        loss = loss_fn(pred, tgt)
         if kan_reg_weight:
-            loss = loss + kan_reg_weight * kan_regularization_loss(params)
+            reg = kan_regularization_loss(params)
+            if rows is not None and rows.size > 1:
+                # Every spatial rank holds the whole parameters, and the step
+                # sums their gradients over 'spatial': the term keeps its
+                # value and gives each rank 1/spatial of its gradient.
+                share = reg / rows.size
+                reg = share + (reg - share).detach()
+            loss = loss + kan_reg_weight * reg
         return loss
 
     return loss_of
@@ -374,8 +417,15 @@ def _reduce_gradients(state: TrainState, grads: list[torch.Tensor]):
     ranks (one flat collective; the model ranks of one data index hold the
     same values, and the average keeps every rank's bits equal); a sharded
     leaf's are reduce-scattered over 'model' to this rank's block, then
-    averaged over 'data'. The norm adds the blocks' squares over 'model'."""
+    averaged over 'data'. The norm adds the blocks' squares over 'model'.
+    On sharded rows (``state.rows``) each rank's gradient is its rows' part
+    of its data index's: summed over 'spatial', averaged over 'data' (one
+    collective over data x spatial, then the division)."""
     mesh, names = state.mesh, list(state.params)
+    if state.rows is not None:
+        all_reduce_many_(grads, mesh.axis(IMAGE))
+        torch._foreach_div_(grads, mesh.shape["data"])
+        return grads, torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     replicated = [g for k, g in zip(names, grads) if k not in state.shards]
     all_reduce_many_(replicated, mesh.axis(REPLICA), mean=True)
     if not state.shards:
@@ -439,7 +489,9 @@ def make_eval_step(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
     fp32 parameters (the sharded ones gathered), as JAX evaluates, with no
     gradient; pred and target (B, out_frames, H, W) fp32 on the model's
     device. In a data-parallel run ``batch`` and the outputs are this
-    rank's rows, and the loss is this rank's share (``build_loss``)."""
+    rank's rows, and the loss is this rank's share (``build_loss``). On
+    sharded image rows (``shard_rows``) ``batch`` is this rank's block of
+    rows, and the prediction and target are the whole frames, gathered."""
     in_f, out_f = cfg.data.in_frames, cfg.data.out_frames
     layout = _model_layout(cfg)
 
@@ -458,6 +510,8 @@ def make_eval_step(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig):
         finally:
             model.train(training)
         pred = _to_btHW(out.float(), layout)
+        if state.rows is not None:
+            pred, tgt = gather(pred, state.rows, dim=2), gather(tgt, state.rows, dim=2)
         return loss_fn(pred, tgt), pred, tgt
 
     return eval_step
@@ -472,7 +526,8 @@ def make_epoch_runner(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentCo
     host sync; the mean loss is a 0-d tensor on the device. (JAX's runner
     draws its permutation from a JAX PRNG: the same distribution, another
     stream.) In a data-parallel run every rank holds the corpus and draws
-    the same permutation, and gathers its rows of each global batch."""
+    the same permutation, and gathers its rows of each global batch (and
+    its block of image rows, ``row_sharding``, where they are sharded)."""
     step = make_train_step(model, loss_fn, tx, cfg)
     B = cfg.data.batch_size
 
@@ -482,7 +537,10 @@ def make_epoch_runner(model: nn.Module, loss_fn: Callable, tx, cfg: ExperimentCo
         for ib in perm[:n_batches * B].view(n_batches, B):
             if state.mesh is not None:
                 ib = batch_sharding(state.mesh, ib)
-            state, m = step(state, data.index_select(0, ib), generator)
+            batch = data.index_select(0, ib)
+            if state.rows is not None:
+                batch = row_sharding(state.mesh, batch)
+            state, m = step(state, batch, generator)
             losses.append(m["loss"])
         return state, torch.stack(losses).mean()
 
@@ -498,8 +556,12 @@ def make_val_epoch(model: nn.Module, loss_fn: Callable, cfg: ExperimentConfig, n
     B = cfg.data.batch_size
 
     def run_val(state: TrainState, data: torch.Tensor) -> torch.Tensor:
-        rows = (lambda b: b) if state.mesh is None else functools.partial(batch_sharding,
-                                                                         state.mesh)
+        def rows(b):
+            if state.mesh is None:
+                return b
+            b = batch_sharding(state.mesh, b)
+            return b if state.rows is None else row_sharding(state.mesh, b)
+
         return _data_mean(state.mesh, torch.stack(
             [eval_step(state, rows(data[i * B:(i + 1) * B]))[0] for i in range(n_batches)]).mean())
 
@@ -538,18 +600,25 @@ def build_mesh(cfg: ExperimentConfig, device=None) -> tuple[Mesh, torch.device]:
     process group (``parallel.init_distributed``: NCCL on the card under
     ``torchrun``, gloo for ``device="cpu"``, none for one process) and makes
     the mesh over its ranks, which raises ``ValueError`` as JAX's
-    ``MeshSpec.resolve`` does where the world cannot fill it. H-sharded
-    activations (``spatial`` > 1) raise ``NotImplementedError``."""
-    m = cfg.mesh
-    if m.spatial not in (-1, 1):
-        raise NotImplementedError(f"mesh {m}: KM_UNetV3's activations sharded on H (the halo "
-                                  "exchanges, the gathers across row boundaries and the "
-                                  "reductions over L) are ROADMAP Queue 1 item 9b")
+    ``MeshSpec.resolve`` does where the world cannot fill it.
+
+    Sharded image rows (``spatial`` > 1) train KM_UNetV3, SH or LAPS: an
+    ``img_size`` not divisible by 8 x ``spatial`` (every DWT input must keep
+    an even count of rows a rank) raises ``ValueError``, another model
+    ``NotImplementedError`` (ROADMAP Queue 1 item 12). The fused KAN conv
+    (K1) and the K2/K3 mixers refuse sharded rows in their own forward."""
     device = init_distributed(device)
+    m = cfg.mesh
     mesh = make_mesh(MeshSpec(m.data, m.spatial, m.model))
-    if mesh.shape["spatial"] > 1:
-        raise NotImplementedError(f"mesh {mesh.shape}: H-sharded activations are ROADMAP "
-                                  "Queue 1 item 9b")
+    spatial = mesh.shape["spatial"]
+    if spatial > 1:
+        if cfg.model.name != "km_unet_v3":
+            raise NotImplementedError(f"mesh {mesh.shape}: {cfg.model.name} on sharded image "
+                                      "rows is ROADMAP Queue 1 item 12 (KM_UNetV3 only)")
+        if cfg.data.img_size % (8 * spatial):
+            raise ValueError(f"img_size {cfg.data.img_size} is not divisible by 8 x "
+                             f"spatial={spatial}: every DWT input needs an even count of rows "
+                             "a rank (uneven rows are ROADMAP Queue 1 item 12)")
     return mesh, device
 
 
@@ -567,6 +636,8 @@ def _lead(mesh: Optional[Mesh]) -> bool:
 
 
 def _loader(cfg: ExperimentConfig, dataset, shuffle: bool, device, mesh=None) -> DataLoader:
+    """The loader of ``dataset``: under a mesh, this rank's rows of each
+    global batch, and its block of image rows where ``spatial`` > 1."""
     return DataLoader(dataset, cfg.data.batch_size, shuffle=shuffle, seed=cfg.train.seed,
                       num_workers=cfg.data.num_workers, device=device, mesh=mesh)
 
@@ -779,7 +850,8 @@ def evaluate_model(cfg: ExperimentConfig, state: TrainState, eval_step, test_loa
     scores in the one process's order (``Evaluator(data_axis=...)``), the
     scatter metrics and the strips gather the rows, and the test loss is the
     ranks' mean: every rank returns the one process's results, and rank 0
-    writes the files."""
+    writes the files. On sharded image rows the eval step scores whole
+    frames, and the strips' inputs are gathered whole."""
     mesh = state.mesh
     axis = None if mesh is None else mesh.axis("data")
     lead = _lead(mesh)
@@ -796,6 +868,8 @@ def evaluate_model(cfg: ExperimentConfig, state: TrainState, eval_step, test_loa
     losses = []
     for bi, batch in enumerate(test_loader):
         loss, pred, tgt = eval_step(state, batch)
+        if state.rows is not None:
+            batch = gather(batch.contiguous(), state.rows, dim=2)
         evaluator.evaluate(tgt, pred)
         losses.append(loss)
         if axis is not None and (cfg.train.scatter_eval or (vis_dir and bi < cfg.train.vis_batches)):

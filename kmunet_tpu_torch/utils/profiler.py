@@ -1,12 +1,33 @@
-"""Timing helpers (the port of ``kmunet_tpu/utils/profiler.py``, which
-imports JAX)."""
+"""Profiling helpers (the port of ``kmunet_tpu/utils/profiler.py``, which
+imports JAX): ``trace(log_dir)``, a ``torch.profiler`` trace of the CPU and
+the card written under ``log_dir``, and ``chained_time_ms``, step timing
+with chained calls."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Callable
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profiles the block with ``torch.profiler`` (the CPU, and CUDA where a
+    card is present) and writes its trace (Chrome trace JSON, which
+    TensorBoard's profiler plugin and Perfetto read) under ``log_dir``;
+    yields the profiler (``key_averages()`` for a table)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 def _leaves(tree):

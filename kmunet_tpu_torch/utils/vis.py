@@ -2,7 +2,8 @@
 map and tiled frame strips of the reference's ``vis_res`` / ``gray2color``
 (train_shanghai.py:36-154): normalized frames rescaled by PIXEL_SCALE,
 coloured with the 16-colour radar map by BOUNDS bins, tiled horizontally
-with 10-px white gaps, and saved as prediction / gt / input PNGs.
+with 10-px white gaps, and saved as prediction / gt / input PNGs; and the
+NC scripts' per-frame PNGs (``vis_channels``).
 
 matplotlib is imported only where a PNG is written: the machine with the
 card has none.
@@ -36,6 +37,25 @@ def tile_frames(frames: np.ndarray, gap: int = 10, subsample_even: bool = False)
         x0 = i * (W + gap)
         strip[:, x0:x0 + W] = img
     return strip
+
+
+def vis_channels(arr, save_path: str, prefix: str = "", cmap: str = "viridis"):
+    """Per-frame PNGs with a colour bar, ``{prefix}ch{t}.png`` under
+    ``save_path``: the NC scripts' visualization style
+    (models/train_NC_mambaunet.py:120-186). ``arr``: (T, H, W) normalized."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(save_path, exist_ok=True)
+    for t, frame in enumerate(np.asarray(arr)):
+        fig, ax = plt.subplots()
+        im = ax.imshow(frame, cmap=cmap)
+        fig.colorbar(im, ax=ax)
+        ax.axis("off")
+        fig.savefig(os.path.join(save_path, f"{prefix}ch{t}.png"), bbox_inches="tight")
+        plt.close(fig)
 
 
 def vis_res(pred, gt, inp, save_path: str, prefix: str = "", subsample_even: bool = False):

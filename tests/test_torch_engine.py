@@ -95,11 +95,11 @@ def test_parse_overrides_refuses_what_jax_refuses(name):
 
 @pytest.mark.parametrize("mesh", [{"data": 2}, {"spatial": 2}, {"model": 2}, {"fsdp": True}])
 def test_a_mesh_of_more_than_one_device_is_refused(mesh, tmp_path):
-    """In one process: a mesh of two devices raises JAX's ``ValueError``
-    (``MeshSpec.resolve``: the world cannot fill it); ``spatial`` > 1 raises
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 9b (H-sharded
-    activations); ``fsdp`` on a 'model' axis of one shards nothing (JAX's
-    rule) and the loop trains. Across ranks: tests/test_torch_data_parallel.py."""
+    """In one process: a mesh of two devices, ``spatial`` = 2 among them,
+    raises JAX's ``ValueError`` (``MeshSpec.resolve``: the world cannot fill
+    it); ``fsdp`` on a 'model' axis of one shards nothing (JAX's rule) and
+    the loop trains. Across ranks: tests/test_torch_data_parallel.py and
+    tests/test_torch_spatial.py."""
     cfg = _small(tmp_path)
     for k, v in mesh.items():
         setattr(cfg.mesh, k, v)
@@ -107,8 +107,7 @@ def test_a_mesh_of_more_than_one_device_is_refused(mesh, tmp_path):
         results = engine.train_and_evaluate(cfg, max_steps=1, device="cpu")
         assert results["steps"] == 1 and math.isfinite(results["test_loss"])
         return
-    error, match = ((NotImplementedError, "Queue 1 item 9b") if "spatial" in mesh
-                    else (ValueError, r"1 devices not divisible by fixed axes"))
+    error, match = ValueError, r"1 devices not divisible by fixed axes"
     with pytest.raises(error, match=match):
         engine.train_and_evaluate(cfg, device="cpu")
     with pytest.raises(error, match=match):

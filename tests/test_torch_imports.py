@@ -21,6 +21,8 @@ SCRIPTS = [REPO / "scripts" / "torch_ablate_mix_kernel.py",
            REPO / "scripts" / "torch_train_shanghai.py",
            REPO / "scripts" / "torch_train_laps.py",
            REPO / "scripts" / "torch_evaluate.py",
+           REPO / "scripts" / "torch_predict.py",
+           REPO / "scripts" / "torch_one_card_timing.py",
            REPO / "scripts" / "torch_train_baseline.py"]
 SOURCES = sorted((REPO / "kmunet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 

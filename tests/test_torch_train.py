@@ -12,7 +12,8 @@ over 2 steps at the small config of tests/test_sharding_parity.py (B cut to
 the first step's gradients leaf by leaf, and the parameters and BatchNorm
 statistics after it within 1e-4 abs. The second step starts from JAX's state
 after the first (parameters, statistics and AdamW's moments and count) and is
-held to the same bounds.
+held to the same bounds. The first step with the image rows sharded over two
+gloo ranks (``mesh.spatial`` = 2) is held to the same JAX step.
 """
 
 import dataclasses
@@ -46,6 +47,7 @@ from kmunet_tpu_torch.train.optimizers import AdamW, OptState
 from kmunet_tpu_torch.train.schedule import cosine_annealing_per_epoch
 from tests.torch_parity import init_perturbed, nchw, nhwc
 from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+from tests import torch_ranks, torch_rows
 
 ATOL = 1e-4
 
@@ -506,3 +508,26 @@ def test_train_step_matches_jax(jax_steps):
     assert (bilinear.bilinear_gather.launches,
             bilinear.bilinear_gather_backward.launches) == launches  # CPU: plain versions
     assert state.step == N_STEPS and state.opt_state.count == N_STEPS
+
+
+def test_sharded_rows_step_matches_jax(jax_steps, tmp_path):
+    """The first step with the image rows sharded over two gloo ranks (dp1
+    x sp2, each rank on 16 of the 32 rows: ``parallel/halo.py``) from JAX's
+    initial variables, held to JAX's step on the whole batch by
+    ``test_train_step_matches_jax``'s rules: each rank's loss and grad norm
+    within 1e-4 relative, its gradients leaf by leaf and its variables after
+    the step by ``_assert_step_matches``."""
+    initial, batch, want_steps = jax_steps
+    cfg = _small_config(configs.shanghai_km_unet())
+    model = engine.build_model(cfg)
+    convert.load_flax(model, initial["params"], initial["batch_stats"])
+    torch.save(model.state_dict(), tmp_path / "initial.pt")
+    jobs = [(torch_rows.jax_start_step_job, (str(tmp_path / "initial.pt"),
+                                             torch.from_numpy(batch)))]
+    ranks = torch_ranks.spawn(torch_ranks.run_jobs, 2, tmp_path, jobs, timeout=300)
+    zeros = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+    lr = engine.build_optimizer(cfg, steps_per_epoch=10).lr(0)
+    for (got,) in ranks:
+        np.testing.assert_allclose(got["metrics"], want_steps[0]["metrics"], rtol=1e-4, atol=0)
+        _assert_step_matches(model, lr, got["grads"], got["after"], want_steps[0],
+                             (0, zeros, zeros))

@@ -23,7 +23,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from kmunet_tpu_torch import configs
-from kmunet_tpu_torch.parallel import MeshSpec, batch_sharding, make_mesh
+from kmunet_tpu_torch.parallel import MeshSpec, batch_sharding, make_mesh, row_sharding
 from kmunet_tpu_torch.train import engine
 from kmunet_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -66,7 +66,7 @@ def spawn(fn, world: int, tmp_path, *args, timeout: float = 120.0) -> list:
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def small_config(data: int = -1, model: int = 1, fsdp: bool = False):
+def small_config(data: int = -1, model: int = 1, fsdp: bool = False, spatial: int = 1):
     """The SH recipe at tests/test_sharding_parity.py's small config."""
     cfg = configs.shanghai_km_unet()
     cfg.data.name = "synthetic"
@@ -76,6 +76,7 @@ def small_config(data: int = -1, model: int = 1, fsdp: bool = False):
     cfg.model.extra["drop_path"] = 0.1
     cfg.train.compute_dtype = "float32"
     cfg.mesh.data, cfg.mesh.model, cfg.mesh.fsdp = data, model, fsdp
+    cfg.mesh.spatial = spatial
     return cfg
 
 
@@ -87,7 +88,8 @@ def global_batch(cfg) -> torch.Tensor:
 
 def run_steps(cfg, ckpt_dir, write: bool, mesh=None) -> dict:
     """Two steps of ``cfg`` on ``global_batch`` (this rank's rows under a
-    ``mesh``) from seeded weights; step 2 from the checkpoint in
+    ``mesh``, and its block of image rows where ``spatial`` > 1) from seeded
+    weights; step 2 from the checkpoint in
     ``ckpt_dir``, which ``write`` (a run of one process) writes after step 1
     with its generator's state. Per step the loss, the grad norm, the
     gradients the optimizer took, the parameters and BatchNorm buffers
@@ -97,6 +99,8 @@ def run_steps(cfg, ckpt_dir, write: bool, mesh=None) -> dict:
     state = engine.init_state(cfg, model, tx, seed=0, device="cpu", mesh=mesh)
     step = engine.make_train_step(model, engine.build_loss(cfg, mesh), tx, cfg)
     batch = global_batch(cfg) if mesh is None else batch_sharding(mesh, global_batch(cfg))
+    if mesh is not None and mesh.shape["spatial"] > 1:
+        batch = row_sharding(mesh, batch)
     gen = torch.Generator().manual_seed(DROPOUT_SEED)
     manager = CheckpointManager(ckpt_dir)
     seen = []
