@@ -342,7 +342,13 @@ Phases, each printing one JSON line with its seconds:
               under each of SPATIAL_MESHES (dp1 x sp2, dp2 x sp2, dp1 x sp4)
               against one card's by the same gates, every rank's state
               alike; each one's bf16 step (``dp_bf16_step``: ms, peak
-              memory, launches per step a rank); and the LAPS bf16 step at
+              memory, launches per step a rank); ConvLSTM's, TrajGRU's (its
+              flows times FLOW_SCALE) and Mamba-UNet's "pic" steps
+              (SPATIAL_STACK, ``stack_recipe``): the fp32 step at
+              CHECK_BATCH held to its float64 gradient as the spatial
+              phase's world-1 one, its state to one card's, and the bf16
+              step at B=16 beside one card's, its kernels' launches a rank
+              a step as ``stack_launches`` says; and the LAPS bf16 step at
               256^2, B=1, on LAPS_SPATIAL ranks: its peak memory a rank
               beside one card's. ``python3 chip_smoke.py --phase
               data_parallel`` runs the build of K7's, K6's and K8's sources
@@ -352,8 +358,12 @@ Phases, each printing one JSON line with its seconds:
               on the window and the exact DySample paths through
               ``engine.shard_rows`` (every halo, norm and gather collective
               over a spatial group of one), held to the plain step by the
-              card-vs-CPU step gates, counting K7, K6 shared, K4 and grouped
-              K6; K7 and K6 shared at the bridge (B=16, the 16^2 source
+              card-vs-CPU step gates, then ConvLSTM's, TrajGRU's and
+              Mamba-UNet's fp32 "pic" steps the same way
+              (``stack_world1_steps``: TrajGRU's warp through K7 and K6
+              shared, every DMFM's scan through K8 and its backward on the
+              rank's tokens), counting K7, K6 shared, K4, grouped K6, K8 and
+              its backward; K7 and K6 shared at the bridge (B=16, the 16^2 source
               whole, output rows 16, 8 and 4 of 16) and K4 and grouped K6 at
               dec3 (B=16, the 64^2 source whole, output rows 128 and 64 of
               128) in bf16, each forward held to its plain version first,
@@ -364,8 +374,8 @@ Phases, each printing one JSON line with its seconds:
               ``scripts/torch_predict.py`` on a fresh synthetic checkpoint
               at 128^2 on the card against its ``--device=cpu`` run, fp32,
               within PREDICT_ATOL, with its K7 launch. ``python3
-              chip_smoke.py --phase spatial`` runs the build of K7's, K6's
-              and K4's sources and this phase alone.
+              chip_smoke.py --phase spatial`` runs the build of K7's, K6's,
+              K4's and K8's sources and this phase alone.
 6. timing  -- CUDA events after warm-up, PyTorch's default TF32 settings:
               the forward at B=128 bf16 on the window and the exact path and
               at B=8 fp32 (ms, frames/s = B*20/s); the train step at B=16 and
@@ -712,6 +722,12 @@ DP_SECONDS = 300  # data_parallel: each spawn's deadline
 # at 256^2 on LAPS_SPATIAL ranks, its peak memory a rank beside one card's.
 SPATIAL_MESHES = ((1, 2), (2, 2), (1, 4))
 LAPS_SPATIAL = 4
+# The other models that train on sharded rows, each on its "pic" recipe at
+# 128^2, seq_len 25, 5 -> 20 (``zoo_config``): the world-1 fp32 step at
+# CHECK_BATCH (spatial), the fp32 and bf16 steps at a global B=16 under
+# SPATIAL_MESHES (data_parallel, four cards).
+SPATIAL_STACK = ("convlstm", "trajgru", "mamba_unet")
+SPATIAL_SECONDS = 600  # data_parallel: each sharded-rows spawn's deadline
 # spatial (one card): K7 and K6 shared at the bridge, K4 and grouped K6 at
 # dec3, timed at the SH train step's batch with the rows a spatial rank
 # holds (sp = 1 the whole image): (B, H, W, C, G, Ho, Wo) by sp.
@@ -1161,16 +1177,23 @@ def adamw_first_update(g, grad_norm, clip):
     return g / (g.abs() + 1e-8)
 
 
-def compare_states(got, want, lr, clip):
-    """Holds the state_dicts after two AdamW steps, ``got`` and ``want``
+def sgd_first_update(g, grad_norm, clip):
+    """SGD's first update direction for the gradient ``g`` (a trace from 0;
+    the coupled decay is the same on both sides), in float64."""
+    return g.double()
+
+
+def compare_states(got, want, lr, clip, first_update=adamw_first_update):
+    """Holds the state_dicts after two steps, ``got`` and ``want``
     ((readings, state) of ``step_readings``), to the step gate: every
     parameter and BatchNorm running buffer within STEP_LEAF_RTOL of its
     largest |value| in ``want`` plus STEP_LEAF_ATOL, a parameter also
     within what the two steps' gradients (held by ``compare_steps``) make of
-    the update at ``lr`` (``adamw_first_update``): AdamW's first update is
-    about lr whatever |g|, so a gradient of rounding noise (the leaves whose
-    exact gradient is 0) moves its parameter by lr with either sign.
-    Raises if not; returns the worst share of the tolerance and its key."""
+    the update at ``lr`` (``first_update``: by default AdamW's, also
+    Adam's, which is about lr whatever |g|, so a gradient of rounding noise
+    (the leaves whose exact gradient is 0) moves its parameter by lr with
+    either sign; ``sgd_first_update`` for SGD). Raises if not; returns the
+    worst share of the tolerance and its key."""
     ((_, gn_got, g_got), s_got), ((_, gn_want, g_want), s_want) = got, want
     ratio, worst = 0.0, ""
     for k, w in s_want.items():
@@ -1179,8 +1202,8 @@ def compare_states(got, want, lr, clip):
         tol = STEP_LEAF_RTOL * float(w.abs().max()) + STEP_LEAF_ATOL
         err = (s_got[k] - w).abs().double()
         if k in g_want:
-            err = err - lr * (adamw_first_update(g_got[k], gn_got, clip)
-                              - adamw_first_update(g_want[k], gn_want, clip)).abs()
+            err = err - lr * (first_update(g_got[k], gn_got, clip)
+                              - first_update(g_want[k], gn_want, clip)).abs()
         r = float(err.max()) / tol
         if r > ratio:
             ratio, worst = r, k
@@ -2001,10 +2024,10 @@ def _dp_rank(rank, world, port, job, args, out_dir):
         dist.destroy_process_group()
 
 
-def spawn_ranks(torch, world, job, *args):
+def spawn_ranks(torch, world, job, *args, seconds=DP_SECONDS):
     """``job(rank, world, *args)`` in ``world`` processes, one per card, over
     NCCL (a store on a free localhost port); their results by rank. A rank
-    that fails raises here; ranks alive at the deadline are killed."""
+    that fails raises here; ranks alive at ``seconds`` are killed."""
     import socket
     import tempfile
 
@@ -2015,25 +2038,26 @@ def spawn_ranks(torch, world, job, *args):
         ctx = torch.multiprocessing.start_processes(
             _dp_rank, args=(world, port, job, args, out), nprocs=world, join=False,
             start_method="spawn")
-        deadline = time.monotonic() + DP_SECONDS
+        deadline = time.monotonic() + seconds
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
                 for p in ctx.processes:
                     p.kill()
                 raise TimeoutError(f"data_parallel: {job.__name__} on {world} cards ran past "
-                                   f"{DP_SECONDS} s")
+                                   f"{seconds} s")
         return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
                 for r in range(world)]
 
 
-def mesh_step_readings(cfg, mesh, batch, generator, rows=False, **build_kwargs):
+def mesh_step_readings(cfg, mesh, batch, generator, rows=False, flow_scale=1.0,
+                       **build_kwargs):
     """``step_readings`` through the mesh path: the engine's step on this
     rank's rows of ``batch`` (and its block of image rows where the mesh's
     spatial axis is above 1) from weights made from seed 0 (the sharded
-    leaves' blocks), the gradients where the optimizer takes them and the
-    state after the step gathered whole, on the CPU. ``rows``: the sharded
-    rows' path at spatial = 1 too (``engine.shard_rows``); ``build_kwargs``
-    go to ``build_model``."""
+    leaves' blocks; a TrajGRU's flows times ``flow_scale``), the gradients
+    where the optimizer takes them and the state after the step gathered
+    whole, on the CPU. ``rows``: the sharded rows' path at spatial = 1 too
+    (``engine.shard_rows``); ``build_kwargs`` go to ``build_model``."""
     from kmunet_tpu_torch.parallel import batch_sharding, row_sharding
     from kmunet_tpu_torch.parallel.collectives import gather
     from kmunet_tpu_torch.train import engine
@@ -2041,6 +2065,8 @@ def mesh_step_readings(cfg, mesh, batch, generator, rows=False, **build_kwargs):
     model = engine.build_model(cfg, **build_kwargs)
     tx = engine.build_optimizer(cfg, steps_per_epoch=100)
     state = engine.init_state(cfg, model, tx, seed=0, device=batch.device, mesh=mesh)
+    if flow_scale != 1.0:
+        scale_flows(model, flow_scale)
     if rows and state.rows is None:
         state = engine.shard_rows(model, state)
     step = engine.make_train_step(model, engine.build_loss(cfg, mesh), tx, cfg)
@@ -2144,8 +2170,10 @@ def dp_multi_job(rank, world, tmp):
 def dp_spatial_job(rank, world, specs, laps):
     """The sharded rows' multi-card checks on ``world`` cards: for each
     (data, spatial) of ``specs`` the fp32 SH step at B=16 as
-    ``mesh_step_readings`` and the bf16 step (``dp_bf16_step``); with
-    ``laps`` the LAPS bf16 step at 256^2, B=1, on a 1 x ``world`` mesh."""
+    ``mesh_step_readings`` and the bf16 step (``dp_bf16_step``), then each
+    SPATIAL_STACK model's (``stack_recipe``) fp32 step at CHECK_BATCH (the
+    world-1 check's batch) and bf16 step at B=16; with ``laps`` the LAPS
+    bf16 step at 256^2, B=1, on a 1 x ``world`` mesh."""
     import numpy as np
     import torch
 
@@ -2153,6 +2181,7 @@ def dp_spatial_job(rank, world, specs, laps):
 
     dev = torch.device("cuda", rank)
     batch = torch.from_numpy(synthetic_batch(np, TRAIN_BATCH, seed=0)).to(dev)
+    check = torch.from_numpy(synthetic_batch(np, CHECK_BATCH, seed=3)).to(dev)
     out = {}
     for d, sp in specs:
         mesh = make_mesh(MeshSpec(d, sp, 1))
@@ -2163,6 +2192,16 @@ def dp_spatial_job(rank, world, specs, laps):
         torch.backends.cudnn.deterministic = False
         out[(d, sp)] = {"readings": readings, "after": after,
                         "bf16_step": dp_bf16_step(torch, batch, mesh)}
+        for name in SPATIAL_STACK:
+            cfg, flows, _ = stack_recipe(name, CHECK_BATCH, "float32")
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            readings, after, _ = mesh_step_readings(cfg, mesh, check, None, flow_scale=flows)
+            torch.backends.cudnn.deterministic = False
+            out[(d, sp, name)] = {
+                "readings": readings, "after": after,
+                "bf16_step": dp_bf16_step(torch, batch, mesh,
+                                          stack_recipe(name, TRAIN_BATCH, "bfloat16")[0])}
     if laps:
         laps_batch = torch.from_numpy(synthetic_batch(np, 1, seed=8, img_size=LAPS_SIZE,
                                                       seq_len=LAPS_SEQ)).to(dev)
@@ -2176,7 +2215,7 @@ def dp_bf16_step(torch, batch, mesh=None, cfg=None):
     this rank's rows under a ``mesh``, and its block of image rows where the
     mesh's spatial axis is above 1), PyTorch's default TF32 settings: ms by
     CUDA events over DP_TIMED_STEPS steps after 2 warm-up steps, the peak
-    ``max_memory_allocated``, K7 and K6 shared launches per step, the
+    ``max_memory_allocated``, the counted kernels' launches per step, the
     losses."""
     from kmunet_tpu_torch.parallel import batch_sharding, row_sharding
     from kmunet_tpu_torch.train import engine
@@ -2313,9 +2352,31 @@ def spatial_multi_card(torch, np, reference, lr, one_card_bf16):
     """The sharded rows' checks on 2 and 4 cards (``dp_spatial_job``): each
     mesh's fp32 step against one card's ``reference`` by the step gates,
     every rank's state alike; the bf16 steps' ms, peak memory and launches a
-    rank beside one card's; the LAPS step's peak memory a rank beside one
+    rank beside one card's; each SPATIAL_STACK model's fp32 step held to
+    its exact gradient (``float64_gradients``) by the same gates, as
+    ``stack_world1_steps`` holds the world-1 one, its state to one card's
+    and its distance from one card's gradient read beside, and its bf16
+    step beside one card's; the LAPS step's peak memory a rank beside one
     card's."""
+    from kmunet_tpu_torch.train import engine
+
     dev = torch.device("cuda", 0)
+    batch = synthetic_batch(np, TRAIN_BATCH, seed=0)
+    check = synthetic_batch(np, CHECK_BATCH, seed=3)
+    stack_refs = {}
+    for name in SPATIAL_STACK:
+        cfg, flows, first = stack_recipe(name, CHECK_BATCH, "float32")
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        stack_refs[name] = {
+            "reference": step_readings(cfg, "cuda", check, flow_scale=flows),
+            "exact": float64_gradients(cfg, check, flow_scale=flows),
+            "lr": engine.build_optimizer(cfg, steps_per_epoch=100).lr(0), "first": first}
+        torch.backends.cudnn.deterministic = False
+        stack_refs[name]["bf16_one_card"] = dp_bf16_step(
+            torch, torch.from_numpy(batch).to(dev), None,
+            stack_recipe(name, TRAIN_BATCH, "bfloat16")[0])
+    torch.cuda.empty_cache()
     laps_batch = torch.from_numpy(synthetic_batch(np, 1, seed=8, img_size=LAPS_SIZE,
                                                   seq_len=LAPS_SEQ)).to(dev)
     laps_one_card = dp_bf16_step(torch, laps_batch, None, laps_config(1, "bfloat16"))
@@ -2324,29 +2385,98 @@ def spatial_multi_card(torch, np, reference, lr, one_card_bf16):
     ranks = {}
     for world in sorted({d * sp for d, sp in SPATIAL_MESHES}):
         specs = [m for m in SPATIAL_MESHES if m[0] * m[1] == world]
-        got = spawn_ranks(torch, world, dp_spatial_job, specs, world == LAPS_SPATIAL)
+        got = spawn_ranks(torch, world, dp_spatial_job, specs, world == LAPS_SPATIAL,
+                          seconds=SPATIAL_SECONDS)
         for spec in specs:
             ranks[spec] = [r[spec] for r in got]
+            for name in SPATIAL_STACK:
+                ranks[(*spec, name)] = [r[(*spec, name)] for r in got]
         if world == LAPS_SPATIAL:
             laps = [r["laps"] for r in got]
     out = {}
-    for (d, sp), rs in ranks.items():
-        checks = [{**compare_steps(r["readings"], reference[0]),
-                   **compare_states((r["readings"], r["after"]), reference, lr, float("inf"))}
+    for (d, sp, *model), rs in ranks.items():
+        name = model[0] if model else None
+        ref = stack_refs[name] if name else {"reference": reference, "lr": lr,
+                                             "first": adamw_first_update}
+        checks = [{**compare_steps(r["readings"], ref.get("exact", ref["reference"][0])),
+                   **compare_states((r["readings"], r["after"]), ref["reference"], ref["lr"],
+                                    float("inf"), ref["first"])}
                   for r in rs]
+        if name:
+            for c, r in zip(checks, rs):
+                c["vs_one_card"] = step_differences(r["readings"], ref["reference"][0])
+        where = f"spatial dp{d} x sp{sp}" + (f" {name}" if name else "")
         for r in rs[1:]:
             for k, v in r["after"].items():
                 if not torch.equal(v, rs[0]["after"][k]):
-                    raise AssertionError(f"spatial dp{d} x sp{sp}: rank states differ at {k}")
+                    raise AssertionError(f"{where}: rank states differ at {k}")
+        want = (stack_launches(name) if name else
+                {**stack_launches("convlstm"), "bilinear_gather_multiview": DEFORM_CONVS,
+                 "bilinear_gather_multiview_backward": DEFORM_CONVS})
         for i, r in enumerate(rs):
             per_step = r["bf16_step"]["launches_per_step"]
-            if per_step["bilinear_gather_multiview"] != DEFORM_CONVS or \
-                    per_step["bilinear_gather_multiview_backward"] != DEFORM_CONVS:
-                raise AssertionError(f"spatial dp{d} x sp{sp} rank {i}: launches {per_step}")
-        out[f"dp{d}_sp{sp}"] = {"fp32_step": checks,
-                                "bf16_step": [r["bf16_step"] for r in rs]}
+            if per_step != want:
+                raise AssertionError(f"{where} rank {i}: launches {per_step}, want {want}")
+        out[f"dp{d}_sp{sp}" + (f"_{name}" if name else "")] = {
+            "fp32_step": checks, "bf16_step": [r["bf16_step"] for r in rs]}
     out["bf16_step_one_card"] = one_card_bf16
+    out["stack_bf16_step_one_card"] = {n: r["bf16_one_card"] for n, r in stack_refs.items()}
     out["laps_bf16_step"] = {"sp": LAPS_SPATIAL, "ranks": laps, "one_card": laps_one_card}
+    return out
+
+
+def stack_recipe(name, B, dtype):
+    """(``zoo_config`` of the sharded-rows model ``name`` at batch ``B`` in
+    ``dtype``, its flow scale: TrajGRU's FLOW_SCALE, whose flows of a few
+    pixels make the warp read across a rank's rows, and its optimizer's
+    first update for ``compare_states``: Adam's or SGD's)."""
+    cfg = zoo_config(name, B, dtype)
+    first = sgd_first_update if cfg.train.optimizer == "sgd" else adamw_first_update
+    return cfg, FLOW_SCALE if name == "trajgru" else 1.0, first
+
+
+def stack_launches(name, steps=1):
+    """Every counted kernel's launches in ``steps`` train steps of ``name``:
+    TrajGRU's K7 and K6 shared (one per warp), Mamba-UNet's K8 and its
+    backward (one per scan), none for ConvLSTM."""
+    per = {"trajgru": {"bilinear_gather_multiview": TRAJGRU_WARPS,
+                       "bilinear_gather_multiview_backward": TRAJGRU_WARPS},
+           "mamba_unet": {"selective_scan": MAMBA_SCANS, "selective_scan_backward": MAMBA_SCANS}}
+    counts = dict.fromkeys(_kernel_counters(), 0)
+    counts.update({k: v * steps for k, v in per.get(name, {}).items()})
+    return counts
+
+
+def stack_world1_steps(torch, dev, mesh, batch):
+    """Each of SPATIAL_STACK's fp32 steps (``stack_recipe`` at the batch of
+    ``batch``) through the sharded rows' path on ``mesh`` (a spatial group
+    of one), held by the card-vs-CPU step gates to the same step's exact
+    gradient (``float64_gradients`` on the CPU, the gate ``train_trajgru``
+    and ``train_mamba`` hold the plain step to: the EF models' last conv
+    bias is a cancelling sum over 655,360 terms, which fp32 rounds to about
+    1e-4 of the grad norm wherever its terms are summed in another order),
+    and by ``compare_states`` to the plain step on the card from the same
+    weights and batch, whose gradient distance is read beside; raises
+    unless its kernels launched as ``stack_launches`` says. Returns the
+    readings and each model's launches."""
+    from kmunet_tpu_torch.train import engine
+
+    out = {}
+    for name in SPATIAL_STACK:
+        cfg, flows, first = stack_recipe(name, batch.shape[0], "float32")
+        plain = step_readings(cfg, dev, batch, flow_scale=flows)
+        _counts(torch, reset=True)
+        readings, after, _ = mesh_step_readings(cfg, mesh, batch, None, rows=True,
+                                                flow_scale=flows)
+        launches = _counts(torch)
+        expect_launches(f"spatial {name}", launches, stack_launches(name))
+        exact = float64_gradients(cfg, batch.cpu(), flow_scale=flows)
+        lr = engine.build_optimizer(cfg, steps_per_epoch=100).lr(0)
+        out[name] = {"vs_float64": compare_steps(readings, exact),
+                     "vs_plain_card": step_differences(readings, plain[0]),
+                     "plain_card_vs_float64": step_differences(plain[0], exact),
+                     **compare_states((readings, after), plain, lr, float("inf"), first),
+                     "launches": launches}
     return out
 
 
@@ -2357,7 +2487,8 @@ def spatial_world1_job(rank, world):
     generator, on DySample's window and exact paths, held to the plain step
     from the same weights, batch and generator state by the card-vs-CPU
     step gates (``compare_steps``, ``compare_states``), TF32 off, under
-    ``cudnn.deterministic``; and the kernels' launches in the two sharded
+    ``cudnn.deterministic``; then ConvLSTM's, TrajGRU's and Mamba-UNet's
+    (``stack_world1_steps``); and the kernels' launches in the sharded
     steps."""
     import numpy as np
     import torch
@@ -2385,8 +2516,12 @@ def spatial_world1_job(rank, world):
         out["window" if window else "exact"] = {
             **compare_steps(readings, plain[0]),
             **compare_states((readings, after), plain, lr, float("inf"))}
+    stack = stack_world1_steps(torch, dev, mesh, batch)
+    for name, checks in stack.items():
+        for k, v in checks["launches"].items():
+            launches[k] += v
     torch.backends.cudnn.deterministic = False
-    return {"steps": out, "launches": launches}
+    return {"steps": out, "stack_steps": stack, "launches": launches}
 
 
 def spatial_shard_timing(torch):
@@ -2456,9 +2591,11 @@ def spatial_phase(torch, np, card, path_launches, launches_per, reset_counts, re
     world1 = spawn_ranks(torch, 1, spatial_world1_job)[0]
     path_launches["spatial"] = {**launches_per(), **world1["launches"]}
     expect_launches("spatial", path_launches["spatial"],
-                    launches_per(k7=2 * DEFORM_CONVS, k6s=2 * DEFORM_CONVS, k4=DYSAMPLES,
-                                 k6g=DYSAMPLES))
+                    launches_per(k7=2 * DEFORM_CONVS + TRAJGRU_WARPS,
+                                 k6s=2 * DEFORM_CONVS + TRAJGRU_WARPS, k4=DYSAMPLES,
+                                 k6g=DYSAMPLES, k8=MAMBA_SCANS, k8b=MAMBA_SCANS))
     fields["world1_fp32_steps"] = world1["steps"]
+    fields["world1_fp32_stack_steps"] = world1["stack_steps"]
     fields["shard_timing"] = spatial_shard_timing(torch)
 
     # The kernels' FLOPs the SH forward records: K7's, once, at the bridge.
@@ -3015,18 +3152,19 @@ def data_parallel_only(torch, np) -> int:
 
 def spatial_only(torch, np) -> int:
     """``python3 chip_smoke.py --phase spatial``: the card's line, the build
-    of K7's, K6's and K4's sources (one nvcc each, together) and the spatial
-    phase alone."""
+    of K7's, K6's, K4's and K8's sources (one nvcc each, together) and the
+    spatial phase alone."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from kmunet_tpu_torch.kernels import bilinear, build
+    from kmunet_tpu_torch.kernels import bilinear, build, scan
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30,
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     with Phase("build") as f:
-        sources = (bilinear.SOURCE, bilinear.MULTIVIEW_SOURCE, bilinear.BACKWARD_SOURCE)
+        sources = (bilinear.SOURCE, bilinear.MULTIVIEW_SOURCE, bilinear.BACKWARD_SOURCE,
+                   scan.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:
             builds = list(pool.map(build.build, sources))
         f.update(nvcc_seconds=[round(b.seconds, 3) for b in builds])
@@ -3042,11 +3180,11 @@ def spatial_only(torch, np) -> int:
         torch.cuda.synchronize()
         return {name: k.launches for name, k in counters.items()}
 
-    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0):
+    def launches_per(k5=0, k6=0, k4=0, k6g=0, k7=0, k6s=0, k8=0, k8b=0):
         return {"bilinear_gather": k5, "bilinear_gather_backward": k6,
                 "bilinear_gather_grouped": k4, "bilinear_gather_grouped_backward": k6g,
                 "bilinear_gather_multiview": k7, "bilinear_gather_multiview_backward": k6s,
-                "selective_scan": 0, "selective_scan_backward": 0}
+                "selective_scan": k8, "selective_scan_backward": k8b}
 
     with Phase("spatial") as f:
         f.update(spatial_phase(torch, np, card, {}, launches_per, reset_counts, read_counts))

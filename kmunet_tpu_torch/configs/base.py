@@ -13,9 +13,10 @@ the flattened scatter metrics in the test pass.
 
 ``MeshConfig`` is the JAX one: the trainer runs one process per card over
 that mesh (``parallel.make_mesh``; data parallelism, FSDP on 'model', and
-KM_UNetV3's image rows sharded on 'spatial'); ``train/engine.py`` refuses
-``spatial`` > 1 for the other models, through K1-K3 and for rows that do
-not divide evenly (ROADMAP Queue 1 item 12).
+the image rows of KM_UNetV3, ConvLSTM, TrajGRU and Mamba-UNet sharded on
+'spatial'); ``train/engine.py`` refuses ``spatial`` > 1 for the five
+baselines, through K1-K3 and for rows that do not divide evenly (ROADMAP
+Queue 1 item 12).
 """
 
 from __future__ import annotations

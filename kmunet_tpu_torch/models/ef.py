@@ -18,6 +18,17 @@ first RNN takes no input (TrajGRU: no input convs at all; ConvLSTM: zeros).
 TrajGRU's warp samples the state at L flow fields in one multiview gather
 (``ops/sample.py::bilinear_gather_multiview``: K7 on a CUDA tensor), with
 the coordinates built in the state's dtype as the JAX package builds them.
+
+With a spatial axis in ``row_axis`` (``train.engine.shard_rows``) the
+forward runs on this rank's block of image rows (``parallel/halo.py``):
+every conv and transposed conv reads its halo rows (``halo.conv2d``,
+``halo.conv_transpose2d``: the strided stages write the output rows of
+the rank's input rows, so H must be a multiple of 32 x spatial), and
+TrajGRU's warp reads the whole state, gathered from every rank
+(``all_gather_rows``, as JAX's partitioner replicates the gather's
+source), at coordinates built from the global row index, for the rank's
+output rows; its backward (K6's shared-source entry) sums each block's
+gradient into its owner.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from torch import nn
 
 from kmunet_tpu_torch.nn.init import kaiming_uniform_
 from kmunet_tpu_torch.ops.sample import bilinear_gather_multiview
+from kmunet_tpu_torch.parallel.halo import (all_gather_rows, conv2d, conv_transpose2d, row_axis,
+                                            row_range, sharded_rows)
 
 
 def leaky(x: torch.Tensor) -> torch.Tensor:
@@ -63,7 +76,7 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, carry, x: torch.Tensor):
         h, c = carry
-        i, f, g, o = self.conv(torch.cat([x, h], 1)).chunk(4, 1)
+        i, f, g, o = conv2d(self.conv, torch.cat([x, h], 1)).chunk(4, 1)
         peep = lambda w: w.view(1, -1, 1, 1)  # noqa: E731
         i = torch.sigmoid(i + peep(self.Wci) * c)
         f = torch.sigmoid(f + peep(self.Wcf) * c)
@@ -72,17 +85,19 @@ class ConvLSTMCell(nn.Module):
         return o * torch.tanh(c), c
 
 
-def warp_coordinates(flows: torch.Tensor, views: int, dtype: torch.dtype):
+def warp_coordinates(flows: torch.Tensor, views: int, dtype: torch.dtype, row0: int = 0):
     """The sampling coordinates of TrajGRU's warp, x and y (B, L, H, W):
     ``arange - flow`` for each of L flow fields. ``flows`` (B, 2L, H, W)
-    holds view l's x-flow at channel 2l and its y-flow at 2l+1. The grid is
-    built in ``dtype`` (the state's) and the subtraction runs in the
-    promoted dtype, as the JAX package does: in bf16 that rounds the
-    coordinates to bf16 (0.125 px apart at 16-31 px)."""
+    holds view l's x-flow at channel 2l and its y-flow at 2l+1, for the
+    image rows from ``row0`` on (a rank's block on sharded rows). The grid
+    is built in ``dtype`` (the state's) from the global row index and the
+    subtraction runs in the promoted dtype, as the JAX package does on the
+    whole image: in bf16 that rounds the coordinates to bf16 (0.125 px apart
+    at 16-31 px), so the row offset goes in before the rounding."""
     B, _, H, W = flows.shape
     fl = flows.view(B, views, 2, H, W)
     xx = torch.arange(W, dtype=dtype, device=flows.device)
-    yy = torch.arange(H, dtype=dtype, device=flows.device).view(H, 1)
+    yy = torch.arange(row0, row0 + H, dtype=dtype, device=flows.device).view(H, 1)
     return xx - fl[:, :, 0], yy - fl[:, :, 1]
 
 
@@ -102,20 +117,22 @@ class TrajGRUCell(nn.Module):
         self.ret = nn.Conv2d(L * filters, 3 * filters, 1)
 
     def forward(self, h: torch.Tensor, x: Optional[torch.Tensor] = None) -> torch.Tensor:
-        f = self.h2f_conv1(h)
+        f = conv2d(self.h2f_conv1, h)
         if self.use_input:
-            f = f + self.i2f_conv1(x)
-        flows = self.flows_conv(leaky(f))
-        vx, vy = warp_coordinates(flows, self.L, h.dtype)
-        # One gather of the NHWC state at all L flow fields -> (B, H, W, L*C),
-        # view l in channel block l; ``ret`` (1x1) reads it on the last axis.
+            f = f + conv2d(self.i2f_conv1, x)
+        flows = conv2d(self.flows_conv, leaky(f))
+        axis = row_axis()
+        vx, vy = warp_coordinates(flows, self.L, h.dtype, row_range(axis, h.shape[2])[0])
+        # One gather of the NHWC state (the whole image's on sharded rows) at
+        # all L flow fields -> (B, H, W, L*C), view l in channel block l;
+        # ``ret`` (1x1) reads it on the last axis.
         warped = bilinear_gather_multiview(
-            h.permute(0, 2, 3, 1).contiguous(), vx.float().contiguous(),
-            vy.float().contiguous(), padding_mode="zeros")
+            all_gather_rows(h.permute(0, 2, 3, 1), axis, dim=1).contiguous(),
+            vx.float().contiguous(), vy.float().contiguous(), padding_mode="zeros")
         h2h = F.linear(warped, self.ret.weight.flatten(1), self.ret.bias).permute(0, 3, 1, 2)
         hr, hu, hm = h2h.chunk(3, 1)
         if self.use_input:
-            ir, iu, im = self.i2h(x).chunk(3, 1)
+            ir, iu, im = conv2d(self.i2h, x).chunk(3, 1)
             reset = torch.sigmoid(ir + hr)
             update = torch.sigmoid(iu + hu)
             new_mem = leaky(im + reset * hm)
@@ -156,6 +173,7 @@ class _EF(nn.Module):
         self.fore_stage1_deconv = conv_t(64, 8, 6, 4, 1)
         self.fore_stage1_conv1 = conv(8, 8, 3, 1, 1)
         self.fore_stage1_conv2 = nn.Conv2d(8, 1, 1)
+        self.row_axis = None
 
     def _cell(self, spec, in_channels: int, use_input: bool = True) -> nn.Module:
         filters, L = spec
@@ -177,6 +195,12 @@ class _EF(nn.Module):
         return torch.stack(ys, 1).flatten(0, 1), state
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, H, W) -> (B, out_frames, H, W); with a row axis, H is this
+        rank's block of rows."""
+        with sharded_rows(self.row_axis):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         B, S, H, W = x.shape
         T = self.out_frames
 
@@ -184,11 +208,11 @@ class _EF(nn.Module):
             return y.view(B, n, *y.shape[1:]).unbind(1)
 
         # ---- encoder ----
-        e = frames(leaky(self.enc_stage1(x.reshape(B * S, 1, H, W))), S)
+        e = frames(leaky(conv2d(self.enc_stage1, x.reshape(B * S, 1, H, W))), S)
         y, s1 = self._run(self.enc_rnn1, self._zero_state(self.enc_rnn1, e[0]), e)
-        y = frames(leaky(self.enc_stage2(y)), S)
+        y = frames(leaky(conv2d(self.enc_stage2, y)), S)
         y, s2 = self._run(self.enc_rnn2, self._zero_state(self.enc_rnn2, y[0]), y)
-        y = frames(leaky(self.enc_stage3(y)), S)
+        y = frames(leaky(conv2d(self.enc_stage3, y)), S)
         _, s3 = self._run(self.enc_rnn3, self._zero_state(self.enc_rnn3, y[0]), y)
 
         # ---- forecaster (rnn3 -> rnn1) ----
@@ -197,12 +221,12 @@ class _EF(nn.Module):
         else:
             xs = [None] * T
         d, _ = self._run(self.fore_rnn3, s3, xs)
-        d = frames(leaky(self.fore_stage3(d)), T)
+        d = frames(leaky(conv_transpose2d(self.fore_stage3, d)), T)
         d, _ = self._run(self.fore_rnn2, s2, d)
-        d = frames(leaky(self.fore_stage2(d)), T)
+        d = frames(leaky(conv_transpose2d(self.fore_stage2, d)), T)
         d, _ = self._run(self.fore_rnn1, s1, d)
-        d = leaky(self.fore_stage1_deconv(d))
-        d = leaky(self.fore_stage1_conv1(d))
+        d = leaky(conv_transpose2d(self.fore_stage1_deconv, d))
+        d = leaky(conv2d(self.fore_stage1_conv1, d))
         return self.fore_stage1_conv2(d).reshape(B, T, H, W)
 
 

@@ -10,6 +10,15 @@ and returns (B, H, W, predicted_frames) as the JAX model does; NCHW inside.
 Every DMFM runs its one ``MambaBlock`` on two token views, so a forward
 launches the selective scan (K8 on a CUDA tensor) 20 times. Submodules
 carry the flax names; flax's LayerNorm and GroupNorm take eps 1e-6.
+
+With a spatial axis in ``row_axis`` (``train.engine.shard_rows``) the
+forward runs on this rank's block of image rows (``parallel/halo.py``):
+the 3x3, 3x1 and the bridge's dilated 7x7 convs read their halo rows, the
+GroupNorms and the channel bridge's pools take the whole image's
+statistics, the 2x2 pools and transposed convs are row-local (a rank's
+rows stay even down to the last pool: H a multiple of 32 x spatial), and
+every DMFM's tokens are the rank's rows, a chunk of the row-major sequence
+(``MambaBlock`` on sharded rows).
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from kmunet_tpu_torch.models.ef import conv_t
 from kmunet_tpu_torch.nn.init import kaiming_uniform_
 from kmunet_tpu_torch.nn.layers import same_padding
 from kmunet_tpu_torch.nn.mamba import MambaBlock
+from kmunet_tpu_torch.parallel.halo import (conv2d, conv_transpose2d, group_norm, sharded_rows,
+                                            spatial_mean)
 
 EPS = 1e-6  # flax's LayerNorm and GroupNorm default
 
@@ -84,7 +95,7 @@ class SpatialAttBridge(nn.Module):
         self.shared_conv2d = nn.Conv2d(2, 1, 7, padding=9, dilation=3)
 
     def forward(self, ts: list[torch.Tensor]) -> list[torch.Tensor]:
-        return [torch.sigmoid(self.shared_conv2d(torch.cat(
+        return [torch.sigmoid(conv2d(self.shared_conv2d, torch.cat(
             [t.mean(1, keepdim=True), t.amax(1, keepdim=True)], 1))) for t in ts]
 
 
@@ -103,7 +114,7 @@ class ChannelAttBridge(nn.Module):
         kaiming_uniform_(self.get_all_att_weight, generator)
 
     def forward(self, ts: list[torch.Tensor]) -> list[torch.Tensor]:
-        gap = torch.cat([t.mean((2, 3)) for t in ts], -1)
+        gap = torch.cat([spatial_mean(t) for t in ts], -1)
         att = F.conv1d(gap[:, None], self.get_all_att_weight, padding=1)[:, 0]
         return [torch.sigmoid(getattr(self, f"att{i + 1}")(att))[:, :, None, None]
                 for i in range(len(ts))]
@@ -130,9 +141,9 @@ class MultiScaleSTAMBridge(nn.Module):
 
     def forward(self, ts: list[torch.Tensor]) -> list[torch.Tensor]:
         n = self.n
-        b33 = [getattr(self, f"conv1_1_{i + 1}")(ts[i]) for i in range(n)]
-        b13 = [getattr(self, f"conv1_3_{i + 1}")(ts[i]) for i in range(n)]
-        b31 = [getattr(self, f"conv3_1_{i + 1}")(ts[i]) for i in range(n)]
+        b33 = [conv2d(getattr(self, f"conv1_1_{i + 1}"), ts[i]) for i in range(n)]
+        b13 = [conv2d(getattr(self, f"conv1_3_{i + 1}"), ts[i]) for i in range(n)]
+        b31 = [conv2d(getattr(self, f"conv3_1_{i + 1}"), ts[i]) for i in range(n)]
         s1, s2, s3 = self.satt(b33), self.satt2(b13), self.satt3(b31)
         r = [self.alpha1 * s1[i] * b33[i] + self.alpha2 * s2[i] * b13[i]
              + self.alpha3 * s3[i] * b31[i] for i in range(n)]
@@ -180,12 +191,29 @@ class Mamba_UNet(nn.Module):
         self.S1 = _conv(c[0], predicted_frames, 3)
         self.S = _conv(predicted_frames, predicted_frames, 3)
         self.beta = nn.Parameter(torch.ones(()))
+        self.row_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, input_frames) -> (B, H, W, predicted_frames). With a
+        row axis, H is this rank's block of rows."""
+        with sharded_rows(self.row_axis):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         xin = x.permute(0, 3, 1, 2)
 
+        def layer(name, y):  # a conv through its row halo; a DMFM on the rank's tokens
+            m = getattr(self, name)
+            return conv2d(m, y) if isinstance(m, nn.Conv2d) else m(y)
+
+        def norm(name, y):
+            return group_norm(getattr(self, name), y)
+
+        def up(i, y):
+            return conv_transpose2d(getattr(self, f"contr{i}"), y)
+
         def enc(y, i, pool=True):
-            y = getattr(self, f"ebn{i}")(getattr(self, f"encoder{i}")(y))
+            y = norm(f"ebn{i}", layer(f"encoder{i}", y))
             return F.gelu(F.max_pool2d(y, 2) if pool else y)
 
         t1 = enc(xin, 1)
@@ -197,17 +225,17 @@ class Mamba_UNet(nn.Module):
             t1, t2, t3, t4, t5 = self.scab([t1, t2, t3, t4, t5])
         out = enc(out, 6, pool=False)
 
-        out5 = F.gelu(self.dbn1(self.decoder1(out))) + t5
-        out4 = F.gelu(self.contr1(self.dbn2(self.decoder2(out5)))) + t4
-        out3 = F.gelu(self.contr2(self.dbn3(self.decoder3(out4)))) + t3
-        out2 = F.gelu(self.contr3(self.dbn4(self.decoder4(out3)))) + t2
-        out1 = F.gelu(self.contr4(self.dbn5(self.decoder5(out2)))) + t1
-        out0 = F.gelu(self.contr5(self.dbn6(self.final(out1))))
+        out5 = F.gelu(norm("dbn1", self.decoder1(out))) + t5
+        out4 = F.gelu(up(1, norm("dbn2", self.decoder2(out5)))) + t4
+        out3 = F.gelu(up(2, norm("dbn3", self.decoder3(out4)))) + t3
+        out2 = F.gelu(up(3, norm("dbn4", layer("decoder4", out3)))) + t2
+        out1 = F.gelu(up(4, norm("dbn5", layer("decoder5", out2)))) + t1
+        out0 = F.gelu(up(5, norm("dbn6", self.final(out1))))
 
         y = self.refine4(self.refine3(self.refine2(self.refine1(out0))))
-        out0 = F.gelu(self.dbn7(y))
-        out0 = self.S1(out0) + xin[:, -1:]  # the last input frame, to every output frame
-        out0 = self.S(out0)
+        out0 = F.gelu(norm("dbn7", y))
+        out0 = layer("S1", out0) + xin[:, -1:]  # the last input frame, to every output frame
+        out0 = layer("S", out0)
         return (out0 * torch.sigmoid(self.beta * out0)).permute(0, 2, 3, 1)
 
 

@@ -6,10 +6,14 @@
 
 The scan is K8 on a CUDA tensor (``ops/scan.py``); with ``seq_mesh`` (a
 ``parallel.Mesh``) it is ``selective_scan_sharded``, L cut over the mesh's
-``seq_axis``, each rank's chunk through K8. ``A`` is computed from
-``A_log`` in the parameters' dtype, as the JAX block computes it from the
-parameters the engine has cast to the compute dtype; the kernel takes it in
-fp32 from there.
+``seq_axis``, each rank's chunk through K8. On sharded image rows
+(``parallel/halo.py``'s ``row_axis()``) the tokens are this rank's rows,
+a contiguous chunk of the row-major sequence: the causal conv takes the
+d_conv - 1 tokens before the chunk from the ranks before it (zeros on the
+first), and the scan is ``selective_scan_chunk`` of the rank's tokens.
+``A`` is computed from ``A_log`` in the parameters' dtype, as the JAX
+block computes it from the parameters the engine has cast to the compute
+dtype; the kernel takes it in fp32 from there.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from kmunet_tpu_torch.nn.init import kaiming_uniform_
-from kmunet_tpu_torch.ops.scan import selective_scan, selective_scan_sharded
+from kmunet_tpu_torch.ops.scan import (selective_scan, selective_scan_chunk,
+                                       selective_scan_sharded)
+from kmunet_tpu_torch.parallel.halo import halo_rows, row_axis
 
 
 class MambaBlock(nn.Module):
@@ -68,16 +74,24 @@ class MambaBlock(nn.Module):
         self.D.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, L, d_model) -> (B, L, d_model)."""
+        """x: (B, L, d_model) -> (B, L, d_model); on sharded rows L is this
+        rank's tokens."""
+        rows = row_axis()
+        if rows is not None and self.seq_mesh is not None:
+            raise ValueError("MambaBlock: seq_mesh cuts L over the mesh, and sharded image "
+                             "rows cut it already: take one or the other")
         xs, z = self.in_proj(x).chunk(2, dim=-1)
-        # Causal depthwise conv1d over L: d_conv - 1 zeros on the left.
-        xc = F.conv1d(F.pad(xs.transpose(1, 2), (self.d_conv - 1, 0)), self.conv1d_weight,
+        # Causal depthwise conv1d over L: the d_conv - 1 tokens before these
+        # (zeros before the sequence).
+        xc = F.conv1d(halo_rows(xs.transpose(1, 2), rows, self.d_conv - 1, 0), self.conv1d_weight,
                       self.conv1d_bias, groups=self.d_inner).transpose(1, 2)
         xc = F.silu(xc)
         dt_raw, Bm, Cm = self.x_proj(xc).split([self.dt_rank, self.d_state, self.d_state], -1)
         dt = F.softplus(F.linear(dt_raw, self.dt_proj_weight, self.dt_proj_bias))
         A = -torch.exp(self.A_log)
-        if self.seq_mesh is not None:
+        if rows is not None:
+            y = selective_scan_chunk(xc, dt, A, Bm, Cm, self.D, rows)
+        elif self.seq_mesh is not None:
             y = selective_scan_sharded(xc, dt, A, Bm, Cm, self.D, self.seq_mesh,
                                        axis=self.seq_axis, batch_axis=self.batch_axis)
         else:

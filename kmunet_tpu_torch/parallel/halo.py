@@ -1,6 +1,6 @@
-"""KM_UNetV3's activations sharded on image rows over the mesh's 'spatial'
-axis: what GSPMD inserts for the JAX package's ``P("data", None,
-"spatial", None)`` batch, written out.
+"""A model's activations sharded on image rows over the mesh's 'spatial'
+axis (KM_UNetV3, ConvLSTM, TrajGRU, Mamba-UNet): what GSPMD inserts for
+the JAX package's ``P("data", None, "spatial", None)`` batch, written out.
 
 Each rank of a spatial group holds one contiguous block of image rows,
 block i on spatial index i (``row_range``; ``mesh.row_sharding`` cuts a
@@ -9,14 +9,16 @@ one of three kinds:
 
 - local: 1x1 convs, elementwise ops, work along W and over channels;
 - halo: a conv taller than one row reads ``halo_rows`` of its neighbours
-  (``conv2d``, ``halo_conv2d``), as do the window DySample and DAGEM's
-  rolls along H (a ring: the reference wraps);
+  (``conv2d``, ``halo_conv2d``: strided and dilated ones too;
+  ``conv_transpose2d``), as do the window DySample, DAGEM's rolls along H
+  (a ring: the reference wraps) and Mamba's causal conv1d over the tokens
+  (the row-major tokens of a block of rows are a chunk of the sequence);
 - global: means and norms over H*W (``spatial_mean``, ``group_norm``) and
   the HSM-SSD softmax over L are summed over the axis (``all_reduce_sum``),
   and a gather whose source rows are arbitrary reads the whole source
   (``all_gather_rows``).
 
-The modules find the axis in a context that ``KM_UNetV3.forward`` enters
+The modules find the axis in a context that the model's ``forward`` enters
 (``sharded_rows`` of the model's ``row_axis``), so that a recompute under
 ``torch.utils.checkpoint`` finds it too. Outside it every
 helper is the plain op.
@@ -161,26 +163,66 @@ def halo_rows(x: torch.Tensor, axis, top: int, bottom: int, mode: str = "zeros",
 
 
 def halo_conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                padding=(0, 0), groups: int = 1) -> torch.Tensor:
-    """``F.conv2d`` at stride 1 with zero ``padding`` (ph, pw) of the global
-    image: under ``row_axis()`` the ph rows above and below come from the
-    neighbours (``halo_rows``) and only the columns are padded."""
+                padding=(0, 0), groups: int = 1, stride=(1, 1), dilation=(1, 1)) -> torch.Tensor:
+    """``F.conv2d`` with zero ``padding`` (ph, pw) of the global image: under
+    ``row_axis()`` the rows its output rows read above and below this
+    rank's block come from the neighbours (``halo_rows``) and only the
+    columns are padded. At row stride s the block's rows must be a multiple
+    of s, and the global image must give s times fewer output rows, so that
+    each rank writes the output rows of its own input rows: the block takes
+    the ph rows above it and the d(kh - 1) - ph - s + 1 below it (none where
+    that is negative), which the whole image's conv reads for those rows."""
     ph, pw = padding
     axis = row_axis()
-    if axis is None or ph == 0:
-        return F.conv2d(x, weight, bias, padding=(ph, pw), groups=groups)
-    return F.conv2d(halo_rows(x, axis, ph, ph), weight, bias, padding=(0, pw), groups=groups)
+    if axis is None:
+        return F.conv2d(x, weight, bias, stride, (ph, pw), dilation, groups)
+    s, d, kh = stride[0], dilation[0], weight.shape[2]
+    h = x.shape[2]
+    H = h * axis.size
+    if h % s or (H + 2 * ph - d * (kh - 1) - 1) // s + 1 != H // s:
+        raise ValueError(f"a conv of kernel {kh}, stride {s}, dilation {d}, padding {ph} on "
+                         f"{h} of {H} rows a rank: each rank's output rows must be its own "
+                         "input rows' (rows a multiple of the stride, H / stride out)")
+    top, bottom = ph, max(d * (kh - 1) - ph - s + 1, 0)
+    return F.conv2d(halo_rows(x, axis, top, bottom), weight, bias, stride, (0, pw), dilation,
+                    groups)
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv(x)`` for a stride-1 ``nn.Conv2d`` with zero padding, its rows
-    padded from the neighbours under ``row_axis()`` (``halo_conv2d``)."""
-    if row_axis() is None or conv.kernel_size[0] == 1:
+    """``conv(x)`` for a zero-padded ``nn.Conv2d``, its rows padded from
+    the neighbours under ``row_axis()`` (``halo_conv2d``: strided and
+    dilated convs too)."""
+    if row_axis() is None or conv.kernel_size[0] == 1 and conv.stride[0] == 1:
         return conv(x)
-    if conv.stride != (1, 1) or conv.dilation != (1, 1) or conv.padding_mode != "zeros":
-        raise NotImplementedError(f"{conv}: the row halo takes stride-1, undilated, "
-                                  "zero-padded convs")
-    return halo_conv2d(x, conv.weight, conv.bias, conv.padding, conv.groups)
+    if conv.padding_mode != "zeros" or isinstance(conv.padding, str):
+        raise NotImplementedError(f"{conv}: the row halo takes convs with numeric zero padding")
+    return halo_conv2d(x, conv.weight, conv.bias, conv.padding, conv.groups, conv.stride,
+                       conv.dilation)
+
+
+def conv_transpose2d(conv: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` for an ``nn.ConvTranspose2d`` whose output is s times its
+    input along the rows (kh - 2 ph = s, no output padding or dilation).
+    Under ``row_axis()`` each rank writes the s * h output rows of its h
+    input rows: input row i reaches output rows s i - ph .. s i - ph + kh - 1,
+    so the block takes the (kh - 1 - ph) // s rows above it and
+    1 + (ph - 1) // s below it from the neighbours (zeros past the image's
+    edges), and the rows of the transposed conv of the taller block are
+    cropped to its own. The global ``padding`` crops the image's first and
+    last rows on the first and last rank; on every other rank the crop
+    drops the halo rows' contributions."""
+    axis = row_axis()
+    if axis is None:
+        return conv(x)
+    (kh, _), (s, _), (ph, pw) = conv.kernel_size, conv.stride, conv.padding
+    if kh - 2 * ph != s or conv.output_padding[0] or conv.dilation[0] != 1:
+        raise NotImplementedError(f"{conv}: the row halo takes transposed convs whose rows "
+                                  "grow by the stride (kernel - 2 padding = stride)")
+    top, bottom = (kh - 1 - ph) // s, 1 + (ph - 1) // s
+    h = x.shape[2]
+    y = F.conv_transpose2d(halo_rows(x, axis, top, bottom), conv.weight, conv.bias, conv.stride,
+                           (0, pw), (0, conv.output_padding[1]), conv.groups, conv.dilation)
+    return y.narrow(2, s * top + ph, s * h)
 
 
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:

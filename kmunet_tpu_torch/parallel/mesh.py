@@ -10,11 +10,12 @@ holds what JAX's sharded arrays put on its device. The mesh has JAX's axes,
                per data index (``batch_sharding``);
     spatial -- image rows (H): each spatial index holds a contiguous block
                of every image's rows (``row_sharding``, JAX's
-               ``spatial_sharding``); KM_UNetV3 trains on it
-               (``parallel/halo.py``) and the sequence-parallel scan
-               (``ops/scan.py::selective_scan_sharded``) runs over it; the
-               trainer refuses it for the other models, for K1-K3 and for
-               rows that do not divide evenly (ROADMAP Queue 1 item 12);
+               ``spatial_sharding``); KM_UNetV3, ConvLSTM, TrajGRU and
+               Mamba-UNet train on it (``parallel/halo.py``) and the
+               sequence-parallel scan (``ops/scan.py::selective_scan_sharded``)
+               runs over it; the trainer refuses it for the five baselines,
+               for K1-K3 and for rows that do not divide evenly (ROADMAP
+               Queue 1 item 12);
     model   -- with ``fsdp``, the larger parameters are sharded on it
                (``param_sharding_rules``); the ranks of one data index see
                the same rows;

@@ -70,16 +70,17 @@ controller's as they were (JAX counts its epochs from 0 again); and the
 device-cache epoch draws its permutation from a ``torch.Generator``, not a
 JAX PRNG. What the port does not have yet raises ``NotImplementedError``
 naming its ROADMAP Queue 1 item: image rows sharded (``mesh.spatial`` > 1)
-for another model than KM_UNetV3, or through K1-K3 (item 12).
+for the five baselines, or through K1-K3 (item 12).
 
 Across cards: one process per card (``torchrun --nproc_per_node=N -m
 kmunet_tpu_torch.train.engine ...``), over the mesh of ``cfg.mesh``
 (``build_mesh``): data parallelism with BatchNorm and DropPath over the
 global batch, with ``mesh.fsdp`` the larger parameters sharded over
 'model' (``init_state(..., mesh=)``, ``make_train_step``), and with
-``mesh.spatial`` > 1 KM_UNetV3's image rows sharded over 'spatial'
-(``shard_rows``, ``parallel/halo.py``): each rank runs the model on its
-block of rows, and the loss and the scores take the whole frames.
+``mesh.spatial`` > 1 the image rows of KM_UNetV3, ConvLSTM, TrajGRU or
+Mamba-UNet sharded over 'spatial' (``shard_rows``, ``parallel/halo.py``):
+each rank runs the model on its block of rows, and the loss and the scores
+take the whole frames.
 """
 
 from __future__ import annotations
@@ -282,7 +283,8 @@ def place_state(cfg: ExperimentConfig, model: nn.Module, tx, state: TrainState,
 
 
 def shard_rows(model: nn.Module, state: TrainState) -> TrainState:
-    """``state`` (of ``model``, KM_UNetV3, on ``state.mesh``) with the model
+    """``state`` (of ``model`` on ``state.mesh``: KM_UNetV3, ConvLSTM,
+    TrajGRU or Mamba-UNet, ``ROW_SHARDED_MODELS``) with the model
     run on this rank's block of image rows over the mesh's spatial axis
     (``parallel/halo.py``): the parameters stay whole on every rank, the
     BatchNorms take their statistics over data x spatial, DropPath draws
@@ -290,10 +292,16 @@ def shard_rows(model: nn.Module, state: TrainState) -> TrainState:
     data index), the step gathers the output rows for the loss and sums the
     ranks' parameter gradients over 'spatial' (``_reduce_gradients``).
     ``place_state`` calls it where ``spatial`` > 1; at ``spatial`` = 1 it
-    runs the same path over a spatial group of one rank."""
+    runs the same path over a spatial group of one rank. A model without
+    a ``row_axis`` (the five baselines) raises ``NotImplementedError``
+    (ROADMAP Queue 1 item 12): it would run each rank's rows as an image
+    of their own."""
     mesh = state.mesh
     if state.shards:
         raise ValueError("sharded image rows take replicated parameters (no fsdp)")
+    if not hasattr(model, "row_axis"):
+        raise NotImplementedError(f"{type(model).__name__} on sharded image rows is ROADMAP "
+                                  "Queue 1 item 12")
     rows = mesh.axis("spatial")
     set_data_axis(model, mesh.axis("data"), mesh.axis(IMAGE))
     model.row_axis = rows
@@ -595,6 +603,16 @@ def build_datasets(cfg: ExperimentConfig):
     raise ValueError(f"unknown dataset {d.name}")
 
 
+# The models that train on sharded image rows: name -> (the multiple of
+# ``spatial`` that the image's rows must be, and why).
+ROW_SHARDED_MODELS = {
+    "km_unet_v3": (8, "every DWT input needs an even count of rows a rank"),
+    "convlstm": (32, "each strided stage (4, 4, 2) writes its own rows' output rows"),
+    "trajgru": (32, "each strided stage (4, 4, 2) writes its own rows' output rows"),
+    "mamba_unet": (32, "its five 2x2 pools need an even count of rows a rank"),
+}
+
+
 def build_mesh(cfg: ExperimentConfig, device=None) -> tuple[Mesh, torch.device]:
     """(the mesh of ``cfg.mesh``, this process's device): joins the run's
     process group (``parallel.init_distributed``: NCCL on the card under
@@ -602,9 +620,9 @@ def build_mesh(cfg: ExperimentConfig, device=None) -> tuple[Mesh, torch.device]:
     the mesh over its ranks, which raises ``ValueError`` as JAX's
     ``MeshSpec.resolve`` does where the world cannot fill it.
 
-    Sharded image rows (``spatial`` > 1) train KM_UNetV3, SH or LAPS: an
-    ``img_size`` not divisible by 8 x ``spatial`` (every DWT input must keep
-    an even count of rows a rank) raises ``ValueError``, another model
+    Sharded image rows (``spatial`` > 1) train the models of
+    ``ROW_SHARDED_MODELS``: an ``img_size`` not divisible by the model's
+    multiple of ``spatial`` raises ``ValueError``, another model
     ``NotImplementedError`` (ROADMAP Queue 1 item 12). The fused KAN conv
     (K1) and the K2/K3 mixers refuse sharded rows in their own forward."""
     device = init_distributed(device)
@@ -612,13 +630,16 @@ def build_mesh(cfg: ExperimentConfig, device=None) -> tuple[Mesh, torch.device]:
     mesh = make_mesh(MeshSpec(m.data, m.spatial, m.model))
     spatial = mesh.shape["spatial"]
     if spatial > 1:
-        if cfg.model.name != "km_unet_v3":
-            raise NotImplementedError(f"mesh {mesh.shape}: {cfg.model.name} on sharded image "
-                                      "rows is ROADMAP Queue 1 item 12 (KM_UNetV3 only)")
-        if cfg.data.img_size % (8 * spatial):
-            raise ValueError(f"img_size {cfg.data.img_size} is not divisible by 8 x "
-                             f"spatial={spatial}: every DWT input needs an even count of rows "
-                             "a rank (uneven rows are ROADMAP Queue 1 item 12)")
+        name = cfg.model.name
+        if name not in ROW_SHARDED_MODELS:
+            raise NotImplementedError(f"mesh {mesh.shape}: {name} on sharded image rows is "
+                                      "ROADMAP Queue 1 item 12 (KM_UNetV3, ConvLSTM, TrajGRU "
+                                      "and Mamba-UNet only)")
+        multiple, why = ROW_SHARDED_MODELS[name]
+        if cfg.data.img_size % (multiple * spatial):
+            raise ValueError(f"img_size {cfg.data.img_size} is not divisible by {multiple} x "
+                             f"spatial={spatial} for {name}: {why} (uneven rows are ROADMAP "
+                             "Queue 1 item 12)")
     return mesh, device
 
 

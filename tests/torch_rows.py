@@ -146,15 +146,16 @@ def _run(module, x, g_of):
     return out.detach(), list(grads)
 
 
-def module_job(spec, names=None):
-    """Each of ``MODULES`` (or ``names``) on the mesh of ``spec``: {name:
-    {"out", "dx", "params", "buffers"}: pairs (this rank's, the whole
-    module's rows or leaves)}."""
+def module_job(spec, names=None, table=None):
+    """Each of ``table`` (default ``MODULES``; or its ``names``) on the mesh
+    of ``spec``: {name: {"out", "dx", "params", "buffers"}: pairs (this
+    rank's, the whole module's rows or leaves)}."""
+    table = MODULES if table is None else table
     mesh = make_mesh(MeshSpec(*spec))
     rows = mesh.axis("spatial")
     out = {}
-    for name in names or MODULES:
-        make, shape, dim, dtype, train = MODULES[name]
+    for name in names or table:
+        make, shape, dim, dtype, train = table[name]
         torch.manual_seed(0)
         whole = make()
         init_module_(whole, torch.Generator().manual_seed(1))
